@@ -1,0 +1,180 @@
+"""Build and load the hand-written CUDA kernels of ``leftrefill_torch/csrc``.
+
+The sources are compiled at first launch with ``nvcc`` for ``sm_90a`` into
+``leftrefill_torch/_build/<hash>/libleftrefill_kernels.so`` (the hash covers
+every source, so an edit rebuilds) and loaded with ``ctypes``.  Each C entry
+point takes device pointers, ints and the CUDA stream and returns
+``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
+
+Importing this module needs neither ``nvcc`` nor a GPU: only a launch builds.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
+LIB_NAME = "libleftrefill_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # q, k, v, o, lse, batch, heads, nq, nk, d, scale, stream
+    "lr_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # x, w, bias, out, b, h, w, ci, co, stream
+    "lr_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w1, b1, w2, b2, out, partial, r, din, inner, dout, splits, stream
+    "lr_geglu": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built on this machine")
+
+
+def library_path() -> Path:
+    return BUILD_ROOT / source_hash() / LIB_NAME
+
+
+def build() -> Path:
+    """Compile the sources unless this source hash is already built."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    (out.parent / "build.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.lr_error_string.argtypes = [ctypes.c_int]
+            lib.lr_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        msg = library().lr_error_string(code).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None = None) -> None:
+    """Wrapper-side argument checks: device, dtype, shape, contiguity, and
+    16-byte alignment (the kernels move 16 bytes per copy)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+# ---------------------------------------------------------------------------
+# routing of the three dispatchers (flash attention, 3x3 conv, GEGLU)
+
+_plain = False
+
+
+def plain_kernels_active() -> bool:
+    return _plain
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the kernel dispatchers to the kernels' plain PyTorch versions.
+
+    Only the full-model comparison in ``chip_smoke.py`` enters this: it
+    runs the same forward through the plain versions to hold the kernels'
+    forward against.  The serving path never does."""
+    global _plain
+    prev, _plain = _plain, True
+    try:
+        yield
+    finally:
+        _plain = prev
+
+
+_sites: list | None = None
+
+
+@contextlib.contextmanager
+def record_sites():
+    """Collect (kernel, shape) for every dispatcher decision that chose a
+    kernel while the context is open (site inventories and per-shape timing)."""
+    global _sites
+    prev, _sites = _sites, []
+    try:
+        yield _sites
+    finally:
+        _sites = prev
+
+
+def note_site(kernel: str, shape: tuple) -> None:
+    if _sites is not None:
+        _sites.append((kernel, tuple(shape)))
+
+
+def uses_kernel(t: torch.Tensor) -> bool:
+    """Whether a dispatcher may send this tensor to a kernel: the kernels run
+    on CUDA tensors only.  (The dispatch-count test patches this to count
+    sites on the ``meta`` device.)"""
+    return t.is_cuda

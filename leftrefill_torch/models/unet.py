@@ -1,0 +1,368 @@
+"""The SD2-inpainting UNet in PyTorch (counterpart of
+``leftrefill_tpu/models/unet.py``, bf16/fp32 path).
+
+Activations are NHWC, as in the JAX package.  Matmul and conv weights are held
+in the compute dtype (the JAX package keeps fp32 and casts at every use: the
+values are the same), norm parameters and the GEGLU biases in fp32.  Module
+names follow the SD2 checkpoint
+(``input_blocks.1.0.in_layers.2.weight`` ...), so ``state_dict()`` keys are
+the checkpoint's keys under ``model.diffusion_model.``.  Placeholder
+``nn.SiLU`` / ``nn.Identity`` entries keep the checkpoint's Sequential
+indices; the forward calls the parametrised entries directly.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from leftrefill_torch import kernels
+from leftrefill_torch.ops.attention import multi_head_attention
+from leftrefill_torch.ops.conv import conv3x3_apply
+from leftrefill_torch.ops import mlp
+from leftrefill_torch.ops.layers import (
+    GroupNorm32,
+    Linear,
+    conv2d_nhwc,
+    nearest_upsample_2x,
+    timestep_embedding,
+)
+
+
+class Conv3x3(nn.Module):
+    """3x3 conv (OIHW weight + bias), stride 1 through the K2 dispatcher,
+    stride 2 (Downsample) through the plain convolution.  The weight is held
+    in channels-last memory (OHWI order), the layout K2 reads."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1, dtype=torch.float32):
+        super().__init__()
+        self.stride, self.dtype = stride, dtype
+        w = torch.empty(cout, cin, 3, 3, dtype=dtype).to(memory_format=torch.channels_last)
+        self.weight = nn.Parameter(w)
+        self.bias = nn.Parameter(torch.zeros(cout, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        if self.stride != 1:
+            return conv2d_nhwc(x, self.weight, self.bias, stride=self.stride, padding=1)
+        return conv3x3_apply(x, self.weight, self.bias)
+
+
+class Conv1x1(nn.Module):
+    """1x1 conv (weight [Co, Ci, 1, 1]) as a dense map over channels."""
+
+    def __init__(self, cin: int, cout: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(cout, cin, 1, 1, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(cout, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.dtype
+        return F.linear(x.to(d), self.weight.flatten(1).to(d), self.bias.to(d))
+
+
+class LayerNormF32(nn.Module):
+    """LayerNorm computed in fp32, output cast back to the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.to(torch.float32), x.shape[-1:], self.weight, self.bias, self.eps)
+        return y.to(x.dtype)
+
+
+class Upsample(nn.Module):
+    def __init__(self, channels: int, dtype=torch.float32):
+        super().__init__()
+        self.conv = Conv3x3(channels, channels, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(nearest_upsample_2x(x))
+
+
+class Downsample(nn.Module):
+    def __init__(self, channels: int, dtype=torch.float32):
+        super().__init__()
+        self.op = Conv3x3(channels, channels, stride=2, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.op(x)
+
+
+class ResBlock(nn.Module):
+    """Timestep-conditioned residual block (no scale-shift norm, no up/down:
+    the SD2-inpainting configuration)."""
+
+    def __init__(self, cin: int, cout: int, emb_dim: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.in_layers = nn.ModuleList([GroupNorm32(cin), nn.SiLU(), Conv3x3(cin, cout, dtype=dtype)])
+        self.emb_layers = nn.ModuleList([nn.SiLU(), Linear(emb_dim, cout, dtype=dtype)])
+        self.out_layers = nn.ModuleList(
+            [GroupNorm32(cout), nn.SiLU(), nn.Identity(), Conv3x3(cout, cout, dtype=dtype)]
+        )
+        self.skip_connection = Conv1x1(cin, cout, dtype=dtype) if cin != cout else None
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        h = F.silu(self.in_layers[0](x))
+        h = self.in_layers[2](h)
+        # projected at the full batch, then cut to h's (half, under cfg_dup)
+        # batch: a 1-row product takes another CPU path than a 2-row one,
+        # and the shared prefix must stay bit-identical to the doubled run
+        eo = self.emb_layers[1](F.silu(emb))[: h.shape[0]].to(h.dtype)
+        h = h + eo[:, None, None, :]
+        h = F.silu(self.out_layers[0](h))
+        h = self.out_layers[3](h)
+        skip = x if self.skip_connection is None else self.skip_connection(x)
+        return skip.to(h.dtype) + h
+
+
+class CrossAttention(nn.Module):
+    def __init__(self, query_dim: int, heads: int, dim_head: int, context_dim: Optional[int] = None,
+                 dtype=torch.float32):
+        super().__init__()
+        inner = heads * dim_head
+        kv_dim = context_dim if context_dim is not None else query_dim
+        self.heads = heads
+        self.to_q = Linear(query_dim, inner, bias=False, dtype=dtype)
+        self.to_k = Linear(kv_dim, inner, bias=False, dtype=dtype)
+        self.to_v = Linear(kv_dim, inner, bias=False, dtype=dtype)
+        self.to_out = nn.ModuleList([Linear(inner, query_dim, dtype=dtype), nn.Identity()])
+
+    def kv(self, context: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(k, v) for a fixed context: the conditioning KV cache."""
+        return self.to_k(context), self.to_v(context)
+
+    def forward(self, x, context=None, kv=None) -> torch.Tensor:
+        q = self.to_q(x)
+        k, v = kv if kv is not None else self.kv(x if context is None else context)
+        return self.to_out[0](multi_head_attention(q, k, v, self.heads))
+
+
+def _linear_fp32_bias(din: int, dout: int, dtype) -> nn.Linear:
+    """Linear with the weight in the compute dtype and an fp32 bias (K3 adds
+    its biases in fp32, as the TPU kernel does)."""
+    lin = nn.Linear(din, dout, dtype=dtype)
+    lin.bias = nn.Parameter(torch.zeros(dout))
+    return lin
+
+
+class GEGLUProj(nn.Module):
+    """Holder of ``ff.net.0.proj`` (Linear dim -> 2*inner, [value | gate])."""
+
+    def __init__(self, dim: int, inner: int, dtype=torch.float32):
+        super().__init__()
+        self.proj = _linear_fp32_bias(dim, 2 * inner, dtype)
+
+
+class GEGLUFeedForward(nn.Module):
+    """GEGLU feed-forward: value * gelu_erf(gate), then Linear(inner, dim).
+    bf16 runs go through the fused kernel K3 where the shape qualifies."""
+
+    def __init__(self, dim: int, mult: int = 4, dtype=torch.float32):
+        super().__init__()
+        self.dim, self.inner, self.dtype = dim, dim * mult, dtype
+        self.net = nn.ModuleList(
+            [GEGLUProj(dim, self.inner, dtype), nn.Identity(), _linear_fp32_bias(self.inner, dim, dtype)]
+        )
+
+    def forward(self, x: torch.Tensor, res: Optional[torch.Tensor] = None) -> torch.Tensor:
+        d = self.dtype
+        din = x.shape[-1]
+        x2 = x.reshape(-1, din)
+        p1, p2 = self.net[0].proj, self.net[2]
+        if d == torch.bfloat16 and mlp.geglu_fused_qualifies(x2, din, self.inner, self.dim):
+            kernels.note_site("geglu", (x2.shape[0], din, self.inner, self.dim))
+            fn = mlp.geglu_plain if kernels.plain_kernels_active() else mlp.geglu_fused
+            out = fn(x2.to(d).contiguous(), p1.weight.to(d), p1.bias.to(torch.float32),
+                     p2.weight.to(d), p2.bias.to(torch.float32))
+        else:
+            xg = F.linear(x2.to(d), p1.weight.to(d), p1.bias.to(d))
+            val, gate = xg.chunk(2, dim=-1)
+            h = val * F.gelu(gate.to(torch.float32)).to(val.dtype)
+            out = F.linear(h.to(d), p2.weight.to(d), p2.bias.to(d))
+        out = out.reshape(*x.shape[:-1], self.dim)
+        return out if res is None else out + res.to(out.dtype)
+
+
+class BasicTransformerBlock(nn.Module):
+    """Self-attention -> cross-attention(context) -> GEGLU FF, pre-norm and
+    residual."""
+
+    def __init__(self, dim: int, n_heads: int, d_head: int, context_dim: int, dtype=torch.float32):
+        super().__init__()
+        self.attn1 = CrossAttention(dim, n_heads, d_head, dtype=dtype)
+        self.ff = GEGLUFeedForward(dim, dtype=dtype)
+        self.attn2 = CrossAttention(dim, n_heads, d_head, context_dim=context_dim, dtype=dtype)
+        self.norm1 = LayerNormF32(dim)
+        self.norm2 = LayerNormF32(dim)
+        self.norm3 = LayerNormF32(dim)
+
+    def cross_kv(self, context: torch.Tensor):
+        return self.attn2.kv(context)
+
+    def forward(self, x, context=None, cross_kv=None, dup_to_context: bool = False):
+        """``dup_to_context``: x carries half the context batch (the CFG
+        shared prefix); it is duplicated right before the cross-attention."""
+        x = self.attn1(self.norm1(x)) + x
+        if dup_to_context:
+            x = torch.cat([x, x], dim=0)
+        x = self.attn2(self.norm2(x), context, kv=cross_kv) + x
+        return self.ff(self.norm3(x), res=x)
+
+
+class SpatialTransformer(nn.Module):
+    """GroupNorm -> linear proj_in -> transformer blocks -> proj_out, residual."""
+
+    def __init__(self, channels: int, n_heads: int, d_head: int, depth: int = 1,
+                 context_dim: int = 1024, dtype=torch.float32):
+        super().__init__()
+        inner = n_heads * d_head
+        self.dtype = dtype
+        self.norm = GroupNorm32(channels, eps=1e-6)
+        self.proj_in = Linear(channels, inner, dtype=dtype)
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(inner, n_heads, d_head, context_dim, dtype=dtype) for _ in range(depth)]
+        )
+        self.proj_out = Linear(inner, channels, dtype=dtype)
+
+    def cross_kv(self, context: torch.Tensor) -> list:
+        return [blk.cross_kv(context) for blk in self.transformer_blocks]
+
+    def forward(self, x, context=None, cross_kv=None, dup_to_context: bool = False):
+        b, h, w, c = x.shape
+        x_in = x
+        x = self.norm(x).reshape(b, h * w, c)
+        x = self.proj_in(x)
+        for i, blk in enumerate(self.transformer_blocks):
+            x = blk(x, context, cross_kv=None if cross_kv is None else cross_kv[i],
+                    dup_to_context=dup_to_context and i == 0)
+        x = self.proj_out(x)
+        b2 = x.shape[0]
+        if b2 != x_in.shape[0]:  # the prefix ran at half batch (cfg_dup)
+            x_in = torch.cat([x_in, x_in], dim=0)
+        return (x + x_in.reshape(b2, h * w, c).to(x.dtype)).reshape(b2, h, w, c)
+
+
+class UNetModel(nn.Module):
+    """The SD2-inpainting UNet: 9 -> 4 channels, model_channels 320,
+    ch_mult (1, 2, 4, 4), 2 res blocks per level, spatial transformers at
+    ds 1/2/4 (depth 1, linear projections, head dim 64), context 1024."""
+
+    def __init__(
+        self,
+        in_channels: int = 9,
+        model_channels: int = 320,
+        out_channels: int = 4,
+        num_res_blocks: int = 2,
+        attention_resolutions: Sequence[int] = (4, 2, 1),
+        channel_mult: Sequence[int] = (1, 2, 4, 4),
+        num_head_channels: int = 64,
+        transformer_depth: int = 1,
+        context_dim: int = 1024,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.model_channels, self.out_channels = model_channels, out_channels
+        self.in_channels, self.context_dim, self.dtype = in_channels, context_dim, dtype
+        emb_dim = 4 * model_channels
+        self.time_embed = nn.ModuleList(
+            [Linear(model_channels, emb_dim, dtype=dtype), nn.SiLU(), Linear(emb_dim, emb_dim, dtype=dtype)]
+        )
+
+        def st(ch):
+            return SpatialTransformer(ch, ch // num_head_channels, num_head_channels,
+                                      transformer_depth, context_dim, dtype=dtype)
+
+        self.input_blocks = nn.ModuleList([nn.ModuleList([Conv3x3(in_channels, model_channels, dtype=dtype)])])
+        chans, ch, ds = [model_channels], model_channels, 1
+        for level, mult in enumerate(channel_mult):
+            for _ in range(num_res_blocks):
+                layers = [ResBlock(ch, mult * model_channels, emb_dim, dtype=dtype)]
+                ch = mult * model_channels
+                if ds in attention_resolutions:
+                    layers.append(st(ch))
+                self.input_blocks.append(nn.ModuleList(layers))
+                chans.append(ch)
+            if level != len(channel_mult) - 1:
+                self.input_blocks.append(nn.ModuleList([Downsample(ch, dtype=dtype)]))
+                chans.append(ch)
+                ds *= 2
+        self.middle_block = nn.ModuleList(
+            [ResBlock(ch, ch, emb_dim, dtype=dtype), st(ch), ResBlock(ch, ch, emb_dim, dtype=dtype)]
+        )
+        self.output_blocks = nn.ModuleList()
+        for level, mult in reversed(list(enumerate(channel_mult))):
+            for i in range(num_res_blocks + 1):
+                skip_ch = chans.pop()
+                layers = [ResBlock(ch + skip_ch, model_channels * mult, emb_dim, dtype=dtype)]
+                ch = model_channels * mult
+                if ds in attention_resolutions:
+                    layers.append(st(ch))
+                if level and i == num_res_blocks:
+                    layers.append(Upsample(ch, dtype=dtype))
+                    ds //= 2
+                self.output_blocks.append(nn.ModuleList(layers))
+        self.out = nn.ModuleList([GroupNorm32(ch), nn.SiLU(), Conv3x3(ch, out_channels, dtype=dtype)])
+
+    def spatial_transformers(self):
+        for layers in [*self.input_blocks, self.middle_block, *self.output_blocks]:
+            for layer in layers:
+                if isinstance(layer, SpatialTransformer):
+                    yield layer
+
+    def cross_kv(self, context: torch.Tensor) -> list:
+        """Every cross-attention layer's (k, v) for a fixed context, in
+        traversal order: pass it back as ``cross_kv=``."""
+        context = context.to(self.dtype)
+        return [st.cross_kv(context) for st in self.spatial_transformers()]
+
+    def _apply_seq(self, layers, h, emb, context, kv_iter, state):
+        for layer in layers:
+            if isinstance(layer, ResBlock):
+                h = layer(h, emb)
+            elif isinstance(layer, SpatialTransformer):
+                kv = next(kv_iter) if kv_iter is not None else None
+                h = layer(h, context, cross_kv=kv, dup_to_context=state["dup"])
+                state["dup"] = False
+            else:
+                h = layer(h)
+        return h
+
+    def forward(self, x, timesteps, context=None, cross_kv=None, cfg_dup: bool = False):
+        """x: [B, H, W, in_channels] NHWC.  ``cfg_dup``: the caller guarantees
+        the two batch halves of x and timesteps are identical (the CFG
+        layout); everything before the first cross-attention then runs once
+        at half batch and is duplicated there."""
+        t_emb = timestep_embedding(timesteps, self.model_channels, dtype=self.dtype)
+        emb = self.time_embed[2](F.silu(self.time_embed[0](t_emb)))
+        h = x.to(self.dtype)
+        if context is not None:
+            context = context.to(self.dtype)
+        state = {"dup": bool(cfg_dup and context is not None)}
+        if state["dup"]:
+            assert h.shape[0] % 2 == 0, "cfg_dup needs the CFG-doubled batch"
+            h = h[: h.shape[0] // 2]
+        kv_iter = iter(cross_kv) if cross_kv is not None else None
+        hs = []
+        for layers in self.input_blocks:
+            h = self._apply_seq(layers, h, emb, context, kv_iter, state)
+            hs.append(h)
+        h = self._apply_seq(self.middle_block, h, emb, context, kv_iter, state)
+        for layers in self.output_blocks:
+            skip = hs.pop()
+            if skip.shape[0] != h.shape[0]:  # stored before the duplication point
+                skip = torch.cat([skip, skip], dim=0)
+            h = self._apply_seq(layers, torch.cat([h, skip], dim=-1), emb, context, kv_iter, state)
+        if state["dup"]:  # no transformer consumed the context
+            h = torch.cat([h, h], dim=0)
+        h = F.silu(self.out[0](h.to(x.dtype)))
+        return self.out[2](h).to(x.dtype)

@@ -1,0 +1,166 @@
+"""Reference-guided inpainting inference, end to end (counterpart of
+``leftrefill_tpu/pipeline.py``): stitch [reference | target], VAE-encode the
+masked canvas, build the prompt context, run the sampler with CFG over the
+UNet (cross-attention K/V computed once per canvas, the CFG prefix shared at
+half batch), decode, clip and composite into the hole."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from leftrefill_tpu.diffusion.schedules import DiffusionSchedule
+from leftrefill_tpu.models.tokenizer import SimpleTokenizer
+
+from leftrefill_torch.diffusion.core import Conditioning, LeftRefillModel
+from leftrefill_torch.diffusion.ddim import NoiseFn, ddim_sample
+from leftrefill_torch.diffusion.samplers_extra import dpm_solver_pp_2m_sample
+from leftrefill_torch.models.autoencoder import AutoencoderKL, DDConfig
+from leftrefill_torch.models.clip import PromptCLIPEmbedder
+from leftrefill_torch.models.unet import UNetModel
+
+
+@dataclasses.dataclass
+class RefInpaintPipeline:
+    """Left = reference, right = target canvas; ``sampler`` is "ddim"
+    (the reference protocol, DDIM-50 at eta 1) or "dpm++2m"."""
+
+    model: LeftRefillModel
+    tokenizer: SimpleTokenizer
+    special_tokens: Sequence[str]
+    device: torch.device | str = "cpu"
+    ddim_steps: int = 50
+    guidance_scale: float = 2.5
+    eta: float = 1.0
+    sampler: str = "ddim"
+
+    def __post_init__(self):
+        if self.sampler not in ("ddim", "dpm++2m"):
+            raise ValueError(f"unknown sampler {self.sampler!r}")
+        self._prompt_tokens = np.asarray(self.tokenizer.tokenize(" ".join(self.special_tokens)))
+        self._uncond_tokens = np.asarray(self.tokenizer.tokenize(""))
+
+    def prompt_tokens(self, batch: int) -> np.ndarray:
+        return np.repeat(self._prompt_tokens, batch, axis=0)
+
+    def uncond_tokens(self, batch: int) -> np.ndarray:
+        return np.repeat(self._uncond_tokens, batch, axis=0)
+
+    @torch.inference_mode()
+    def __call__(
+        self,
+        image,
+        mask,
+        generator: Optional[torch.Generator] = None,
+        x_T: Optional[torch.Tensor] = None,
+        noise_fn: Optional[NoiseFn] = None,
+        vae_noise: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """image [B, H, 2W, 3] in [-1, 1] (stitched, NHWC), mask [B, H, 2W, 1]
+        with 1 = hole.  Returns the composited canvas [B, H, 2W, 3] fp32."""
+        dev = torch.device(self.device)
+        image = torch.as_tensor(image, dtype=torch.float32, device=dev)
+        mask = torch.as_tensor(mask, dtype=torch.float32, device=dev)
+        b = image.shape[0]
+        return _generate(
+            self.model, image, mask,
+            torch.as_tensor(self.prompt_tokens(b), dtype=torch.long, device=dev),
+            torch.as_tensor(self.uncond_tokens(b), dtype=torch.long, device=dev),
+            ddim_steps=self.ddim_steps, eta=self.eta, guidance_scale=self.guidance_scale,
+            sampler=self.sampler, generator=generator, x_T=x_T, noise_fn=noise_fn,
+            vae_noise=vae_noise,
+        )
+
+
+def _generate(
+    model: LeftRefillModel,
+    image: torch.Tensor,
+    mask: torch.Tensor,
+    tokens: torch.Tensor,
+    uncond_tokens: torch.Tensor,
+    *,
+    ddim_steps: int,
+    eta: float,
+    guidance_scale: float,
+    sampler: str = "ddim",
+    generator: Optional[torch.Generator] = None,
+    x_T: Optional[torch.Tensor] = None,
+    noise_fn: Optional[NoiseFn] = None,
+    vae_noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    masked_image = image * (mask < 0.5)
+    cond = model.build_inpaint_cond(tokens, mask, masked_image, vae_noise)
+    uncond = Conditioning(cond.c_concat, model.get_learned_conditioning(uncond_tokens))
+    b, h, w, _ = cond.c_concat.shape
+    shape = (b, h, w, model.unet.out_channels)
+    # the text context is step-invariant: every cross-attention K/V once per
+    # canvas, in the [uncond; cond] order of the CFG batch
+    use_cfg = guidance_scale != 1.0
+    ctx = torch.cat([uncond.c_crossattn, cond.c_crossattn]) if use_cfg else cond.c_crossattn
+    kv = model.cross_attention_kv(ctx)
+
+    def apply_fn(x, t, c):
+        # cond and uncond share x and c_concat: the prefix before the first
+        # cross-attention runs once at half batch
+        return model.apply_model(x, t, c, cross_kv=kv, cfg_dup=use_cfg)
+
+    common = dict(uncond=uncond, guidance_scale=guidance_scale, x_T=x_T, generator=generator,
+                  device=image.device)
+    if sampler == "dpm++2m":
+        z = dpm_solver_pp_2m_sample(apply_fn, model.schedule.alphas_cumprod, cond, shape,
+                                    num_steps=ddim_steps, **common)
+    else:
+        tables = model.schedule.ddim_tables(ddim_steps, eta=eta)
+        z = ddim_sample(apply_fn, tables, cond, shape, noise_fn=noise_fn, **common)
+    pred = model.decode_first_stage(z).to(torch.float32).clamp(-1.0, 1.0)
+    return pred * mask + image * (1.0 - mask)
+
+
+def stitch_canvas(reference: np.ndarray, source: np.ndarray, mask_right: np.ndarray):
+    """[reference | source] side by side with a zero left mask (NHWC)."""
+    image = np.concatenate([reference, source], axis=2)
+    mask = np.concatenate([np.zeros_like(mask_right), mask_right], axis=2)
+    return image, mask
+
+
+def sd2_schedule() -> DiffusionSchedule:
+    return DiffusionSchedule.create(timesteps=1000, beta_schedule="linear", linear_start=0.00085,
+                                    linear_end=0.0120)
+
+
+def fill_random_(model: torch.nn.Module, generator: torch.Generator) -> None:
+    """Fill every parameter from ``generator``: matrices and conv kernels with
+    normals scaled by 1/sqrt(fan-in), embedding tables with 0.02-scaled
+    normals, norm scales with 1 + 0.1 * normal, biases with 0.02 * normal."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            n = torch.randn(p.shape, generator=generator, device=p.device, dtype=torch.float32)
+            if "embedding" in name:
+                p.copy_(0.02 * n)
+            elif p.ndim >= 2:
+                p.copy_(n / np.sqrt(p[0].numel()))
+            elif name.endswith("weight"):
+                p.copy_(1.0 + 0.1 * n)
+            else:
+                p.copy_(0.02 * n)
+
+
+def build_sd2_inpaint_bundle(
+    device, dtype: torch.dtype = torch.bfloat16, generator: Optional[torch.Generator] = None
+) -> LeftRefillModel:
+    """The full-width SD2-inpainting bundle (865M UNet, f8 VAE, ViT-H text
+    tower with 50 prompt tokens) computing in ``dtype``, every parameter
+    drawn from ``generator``."""
+    with torch.device("meta"):
+        model = LeftRefillModel(
+            unet=UNetModel(dtype=dtype),
+            vae=AutoencoderKL(DDConfig(), embed_dim=4, dtype=dtype),
+            cond_model=PromptCLIPEmbedder(dtype=dtype),
+            schedule=sd2_schedule(),
+        )
+    model = model.to_empty(device=device)
+    fill_random_(model, generator)
+    return model.eval()

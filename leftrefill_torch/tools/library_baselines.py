@@ -1,0 +1,89 @@
+"""Each hand-written kernel against the library path for the same product,
+at the main path's own shapes, on one CUDA GPU.
+
+    python -m leftrefill_torch.tools.library_baselines [--json PATH]
+
+The library paths, all bf16 with fp32 accumulation:
+- K1 flash forward: ``scaled_dot_product_attention`` on the same q, k, v
+  viewed as [B, H, N, D] (exact softmax; the kernel clamps at 75, which these
+  inputs never reach);
+- K2 3x3 conv: ``conv2d`` (cuDNN) on the same NHWC input and OHWI weight
+  viewed as channels-last NCHW / OIHW;
+- K3 fused GEGLU: two ``linear`` calls (cuBLAS) with the value * gelu(gate)
+  between them, h written to device memory.
+They are timed for reference only (CUDA events, after warm-up, kernel and
+library in turn within one process); none of them is on the port's path.
+Each line also gives the relative L2 between the two outputs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+
+import torch
+import torch.nn.functional as F
+
+from leftrefill_torch import tools
+from leftrefill_torch.models.unet import UNetModel
+
+
+def library_fn(name: str, args: tuple):
+    if name == "flash_fwd":
+        q, k, v, h, scale = args
+        b, nq, inner = q.shape
+        heads = lambda a: a.view(b, a.shape[1], h, inner // h).transpose(1, 2)
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale).transpose(1, 2).reshape(b, nq, inner)
+    if name == "conv3x3":
+        x, w, bias = args
+        xc, wc, bb = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2), bias.to(x.dtype)
+        return lambda: F.conv2d(xc, wc, bb, padding=1).permute(0, 2, 3, 1)
+    x, w1, b1, w2, b2 = args
+    b1b, b2b = b1.to(x.dtype), b2.to(x.dtype)
+
+    def geglu():
+        val, gate = F.linear(x, w1, b1b).chunk(2, dim=-1)
+        return F.linear(val * F.gelu(gate), w2, b2b)
+
+    return geglu
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--json", help="also write the result to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("library_baselines: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = tools.card_line()
+    print(card)
+    gen = torch.Generator("cuda").manual_seed(0)
+    with torch.device("cuda"):
+        unet = UNetModel(dtype=torch.bfloat16)
+    unet.eval()
+    rows = []
+    with torch.inference_mode():
+        x, t, ctx = tools.unet_inputs(gen)
+        sites = tools.unet_sites(unet, x, t, ctx, unet.cross_kv(ctx))
+        del unet
+        for (name, shape), n_sites in sorted(sites.items()):
+            site = tools.site_args(name, shape, gen)
+            kernel = functools.partial(tools.KERNEL_FNS[name][0], *site)
+            library = library_fn(name, site)
+            err = tools.rel_l2(kernel(), library())
+            row = {"kernel": name, "shape": list(shape), "sites": n_sites, "rel_l2": err,
+                   "kernel_ms": tools.cuda_ms(kernel, 20), "library_ms": tools.cuda_ms(library, 20)}
+            row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
+            rows.append(row)
+            print(json.dumps(row))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"card": card, "torch": torch.__version__, "rows": rows}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,185 @@
+"""Where the time of one full-width 512x1024 request goes, on one CUDA GPU.
+
+    python -m leftrefill_torch.tools.profile_request [--json PATH]
+
+The bundle is the full-width SD2-inpainting one (``build_sd2_inpaint_bundle``,
+random weights from seed 0), bf16, CFG 2.5, batch 1.  It prints, and writes
+to PATH as one JSON object:
+
+1. stage times: VAE encode, the text tower for [uncond; cond], the
+   cross-attention K/V, one CFG-batch-2 UNet forward and VAE decode (host
+   clock around synchronised calls, median of 5 after a warm-up);
+2. one DDIM-50 request timed without the profiler, then the same request
+   under ``torch.profiler`` (after a profiled warm-up request, which absorbs
+   the tracer's start-up): the sum of device time (kernels, copies,
+   memsets; one stream, so they do not overlap), the device idle share
+   1 - device/wall against both wall times, device time by group (K1, K2,
+   K3, cuDNN convs, cuBLAS GEMMs, everything else) and the largest kernels
+   by name;
+3. DPM-Solver++(2M) requests at 15 and 50 steps: seconds per request (two
+   each, after a warm-up), kernel launches per UNet call, and the left half
+   of each canvas checked against the input.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import statistics
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from leftrefill_torch import tools
+from leftrefill_torch.diffusion.core import Conditioning
+from leftrefill_torch.pipeline import build_sd2_inpaint_bundle
+
+PER_FORWARD = {"conv3x3": 33, "flash_fwd": 15, "geglu": 16}
+# device-time groups, tried in order on each kernel's name
+GROUPS = (
+    ("K1 flash_fwd", r"flash_fwd_kernel"),
+    ("K2 conv3x3", r"conv3x3_kernel"),
+    ("K3 geglu", r"geglu_(reduce_)?kernel"),
+    ("cuDNN conv", r"fprop|conv|cudnn"),
+    ("cuBLAS GEMM", r"gemm|nvjet|cublas|cutlass|splitK"),
+)
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def stage_times(model, pipe, image, mask) -> dict:
+    img = torch.as_tensor(image, device="cuda")
+    msk = torch.as_tensor(mask, device="cuda")
+    masked = img * (msk < 0.5)
+    tokens = torch.as_tensor(np.concatenate([pipe.uncond_tokens(1), pipe.prompt_tokens(1)]),
+                             dtype=torch.long, device="cuda")
+    z = model.encode_first_stage(masked)
+    ctx = model.get_learned_conditioning(tokens)
+    kv = model.cross_attention_kv(ctx)
+    c_concat = torch.zeros((2, *z.shape[1:3], 5), device="cuda")
+    cond = Conditioning(c_concat, ctx)
+    x = torch.randn((2, *z.shape[1:]), device="cuda")
+    t = torch.full((2,), 981, dtype=torch.long, device="cuda")
+    return {
+        "vae_encode_ms": host_ms(lambda: model.encode_first_stage(masked)),
+        "text_tower_ms": host_ms(lambda: model.get_learned_conditioning(tokens)),
+        "cross_attention_kv_ms": host_ms(lambda: model.cross_attention_kv(ctx)),
+        "unet_forward_ms": host_ms(lambda: model.apply_model(x, t, cond, cross_kv=kv, cfg_dup=True)),
+        "vae_decode_ms": host_ms(lambda: model.decode_first_stage(z[:1])),
+    }
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def timed_request(pipe, image, mask) -> float:
+    t0 = time.perf_counter()
+    pipe(image, mask, torch.Generator("cuda").manual_seed(5))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def profiled_request(pipe, image, mask) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    unprofiled_s = timed_request(pipe, image, mask)
+    with profile(activities=activities):  # warm-up: the tracer's start-up
+        timed_request(pipe, image, mask)
+    with profile(activities=activities) as prof:
+        wall_s = timed_request(pipe, image, mask)
+    per_kernel = defaultdict(lambda: [0.0, 0])
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[evt.key][0] += _device_us(evt)
+            per_kernel[evt.key][1] += evt.count
+    device_s = sum(us for us, _ in per_kernel.values()) / 1e6
+    if device_s == 0:
+        raise SystemExit("profile_request: the profiler recorded no device time")
+    groups = defaultdict(float)
+    for name, (us, _) in per_kernel.items():
+        group = next((g for g, pat in GROUPS if re.search(pat, name)), "other")
+        groups[group] += us / 1e3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
+    return {
+        "unprofiled_wall_s": unprofiled_s,
+        "profiled_wall_s": wall_s,
+        "device_s": device_s,
+        "idle_share_profiled": 1.0 - device_s / wall_s,
+        "idle_share_unprofiled": 1.0 - device_s / unprofiled_s,
+        "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+        "top_kernels": [{"name": n[:120], "ms": us / 1e3, "count": c} for n, (us, c) in top],
+    }
+
+
+def dpm_requests(model, image, mask) -> dict:
+    img = torch.as_tensor(image, device="cuda")
+    out = {}
+    for steps in (15, 50):
+        pipe = tools.serving_pipeline(model, sampler="dpm++2m", steps=steps)
+        pipe(image, mask, torch.Generator("cuda").manual_seed(99))  # warm-up
+        torch.cuda.synchronize()
+        tools.reset_launches()
+        secs = []
+        for seed in (1, 2):
+            t0 = time.perf_counter()
+            canvas = pipe(image, mask, torch.Generator("cuda").manual_seed(seed))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if not (torch.isfinite(canvas).all() and torch.equal(canvas[:, :, :512], img[:, :, :512])):
+                raise SystemExit(f"dpm++2m {steps} steps: non-finite output or left half changed")
+        calls = 2 * steps  # one CFG-doubled UNet call per step, two requests
+        per_call = {n: c / calls for n, c in tools.launches().items()}
+        if per_call != PER_FORWARD:
+            raise SystemExit(f"dpm++2m {steps} steps: launches per UNet call {per_call}")
+        out[f"steps_{steps}"] = {"seconds_per_request": secs, "launches_per_unet_call": per_call}
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--json", help="also write the result to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_request: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = {"card": tools.card_line(), "torch": torch.__version__, "cuda": torch.version.cuda}
+    print(result["card"])
+    model = build_sd2_inpaint_bundle("cuda", torch.bfloat16, torch.Generator("cuda").manual_seed(0))
+    image, mask = tools.request_canvas()
+    pipe = tools.serving_pipeline(model)
+    with torch.inference_mode():
+        result["stages"] = stage_times(model, pipe, image, mask)
+    print("stages", json.dumps(result["stages"]))
+    pipe(image, mask, torch.Generator("cuda").manual_seed(99))  # warm-up request
+    torch.cuda.synchronize()
+    result["ddim50_profiled"] = profiled_request(pipe, image, mask)
+    print("ddim50 profiled", json.dumps(result["ddim50_profiled"]))
+    result["dpm"] = dpm_requests(model, image, mask)
+    print("dpm++2m", json.dumps(result["dpm"]))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(result, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
