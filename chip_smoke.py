@@ -5,19 +5,34 @@
 
 Phases, one line each (phase 2 one line per kernel shape):
 1. set-up: the card's name and power limit, versions, the kernel build;
-2. each hand-written kernel (K1 flash forward, K2 3x3 conv, K3 fused GEGLU)
-   at every shape one full-width UNet forward gives it, against its plain
+2. each bf16 kernel (K1 flash forward, K2 3x3 conv, K3 fused GEGLU) at every
+   shape one full-width bf16 UNet forward gives it, against its plain
    PyTorch version (relative L2 <= 1e-2), timed with CUDA events; then the
    flash kernel's head-dim-128 instantiation, off the main path;
-3. one full-width UNet forward (CFG batch 2, 64x128 latent, bf16, cfg_dup
+3. one full-width bf16 UNet forward (CFG batch 2, 64x128 latent, cfg_dup
    and the cross-attention K/V cache on) through the kernels against the
    same forward through the plain versions (relative L2 <= 3e-2);
-4. serving: two 512x1024 requests (DDIM-50, eta 1, CFG 2.5, batch 1, each
-   with its own seed) on the full-width SD2-inpainting bundle with random
-   weights; the outputs are checked and the kernel launch counts must be
-   33 conv, 15 flash and 16 GEGLU per UNet forward.
-The line before the last is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
+4. bf16 serving: two 512x1024 requests (DDIM-50, eta 1, CFG 2.5, batch 1,
+   each with its own seed) on the full-width SD2-inpainting bundle with
+   random weights; the outputs are checked and the kernel launch counts must
+   be 33 conv, 15 flash and 16 GEGLU per UNet forward;
+2i. the W8A8 int8 bundle (the same fp weights, quantized): each int8 kernel
+   (KI1 3x3 conv, KI2 proj_out GEMM + residual, KI3 GEGLU) at every shape
+   one full-width int8 forward gives it, against its plain version, each
+   within 1 bf16 ulp per element, timed (K1's sites in that forward are
+   phase 2's); then KI1's fp32 output arm, off the main path, equal to its
+   plain version;
+3i. one full-width int8 UNet forward through the kernels against the same
+   forward with KI1-KI3 through their plain versions (relative L2 <= 3e-2;
+   K1 stays on its kernel in both, phase 3 holds it to its plain version),
+   and, for information, against the forward with every kernel plain and
+   against the bf16 forward of phase 3;
+5. int8 serving: two 512x1024 requests (DPM-Solver++(2M) 15 steps, CFG 2.5,
+   batch 1, each with its own seed) after a warm-up request, checked as in
+   phase 4, with 47 KI1, 11 KI2, 16 KI3, 15 K1 and no K2 or K3 launches per
+   UNet forward.
+The line before the last is a JSON summary of the six kernels; the last line
+is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
 """
 
 from __future__ import annotations
@@ -29,14 +44,122 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-FLASH_REL_L2 = CONV_REL_L2 = GEGLU_REL_L2 = 1e-2  # bf16 kernel vs its plain version
-UNET_REL_L2 = 3e-2  # 16 transformer blocks and 22 res blocks of bf16 rounding
-PER_FORWARD = {"conv3x3": 33, "flash_fwd": 15, "geglu": 16}
+REL_L2 = {"flash_fwd": 1e-2, "conv3x3": 1e-2, "geglu": 1e-2}  # kernel vs plain
+# exact int32 sums and the plain version's fp32 operations in its order (KI3:
+# the same erff, so the requant of h agrees too); 1 ulp leaves room for a
+# contracted multiply-add, which the kernels avoid
+ULPS = {"conv3x3_int8": 1, "dense_int8_res": 1, "geglu_int8": 1}
+BF16_NAMES, INT8_NAMES = ("flash_fwd", "conv3x3", "geglu"), ("conv3x3_int8", "dense_int8_res", "geglu_int8")
+UNET_REL_L2 = 3e-2  # 16 transformer blocks and 22 res blocks of rounding
 KERNELS = {
     "flash_fwd": ("leftrefill_torch/csrc/flash_fwd.cu", "leftrefill_tpu/ops/flash_attention.py:211"),
     "conv3x3": ("leftrefill_torch/csrc/conv3x3.cu", "leftrefill_tpu/ops/conv.py:181"),
     "geglu": ("leftrefill_torch/csrc/geglu.cu", "leftrefill_tpu/ops/mlp.py:86"),
+    "conv3x3_int8": ("leftrefill_torch/csrc/conv3x3_int8.cu",
+                     "leftrefill_tpu/ops/quant.py:390 and leftrefill_tpu/ops/quant.py:277"),
+    "dense_int8_res": ("leftrefill_torch/csrc/dense_int8_res.cu", "leftrefill_tpu/ops/quant.py:106"),
+    "geglu_int8": ("leftrefill_torch/csrc/geglu_int8.cu", "leftrefill_tpu/ops/mlp.py:204"),
 }
+
+
+def check_kernels(unet, x, tsteps, ctx, kv, gen, report: dict, label: str, names) -> None:
+    """Every site of the kernels ``names`` in one forward, kernel against
+    plain version, timed."""
+    import torch
+
+    from leftrefill_torch import tools
+    from leftrefill_torch.tools import bf16_ulps, cuda_ms, rel_l2
+
+    for (name, shape), n_sites in sorted(tools.unet_sites(unet, x, tsteps, ctx, kv).items()):
+        if name not in names:
+            continue
+        site = tools.site_args(name, shape, gen)
+        run, plain = (functools.partial(fn, *site) for fn in tools.KERNEL_FNS[name])
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        err, mae = rel_l2(got, ref), float((got.float() - ref.float()).abs().max())
+        if not torch.isfinite(got).all():
+            raise SystemExit(f"{name} {shape}: non-finite output")
+        if name in ULPS:
+            ulps = bf16_ulps(got, ref)
+            if ulps > ULPS[name]:
+                raise SystemExit(f"{name} {shape}: {ulps} bf16 ulps from the plain version > {ULPS[name]}")
+            bound = f"ulps={ulps}"
+        elif err <= REL_L2[name]:
+            bound = f"rel_l2={err:.3e}"
+        else:
+            raise SystemExit(f"{name} {shape}: rel L2 {err:.3e} > {REL_L2[name]}")
+        ms, plain_ms = cuda_ms(run, 20), cuda_ms(plain, 5)
+        print(f"phase {label} {name} shape={shape} sites={n_sites} {bound} rel_l2={err:.3e} "
+              f"max_abs_err={mae:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+        r = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "sites": 0})
+        r["max_abs_err"] = max(r["max_abs_err"], mae)
+        r["ms"] += n_sites * ms
+        r["plain_ms"] += n_sites * plain_ms
+        r["sites"] += n_sites
+
+
+def check_sites(report: dict, per_forward: dict, label: str) -> None:
+    for name, n in per_forward.items():
+        got = report.get(name, {}).get("sites", 0)
+        if got != n:
+            raise SystemExit(f"{label} {name}: {got} sites per forward, expected {n}")
+
+
+def check_forward(unet, x, tsteps, ctx, kv, label: str, names):
+    """One full-width forward through the kernels against the same forward
+    with the kernels ``names`` routed to their plain versions."""
+    import torch
+
+    from leftrefill_torch import kernels
+    from leftrefill_torch.tools import cuda_ms, rel_l2
+
+    fwd = lambda: unet(x, tsteps, ctx, cross_kv=kv, cfg_dup=True)
+    out_k = fwd()
+    with kernels.plain_kernels(names):
+        out_p = fwd()
+        plain_fwd_ms = cuda_ms(fwd, 1)
+    kern_fwd_ms = cuda_ms(fwd, 3)
+    err = rel_l2(out_k, out_p)
+    if not (out_k.shape == (2, 64, 128, 4) and torch.isfinite(out_k).all() and err <= UNET_REL_L2):
+        raise SystemExit(f"{label} UNet forward: rel L2 {err:.3e} > {UNET_REL_L2} or bad output")
+    return out_k, out_p, err, kern_fwd_ms, plain_fwd_ms
+
+
+def serve(model, sampler: str, steps: int, per_forward: dict, label: str) -> dict:
+    """Two timed requests after a warm-up; the canvases and the launch counts
+    per UNet forward are checked.  Returns the launch counts."""
+    import torch
+
+    from leftrefill_torch import tools
+
+    pipe = tools.serving_pipeline(model, sampler=sampler, steps=steps)
+    image, mask = tools.request_canvas()
+    pipe(image, mask, torch.Generator("cuda").manual_seed(99))  # warm-up request
+    torch.cuda.synchronize()
+    tools.reset_launches()
+    outs, secs = [], []
+    for seed in (1, 2):
+        t0 = time.perf_counter()
+        outs.append(pipe(image, mask, torch.Generator("cuda").manual_seed(seed)))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = tools.launches()
+    forwards = 2 * steps  # one CFG-doubled UNet forward per step (DDIM and DPM++(2M) alike)
+    img = torch.as_tensor(image, device="cuda")
+    for o in outs:
+        if o.shape != (1, 512, 1024, 3) or not torch.isfinite(o).all():
+            raise SystemExit(f"{label}: request output has the wrong shape or is not finite")
+        if not torch.equal(o[:, :, :512], img[:, :, :512]):
+            raise SystemExit(f"{label}: left half of the canvas is not the input")
+    if torch.equal(outs[0], outs[1]):
+        raise SystemExit(f"{label}: two seeds gave the same canvas")
+    for name, n in per_forward.items():
+        if launches[name] != n * forwards:
+            raise SystemExit(f"{label}: {name} {launches[name]} launches, expected {n} x {forwards}")
+    print(f"{label}: seconds_per_request={[round(s, 3) for s in secs]} launches={launches} "
+          f"unet_forwards={forwards}")
+    return launches
 
 
 def main() -> int:
@@ -71,90 +194,84 @@ def main() -> int:
     unet = model.unet
     gen = torch.Generator("cuda").manual_seed(1)
     x, tsteps, ctx = tools.unet_inputs(gen)
+    report = {}
 
-    # ---- phase 2: each kernel at the UNet forward's own shapes -------------
+    # ---- phase 2: each bf16 kernel at the UNet forward's own shapes --------
     with torch.inference_mode():
         kv = unet.cross_kv(ctx)
-        report = {}
-        for (name, shape), n_sites in sorted(tools.unet_sites(unet, x, tsteps, ctx, kv).items()):
-            site = tools.site_args(name, shape, gen)
-            run, plain = (functools.partial(fn, *site) for fn in tools.KERNEL_FNS[name])
-            got, ref = run(), plain()
-            torch.cuda.synchronize()
-            err, mae = rel_l2(got, ref), float((got.float() - ref.float()).abs().max())
-            bound = {"flash_fwd": FLASH_REL_L2, "conv3x3": CONV_REL_L2, "geglu": GEGLU_REL_L2}[name]
-            if not (err <= bound and torch.isfinite(got).all()):
-                raise SystemExit(f"{name} {shape}: rel L2 {err:.3e} > {bound} or non-finite")
-            ms, plain_ms = cuda_ms(run, 20), cuda_ms(plain, 5)
-            print(f"phase 2 {name} shape={shape} sites={n_sites} rel_l2={err:.3e} "
-                  f"max_abs_err={mae:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
-            r = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "sites": 0})
-            r["max_abs_err"] = max(r["max_abs_err"], mae)
-            r["ms"] += n_sites * ms
-            r["plain_ms"] += n_sites * plain_ms
-            r["sites"] += n_sites
+        check_kernels(unet, x, tsteps, ctx, kv, gen, report, "2", BF16_NAMES)
         # the flash kernel's other instantiation, off the main path: head dim 128
         shape = (2, 5, 1024, 1024, 128)
         site = tools.site_args("flash_fwd", shape, gen)
         run, plain = (functools.partial(fn, *site) for fn in tools.KERNEL_FNS["flash_fwd"])
         got, ref = run(), plain()
         err = rel_l2(got, ref)
-        if not err <= FLASH_REL_L2:
-            raise SystemExit(f"flash_fwd {shape}: rel L2 {err:.3e} > {FLASH_REL_L2}")
+        if not err <= REL_L2["flash_fwd"]:
+            raise SystemExit(f"flash_fwd {shape}: rel L2 {err:.3e} > {REL_L2['flash_fwd']}")
         print(f"phase 2 flash_fwd shape={shape} (off the main path) rel_l2={err:.3e} "
               f"kernel_ms={cuda_ms(run, 5):.4f} plain_ms={cuda_ms(plain, 5):.4f}")
-        for name, n in PER_FORWARD.items():
-            if report.get(name, {}).get("sites") != n:
-                raise SystemExit(f"{name}: {report.get(name, {}).get('sites')} sites per forward, expected {n}")
+        check_sites(report, {n: tools.PER_FORWARD_BF16[n] for n in BF16_NAMES}, "bf16")
 
         # ---- phase 3: the full-width UNet forward, kernels vs plain --------
-        fwd = lambda: unet(x, tsteps, ctx, cross_kv=kv, cfg_dup=True)
-        out_k = fwd()
-        with kernels.plain_kernels():
-            out_p = fwd()
-            plain_fwd_ms = cuda_ms(fwd, 1)
-        kern_fwd_ms = cuda_ms(fwd, 3)
-        err = rel_l2(out_k, out_p)
-        if not (out_k.shape == (2, 64, 128, 4) and torch.isfinite(out_k).all() and err <= UNET_REL_L2):
-            raise SystemExit(f"UNet forward: rel L2 {err:.3e} > {UNET_REL_L2} or bad output")
+        out_bf16, _, err, kern_ms, plain_ms = check_forward(unet, x, tsteps, ctx, kv, "bf16", kernels.NAMES)
         print(f"phase 3 unet forward [2,64,128,9] bf16 cfg_dup cross_kv: rel_l2={err:.3e} "
-              f"kernels_ms={kern_fwd_ms:.2f} plain_versions_ms={plain_fwd_ms:.2f}")
-        del out_k, out_p
+              f"kernels_ms={kern_ms:.2f} plain_versions_ms={plain_ms:.2f}")
 
-    # ---- phase 4: serving two 512x1024 requests ----------------------------
-    pipe = tools.serving_pipeline(model, sampler="ddim", steps=50)
-    image, mask = tools.request_canvas()
-    pipe(image, mask, torch.Generator("cuda").manual_seed(99))  # warm-up request
+    # ---- phase 4: serving two 512x1024 bf16 requests -----------------------
+    launches_bf16 = serve(model, "ddim", 50, tools.PER_FORWARD_BF16,
+                          "phase 4 serving 512x1024 bf16 ddim50 eta1 cfg2.5 b1")
+    del model, unet, kv
+
+    # ---- phase 2i: the int8 bundle's kernels at their own shapes -----------
+    t0 = time.perf_counter()
+    qmodel = build_sd2_inpaint_bundle("cuda", torch.bfloat16, torch.Generator("cuda").manual_seed(0), quant=True)
     torch.cuda.synchronize()
-    tools.reset_launches()
-    outs, secs = [], []
-    for seed in (1, 2):
-        t0 = time.perf_counter()
-        outs.append(pipe(image, mask, torch.Generator("cuda").manual_seed(seed)))
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-    launches = tools.launches()
-    forwards = 2 * pipe.ddim_steps  # one CFG-doubled UNet forward per step
-    img = torch.as_tensor(image, device="cuda")
-    for o in outs:
-        if o.shape != (1, 512, 1024, 3) or not torch.isfinite(o).all():
-            raise SystemExit("request output has the wrong shape or is not finite")
-        if not torch.equal(o[:, :, :512], img[:, :, :512]):
-            raise SystemExit("left half of the canvas is not the input")
-    if torch.equal(outs[0], outs[1]):
-        raise SystemExit("two seeds gave the same canvas")
-    for name, n in PER_FORWARD.items():
-        if launches[name] != n * forwards:
-            raise SystemExit(f"{name}: {launches[name]} launches, expected {n} x {forwards}")
-    print(f"phase 4 serving 512x1024 ddim50 eta1 cfg2.5 b1: seconds_per_request="
-          f"{[round(s, 3) for s in secs]} launches={launches} unet_forwards={forwards}")
+    print(f"phase 2i int8 bundle: the seed-0 fp32 weights quantized per output channel "
+          f"in {time.perf_counter() - t0:.1f} s")
+    qunet = qmodel.unet
+    report_int8 = {}
+    with torch.inference_mode():
+        qkv = qunet.cross_kv(ctx)
+        check_kernels(qunet, x, tsteps, ctx, qkv, gen, report_int8, "2i", INT8_NAMES)
+        check_sites(report_int8, {n: tools.PER_FORWARD_INT8[n] for n in INT8_NAMES}, "int8")
+        # KI1's fp32 output arm (an fp32 int8 model), off the main path
+        shape = (2, 32, 64, 640, 640)
+        site = (*tools.site_args("conv3x3_int8", shape, gen), torch.float32)
+        run, plain = (functools.partial(fn, *site) for fn in tools.KERNEL_FNS["conv3x3_int8"])
+        got, ref = run(), plain()
+        if not (got.dtype == ref.dtype == torch.float32 and torch.equal(got, ref)):
+            raise SystemExit(f"conv3x3_int8 fp32 {shape}: differs from the plain version "
+                             f"(max abs {float((got - ref).abs().max()):.3e})")
+        print(f"phase 2i conv3x3_int8 fp32 shape={shape} (off the main path) equal to the plain version "
+              f"kernel_ms={cuda_ms(run, 20):.4f} plain_ms={cuda_ms(plain, 5):.4f}")
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-         "launches": launches[name], "max_abs_err": report[name]["max_abs_err"],
-         "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"]}
-        for name in PER_FORWARD
-    ]}))
+        # ---- phase 3i: the full-width int8 UNet forward, kernels vs plain --
+        # the int8 kernels routed to their plain versions, K1 on its kernel in
+        # both forwards: any rounding difference (K1's ~2e-4 a call) moves
+        # int8 values by a step, which the following quantized stages spread
+        # to the int8 noise level; with K1 routed too the difference is shown
+        out_int8, _, err, kern_ms, plain_ms = check_forward(
+            qunet, x, tsteps, ctx, qkv, "int8", ("conv3x3_int8", "dense_int8_res", "geglu_int8"))
+        with kernels.plain_kernels():
+            out_all_plain = qunet(x, tsteps, ctx, cross_kv=qkv, cfg_dup=True)
+        print(f"phase 3i unet forward [2,64,128,9] int8 cfg_dup cross_kv: rel_l2={err:.3e} "
+              f"kernels_ms={kern_ms:.2f} plain_versions_ms={plain_ms:.2f}; for information: "
+              f"rel_l2_with_k1_plain_too={rel_l2(out_int8, out_all_plain):.3e} "
+              f"rel_l2_vs_bf16_forward={rel_l2(out_int8, out_bf16):.3e}")
+        del out_int8, out_bf16, out_all_plain, qkv
+
+    # ---- phase 5: serving two 512x1024 int8 requests -----------------------
+    launches_int8 = serve(qmodel, "dpm++2m", 15, tools.PER_FORWARD_INT8,
+                          "phase 5 serving 512x1024 int8 dpm++2m15 cfg2.5 b1")
+
+    entries = []
+    for name, (source, replaces) in KERNELS.items():
+        rep = report.get(name) or report_int8[name]
+        by_path = {"bf16_ddim50": launches_bf16[name], "int8_dpm15": launches_int8[name]}
+        entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": sum(by_path.values()), "launches_by_path": by_path,
+                        "max_abs_err": rep["max_abs_err"], "ms": rep["ms"], "plain_ms": rep["plain_ms"]})
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -6,6 +6,9 @@ flax module names unfold back into the checkpoint's dotted keys
 (``input_blocks_1_0/in_layers_2`` -> ``input_blocks.1.0.in_layers.2``), and
 the layout swaps are undone (HWIO -> OIHW for convs, [in, out] -> [out, in]
 for linears, ``scale`` -> ``weight`` for norms; embeddings stay as they are).
+An int8 tree (``quantize_params_like``) carries across as it is: int8
+kernels stay int8 through the swaps and ``kernel_scale`` becomes
+``weight_scale`` (fp32); every other leaf becomes fp32.
 """
 
 from __future__ import annotations
@@ -68,6 +71,8 @@ def _leaf(leaf: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
         return "weight", arr.T
     if leaf == "scale":
         return "weight", arr
+    if leaf == "kernel_scale":
+        return "weight_scale", arr
     return leaf, arr
 
 
@@ -94,5 +99,6 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                 fold = _unet_module if root == "unet" else _vae_module
                 leaf, arr = _leaf(path[-1], arr)
                 key = ".".join([fold(m) for m in path[:-1]] + [leaf])
-            out[_PREFIX[root] + key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+            dtype = np.int8 if arr.dtype == np.int8 else np.float32
+            out[_PREFIX[root] + key] = torch.from_numpy(np.array(arr, dtype=dtype, order="C"))
     return out

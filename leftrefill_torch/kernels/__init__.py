@@ -38,6 +38,16 @@ _SIGNATURES = {
     "lr_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, w1, b1, w2, b2, out, partial, r, din, inner, dout, splits, stream
     "lr_geglu": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, scale, bias, out, partial, b, h, w, ci, co, splits, out_f32, stream
+    "lr_conv3x3_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # b, h, w, ci, co -> split count of K
+    "lr_conv3x3_int8_splits": [_I, _I, _I, _I, _I],
+    # x, sx, w, sw, bias, res, out, partial, r, k, n, splits, stream
+    "lr_dense_int8_res": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # r, k, n -> split count of K
+    "lr_dense_int8_res_splits": [_I, _I, _I],
+    # xq, sx, w1, s1, b1, w2, s2, b2, out, partial, r, din, inner, dout, cw, stream
+    "lr_geglu_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -109,6 +119,13 @@ def check(code: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
 
 
+def splits(n: int, name: str) -> int:
+    """A split count from a ``lr_*_splits`` query, which returns a failed
+    query's CUDA error negated."""
+    check(max(-n, 0), name)
+    return n
+
+
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -129,24 +146,30 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None 
 
 
 # ---------------------------------------------------------------------------
-# routing of the three dispatchers (flash attention, 3x3 conv, GEGLU)
+# routing of the dispatchers (flash attention, the bf16 and int8 3x3 convs,
+# the int8 proj_out GEMM, the bf16 and int8 GEGLUs)
 
-_plain = False
+NAMES = ("flash_fwd", "conv3x3", "geglu", "conv3x3_int8", "dense_int8_res", "geglu_int8")
+_plain: frozenset = frozenset()
 
 
-def plain_kernels_active() -> bool:
-    return _plain
+def plain_kernels_active(name: str) -> bool:
+    return name in _plain
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """Route the kernel dispatchers to the kernels' plain PyTorch versions.
+def plain_kernels(names=NAMES):
+    """Route the dispatchers of the kernels ``names`` (default: all) to the
+    kernels' plain PyTorch versions.
 
-    Only the full-model comparison in ``chip_smoke.py`` enters this: it
-    runs the same forward through the plain versions to hold the kernels'
+    Only the full-model comparisons in ``chip_smoke.py`` enter this: they
+    run the same forward through the plain versions to hold the kernels'
     forward against.  The serving path never does."""
     global _plain
-    prev, _plain = _plain, True
+    unknown = set(names) - set(NAMES)
+    if unknown:
+        raise ValueError(f"unknown kernels {sorted(unknown)}")
+    prev, _plain = _plain, frozenset(names)
     try:
         yield
     finally:

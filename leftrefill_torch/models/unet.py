@@ -9,6 +9,15 @@ names follow the SD2 checkpoint
 the checkpoint's keys under ``model.diffusion_model.``.  Placeholder
 ``nn.SiLU`` / ``nn.Identity`` entries keep the checkpoint's Sequential
 indices; the forward calls the parametrised entries directly.
+
+``UNetModel(quant=True)`` is the W8A8 int8 UNet: JAX's ``quant=True`` UNet
+under ``LEFTREFILL_FUSED_RES=0 LEFTREFILL_FUSED_LNQ=0`` with the TPU
+dispatch.  Its quantized sites hold an int8 ``weight``, a ``weight_scale``
+and an fp32 bias (load them with ``ops.quant.quantize_params_like``); the
+stem conv, the out conv, ``time_embed`` and ``emb_layers`` stay fp, as in
+JAX.  Its dispatch depends on the shape only: the int8 convs take KI1, the
+proj_out sites KI2 and the feed-forwards KI3 wherever JAX's TPU rules take
+the Pallas kernels, on any device (a CPU tensor runs the plain versions).
 """
 
 from __future__ import annotations
@@ -22,7 +31,7 @@ from torch import nn
 from leftrefill_torch import kernels
 from leftrefill_torch.ops.attention import multi_head_attention
 from leftrefill_torch.ops.conv import conv3x3_apply
-from leftrefill_torch.ops import mlp
+from leftrefill_torch.ops import mlp, quant as q8
 from leftrefill_torch.ops.layers import (
     GroupNorm32,
     Linear,
@@ -35,33 +44,59 @@ from leftrefill_torch.ops.layers import (
 class Conv3x3(nn.Module):
     """3x3 conv (OIHW weight + bias), stride 1 through the K2 dispatcher,
     stride 2 (Downsample) through the plain convolution.  The weight is held
-    in channels-last memory (OHWI order), the layout K2 reads."""
+    in channels-last memory (OHWI order), the layout K2 and KI1 read.
 
-    def __init__(self, cin: int, cout: int, stride: int = 1, dtype=torch.float32):
+    ``quant=True`` (JAX: ``conv3x3_forward`` with an int8 kernel): an int8
+    weight, its ``weight_scale`` and an fp32 bias.  A stride-1 conv whose
+    shape qualifies runs KI1 on the per-tensor quantized x; any other (the
+    stride-2 Downsamples) runs the conv on the dequantized weight."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1, dtype=torch.float32, quant: bool = False):
         super().__init__()
-        self.stride, self.dtype = stride, dtype
-        w = torch.empty(cout, cin, 3, 3, dtype=dtype).to(memory_format=torch.channels_last)
-        self.weight = nn.Parameter(w)
-        self.bias = nn.Parameter(torch.zeros(cout, dtype=dtype))
+        self.stride, self.dtype, self.quant = stride, dtype, quant
+        w = torch.empty(cout, cin, 3, 3, dtype=torch.int8 if quant else dtype)
+        self.weight = nn.Parameter(w.to(memory_format=torch.channels_last), requires_grad=not quant)
+        self.bias = nn.Parameter(torch.zeros(cout, dtype=torch.float32 if quant else dtype))
+        if quant:
+            self.weight_scale = nn.Parameter(torch.ones(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
+        if self.quant:
+            _, h, w, ci = x.shape
+            bias = self.bias.to(self.dtype)  # JAX rounds the bias to the compute dtype here
+            if self.stride == 1 and q8.conv3x3_int8_qualifies(h, w, ci, self.weight.shape[0]):
+                return q8.conv3x3_int8_apply(x, self.weight.permute(0, 2, 3, 1), self.weight_scale,
+                                             bias.to(torch.float32))
+            weight = (self.weight.to(torch.float32) * self.weight_scale[:, None, None, None]).to(self.dtype)
+            if self.stride != 1:
+                return conv2d_nhwc(x, weight, None, stride=self.stride, padding=1) + bias
+            return conv3x3_apply(x, weight, bias)
         if self.stride != 1:
             return conv2d_nhwc(x, self.weight, self.bias, stride=self.stride, padding=1)
         return conv3x3_apply(x, self.weight, self.bias)
 
 
 class Conv1x1(nn.Module):
-    """1x1 conv (weight [Co, Ci, 1, 1]) as a dense map over channels."""
+    """1x1 conv (weight [Co, Ci, 1, 1]) as a dense map over channels.
+    ``quant=True`` (JAX: ``QConv1x1``): int8 weight, ``weight_scale``, fp32
+    bias, x quantized per pixel, ``dense_int8``."""
 
-    def __init__(self, cin: int, cout: int, dtype=torch.float32):
+    def __init__(self, cin: int, cout: int, dtype=torch.float32, quant: bool = False):
         super().__init__()
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(cout, cin, 1, 1, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(cout, dtype=dtype))
+        self.dtype, self.quant = dtype, quant
+        self.weight = nn.Parameter(torch.empty(cout, cin, 1, 1, dtype=torch.int8 if quant else dtype),
+                                   requires_grad=not quant)
+        self.bias = nn.Parameter(torch.zeros(cout, dtype=torch.float32 if quant else dtype))
+        if quant:
+            self.weight_scale = nn.Parameter(torch.ones(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.dtype
+        if self.quant:
+            xq, sx = q8.quantize_activation_rowwise(x.reshape(-1, x.shape[-1]))
+            y = q8.dense_int8(xq, sx, self.weight.flatten(1), self.weight_scale, self.bias, out_dtype=d)
+            return y.reshape(*x.shape[:-1], -1)
         return F.linear(x.to(d), self.weight.flatten(1).to(d), self.bias.to(d))
 
 
@@ -80,18 +115,18 @@ class LayerNormF32(nn.Module):
 
 
 class Upsample(nn.Module):
-    def __init__(self, channels: int, dtype=torch.float32):
+    def __init__(self, channels: int, dtype=torch.float32, quant: bool = False):
         super().__init__()
-        self.conv = Conv3x3(channels, channels, dtype=dtype)
+        self.conv = Conv3x3(channels, channels, dtype=dtype, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(nearest_upsample_2x(x))
 
 
 class Downsample(nn.Module):
-    def __init__(self, channels: int, dtype=torch.float32):
+    def __init__(self, channels: int, dtype=torch.float32, quant: bool = False):
         super().__init__()
-        self.op = Conv3x3(channels, channels, stride=2, dtype=dtype)
+        self.op = Conv3x3(channels, channels, stride=2, dtype=dtype, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.op(x)
@@ -99,17 +134,18 @@ class Downsample(nn.Module):
 
 class ResBlock(nn.Module):
     """Timestep-conditioned residual block (no scale-shift norm, no up/down:
-    the SD2-inpainting configuration)."""
+    the SD2-inpainting configuration).  ``quant``: the two 3x3 convs and the
+    skip 1x1 are int8 (JAX's unfused int8 ResBlock); ``emb_layers`` stays fp."""
 
-    def __init__(self, cin: int, cout: int, emb_dim: int, dtype=torch.float32):
+    def __init__(self, cin: int, cout: int, emb_dim: int, dtype=torch.float32, quant: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.in_layers = nn.ModuleList([GroupNorm32(cin), nn.SiLU(), Conv3x3(cin, cout, dtype=dtype)])
+        self.in_layers = nn.ModuleList([GroupNorm32(cin), nn.SiLU(), Conv3x3(cin, cout, dtype=dtype, quant=quant)])
         self.emb_layers = nn.ModuleList([nn.SiLU(), Linear(emb_dim, cout, dtype=dtype)])
         self.out_layers = nn.ModuleList(
-            [GroupNorm32(cout), nn.SiLU(), nn.Identity(), Conv3x3(cout, cout, dtype=dtype)]
+            [GroupNorm32(cout), nn.SiLU(), nn.Identity(), Conv3x3(cout, cout, dtype=dtype, quant=quant)]
         )
-        self.skip_connection = Conv1x1(cin, cout, dtype=dtype) if cin != cout else None
+        self.skip_connection = Conv1x1(cin, cout, dtype=dtype, quant=quant) if cin != cout else None
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         h = F.silu(self.in_layers[0](x))
@@ -126,24 +162,36 @@ class ResBlock(nn.Module):
 
 
 class CrossAttention(nn.Module):
+    """``quant``: the four projections are int8; each distinct activation is
+    quantized once per row (q, k and v share x's pass when self-attending,
+    the context's pass when the K/V cache is built)."""
+
     def __init__(self, query_dim: int, heads: int, dim_head: int, context_dim: Optional[int] = None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, quant: bool = False):
         super().__init__()
         inner = heads * dim_head
         kv_dim = context_dim if context_dim is not None else query_dim
-        self.heads = heads
-        self.to_q = Linear(query_dim, inner, bias=False, dtype=dtype)
-        self.to_k = Linear(kv_dim, inner, bias=False, dtype=dtype)
-        self.to_v = Linear(kv_dim, inner, bias=False, dtype=dtype)
-        self.to_out = nn.ModuleList([Linear(inner, query_dim, dtype=dtype), nn.Identity()])
+        self.heads, self.quant = heads, quant
+        self.to_q = Linear(query_dim, inner, bias=False, dtype=dtype, quant=quant)
+        self.to_k = Linear(kv_dim, inner, bias=False, dtype=dtype, quant=quant)
+        self.to_v = Linear(kv_dim, inner, bias=False, dtype=dtype, quant=quant)
+        self.to_out = nn.ModuleList([Linear(inner, query_dim, dtype=dtype, quant=quant), nn.Identity()])
 
-    def kv(self, context: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def _quantized(self, x: torch.Tensor):
+        return q8.quantize_activation_rowwise(x) if self.quant else (None, None)
+
+    def kv(self, context: torch.Tensor, pre=None) -> tuple[torch.Tensor, torch.Tensor]:
         """(k, v) for a fixed context: the conditioning KV cache."""
-        return self.to_k(context), self.to_v(context)
+        cq, cs = pre if pre is not None else self._quantized(context)
+        return self.to_k(context, cq, cs), self.to_v(context, cq, cs)
 
     def forward(self, x, context=None, kv=None) -> torch.Tensor:
-        q = self.to_q(x)
-        k, v = kv if kv is not None else self.kv(x if context is None else context)
+        xq, sx = self._quantized(x)
+        q = self.to_q(x, xq, sx)
+        if kv is not None:
+            k, v = kv
+        else:
+            k, v = self.kv(x, (xq, sx)) if context is None else self.kv(context)
         return self.to_out[0](multi_head_attention(q, k, v, self.heads))
 
 
@@ -155,33 +203,53 @@ def _linear_fp32_bias(din: int, dout: int, dtype) -> nn.Linear:
     return lin
 
 
+def _ff_linear(din: int, dout: int, dtype, quant: bool) -> nn.Linear:
+    return Linear(din, dout, dtype=dtype, quant=True) if quant else _linear_fp32_bias(din, dout, dtype)
+
+
 class GEGLUProj(nn.Module):
     """Holder of ``ff.net.0.proj`` (Linear dim -> 2*inner, [value | gate])."""
 
-    def __init__(self, dim: int, inner: int, dtype=torch.float32):
+    def __init__(self, dim: int, inner: int, dtype=torch.float32, quant: bool = False):
         super().__init__()
-        self.proj = _linear_fp32_bias(dim, 2 * inner, dtype)
+        self.proj = _ff_linear(dim, 2 * inner, dtype, quant)
 
 
 class GEGLUFeedForward(nn.Module):
     """GEGLU feed-forward: value * gelu_erf(gate), then Linear(inner, dim).
-    bf16 runs go through the fused kernel K3 where the shape qualifies."""
+    bf16 runs go through the fused kernel K3 where the shape qualifies;
+    ``quant`` runs go through KI3 where JAX's int8 rule takes K10, otherwise
+    through two int8 dense products (h requantized per row as a whole)."""
 
-    def __init__(self, dim: int, mult: int = 4, dtype=torch.float32):
+    def __init__(self, dim: int, mult: int = 4, dtype=torch.float32, quant: bool = False):
         super().__init__()
-        self.dim, self.inner, self.dtype = dim, dim * mult, dtype
+        self.dim, self.inner, self.dtype, self.quant = dim, dim * mult, dtype, quant
         self.net = nn.ModuleList(
-            [GEGLUProj(dim, self.inner, dtype), nn.Identity(), _linear_fp32_bias(self.inner, dim, dtype)]
+            [GEGLUProj(dim, self.inner, dtype, quant), nn.Identity(), _ff_linear(self.inner, dim, dtype, quant)]
         )
+
+    def _int8(self, x2: torch.Tensor) -> torch.Tensor:
+        p1, p2 = self.net[0].proj, self.net[2]
+        r, din = x2.shape
+        if self.dtype == torch.bfloat16 and mlp.geglu_int8_qualifies(r, din, self.inner, self.dim):
+            chunk = mlp.geglu_int8_chunk(r, din, self.inner, self.dim)
+            kernels.note_site("geglu_int8", (r, din, self.inner, self.dim, chunk))
+            xq, sx = q8.quantize_activation_rowwise(x2.to(self.dtype))
+            fn = mlp.geglu_int8_plain if kernels.plain_kernels_active("geglu_int8") else mlp.geglu_int8_fused
+            return fn(xq, sx, p1.weight, p1.weight_scale, p1.bias, p2.weight, p2.weight_scale, p2.bias, chunk)
+        val, gate = p1(x2).chunk(2, dim=-1)
+        return p2(val * F.gelu(gate.to(torch.float32)).to(val.dtype))
 
     def forward(self, x: torch.Tensor, res: Optional[torch.Tensor] = None) -> torch.Tensor:
         d = self.dtype
         din = x.shape[-1]
         x2 = x.reshape(-1, din)
         p1, p2 = self.net[0].proj, self.net[2]
-        if d == torch.bfloat16 and mlp.geglu_fused_qualifies(x2, din, self.inner, self.dim):
+        if self.quant:
+            out = self._int8(x2)
+        elif d == torch.bfloat16 and mlp.geglu_fused_qualifies(x2, din, self.inner, self.dim):
             kernels.note_site("geglu", (x2.shape[0], din, self.inner, self.dim))
-            fn = mlp.geglu_plain if kernels.plain_kernels_active() else mlp.geglu_fused
+            fn = mlp.geglu_plain if kernels.plain_kernels_active("geglu") else mlp.geglu_fused
             out = fn(x2.to(d).contiguous(), p1.weight.to(d), p1.bias.to(torch.float32),
                      p2.weight.to(d), p2.bias.to(torch.float32))
         else:
@@ -197,11 +265,12 @@ class BasicTransformerBlock(nn.Module):
     """Self-attention -> cross-attention(context) -> GEGLU FF, pre-norm and
     residual."""
 
-    def __init__(self, dim: int, n_heads: int, d_head: int, context_dim: int, dtype=torch.float32):
+    def __init__(self, dim: int, n_heads: int, d_head: int, context_dim: int, dtype=torch.float32,
+                 quant: bool = False):
         super().__init__()
-        self.attn1 = CrossAttention(dim, n_heads, d_head, dtype=dtype)
-        self.ff = GEGLUFeedForward(dim, dtype=dtype)
-        self.attn2 = CrossAttention(dim, n_heads, d_head, context_dim=context_dim, dtype=dtype)
+        self.attn1 = CrossAttention(dim, n_heads, d_head, dtype=dtype, quant=quant)
+        self.ff = GEGLUFeedForward(dim, dtype=dtype, quant=quant)
+        self.attn2 = CrossAttention(dim, n_heads, d_head, context_dim=context_dim, dtype=dtype, quant=quant)
         self.norm1 = LayerNormF32(dim)
         self.norm2 = LayerNormF32(dim)
         self.norm3 = LayerNormF32(dim)
@@ -220,19 +289,22 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """GroupNorm -> linear proj_in -> transformer blocks -> proj_out, residual."""
+    """GroupNorm -> linear proj_in -> transformer blocks -> proj_out, residual.
+    ``quant``: every projection int8; proj_out and the residual go through
+    KI2 where JAX's rule takes K9, otherwise ``dense_int8`` and a bf16 add."""
 
     def __init__(self, channels: int, n_heads: int, d_head: int, depth: int = 1,
-                 context_dim: int = 1024, dtype=torch.float32):
+                 context_dim: int = 1024, dtype=torch.float32, quant: bool = False):
         super().__init__()
         inner = n_heads * d_head
-        self.dtype = dtype
+        self.dtype, self.quant = dtype, quant
         self.norm = GroupNorm32(channels, eps=1e-6)
-        self.proj_in = Linear(channels, inner, dtype=dtype)
+        self.proj_in = Linear(channels, inner, dtype=dtype, quant=quant)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(inner, n_heads, d_head, context_dim, dtype=dtype) for _ in range(depth)]
+            [BasicTransformerBlock(inner, n_heads, d_head, context_dim, dtype=dtype, quant=quant)
+             for _ in range(depth)]
         )
-        self.proj_out = Linear(inner, channels, dtype=dtype)
+        self.proj_out = Linear(inner, channels, dtype=dtype, quant=quant)
 
     def cross_kv(self, context: torch.Tensor) -> list:
         return [blk.cross_kv(context) for blk in self.transformer_blocks]
@@ -245,17 +317,26 @@ class SpatialTransformer(nn.Module):
         for i, blk in enumerate(self.transformer_blocks):
             x = blk(x, context, cross_kv=None if cross_kv is None else cross_kv[i],
                     dup_to_context=dup_to_context and i == 0)
-        x = self.proj_out(x)
-        b2 = x.shape[0]
+        b2, hw, inner = x.shape
         if b2 != x_in.shape[0]:  # the prefix ran at half batch (cfg_dup)
             x_in = torch.cat([x_in, x_in], dim=0)
-        return (x + x_in.reshape(b2, h * w, c).to(x.dtype)).reshape(b2, h, w, c)
+        res = x_in.reshape(b2, hw, c)
+        if self.quant and x.dtype == torch.bfloat16 and q8.dense_int8_res_qualifies(b2, hw, inner, c):
+            kernels.note_site("dense_int8_res", (b2 * hw, inner, c))
+            po = self.proj_out
+            xq, sx = q8.quantize_activation_rowwise(x.reshape(b2 * hw, inner))
+            fn = q8.dense_int8_res_plain if kernels.plain_kernels_active("dense_int8_res") else q8.dense_int8_res_op
+            out = fn(xq, sx, po.weight, po.weight_scale, po.bias, res.reshape(b2 * hw, c).to(x.dtype).contiguous())
+            return out.reshape(b2, h, w, c)
+        x = self.proj_out(x)
+        return (x + res.to(x.dtype)).reshape(b2, h, w, c)
 
 
 class UNetModel(nn.Module):
     """The SD2-inpainting UNet: 9 -> 4 channels, model_channels 320,
     ch_mult (1, 2, 4, 4), 2 res blocks per level, spatial transformers at
-    ds 1/2/4 (depth 1, linear projections, head dim 64), context 1024."""
+    ds 1/2/4 (depth 1, linear projections, head dim 64), context 1024.
+    ``quant``: the W8A8 int8 UNet (module docstring)."""
 
     def __init__(
         self,
@@ -269,6 +350,7 @@ class UNetModel(nn.Module):
         transformer_depth: int = 1,
         context_dim: int = 1024,
         dtype: torch.dtype = torch.float32,
+        quant: bool = False,
     ):
         super().__init__()
         self.model_channels, self.out_channels = model_channels, out_channels
@@ -280,35 +362,36 @@ class UNetModel(nn.Module):
 
         def st(ch):
             return SpatialTransformer(ch, ch // num_head_channels, num_head_channels,
-                                      transformer_depth, context_dim, dtype=dtype)
+                                      transformer_depth, context_dim, dtype=dtype, quant=quant)
 
         self.input_blocks = nn.ModuleList([nn.ModuleList([Conv3x3(in_channels, model_channels, dtype=dtype)])])
         chans, ch, ds = [model_channels], model_channels, 1
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):
-                layers = [ResBlock(ch, mult * model_channels, emb_dim, dtype=dtype)]
+                layers = [ResBlock(ch, mult * model_channels, emb_dim, dtype=dtype, quant=quant)]
                 ch = mult * model_channels
                 if ds in attention_resolutions:
                     layers.append(st(ch))
                 self.input_blocks.append(nn.ModuleList(layers))
                 chans.append(ch)
             if level != len(channel_mult) - 1:
-                self.input_blocks.append(nn.ModuleList([Downsample(ch, dtype=dtype)]))
+                self.input_blocks.append(nn.ModuleList([Downsample(ch, dtype=dtype, quant=quant)]))
                 chans.append(ch)
                 ds *= 2
         self.middle_block = nn.ModuleList(
-            [ResBlock(ch, ch, emb_dim, dtype=dtype), st(ch), ResBlock(ch, ch, emb_dim, dtype=dtype)]
+            [ResBlock(ch, ch, emb_dim, dtype=dtype, quant=quant), st(ch),
+             ResBlock(ch, ch, emb_dim, dtype=dtype, quant=quant)]
         )
         self.output_blocks = nn.ModuleList()
         for level, mult in reversed(list(enumerate(channel_mult))):
             for i in range(num_res_blocks + 1):
                 skip_ch = chans.pop()
-                layers = [ResBlock(ch + skip_ch, model_channels * mult, emb_dim, dtype=dtype)]
+                layers = [ResBlock(ch + skip_ch, model_channels * mult, emb_dim, dtype=dtype, quant=quant)]
                 ch = model_channels * mult
                 if ds in attention_resolutions:
                     layers.append(st(ch))
                 if level and i == num_res_blocks:
-                    layers.append(Upsample(ch, dtype=dtype))
+                    layers.append(Upsample(ch, dtype=dtype, quant=quant))
                     ds //= 2
                 self.output_blocks.append(nn.ModuleList(layers))
         self.out = nn.ModuleList([GroupNorm32(ch), nn.SiLU(), Conv3x3(ch, out_channels, dtype=dtype)])

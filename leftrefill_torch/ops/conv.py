@@ -87,6 +87,6 @@ def conv3x3_apply(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> 
     if conv3x3_qualifies(x, weight.shape[0]):
         kernels.note_site("conv3x3", (*x.shape, weight.shape[0]))
         w = weight.to(x.dtype).permute(0, 2, 3, 1).contiguous()
-        fn = conv3x3_plain if kernels.plain_kernels_active() else conv3x3_op
+        fn = conv3x3_plain if kernels.plain_kernels_active("conv3x3") else conv3x3_op
         return fn(x.contiguous(), w, bias.to(x.dtype).to(torch.float32).contiguous())
     return conv2d_nhwc(x, weight, bias)

@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from leftrefill_torch.ops import quant
+
 
 def timestep_embedding(
     timesteps: torch.Tensor, dim: int, max_period: int = 10000, dtype: torch.dtype = torch.float32
@@ -82,14 +84,30 @@ class GroupNorm32(nn.Module):
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` that computes in ``dtype``, its parameters held in it."""
+    """``nn.Linear`` that computes in ``dtype``, its parameters held in it.
 
-    def __init__(self, din: int, dout: int, bias: bool = True, dtype: torch.dtype = torch.float32):
+    ``quant=True`` is the W8A8 arm (JAX: ``QDense`` with an int8 kernel): an
+    int8 ``weight`` [out, in] with its per-output-channel ``weight_scale`` and
+    an fp32 bias; x is quantized per row (or passed pre-quantized, so q/k/v
+    of one activation share one pass) and goes through ``dense_int8``."""
+
+    def __init__(self, din: int, dout: int, bias: bool = True, dtype: torch.dtype = torch.float32,
+                 quant: bool = False):
         super().__init__(din, dout, bias=bias, dtype=dtype)
-        self.compute_dtype = dtype
+        self.compute_dtype, self.quant = dtype, quant
+        if quant:
+            self.weight = nn.Parameter(torch.empty(dout, din, dtype=torch.int8), requires_grad=False)
+            self.weight_scale = nn.Parameter(torch.ones(dout))
+            if bias:
+                self.bias = nn.Parameter(torch.zeros(dout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, xq: torch.Tensor | None = None,
+                x_scale: torch.Tensor | None = None) -> torch.Tensor:
         d = self.compute_dtype
+        if self.quant:
+            if xq is None:
+                xq, x_scale = quant.quantize_activation_rowwise(x)
+            return quant.dense_int8(xq, x_scale, self.weight, self.weight_scale, self.bias, out_dtype=d)
         b = None if self.bias is None else self.bias.to(d)
         return F.linear(x.to(d), self.weight.to(d), b)
 

@@ -1,4 +1,4 @@
-"""K3: fused GEGLU feed-forward and its dispatcher.
+"""K3: fused GEGLU feed-forward and its dispatcher; KI3: its W8A8 twin.
 
 Source note.  Replaces ``leftrefill_tpu/ops/mlp.py:_geglu_kernel``
 (``_geglu_pallas`` / ``geglu_fused``).  The kernel (``csrc/geglu.cu``)
@@ -14,6 +14,19 @@ the rows give fewer blocks than SMs (R = 256, 1024, 4096), the inner
 dimension is also split and the fp32 partials are added in a fixed order by
 a second kernel.  At these widths the products bound it (compute, with
 W1/W2 re-read from L2 per 32-row block).
+
+KI3 replaces ``leftrefill_tpu/ops/mlp.py:_geglu_int8_kernel`` (K10,
+``geglu_fused_int8`` with its default int8 second product; the
+``LEFTREFILL_GEGLU_INT8_W2=bf16`` arm is not ported).  Per inner chunk c:
+v and g from int8 products dequantized per row and column plus b1,
+h = v * gelu_erf(g), h requantized per row over the chunk
+(sh = max|h| / 127), an int8 product with W2 dequantized by sh * s2 into an
+fp32 sum, b2 at the end.  The chunk width is part of the function (the
+requant scale spans one chunk), so it is the TPU plan's
+(:func:`geglu_int8_chunk`, a copy of ``_plan``).  The kernel
+(``csrc/geglu_int8.cu``) runs one block per (32 rows, chunk), keeps h in
+shared memory, and adds the chunks' fp32 contributions in chunk order in a
+second kernel.
 """
 
 from __future__ import annotations
@@ -22,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from leftrefill_torch import kernels
+from leftrefill_torch.ops.quant import int_mm, over_127
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 
@@ -106,3 +120,87 @@ def geglu_fused_qualifies(x: torch.Tensor, din: int, inner: int, dout: int) -> b
         and dout % 64 == 0
         and _smem_bytes(dout) <= SMEM_LIMIT
     )
+
+
+# ---------------------------------------------------------------------------
+# KI3: the W8A8 GEGLU
+
+
+def geglu_int8_plan(r: int, din: int, inner: int, dout: int):
+    """(blk_r, chunk) of K10's VMEM plan, or None (a copy of
+    ``leftrefill_tpu/ops/mlp.py:_plan`` with its int8 element sizes; the
+    largest (blk_r, chunk) that fits, the first in this descending order)."""
+    for blk_r in (512, 256, 128):
+        if r % blk_r:
+            continue
+        for ci in (1280, 1024, 640, 512, 256, 128):
+            if inner % ci:
+                continue
+            # x, W1, W2 and the bf16 out double-buffered; the fp32 acc and three fp32 intermediates
+            vmem = 2 * blk_r * din + 4 * din * ci + 2 * ci * dout + 8 * blk_r * dout + 12 * blk_r * ci
+            if vmem <= int(11.0 * 1024 * 1024):
+                return blk_r, ci
+    return None
+
+
+def geglu_int8_qualifies(r: int, din: int, inner: int, dout: int) -> bool:
+    """JAX's ``geglu_fused_qualifies(..., int8=True)`` without the TPU probe."""
+    return r >= 128 and din >= 64 and dout >= 64 and geglu_int8_plan(r, din, inner, dout) is not None
+
+
+def geglu_int8_chunk(r: int, din: int, inner: int, dout: int) -> int:
+    """The requant chunk width: the int8 TPU plan's."""
+    return geglu_int8_plan(r, din, inner, dout)[1]
+
+
+def geglu_int8_plain(xq, sx, w1, s1, b1, w2, s2, b2, chunk: int) -> torch.Tensor:
+    """The kernel's plain version, the same fp32 operations in the same
+    order (on the card the two agree bit for bit).  xq [R, din] int8, sx [R, 1] fp32,
+    w1 [2I, din] int8 rows [value | gate], s1/b1 [2I] fp32, w2 [dout, I]
+    int8, s2/b2 [dout] fp32 -> [R, dout] bf16."""
+    f32 = torch.float32
+    inner = w2.shape[1]
+    acc = torch.zeros((xq.shape[0], w2.shape[0]), dtype=f32, device=xq.device)
+    for c0 in range(0, inner, chunk):
+        cv, cg = slice(c0, c0 + chunk), slice(inner + c0, inner + c0 + chunk)
+        v = int_mm(xq, w1[cv]).to(f32) * (sx * s1[cv]) + b1[cv]
+        g = int_mm(xq, w1[cg]).to(f32) * (sx * s1[cg]) + b1[cg]
+        h = v * (g * 0.5 * (1.0 + torch.erf(g * 0.7071067811865476)))  # the kernel's gelu, op for op
+        sh = over_127(h.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8))
+        hq = torch.round(h / sh).clamp(-127, 127).to(torch.int8)
+        acc = acc + int_mm(hq, w2[:, c0:c0 + chunk].contiguous()).to(f32) * (sh * s2)
+    return (acc + b2).to(torch.bfloat16)
+
+
+def geglu_int8_fused(xq, sx, w1, s1, b1, w2, s2, b2, chunk: int) -> torch.Tensor:
+    """KI3 on the arguments of :func:`geglu_int8_plain`.  A CPU tensor runs
+    the plain version; a CUDA tensor launches KI3 or raises."""
+    if not xq.is_cuda:
+        return geglu_int8_plain(xq, sx, w1, s1, b1, w2, s2, b2, chunk)
+    r, din = xq.shape
+    dout, inner = w2.shape
+    f32 = torch.float32
+    kernels.require(xq, "xq", torch.int8)
+    kernels.require(sx, "sx", f32, (r, 1))
+    kernels.require(w1, "w1", torch.int8, (2 * inner, din))
+    kernels.require(s1, "s1", f32, (2 * inner,))
+    kernels.require(b1, "b1", f32, (2 * inner,))
+    kernels.require(w2, "w2", torch.int8, (dout, inner))
+    kernels.require(s2, "s2", f32, (dout,))
+    kernels.require(b2, "b2", f32, (dout,))
+    if r % 32 or din % 64 or chunk % 128 or inner % chunk or dout % 2:
+        raise ValueError(f"int8 GEGLU kernel does not take R={r} din={din} inner={inner} dout={dout} chunk={chunk}")
+    out = torch.empty((r, dout), dtype=torch.bfloat16, device=xq.device)
+    partial = torch.empty((inner // chunk, r, dout), dtype=f32, device=xq.device)
+    with torch.cuda.device(xq.device):
+        code = kernels.library().lr_geglu_int8(
+            xq.data_ptr(), sx.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(), partial.data_ptr(),
+            r, din, inner, dout, chunk, kernels.stream_of(xq),
+        )
+    kernels.check(code, "geglu_int8")
+    geglu_int8_fused.launches += 1
+    return out
+
+
+geglu_int8_fused.launches = 0

@@ -1,0 +1,319 @@
+"""W8A8 int8 inference ops (counterpart of ``leftrefill_tpu/ops/quant.py``):
+the quantization helpers, the int8 dense, the TPU dispatch rules of the int8
+kernels, and kernels KI1 (int8 3x3 conv) and KI2 (int8 proj_out GEMM plus
+residual), each beside its plain PyTorch version.
+
+Scheme, as the JAX package: weights per output channel, symmetric, int8 at
+rest; activations quantized at run time, per tensor for the convs and per row
+for the dense sites; int32 accumulation and an fp32 dequant epilogue.
+
+The int8 dispatch depends on the shape only, never on the device: the
+qualifiers are the JAX dispatchers' shape rules (their TPU probe dropped), so
+the CPU runs the same function the card does, through the plain versions.
+The rules read the TPU kernels' VMEM plans, which are copied here as pure
+functions (``tests/test_torch_quant_plans.py`` holds each copy to the
+original).
+
+Source notes.
+- KI1 (``csrc/conv3x3_int8.cu``) replaces ``_conv_int8_kernel`` (K5, three
+  column-shifted copies) and ``_conv_int8_single_kernel`` (K6, one padded
+  slab): the same function, blocked two ways for VMEM.  It is an implicit
+  GEMM (M = B*H*W, N = Co, K = 9*Ci) on the int8 tensor cores that gathers
+  each tap from the NHWC input with the border and the Ci tail zero-filled
+  at load; at the small-M levels it splits K and adds the int32 partials
+  (exact).  Epilogue acc * (s_x * s_w[c]) + bias in fp32, one cast to bf16
+  (or an fp32 store, for an fp32 model).  The kernel library chooses the
+  split count (``lr_*_splits``) and the wrapper sizes the int32 partials.
+- KI2 (``csrc/dense_int8_res.cu``) replaces ``_dense_int8_res_mom_kernel``
+  (K9) without its [B, 4, N] moments output, which nothing reads.
+- ``dense_int8`` is an XLA dot in JAX, outside any Pallas kernel: here it is
+  ``torch._int_mm`` (int32 accumulation) on both devices.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from leftrefill_torch import kernels
+
+F32 = torch.float32
+
+# ---------------------------------------------------------------------------
+# quantization helpers (JAX: quant.py:51-103), bit-equal to the JAX package's
+
+
+def over_127(t: torch.Tensor) -> torch.Tensor:
+    """t / 127 as an IEEE division, as the JAX package and the kernels divide
+    (a Python-scalar divisor would make PyTorch on CUDA multiply by the
+    rounded reciprocal instead, which differs in the last bit)."""
+    return t / torch.full((), 127.0, dtype=t.dtype, device=t.device)
+
+
+def quantize_weight(w: torch.Tensor, axis: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 of ``w`` (the output channel on
+    ``axis``, dim 0 in torch's layouts): (wq int8, scale fp32 [co])."""
+    wf = w.to(F32)
+    red = tuple(i for i in range(wf.ndim) if i != axis % wf.ndim)
+    scale = over_127(wf.abs().amax(dim=red).clamp_min(1e-8))
+    shape = [1] * wf.ndim
+    shape[axis % wf.ndim] = -1
+    wq = torch.round(wf / scale.reshape(shape)).clamp(-127, 127).to(torch.int8)
+    return wq, scale
+
+
+def quantize_activation(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8 with a dynamic abs-max scale (fp32 scalar)."""
+    xf = x.to(F32)
+    scale = over_127(xf.abs().amax().clamp_min(1e-8))
+    return torch.round(xf / scale).clamp(-127, 127).to(torch.int8), scale
+
+
+def quantize_activation_rowwise(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8: abs-max over the last dim, scale [..., 1] fp32."""
+    xf = x.to(F32)
+    scale = over_127(xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8))
+    return torch.round(xf / scale).clamp(-127, 127).to(torch.int8), scale
+
+
+def int_mm(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """int32 product of a [M, K] int8 and b_t [N, K] int8 -> [M, N].  On the
+    card ``torch._int_mm`` needs M > 16 and K, N multiples of 8: every UNet
+    site meets that, and a site that does not raises (nothing is padded)."""
+    m, k = a.shape
+    n = b_t.shape[0]
+    if a.is_cuda and (m <= 16 or k % 8 or n % 8):
+        raise ValueError(f"int8 GEMM [{m}, {k}] x [{k}, {n}]: torch._int_mm on CUDA needs M > 16, K and N % 8 == 0")
+    return torch._int_mm(a, b_t.t())
+
+
+def dense_int8(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
+               bias: Optional[torch.Tensor] = None, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """int8 GEMM + fp32 dequant: xq [..., K] int8, wq [N, K] int8 (torch
+    Linear layout), w_scale [N]; x_scale a scalar or [..., 1].
+    out = acc * (x_scale * w_scale) (+ bias), cast to ``out_dtype``."""
+    k = xq.shape[-1]
+    acc = int_mm(xq.reshape(-1, k), wq).reshape(*xq.shape[:-1], wq.shape[0])
+    out = acc.to(F32) * (x_scale * w_scale)
+    if bias is not None:
+        out = out + bias.to(F32)
+    return out.to(out_dtype)
+
+
+def quantize_params_like(quant_model: torch.nn.Module, state: dict) -> dict:
+    """The int8 state_dict of ``quant_model`` from an fp ``state`` with the
+    same keys (JAX: ``quantize_params_like``): wherever the quant model holds
+    a ``weight_scale``, the fp ``weight`` is replaced by its per-output-channel
+    int8 quantization and the scale filled in; every other entry is taken
+    from ``state`` unchanged.  Load it with ``quant_model.load_state_dict``."""
+    out = {}
+    for key in quant_model.state_dict():
+        if key.endswith(".weight_scale"):
+            continue
+        scale_key = key[: -len("weight")] + "weight_scale"
+        if key.endswith(".weight") and scale_key in quant_model.state_dict():
+            out[key], out[scale_key] = quantize_weight(state[key])
+        else:
+            out[key] = state[key]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the int8 TPU kernels' VMEM plans, copied with the int8 sizes filled in (JAX:
+# ops/conv.py:68-146 under quant.py's _INT8_PLAN_KW, quant.py:144-162,
+# quant.py:245-274, quant.py:375-378, quant.py:526-538)
+
+_VMEM_BUDGET = int(11.5 * 1024 * 1024)
+
+
+def _ceil128(c: int) -> int:
+    return -(-c // 128) * 128
+
+
+def _chan_blocks(total: int) -> list[int]:
+    out = [total]
+    for c in (1024, 896, 768, 640, 512, 384, 256, 128):
+        if c < total and total % c == 0:
+            out.append(c)
+    return out
+
+
+def _copy3_blocks(h, w, ci, co):
+    """(blk_w, blk_ci, blk_co) of JAX's ``pick_conv_blocks`` at the int8
+    sizes (block widths 128/64/32, int8 x and weights, bf16 out, no row
+    floor), or None."""
+    widths = [bw for bw in (128, 64, 32) if w % bw == 0]
+    if not widths or ci < 64 or co < 64:
+        return None
+    best, best_score = None, None
+    for bw in widths:
+        for bci in _chan_blocks(ci):
+            for bco in _chan_blocks(co):
+                # three shifted x copies, weights and the bf16 out double-buffered; the fp32 acc
+                if 6 * (h + 2) * bw * bci + 18 * bci * bco + 8 * h * bw * bco > _VMEM_BUDGET:
+                    continue
+                score = (round((bci / _ceil128(bci)) * (bco / _ceil128(bco)), 3), bci * bco, bw)
+                if best_score is None or score > best_score:
+                    best, best_score = (bw, bci, bco), score
+    return best
+
+
+def plan_int8(h, w, ci, co):
+    """K5's (copy3) plan, Ci zero-padded to a multiple of 128 where the
+    unpadded Ci has none: ((blk_w, blk_ci, blk_co), ci_eff) or None."""
+    for ci_eff in dict.fromkeys((ci, _ceil128(ci))):
+        blocks = _copy3_blocks(h, w, ci_eff, co)
+        if blocks is not None:
+            return blocks, ci_eff
+    return None
+
+
+def plan_int8_single(h, w, ci, co):
+    """K6's (single padded slab) plan: (blk_ci, blk_co, ci_eff, co_eff) or None."""
+    best, best_score = None, None
+    for ci_eff in {ci, _ceil128(ci)}:
+        for bci in _chan_blocks(ci_eff):
+            for co_eff in {co, _ceil128(co)}:
+                for bco in _chan_blocks(co_eff):
+                    x_b = (h + 2) * (w + 2) * bci * 2
+                    w_b = 9 * bci * bco * 2
+                    acc_b = h * w * bco * 4
+                    o_b = h * w * bco * 2 * 2
+                    if x_b + w_b + acc_b + o_b > _VMEM_BUDGET:
+                        continue
+                    tiles = ((ci_eff // bci) * (-(-bci // 128))) * ((co_eff // bco) * (-(-bco // 128)))
+                    score = (-tiles, bci * bco, -(ci_eff + co_eff))
+                    if best_score is None or score > best_score:
+                        best, best_score = (bci, bco, ci_eff, co_eff), score
+    return best
+
+
+def conv3x3_int8_qualifies(h: int, w: int, ci: int, co: int) -> bool:
+    """JAX's ``conv3x3_int8_qualifies`` without the TPU probe: the int8 conv
+    kernel takes the shape where K5 or K6 has a plan."""
+    return (ci >= 64 and co >= 64 and h * w >= 128
+            and (plan_int8(h, w, ci, co) is not None or plan_int8_single(h, w, ci, co) is not None))
+
+
+def plan_dense_rows(rows_per_sample: int, k: int, n: int) -> Optional[int]:
+    """K9's row block."""
+    for blk in (1024, 512, 256, 128):
+        if rows_per_sample % blk == 0 and blk * (k + 3 * n) * 4 <= 10 * 1024 * 1024:
+            return blk
+    return None
+
+
+def dense_int8_res_qualifies(b: int, rows_per_sample: int, k: int, n: int) -> bool:
+    """JAX's ``dense_int8_res_mom_qualifies`` without the TPU probe."""
+    return k % 128 == 0 and n >= 128 and plan_dense_rows(rows_per_sample, k, n) is not None
+
+
+# ---------------------------------------------------------------------------
+# KI1: int8 3x3 conv
+
+
+def conv3x3_int8_plain(xq: torch.Tensor, scale: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                       out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The kernel's plain version: an int8 im2col (zero border) times the
+    OHWI weight through ``torch._int_mm`` (int32), then
+    acc * scale + bias in fp32 and one cast.  xq [B, H, W, Ci] int8,
+    scale [Co] fp32 (s_x * s_w), w [Co, 3, 3, Ci] int8, bias [Co] fp32."""
+    b, h, wd, ci = xq.shape
+    co = w.shape[0]
+    xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([xp[:, dy:dy + h, dx:dx + wd] for dy in range(3) for dx in range(3)], dim=-1)
+    acc = int_mm(cols.reshape(b * h * wd, 9 * ci), w.reshape(co, 9 * ci))
+    return (acc.to(F32) * scale + bias).to(out_dtype).reshape(b, h, wd, co)
+
+
+def conv3x3_int8_op(xq: torch.Tensor, scale: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """KI1: the arguments of :func:`conv3x3_int8_plain` -> [B, H, W, Co] in
+    ``out_dtype`` (bf16 or fp32).  A CPU tensor runs the plain version; a
+    CUDA tensor launches KI1 or raises."""
+    if not xq.is_cuda:
+        return conv3x3_int8_plain(xq, scale, w, bias, out_dtype)
+    if out_dtype not in (torch.bfloat16, F32):
+        raise ValueError(f"int8 conv kernel writes bf16 or fp32, not {out_dtype}")
+    b, h, wd, ci = xq.shape
+    co = w.shape[0]
+    kernels.require(xq, "xq", torch.int8)
+    kernels.require(w, "w", torch.int8, (co, 3, 3, ci))
+    kernels.require(scale, "scale", F32, (co,))
+    kernels.require(bias, "bias", F32, (co,))
+    if ci % 16 or co % 2:
+        raise ValueError(f"int8 conv kernel needs Ci % 16 == 0 and even Co, got {ci}, {co}")
+    lib = kernels.library()
+    out = torch.empty((b, h, wd, co), dtype=out_dtype, device=xq.device)
+    with torch.cuda.device(xq.device):
+        splits = kernels.splits(lib.lr_conv3x3_int8_splits(b, h, wd, ci, co), "conv3x3_int8")
+        partial = torch.empty((splits, b * h * wd, co), dtype=torch.int32, device=xq.device) if splits > 1 else None
+        code = lib.lr_conv3x3_int8(
+            xq.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(), b, h, wd, ci, co, splits,
+            int(out_dtype == F32), kernels.stream_of(xq),
+        )
+    kernels.check(code, "conv3x3_int8")
+    conv3x3_int8_op.launches += 1
+    return out
+
+
+conv3x3_int8_op.launches = 0
+
+
+def conv3x3_int8_apply(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The int8 conv site (JAX ``conv3x3_int8``, the caller having checked
+    :func:`conv3x3_int8_qualifies`): x quantized per tensor, then KI1, with
+    the output in x's dtype (bf16, or fp32 for an fp32 model: JAX's kernel
+    takes either).  x [B, H, W, Ci], w OHWI int8, w_scale [Co], bias [Co] fp32."""
+    xq, sx = quantize_activation(x)
+    kernels.note_site("conv3x3_int8", (*x.shape, w.shape[0]))
+    fn = conv3x3_int8_plain if kernels.plain_kernels_active("conv3x3_int8") else conv3x3_int8_op
+    return fn(xq, sx * w_scale, w, bias, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KI2: int8 proj_out GEMM + bias + residual
+
+
+def dense_int8_res_plain(xq, sx, wq, w_scale, bias, res) -> torch.Tensor:
+    """The kernel's plain version: ((acc * sx) * sw + bias) + res in fp32,
+    one cast to bf16.  xq [R, K] int8, sx [R, 1] fp32, wq [N, K] int8,
+    w_scale/bias [N] fp32, res [R, N] bf16."""
+    acc = int_mm(xq, wq)
+    return (acc.to(F32) * sx * w_scale + bias + res.to(F32)).to(torch.bfloat16)
+
+
+def dense_int8_res_op(xq, sx, wq, w_scale, bias, res) -> torch.Tensor:
+    """KI2 on the arguments of :func:`dense_int8_res_plain` -> [R, N] bf16.
+    A CPU tensor runs the plain version; a CUDA tensor launches KI2 or raises."""
+    if not xq.is_cuda:
+        return dense_int8_res_plain(xq, sx, wq, w_scale, bias, res)
+    r, k = xq.shape
+    n = wq.shape[0]
+    kernels.require(xq, "xq", torch.int8)
+    kernels.require(sx, "sx", F32, (r, 1))
+    kernels.require(wq, "wq", torch.int8, (n, k))
+    kernels.require(w_scale, "w_scale", F32, (n,))
+    kernels.require(bias, "bias", F32, (n,))
+    kernels.require(res, "res", torch.bfloat16, (r, n))
+    if k % 16:
+        raise ValueError(f"int8 dense kernel needs K % 16 == 0, got {k}")
+    lib = kernels.library()
+    out = torch.empty((r, n), dtype=torch.bfloat16, device=xq.device)
+    with torch.cuda.device(xq.device):
+        splits = kernels.splits(lib.lr_dense_int8_res_splits(r, k, n), "dense_int8_res")
+        partial = torch.empty((splits, r, n), dtype=torch.int32, device=xq.device) if splits > 1 else None
+        code = lib.lr_dense_int8_res(
+            xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
+            res.data_ptr(), out.data_ptr(), None if partial is None else partial.data_ptr(),
+            r, k, n, splits, kernels.stream_of(xq),
+        )
+    kernels.check(code, "dense_int8_res")
+    dense_int8_res_op.launches += 1
+    return out
+
+
+dense_int8_res_op.launches = 0

@@ -21,6 +21,7 @@ from leftrefill_torch.diffusion.samplers_extra import dpm_solver_pp_2m_sample
 from leftrefill_torch.models.autoencoder import AutoencoderKL, DDConfig
 from leftrefill_torch.models.clip import PromptCLIPEmbedder
 from leftrefill_torch.models.unet import UNetModel
+from leftrefill_torch.ops.quant import quantize_params_like
 
 
 @dataclasses.dataclass
@@ -148,19 +149,40 @@ def fill_random_(model: torch.nn.Module, generator: torch.Generator) -> None:
                 p.copy_(0.02 * n)
 
 
-def build_sd2_inpaint_bundle(
-    device, dtype: torch.dtype = torch.bfloat16, generator: Optional[torch.Generator] = None
-) -> LeftRefillModel:
-    """The full-width SD2-inpainting bundle (865M UNet, f8 VAE, ViT-H text
-    tower with 50 prompt tokens) computing in ``dtype``, every parameter
-    drawn from ``generator``."""
+def _empty_bundle(device, dtype: torch.dtype, quant: bool) -> LeftRefillModel:
     with torch.device("meta"):
         model = LeftRefillModel(
-            unet=UNetModel(dtype=dtype),
+            unet=UNetModel(dtype=dtype, quant=quant),
             vae=AutoencoderKL(DDConfig(), embed_dim=4, dtype=dtype),
             cond_model=PromptCLIPEmbedder(dtype=dtype),
             schedule=sd2_schedule(),
         )
-    model = model.to_empty(device=device)
-    fill_random_(model, generator)
+    return model.to_empty(device=device)
+
+
+def build_sd2_inpaint_bundle(
+    device, dtype: torch.dtype = torch.bfloat16, generator: Optional[torch.Generator] = None,
+    quant: bool = False,
+) -> LeftRefillModel:
+    """The full-width SD2-inpainting bundle (865M UNet, f8 VAE, ViT-H text
+    tower with 50 prompt tokens) computing in ``dtype``, every parameter
+    drawn from ``generator``.
+
+    ``quant=True`` gives the W8A8 int8 UNet (JAX's unfused int8
+    configuration; ``UNetModel``), built as ``bench.py`` builds the JAX one:
+    the fp32 weights are drawn first, exactly as for the fp bundle of the same
+    generator, then the UNet's quantized sites are quantized per output
+    channel (``quantize_params_like``)."""
+    if not quant:
+        model = _empty_bundle(device, dtype, quant=False)
+        fill_random_(model, generator)
+        return model.eval()
+    fp = _empty_bundle(device, torch.float32, quant=False)
+    fill_random_(fp, generator)
+    model = _empty_bundle(device, dtype, quant=True)
+    state = fp.state_dict()
+    unet_q = quantize_params_like(model.unet, fp.unet.state_dict())
+    state.update({"model.diffusion_model." + k: v for k, v in unet_q.items()})
+    del fp
+    model.load_state_dict(state, strict=True)
     return model.eval()

@@ -1,10 +1,10 @@
 """Measurement scripts for the port on one CUDA GPU, and the helpers they
 share with ``chip_smoke.py``.
 
-- ``python -m leftrefill_torch.tools.profile_request``: where the time of a
-  full-width 512x1024 request goes (stage times, a profiled DDIM-50 request
-  with device time by kernel group and the device idle share, and
-  DPM-Solver++(2M) requests).
+- ``python -m leftrefill_torch.tools.profile_request [--int8]``: where the
+  time of a full-width 512x1024 request goes (stage times, a profiled
+  request with device time by kernel group and the device idle share, and
+  DPM-Solver++(2M) requests), on the bf16 or the W8A8 int8 bundle.
 - ``python -m leftrefill_torch.tools.library_baselines``: each hand-written
   kernel against the library path for the same product, at the main path's
   shapes.  The library calls are timed for reference only; none is on the
@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from leftrefill_torch import kernels
-from leftrefill_torch.ops import conv, flash_attention, mlp
+from leftrefill_torch.ops import conv, flash_attention, mlp, quant
 
 # kernel name -> (wrapper, plain version), both taking the arguments of site_args
 KERNEL_FNS = {
@@ -28,9 +28,19 @@ KERNEL_FNS = {
                   lambda *a: flash_attention.flash_forward_plain(*a)[0]),
     "conv3x3": (conv.conv3x3_op, conv.conv3x3_plain),
     "geglu": (mlp.geglu_fused, mlp.geglu_plain),
+    "conv3x3_int8": (quant.conv3x3_int8_op, quant.conv3x3_int8_plain),
+    "dense_int8_res": (quant.dense_int8_res_op, quant.dense_int8_res_plain),
+    "geglu_int8": (mlp.geglu_int8_fused, mlp.geglu_int8_plain),
 }
+# kernel launches per CFG-batch-2 UNet forward at full width (cfg_dup and the
+# cross-attention K/V cache on): the JAX package's Pallas counts on a TPU
+PER_FORWARD_BF16 = {"flash_fwd": 15, "conv3x3": 33, "geglu": 16,
+                    "conv3x3_int8": 0, "dense_int8_res": 0, "geglu_int8": 0}
+PER_FORWARD_INT8 = {"flash_fwd": 15, "conv3x3": 0, "geglu": 0,
+                    "conv3x3_int8": 47, "dense_int8_res": 11, "geglu_int8": 16}
 LAUNCH_COUNTERS = {"flash_fwd": flash_attention.flash_forward, "conv3x3": conv.conv3x3_op,
-                   "geglu": mlp.geglu_fused}
+                   "geglu": mlp.geglu_fused, "conv3x3_int8": quant.conv3x3_int8_op,
+                   "dense_int8_res": quant.dense_int8_res_op, "geglu_int8": mlp.geglu_int8_fused}
 
 
 def card_line() -> str:
@@ -60,8 +70,17 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance between two bf16 tensors in bf16 steps (adjacent
+    representable values are one step apart, across zero included)."""
+    ia, ib = (t.contiguous().view(torch.int16).to(torch.int32) for t in (a, b))
+    ia = torch.where(ia < 0, -32768 - ia, ia)  # sign-magnitude bits -> ordered integers
+    ib = torch.where(ib < 0, -32768 - ib, ib)
+    return int((ia - ib).abs().max())
+
+
 def site_args(name: str, shape: tuple, generator: torch.Generator) -> tuple:
-    """Seeded bf16 arguments on the card for one kernel site, ``shape`` as
+    """Seeded arguments on the card for one kernel site, ``shape`` as
     ``kernels.record_sites`` reports it."""
     bf, dev = torch.bfloat16, "cuda"
 
@@ -75,10 +94,29 @@ def site_args(name: str, shape: tuple, generator: torch.Generator) -> tuple:
         b, h, w, ci, co = shape
         return (randn(b, h, w, ci), randn(co, 3, 3, ci, scale=(9 * ci) ** -0.5),
                 randn(co, scale=0.1, dtype=torch.float32))
-    r, din, inner, dout = shape
-    return (randn(r, din), randn(2 * inner, din, scale=din**-0.5),
-            randn(2 * inner, scale=0.1, dtype=torch.float32),
-            randn(dout, inner, scale=inner**-0.5), randn(dout, scale=0.1, dtype=torch.float32))
+    if name == "geglu":
+        r, din, inner, dout = shape
+        return (randn(r, din), randn(2 * inner, din, scale=din**-0.5),
+                randn(2 * inner, scale=0.1, dtype=torch.float32),
+                randn(dout, inner, scale=inner**-0.5), randn(dout, scale=0.1, dtype=torch.float32))
+    # int8 kernels: seeded bf16 activations and fp32 weights, quantized as the UNet quantizes them
+    f32 = torch.float32
+    if name == "conv3x3_int8":
+        b, h, w, ci, co = shape
+        xq, sx = quant.quantize_activation(randn(b, h, w, ci))
+        wq, sw = quant.quantize_weight(randn(co, 3, 3, ci, scale=(9 * ci) ** -0.5, dtype=f32))
+        return xq, sx * sw, wq, randn(co, scale=0.1, dtype=f32)
+    if name == "dense_int8_res":
+        r, k, n = shape
+        xq, sx = quant.quantize_activation_rowwise(randn(r, k))
+        wq, sw = quant.quantize_weight(randn(n, k, scale=k**-0.5, dtype=f32))
+        return xq, sx, wq, sw, randn(n, scale=0.1, dtype=f32), randn(r, n)
+    r, din, inner, dout, chunk = shape
+    xq, sx = quant.quantize_activation_rowwise(randn(r, din))
+    w1q, s1 = quant.quantize_weight(randn(2 * inner, din, scale=din**-0.5, dtype=f32))
+    w2q, s2 = quant.quantize_weight(randn(dout, inner, scale=inner**-0.5, dtype=f32))
+    return (xq, sx, w1q, s1, randn(2 * inner, scale=0.1, dtype=f32), w2q, s2,
+            randn(dout, scale=0.1, dtype=f32), chunk)
 
 
 def unet_inputs(generator: torch.Generator):
@@ -113,8 +151,8 @@ def request_canvas(seed: int = 0):
 
 
 def serving_pipeline(model, sampler: str = "ddim", steps: int = 50):
-    """The 1-reference pipeline on the card with 50 prompt tokens, CFG 2.5,
-    eta 1."""
+    """The 1-reference pipeline on the card with 50 prompt tokens, CFG 2.5
+    (and eta 1 for DDIM)."""
     from leftrefill_torch.models.clip import build_prompt_tokenizer
     from leftrefill_torch.pipeline import RefInpaintPipeline
 

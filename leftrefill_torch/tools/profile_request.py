@@ -1,21 +1,23 @@
 """Where the time of one full-width 512x1024 request goes, on one CUDA GPU.
 
-    python -m leftrefill_torch.tools.profile_request [--json PATH]
+    python -m leftrefill_torch.tools.profile_request [--int8] [--json PATH]
 
 The bundle is the full-width SD2-inpainting one (``build_sd2_inpaint_bundle``,
-random weights from seed 0), bf16, CFG 2.5, batch 1.  It prints, and writes
-to PATH as one JSON object:
+random weights from seed 0), bf16, CFG 2.5, batch 1; ``--int8`` takes its
+W8A8 int8 twin (the same weights quantized, ``quant=True``).  It prints, and
+writes to PATH as one JSON object:
 
 1. stage times: VAE encode, the text tower for [uncond; cond], the
    cross-attention K/V, one CFG-batch-2 UNet forward and VAE decode (host
    clock around synchronised calls, median of 5 after a warm-up);
-2. one DDIM-50 request timed without the profiler, then the same request
+2. one request (bf16: DDIM-50; int8: DPM-Solver++(2M) 15 steps, its serving
+   configuration) timed without the profiler, then the same request
    under ``torch.profiler`` (after a profiled warm-up request, which absorbs
    the tracer's start-up): the sum of device time (kernels, copies,
    memsets; one stream, so they do not overlap), the device idle share
-   1 - device/wall against both wall times, device time by group (K1, K2,
-   K3, cuDNN convs, cuBLAS GEMMs, everything else) and the largest kernels
-   by name;
+   1 - device/wall against both wall times, device time by group (K1-K3,
+   KI1-KI3, cuDNN convs, cuBLAS GEMMs, everything else) and the largest
+   kernels by name;
 3. DPM-Solver++(2M) requests at 15 and 50 steps: seconds per request (two
    each, after a warm-up), kernel launches per UNet call, and the left half
    of each canvas checked against the input.
@@ -37,12 +39,14 @@ from leftrefill_torch import tools
 from leftrefill_torch.diffusion.core import Conditioning
 from leftrefill_torch.pipeline import build_sd2_inpaint_bundle
 
-PER_FORWARD = {"conv3x3": 33, "flash_fwd": 15, "geglu": 16}
 # device-time groups, tried in order on each kernel's name
 GROUPS = (
     ("K1 flash_fwd", r"flash_fwd_kernel"),
     ("K2 conv3x3", r"conv3x3_kernel"),
     ("K3 geglu", r"geglu_(reduce_)?kernel"),
+    ("KI1 conv3x3_int8", r"conv3x3_int8_"),
+    ("KI2 dense_int8_res", r"dense_int8_res_"),
+    ("KI3 geglu_int8", r"geglu_int8_"),
     ("cuDNN conv", r"fprop|conv|cudnn"),
     ("cuBLAS GEMM", r"gemm|nvjet|cublas|cutlass|splitK"),
 )
@@ -129,7 +133,7 @@ def profiled_request(pipe, image, mask) -> dict:
     }
 
 
-def dpm_requests(model, image, mask) -> dict:
+def dpm_requests(model, image, mask, per_forward: dict) -> dict:
     img = torch.as_tensor(image, device="cuda")
     out = {}
     for steps in (15, 50):
@@ -147,7 +151,7 @@ def dpm_requests(model, image, mask) -> dict:
                 raise SystemExit(f"dpm++2m {steps} steps: non-finite output or left half changed")
         calls = 2 * steps  # one CFG-doubled UNet call per step, two requests
         per_call = {n: c / calls for n, c in tools.launches().items()}
-        if per_call != PER_FORWARD:
+        if per_call != per_forward:
             raise SystemExit(f"dpm++2m {steps} steps: launches per UNet call {per_call}")
         out[f"steps_{steps}"] = {"seconds_per_request": secs, "launches_per_unet_call": per_call}
     return out
@@ -155,25 +159,31 @@ def dpm_requests(model, image, mask) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--int8", action="store_true", help="profile the W8A8 int8 bundle")
     ap.add_argument("--json", help="also write the result to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_request: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    result = {"card": tools.card_line(), "torch": torch.__version__, "cuda": torch.version.cuda}
+    result = {"card": tools.card_line(), "torch": torch.__version__, "cuda": torch.version.cuda,
+              "bundle": "int8" if args.int8 else "bf16"}
     print(result["card"])
-    model = build_sd2_inpaint_bundle("cuda", torch.bfloat16, torch.Generator("cuda").manual_seed(0))
+    model = build_sd2_inpaint_bundle("cuda", torch.bfloat16, torch.Generator("cuda").manual_seed(0),
+                                     quant=args.int8)
     image, mask = tools.request_canvas()
-    pipe = tools.serving_pipeline(model)
+    sampler, steps = ("dpm++2m", 15) if args.int8 else ("ddim", 50)
+    pipe = tools.serving_pipeline(model, sampler=sampler, steps=steps)
     with torch.inference_mode():
         result["stages"] = stage_times(model, pipe, image, mask)
     print("stages", json.dumps(result["stages"]))
     pipe(image, mask, torch.Generator("cuda").manual_seed(99))  # warm-up request
     torch.cuda.synchronize()
-    result["ddim50_profiled"] = profiled_request(pipe, image, mask)
-    print("ddim50 profiled", json.dumps(result["ddim50_profiled"]))
-    result["dpm"] = dpm_requests(model, image, mask)
+    key = f"{sampler}{steps}_profiled"
+    result[key] = profiled_request(pipe, image, mask)
+    print(key, json.dumps(result[key]))
+    per_forward = tools.PER_FORWARD_INT8 if args.int8 else tools.PER_FORWARD_BF16
+    result["dpm"] = dpm_requests(model, image, mask, per_forward)
     print("dpm++2m", json.dumps(result["dpm"]))
     if args.json:
         with open(args.json, "w") as f:

@@ -15,9 +15,12 @@ Tolerances used across the port tests, with their reasons:
 
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from leftrefill_torch.convert.from_jax import state_dict_from_flax
@@ -69,6 +72,32 @@ def load_port(module: torch.nn.Module, root: str, params) -> torch.nn.Module:
 def rel_err(got, ref) -> float:
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def rel_l2(got, ref) -> float:
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30))
+
+
+@contextlib.contextmanager
+def int8_activations_off():
+    """The control of the int8 parity tests: inside, every int8 site of the
+    port multiplies its unquantized activation (fp32 values, scale 1) by the
+    dequantized weight, as an arm that quantized weights only would.  A
+    bound that this control also meets cannot tell a sound int8 arm from
+    that fault."""
+    from leftrefill_torch.ops import mlp, quant
+
+    def matmul(a, b_t):
+        return a.float() @ b_t.float().t()
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(quant, "quantize_activation", lambda x: (x.float(), torch.ones((), dtype=torch.float32)))
+        m.setattr(quant, "quantize_activation_rowwise",
+                  lambda x: (x.float(), torch.ones((*x.shape[:-1], 1), dtype=torch.float32)))
+        m.setattr(quant, "int_mm", matmul)
+        m.setattr(mlp, "int_mm", matmul)
+        yield
 
 
 def t(x) -> torch.Tensor:
