@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Phases, one line each (phase 2 one line per kernel shape):
+Phases, one line each (the kernel phases one line per kernel shape):
 1. set-up: the card's name and power limit, versions, the kernel build;
 2. each bf16 kernel (K1 flash forward, K2 3x3 conv, K3 fused GEGLU) at every
    shape one full-width bf16 UNet forward gives it, against its plain
-   PyTorch version (relative L2 <= 1e-2), timed with CUDA events; then the
-   flash kernel's head-dim-128 instantiation, off the main path;
+   PyTorch version (relative L2 <= 1e-2), timed with CUDA events beside its
+   bound and the library call where one exists; then the flash kernel's
+   head-dim-128 instantiation, off the main path;
 3. one full-width bf16 UNet forward (CFG batch 2, 64x128 latent, cfg_dup
    and the cross-attention K/V cache on) through the kernels against the
    same forward through the plain versions (relative L2 <= 3e-2);
@@ -16,23 +17,53 @@ Phases, one line each (phase 2 one line per kernel shape):
    each with its own seed) on the full-width SD2-inpainting bundle with
    random weights; the outputs are checked and the kernel launch counts must
    be 33 conv, 15 flash and 16 GEGLU per UNet forward;
-2i. the W8A8 int8 bundle (the same fp weights, quantized): each int8 kernel
-   (KI1 3x3 conv, KI2 proj_out GEMM + residual, KI3 GEGLU) at every shape
-   one full-width int8 forward gives it, against its plain version, each
-   within 1 bf16 ulp per element, timed (K1's sites in that forward are
-   phase 2's); then KI1's fp32 output arm, off the main path, equal to its
-   plain version;
-3i. one full-width int8 UNet forward through the kernels against the same
+2i. JAX's unfused int8 configuration (``fused=False``, the same fp weights
+   quantized): each int8 kernel (KI1 3x3 conv, KI2 proj_out GEMM + residual,
+   KI3 GEGLU) at every shape one full-width int8 forward gives it, against
+   its plain version, each within 1 bf16 ulp per element, timed; then KI1's
+   fp32 output arm, off the main path, equal to its plain version;
+3i. that full-width int8 forward through the kernels against the same
    forward with KI1-KI3 through their plain versions (relative L2 <= 3e-2;
-   K1 stays on its kernel in both, phase 3 holds it to its plain version),
-   and, for information, against the forward with every kernel plain and
-   against the bf16 forward of phase 3;
-5. int8 serving: two 512x1024 requests (DPM-Solver++(2M) 15 steps, CFG 2.5,
-   batch 1, each with its own seed) after a warm-up request, checked as in
-   phase 4, with 47 KI1, 11 KI2, 16 KI3, 15 K1 and no K2 or K3 launches per
-   UNet forward.
-The line before the last is a JSON summary of the six kernels; the last line
-is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
+   K1 stays on its kernel in both), and, for information, against the
+   forward with every kernel plain and against the bf16 forward of phase 3;
+5. unfused int8 serving: two 512x1024 requests (DPM-Solver++(2M) 15 steps,
+   CFG 2.5, batch 1) after a warm-up request, checked as in phase 4, with 47
+   KI1, 11 KI2, 16 KI3 and 15 K1 launches per UNet forward;
+2f. JAX's default int8 configuration (the fused prologues, the same int8
+   weights): K4 (GN affine + SiLU + quantize), K7 (LayerNorm + per-row
+   quantize) and K8 (GN affine + per-pixel quantize) at every shape one
+   full-width fused int8 forward gives them, against their plain versions
+   (int8 values at most one step apart on at most 1e-3 of the elements,
+   scales within 8 fp32 ulps, a bf16 output within one bf16 ulp of its
+   largest value), timed;
+   then K7 and K8 with their bf16 output, off the main path;
+3f. that fused forward with K4, K7 and K8 against the same forward with the
+   three routed to their plain versions (KI1-KI3 and K1 on their kernels in
+   both), block by block with each block fed the kernels' input to it:
+   every block within 2e-2 of its max|out|, the transformers together
+   within 3e-3 rel L2 (end to end within 3e-2 where every block is equal);
+   for information the end-to-end difference and the fused against the
+   unfused forward;
+5f. fused int8 serving: two 512x1024 DPM-Solver++(2M)-15 requests after a
+   warm-up, checked as in phase 5, with 44 K4, 47 KI1, 48 K7, 16 K8, 11
+   KI2, 16 KI3 and 15 K1 launches per UNet forward;
+2m. the flash kernel at the multi-view joint self-attention shapes (64x64
+   views, CFG 2 scene rows): V=4, 16384 tokens (the JAX package's
+   streaming-K/V kernel K11 takes it) and V=2, 8192 tokens, against the
+   query-chunked plain version (relative L2 <= 1e-2), timed;
+3m. one full-width V=4 multi-view bf16 UNet forward (8 rows of 64x64
+   views, the K/V cache on, no cfg_dup): its 16 flash (five at 16384
+   tokens), 33 conv and 16 GEGLU sites, each kernel at each of their shapes
+   against its plain version as in phase 2, then the forward through the
+   kernels against the plain versions (relative L2 <= 3e-2);
+6. multi-view serving: V=4 scenes of 512x512 views (DDIM-50, eta 1, CFG
+   2.5), a short warm-up scene, then two scenes with their own seeds: finite
+   output, the unmasked views and view 0 outside its hole returned as they
+   were, different outputs for different seeds, and the launch counts of
+   phase 3m per forward; seconds per scene.
+The line before the last is a JSON summary of the nine kernels; the last
+line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
+before them.
 """
 
 from __future__ import annotations
@@ -49,54 +80,111 @@ REL_L2 = {"flash_fwd": 1e-2, "conv3x3": 1e-2, "geglu": 1e-2}  # kernel vs plain
 # the same erff, so the requant of h agrees too); 1 ulp leaves room for a
 # contracted multiply-add, which the kernels avoid
 ULPS = {"conv3x3_int8": 1, "dense_int8_res": 1, "geglu_int8": 1}
+# the fused prologues: K4 and K8 repeat their plain versions' fp32 operations,
+# K7 sums each row in another order than PyTorch's reductions, which moves
+# its mean and scale by a few ulps and a normalized value near zero by many
+# of its own (tiny) ulps: int8 values at most one step apart on at most 1e-3
+# of them, scales within 8 fp32 ulps, the bf16 output within one bf16 ulp of
+# its largest value
+STEP_SHARE, SCALE_ULPS, NORM_MAX_REL = 1e-3, 8, 2.0**-8
 BF16_NAMES, INT8_NAMES = ("flash_fwd", "conv3x3", "geglu"), ("conv3x3_int8", "dense_int8_res", "geglu_int8")
+PROLOGUES = ("affine_silu_quant", "ln_quant", "gn_quant")
 UNET_REL_L2 = 3e-2  # 16 transformer blocks and 22 res blocks of rounding
+BLOCK_MAX_REL, TRANSFORMERS_L2 = 2e-2, 3e-3  # teacher-forced blocks (tests/test_torch_quant_unet_fused.py)
+VIEWS = 4
 KERNELS = {
-    "flash_fwd": ("leftrefill_torch/csrc/flash_fwd.cu", "leftrefill_tpu/ops/flash_attention.py:211"),
+    "flash_fwd": ("leftrefill_torch/csrc/flash_fwd.cu",
+                  "leftrefill_tpu/ops/flash_attention.py:211 (K1) and leftrefill_tpu/ops/flash_attention.py:252 (K11)"),
     "conv3x3": ("leftrefill_torch/csrc/conv3x3.cu", "leftrefill_tpu/ops/conv.py:181"),
     "geglu": ("leftrefill_torch/csrc/geglu.cu", "leftrefill_tpu/ops/mlp.py:86"),
     "conv3x3_int8": ("leftrefill_torch/csrc/conv3x3_int8.cu",
                      "leftrefill_tpu/ops/quant.py:390 and leftrefill_tpu/ops/quant.py:277"),
     "dense_int8_res": ("leftrefill_torch/csrc/dense_int8_res.cu", "leftrefill_tpu/ops/quant.py:106"),
     "geglu_int8": ("leftrefill_torch/csrc/geglu_int8.cu", "leftrefill_tpu/ops/mlp.py:204"),
+    "affine_silu_quant": ("leftrefill_torch/csrc/quant_prologue.cu", "leftrefill_tpu/ops/quant.py:603"),
+    "ln_quant": ("leftrefill_torch/csrc/quant_prologue.cu", "leftrefill_tpu/ops/quant.py:682"),
+    "gn_quant": ("leftrefill_torch/csrc/quant_prologue.cu", "leftrefill_tpu/ops/quant.py:758"),
 }
 
 
-def check_kernels(unet, x, tsteps, ctx, kv, gen, report: dict, label: str, names) -> None:
-    """Every site of the kernels ``names`` in one forward, kernel against
-    plain version, timed."""
+def compare(name: str, got, ref) -> tuple[str, float]:
+    """Hold one kernel output to its plain version's; returns (the bound's
+    reading, max abs difference) or exits."""
+    import torch
+
+    from leftrefill_torch.tools import bf16_ulps, rel_l2
+
+    if name in PROLOGUES:
+        (gn, gq, gs), (rn, rq, rs) = (o if isinstance(o, tuple) else (None, o, None) for o in (got, ref))
+        steps = (gq.to(torch.int32) - rq.to(torch.int32)).abs()
+        share = float((steps > 0).float().mean())
+        if int(steps.max()) > 1 or share > STEP_SHARE:
+            raise SystemExit(f"{name}: int8 values {int(steps.max())} steps apart on {share:.2e} of them")
+        reading = f"steps<=1 on {share:.2e}"
+        if gs is not None:
+            ulp = torch.nextafter(rs.abs(), torch.full_like(rs, float("inf"))) - rs.abs()
+            ulps = float(((gs - rs).abs() / ulp).max())
+            if ulps > SCALE_ULPS:
+                raise SystemExit(f"{name}: scales {ulps:.0f} ulps apart")
+            reading += f" scale_ulps={ulps:.0f}"
+        if gn is not None:
+            d = float((gn.float() - rn.float()).abs().max() / rn.float().abs().max())
+            if d > NORM_MAX_REL:
+                raise SystemExit(f"{name}: bf16 output {d:.3e} of its max apart ({bf16_ulps(gn, rn)} ulps)")
+            reading += f" norm_max_rel={d:.3e} norm_ulps={bf16_ulps(gn, rn)}"
+        return reading, float(steps.max())
+    if not torch.isfinite(got).all():
+        raise SystemExit(f"{name}: non-finite output")
+    err, mae = rel_l2(got, ref), float((got.float() - ref.float()).abs().max())
+    if name in ULPS:
+        ulps = bf16_ulps(got, ref)
+        if ulps > ULPS[name]:
+            raise SystemExit(f"{name}: {ulps} bf16 ulps from the plain version > {ULPS[name]}")
+        return f"ulps={ulps} rel_l2={err:.3e}", mae
+    if err > REL_L2[name]:
+        raise SystemExit(f"{name}: rel L2 {err:.3e} > {REL_L2[name]}")
+    return f"rel_l2={err:.3e}", mae
+
+
+def check_site(name: str, shape: tuple, gen, n_sites: int, report: dict, label: str) -> None:
+    """One kernel site: kernel against plain version, both timed with the
+    library call where one exists, the bound beside them."""
     import torch
 
     from leftrefill_torch import tools
-    from leftrefill_torch.tools import bf16_ulps, cuda_ms, rel_l2
+    from leftrefill_torch.tools import cuda_ms
 
-    for (name, shape), n_sites in sorted(tools.unet_sites(unet, x, tsteps, ctx, kv).items()):
-        if name not in names:
-            continue
-        site = tools.site_args(name, shape, gen)
-        run, plain = (functools.partial(fn, *site) for fn in tools.KERNEL_FNS[name])
-        got, ref = run(), plain()
-        torch.cuda.synchronize()
-        err, mae = rel_l2(got, ref), float((got.float() - ref.float()).abs().max())
-        if not torch.isfinite(got).all():
-            raise SystemExit(f"{name} {shape}: non-finite output")
-        if name in ULPS:
-            ulps = bf16_ulps(got, ref)
-            if ulps > ULPS[name]:
-                raise SystemExit(f"{name} {shape}: {ulps} bf16 ulps from the plain version > {ULPS[name]}")
-            bound = f"ulps={ulps}"
-        elif err <= REL_L2[name]:
-            bound = f"rel_l2={err:.3e}"
-        else:
-            raise SystemExit(f"{name} {shape}: rel L2 {err:.3e} > {REL_L2[name]}")
-        ms, plain_ms = cuda_ms(run, 20), cuda_ms(plain, 5)
-        print(f"phase {label} {name} shape={shape} sites={n_sites} {bound} rel_l2={err:.3e} "
-              f"max_abs_err={mae:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
-        r = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "sites": 0})
-        r["max_abs_err"] = max(r["max_abs_err"], mae)
-        r["ms"] += n_sites * ms
-        r["plain_ms"] += n_sites * plain_ms
-        r["sites"] += n_sites
+    site = tools.site_args(name, shape, gen)
+    run, plain = (functools.partial(fn, *site) for fn in tools.KERNEL_FNS[name])
+    got, ref = run(), plain()
+    torch.cuda.synchronize()
+    reading, mae = compare(name, got, ref)
+    ms, plain_ms = cuda_ms(run, 20), cuda_ms(plain, 5)
+    library = tools.library_fn(name, site)
+    library_ms = None if library is None else cuda_ms(library, 20)
+    bound, bound_by = tools.bound_ms(name, shape)
+    print(f"phase {label} {name} shape={shape} sites={n_sites} {reading} max_abs_err={mae:.3e} "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({bound_by}) "
+          f"library_ms={'none' if library_ms is None else f'{library_ms:.4f}'}")
+    r = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                 "library_ms": None if library_ms is None else 0.0, "sites": 0,
+                                 "bound_ops_ms": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], mae)
+    r["ms"] += n_sites * ms
+    r["plain_ms"] += n_sites * plain_ms
+    r["bound_ms"] += n_sites * bound
+    r["bound_ops_ms"] += n_sites * bound * (bound_by == "operations")
+    if library_ms is not None:
+        r["library_ms"] += n_sites * library_ms
+    r["sites"] += n_sites
+
+
+def check_kernels(sites: dict, gen, report: dict, label: str, names) -> None:
+    """Every site of the kernels ``names`` in one forward's ``sites``
+    ({(kernel, shape): launches}, from ``tools.unet_sites``)."""
+    for (name, shape), n_sites in sorted(sites.items()):
+        if name in names:
+            check_site(name, shape, gen, n_sites, report, label)
 
 
 def check_sites(report: dict, per_forward: dict, label: str) -> None:
@@ -106,7 +194,7 @@ def check_sites(report: dict, per_forward: dict, label: str) -> None:
             raise SystemExit(f"{label} {name}: {got} sites per forward, expected {n}")
 
 
-def check_forward(unet, x, tsteps, ctx, kv, label: str, names):
+def check_forward(unet, x, tsteps, ctx, kv, label: str, names, cfg_dup: bool = True):
     """One full-width forward through the kernels against the same forward
     with the kernels ``names`` routed to their plain versions."""
     import torch
@@ -114,16 +202,51 @@ def check_forward(unet, x, tsteps, ctx, kv, label: str, names):
     from leftrefill_torch import kernels
     from leftrefill_torch.tools import cuda_ms, rel_l2
 
-    fwd = lambda: unet(x, tsteps, ctx, cross_kv=kv, cfg_dup=True)
+    fwd = lambda: unet(x, tsteps, ctx, cross_kv=kv, cfg_dup=cfg_dup)
     out_k = fwd()
     with kernels.plain_kernels(names):
         out_p = fwd()
         plain_fwd_ms = cuda_ms(fwd, 1)
     kern_fwd_ms = cuda_ms(fwd, 3)
     err = rel_l2(out_k, out_p)
-    if not (out_k.shape == (2, 64, 128, 4) and torch.isfinite(out_k).all() and err <= UNET_REL_L2):
+    if not (out_k.shape == (*x.shape[:3], 4) and torch.isfinite(out_k).all() and err <= UNET_REL_L2):
         raise SystemExit(f"{label} UNet forward: rel L2 {err:.3e} > {UNET_REL_L2} or bad output")
     return out_k, out_p, err, kern_fwd_ms, plain_fwd_ms
+
+
+def teacher_forced(unet, fwd, names) -> tuple[dict, float]:
+    """The forward through the kernels, then through the plain versions of
+    ``names`` with every top-level block's output replaced by the kernels'
+    run's, so each block is fed the kernels' input to it and its difference
+    is its own.  Returns ({block: (kind, rel L2, max abs / max|out|,
+    ||out||)}, end-to-end rel L2 of the two free-running forwards)."""
+    from leftrefill_torch import kernels
+    from leftrefill_torch.tools import rel_l2
+
+    blocks = {f"{part}.{i}.{j}": m for part, seq in (("input_blocks", unet.input_blocks),
+                                                      ("middle_block", [unet.middle_block]),
+                                                      ("output_blocks", unet.output_blocks))
+              for i, layers in enumerate(seq) for j, m in enumerate(layers)}
+    outs, errs = {}, {}
+    hooks = [m.register_forward_hook(lambda mod, i, o, k=k: outs.__setitem__(k, o)) for k, m in blocks.items()]
+    out_k = fwd()
+    for h in hooks:
+        h.remove()
+
+    def force(mod, inputs, o, k):
+        want = outs[k]
+        errs[k] = (type(mod).__name__, rel_l2(o, want),
+                   float((o.float() - want.float()).abs().max() / want.float().abs().max()), float(want.float().norm()))
+        return want
+
+    hooks = [m.register_forward_hook(functools.partial(force, k=k)) for k, m in blocks.items()]
+    with kernels.plain_kernels(names):
+        fwd()
+    for h in hooks:
+        h.remove()
+    with kernels.plain_kernels(names):
+        out_p = fwd()
+    return errs, rel_l2(out_k, out_p)
 
 
 def serve(model, sampler: str, steps: int, per_forward: dict, label: str) -> dict:
@@ -154,11 +277,48 @@ def serve(model, sampler: str, steps: int, per_forward: dict, label: str) -> dic
             raise SystemExit(f"{label}: left half of the canvas is not the input")
     if torch.equal(outs[0], outs[1]):
         raise SystemExit(f"{label}: two seeds gave the same canvas")
+    check_launches(launches, per_forward, forwards, label)
+    print(f"{label}: seconds_per_request={[round(s, 3) for s in secs]} launches={launches} "
+          f"unet_forwards={forwards}")
+    return launches
+
+
+def check_launches(launches: dict, per_forward: dict, forwards: int, label: str) -> None:
     for name, n in per_forward.items():
         if launches[name] != n * forwards:
             raise SystemExit(f"{label}: {name} {launches[name]} launches, expected {n} x {forwards}")
-    print(f"{label}: seconds_per_request={[round(s, 3) for s in secs]} launches={launches} "
-          f"unet_forwards={forwards}")
+
+
+def serve_multiview(model, per_forward: dict, label: str) -> dict:
+    """A short warm-up scene, then two V-view scenes of DDIM-50 with their
+    own seeds; outputs and launch counts per forward checked."""
+    import torch
+
+    from leftrefill_torch import tools
+
+    images, masks = tools.multiview_scene(VIEWS)
+    tools.multiview_pipeline(model, VIEWS, steps=2)(images, masks, torch.Generator("cuda").manual_seed(99))
+    torch.cuda.synchronize()
+    pipe = tools.multiview_pipeline(model, VIEWS, steps=50)
+    tools.reset_launches()
+    outs, secs = [], []
+    for seed in (1, 2):
+        t0 = time.perf_counter()
+        outs.append(pipe(images, masks, torch.Generator("cuda").manual_seed(seed)))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = tools.launches()
+    img, keep = torch.as_tensor(images, device="cuda"), torch.as_tensor(masks, device="cuda") == 0
+    for o in outs:
+        if o.shape != images.shape or not torch.isfinite(o).all():
+            raise SystemExit(f"{label}: scene output has the wrong shape or is not finite")
+        if not torch.equal(o[keep.expand_as(o)], img[keep.expand_as(img)]):
+            raise SystemExit(f"{label}: a view changed where its mask is 0")
+    if torch.equal(outs[0], outs[1]):
+        raise SystemExit(f"{label}: two seeds gave the same views")
+    check_launches(launches, per_forward, 2 * pipe.ddim_steps, label)
+    print(f"{label}: seconds_per_scene={[round(s, 3) for s in secs]} launches={launches} "
+          f"unet_forwards={2 * pipe.ddim_steps}")
     return launches
 
 
@@ -195,20 +355,18 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(1)
     x, tsteps, ctx = tools.unet_inputs(gen)
     report = {}
+    launches = {}
 
     # ---- phase 2: each bf16 kernel at the UNet forward's own shapes --------
     with torch.inference_mode():
         kv = unet.cross_kv(ctx)
-        check_kernels(unet, x, tsteps, ctx, kv, gen, report, "2", BF16_NAMES)
+        check_kernels(tools.unet_sites(unet, x, tsteps, ctx, kv, True), gen, report, "2", BF16_NAMES)
         # the flash kernel's other instantiation, off the main path: head dim 128
         shape = (2, 5, 1024, 1024, 128)
         site = tools.site_args("flash_fwd", shape, gen)
         run, plain = (functools.partial(fn, *site) for fn in tools.KERNEL_FNS["flash_fwd"])
-        got, ref = run(), plain()
-        err = rel_l2(got, ref)
-        if not err <= REL_L2["flash_fwd"]:
-            raise SystemExit(f"flash_fwd {shape}: rel L2 {err:.3e} > {REL_L2['flash_fwd']}")
-        print(f"phase 2 flash_fwd shape={shape} (off the main path) rel_l2={err:.3e} "
+        reading, _ = compare("flash_fwd", run(), plain())
+        print(f"phase 2 flash_fwd shape={shape} (off the main path) {reading} "
               f"kernel_ms={cuda_ms(run, 5):.4f} plain_ms={cuda_ms(plain, 5):.4f}")
         check_sites(report, {n: tools.PER_FORWARD_BF16[n] for n in BF16_NAMES}, "bf16")
 
@@ -218,22 +376,22 @@ def main() -> int:
               f"kernels_ms={kern_ms:.2f} plain_versions_ms={plain_ms:.2f}")
 
     # ---- phase 4: serving two 512x1024 bf16 requests -----------------------
-    launches_bf16 = serve(model, "ddim", 50, tools.PER_FORWARD_BF16,
-                          "phase 4 serving 512x1024 bf16 ddim50 eta1 cfg2.5 b1")
+    launches["bf16_ddim50"] = serve(model, "ddim", 50, tools.PER_FORWARD_BF16,
+                                    "phase 4 serving 512x1024 bf16 ddim50 eta1 cfg2.5 b1")
     del model, unet, kv
 
-    # ---- phase 2i: the int8 bundle's kernels at their own shapes -----------
+    # ---- phase 2i: the unfused int8 UNet's kernels at their own shapes -----
     t0 = time.perf_counter()
     qmodel = build_sd2_inpaint_bundle("cuda", torch.bfloat16, torch.Generator("cuda").manual_seed(0), quant=True)
+    umodel = tools.unfused_twin(qmodel)
     torch.cuda.synchronize()
     print(f"phase 2i int8 bundle: the seed-0 fp32 weights quantized per output channel "
-          f"in {time.perf_counter() - t0:.1f} s")
-    qunet = qmodel.unet
-    report_int8 = {}
+          f"in {time.perf_counter() - t0:.1f} s; fused and unfused UNets on the same int8 weights")
+    qunet, uunet = qmodel.unet, umodel.unet
     with torch.inference_mode():
-        qkv = qunet.cross_kv(ctx)
-        check_kernels(qunet, x, tsteps, ctx, qkv, gen, report_int8, "2i", INT8_NAMES)
-        check_sites(report_int8, {n: tools.PER_FORWARD_INT8[n] for n in INT8_NAMES}, "int8")
+        qkv = uunet.cross_kv(ctx)
+        check_kernels(tools.unet_sites(uunet, x, tsteps, ctx, qkv, True), gen, report, "2i", INT8_NAMES)
+        check_sites(report, {n: tools.PER_FORWARD_INT8_UNFUSED[n] for n in INT8_NAMES}, "int8")
         # KI1's fp32 output arm (an fp32 int8 model), off the main path
         shape = (2, 32, 64, 640, 640)
         site = (*tools.site_args("conv3x3_int8", shape, gen), torch.float32)
@@ -245,32 +403,113 @@ def main() -> int:
         print(f"phase 2i conv3x3_int8 fp32 shape={shape} (off the main path) equal to the plain version "
               f"kernel_ms={cuda_ms(run, 20):.4f} plain_ms={cuda_ms(plain, 5):.4f}")
 
-        # ---- phase 3i: the full-width int8 UNet forward, kernels vs plain --
+        # ---- phase 3i: the full-width unfused int8 forward, kernels vs plain
         # the int8 kernels routed to their plain versions, K1 on its kernel in
         # both forwards: any rounding difference (K1's ~2e-4 a call) moves
         # int8 values by a step, which the following quantized stages spread
         # to the int8 noise level; with K1 routed too the difference is shown
-        out_int8, _, err, kern_ms, plain_ms = check_forward(
-            qunet, x, tsteps, ctx, qkv, "int8", ("conv3x3_int8", "dense_int8_res", "geglu_int8"))
+        out_unfused, _, err, kern_ms, plain_ms = check_forward(uunet, x, tsteps, ctx, qkv, "int8", INT8_NAMES)
         with kernels.plain_kernels():
-            out_all_plain = qunet(x, tsteps, ctx, cross_kv=qkv, cfg_dup=True)
-        print(f"phase 3i unet forward [2,64,128,9] int8 cfg_dup cross_kv: rel_l2={err:.3e} "
+            out_all_plain = uunet(x, tsteps, ctx, cross_kv=qkv, cfg_dup=True)
+        print(f"phase 3i unet forward [2,64,128,9] int8 unfused cfg_dup cross_kv: rel_l2={err:.3e} "
               f"kernels_ms={kern_ms:.2f} plain_versions_ms={plain_ms:.2f}; for information: "
-              f"rel_l2_with_k1_plain_too={rel_l2(out_int8, out_all_plain):.3e} "
-              f"rel_l2_vs_bf16_forward={rel_l2(out_int8, out_bf16):.3e}")
-        del out_int8, out_bf16, out_all_plain, qkv
+              f"rel_l2_with_k1_plain_too={rel_l2(out_unfused, out_all_plain):.3e} "
+              f"rel_l2_vs_bf16_forward={rel_l2(out_unfused, out_bf16):.3e}")
+        del out_all_plain
 
-    # ---- phase 5: serving two 512x1024 int8 requests -----------------------
-    launches_int8 = serve(qmodel, "dpm++2m", 15, tools.PER_FORWARD_INT8,
-                          "phase 5 serving 512x1024 int8 dpm++2m15 cfg2.5 b1")
+    # ---- phase 5: serving two 512x1024 unfused int8 requests ---------------
+    launches["int8_unfused_dpm15"] = serve(umodel, "dpm++2m", 15, tools.PER_FORWARD_INT8_UNFUSED,
+                                           "phase 5 serving 512x1024 int8 unfused dpm++2m15 cfg2.5 b1")
+    del umodel, uunet
+
+    # ---- phase 2f: the fused prologues at the fused forward's shapes -------
+    with torch.inference_mode():
+        check_kernels(tools.unet_sites(qunet, x, tsteps, ctx, qkv, True), gen, report, "2f", PROLOGUES)
+        check_sites(report, {n: tools.PER_FORWARD_INT8[n] for n in PROLOGUES}, "int8 fused")
+        # K7 and K8 writing their bf16 output too, off the main path
+        for name, shape in (("ln_quant", (16384, 320, True)), ("gn_quant", (2, 64, 128, 320, True))):
+            site = tools.site_args(name, shape, gen)
+            run, plain = (functools.partial(fn, *site) for fn in tools.KERNEL_FNS[name])
+            reading, _ = compare(name, run(), plain())
+            print(f"phase 2f {name} shape={shape} (off the main path) {reading} "
+                  f"kernel_ms={cuda_ms(run, 20):.4f} plain_ms={cuda_ms(plain, 5):.4f}")
+
+        # ---- phase 3f: the fused forward, K4/K7/K8 vs their plain versions --
+        fwd = lambda: qunet(x, tsteps, ctx, cross_kv=qkv, cfg_dup=True)
+        errs, e2e = teacher_forced(qunet, fwd, PROLOGUES)
+        worst = max(errs.items(), key=lambda kv_: kv_[1][2])
+        st = [e for e in errs.values() if e[0] == "SpatialTransformer"]
+        st_l2 = (sum((e[1] * e[3]) ** 2 for e in st) / sum(e[3] ** 2 for e in st)) ** 0.5
+        exact = all(e[1] == 0 for e in errs.values())
+        if worst[1][2] > BLOCK_MAX_REL or st_l2 > TRANSFORMERS_L2 or (exact and e2e > UNET_REL_L2):
+            raise SystemExit(f"phase 3f: block {worst[0]} max rel {worst[1][2]:.3e} > {BLOCK_MAX_REL}, or the "
+                             f"transformers' rel L2 {st_l2:.3e} > {TRANSFORMERS_L2}, or end to end {e2e:.3e}")
+        out_fused = fwd()
+        kern_ms = cuda_ms(fwd, 3)
+        print(f"phase 3f unet forward [2,64,128,9] int8 fused cfg_dup cross_kv, teacher-forced blocks "
+              f"({len(errs)}): max_block_max_rel={worst[1][2]:.3e} ({worst[0]}) transformers_rel_l2={st_l2:.3e} "
+              f"blocks_equal={sum(e[1] == 0 for e in errs.values())}/{len(errs)} kernels_ms={kern_ms:.2f}; "
+              f"for information: rel_l2_end_to_end={e2e:.3e} rel_l2_vs_unfused_forward={rel_l2(out_fused, out_unfused):.3e}")
+        del out_fused, out_unfused, out_bf16, qkv
+
+    # ---- phase 5f: serving two 512x1024 fused int8 requests ----------------
+    launches["int8_fused_dpm15"] = serve(qmodel, "dpm++2m", 15, tools.PER_FORWARD_INT8,
+                                         "phase 5f serving 512x1024 int8 fused dpm++2m15 cfg2.5 b1")
+    del qmodel, qunet
+
+    # ---- phase 2m: the flash kernel at the multi-view joint shapes ---------
+    multiview = {}
+    with torch.inference_mode():
+        for views in (4, 2):
+            shape = (2, 5, 4096 * views, 4096 * views, 64)
+            mv_report = {}
+            check_site("flash_fwd", shape, gen, 1, mv_report, f"2m V={views}")
+            multiview[f"V{views}_{shape[2]}_tokens"] = {k: mv_report["flash_fwd"][k] for k in
+                                                       ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
+
+    # ---- phase 3m: one full-width V=4 multi-view forward, kernels vs plain --
+    mvmodel = build_sd2_inpaint_bundle("cuda", torch.bfloat16, torch.Generator("cuda").manual_seed(0),
+                                       view_num=VIEWS)
+    mvunet = mvmodel.unet
+    with torch.inference_mode():
+        xm, tm, cm = tools.unet_inputs(gen, rows=2 * VIEWS, hw=(64, 64))
+        mkv = mvunet.cross_kv(cm)
+        sites = tools.unet_sites(mvunet, xm, tm, cm, mkv, cfg_dup=False)
+        per_forward = {n: sum(c for (name, _), c in sites.items() if name == n) for n in tools.LAUNCH_COUNTERS}
+        joint = sum(c for (name, shape), c in sites.items() if name == "flash_fwd" and shape[3] == 4096 * VIEWS)
+        if per_forward != tools.PER_FORWARD_MV4 or joint != 5:
+            raise SystemExit(f"phase 3m: sites per forward {per_forward}, {joint} at {4096 * VIEWS} tokens")
+        # every site of the V=4 forward, the joint attentions' and the
+        # 8-row convs' and GEGLUs' shapes that the 1-reference path lacks
+        mv_forward = {}
+        check_kernels(sites, gen, mv_forward, "3m", BF16_NAMES)
+        _, _, err, kern_ms, plain_ms = check_forward(mvunet, xm, tm, cm, mkv, "multiview", kernels.NAMES,
+                                                     cfg_dup=False)
+        print(f"phase 3m unet forward [{2 * VIEWS},64,64,9] bf16 multi-view V={VIEWS} cross_kv: rel_l2={err:.3e} "
+              f"kernels_ms={kern_ms:.2f} plain_versions_ms={plain_ms:.2f} sites={per_forward}")
+        del mkv
+
+    # ---- phase 6: multi-view serving, V=4 ----------------------------------
+    launches["multiview_v4_ddim50"] = serve_multiview(mvmodel, tools.PER_FORWARD_MV4,
+                                                      f"phase 6 serving V={VIEWS} 512x512 views bf16 ddim50 eta1 cfg2.5")
 
     entries = []
     for name, (source, replaces) in KERNELS.items():
-        rep = report.get(name) or report_int8[name]
-        by_path = {"bf16_ddim50": launches_bf16[name], "int8_dpm15": launches_int8[name]}
-        entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": sum(by_path.values()), "launches_by_path": by_path,
-                        "max_abs_err": rep["max_abs_err"], "ms": rep["ms"], "plain_ms": rep["plain_ms"]})
+        rep = report[name]
+        by_path = {path: counts[name] for path, counts in launches.items()}
+        entry = {"name": name + (" (K1, K11)" if name == "flash_fwd" else ""), "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,
+                 "max_abs_err": rep["max_abs_err"], "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+                 "bound_ms": rep["bound_ms"],
+                 "bound_by": "operations" if 2 * rep["bound_ops_ms"] > rep["bound_ms"] else "bytes",
+                 "library_ms": rep["library_ms"], "sites_per_forward": rep["sites"]}
+        if name in mv_forward:  # the V=4 forward's sites, held and timed in phase 3m
+            entry["multiview_v4_forward"] = {k: mv_forward[name][k] for k in
+                                             ("sites", "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
+            entry["max_abs_err"] = max(entry["max_abs_err"], mv_forward[name]["max_abs_err"])
+        if name == "flash_fwd":
+            entry["multiview_joint_attention"] = multiview
+        entries.append(entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

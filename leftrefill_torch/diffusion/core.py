@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from leftrefill_tpu.diffusion.schedules import DiffusionSchedule
+from leftrefill_torch.diffusion.schedules import DiffusionSchedule
 
 from leftrefill_torch.models.autoencoder import AutoencoderKL, DiagonalGaussian
 from leftrefill_torch.models.clip import PromptCLIPEmbedder

@@ -48,6 +48,12 @@ _SIGNATURES = {
     "lr_dense_int8_res_splits": [_I, _I, _I],
     # xq, sx, w1, s1, b1, w2, s2, b2, out, partial, r, din, inner, dout, cw, stream
     "lr_geglu_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, a, bb, inv_scale, out, batch, hw, c, stream
+    "lr_affine_silu_quant": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, gamma, beta, xn, xq, scale, rows, c, eps, stream
+    "lr_ln_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    # x, a, bb, xn, xq, scale, batch, hw, c, stream
+    "lr_gn_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -147,9 +153,10 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None 
 
 # ---------------------------------------------------------------------------
 # routing of the dispatchers (flash attention, the bf16 and int8 3x3 convs,
-# the int8 proj_out GEMM, the bf16 and int8 GEGLUs)
+# the int8 proj_out GEMM, the bf16 and int8 GEGLUs, the fused int8 prologues)
 
-NAMES = ("flash_fwd", "conv3x3", "geglu", "conv3x3_int8", "dense_int8_res", "geglu_int8")
+NAMES = ("flash_fwd", "conv3x3", "geglu", "conv3x3_int8", "dense_int8_res", "geglu_int8",
+         "affine_silu_quant", "ln_quant", "gn_quant")
 _plain: frozenset = frozenset()
 
 

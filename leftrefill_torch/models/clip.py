@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from leftrefill_tpu.models.tokenizer import SimpleTokenizer, expand_special_tokens
+from leftrefill_torch.models.tokenizer import SimpleTokenizer, expand_special_tokens, multiview_prompts
 
 from leftrefill_torch.ops.attention import causal_text_attention
 from leftrefill_torch.ops.layers import Linear
@@ -105,3 +105,12 @@ def build_prompt_tokenizer(
     """Expand ``repeat_N_*`` token lists and build the extended tokenizer."""
     sp, init = expand_special_tokens(special_tokens, init_text)
     return SimpleTokenizer(bpe_path=bpe_path, special_tokens=sp), sp, init
+
+
+def build_multiview_prompt_tokenizer(view_num: int, bpe_path: str | None = None):
+    """The multi-view embedder's tokenizer (20 repeated prompt tokens and
+    30 view tokens per view, ``tokenizer.multiview_prompts``): returns
+    (tokenizer, special tokens, one prompt per view).  The embedder that
+    reads these ids is ``PromptCLIPEmbedder(num_special_tokens=len(special))``."""
+    sp, prompts = multiview_prompts(view_num)
+    return SimpleTokenizer(bpe_path=bpe_path, special_tokens=sp), sp, prompts

@@ -11,12 +11,15 @@ the checkpoint's keys under ``model.diffusion_model.``.  Placeholder
 indices; the forward calls the parametrised entries directly.
 
 ``UNetModel(quant=True)`` is the W8A8 int8 UNet: JAX's ``quant=True`` UNet
-under ``LEFTREFILL_FUSED_RES=0 LEFTREFILL_FUSED_LNQ=0`` with the TPU
-dispatch.  Its quantized sites hold an int8 ``weight``, a ``weight_scale``
-and an fp32 bias (load them with ``ops.quant.quantize_params_like``); the
-stem conv, the out conv, ``time_embed`` and ``emb_layers`` stay fp, as in
-JAX.  Its dispatch depends on the shape only: the int8 convs take KI1, the
-proj_out sites KI2 and the feed-forwards KI3 wherever JAX's TPU rules take
+with the TPU dispatch, in JAX's default configuration (``fused=True``:
+``LEFTREFILL_FUSED_RES`` and ``LEFTREFILL_FUSED_LNQ`` on, the fused
+prologues K4, K7 and K8 of the bf16 model) or its unfused one
+(``fused=False``: both flags 0).  Its quantized sites hold an int8
+``weight``, a ``weight_scale`` and an fp32 bias (load them with
+``ops.quant.quantize_params_like``); the stem conv, the out conv,
+``time_embed`` and ``emb_layers`` stay fp, as in JAX.  Its dispatch depends
+on the shape only: the int8 convs take KI1, the proj_out sites KI2, the
+feed-forwards KI3 and the prologues K4/K7/K8 wherever JAX's TPU rules take
 the Pallas kernels, on any device (a CPU tensor runs the plain versions).
 """
 
@@ -35,6 +38,7 @@ from leftrefill_torch.ops import mlp, quant as q8
 from leftrefill_torch.ops.layers import (
     GroupNorm32,
     Linear,
+    adjust_groups,
     conv2d_nhwc,
     nearest_upsample_2x,
     timestep_embedding,
@@ -110,8 +114,18 @@ class LayerNormF32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.to(torch.float32), x.shape[-1:], self.weight, self.bias, self.eps)
-        return y.to(x.dtype)
+        return F.layer_norm(x.to(torch.float32), x.shape[-1:], self.weight, self.bias, self.eps).to(x.dtype)
+
+    def quant_rows(self, x: torch.Tensor, norm_out: bool = True):
+        """The norm with the per-row int8 quantization of its output (JAX:
+        unet.py:252-273, ``quant_rowwise``): (x_norm | None, xq, scales) from
+        K7 where JAX's rule takes it and x is bf16 (``norm_out=False``: every
+        consumer reads the int8 side, so x_norm is not written), else
+        (x_norm, None, None)."""
+        dim = x.shape[-1]
+        if x.dtype == torch.bfloat16 and q8.ln_quant_qualifies(x.numel() // dim, dim):
+            return q8.ln_quant_rowwise(x, self.weight, self.bias, eps=self.eps, norm_out=norm_out)
+        return self(x), None, None
 
 
 class Upsample(nn.Module):
@@ -135,11 +149,17 @@ class Downsample(nn.Module):
 class ResBlock(nn.Module):
     """Timestep-conditioned residual block (no scale-shift norm, no up/down:
     the SD2-inpainting configuration).  ``quant``: the two 3x3 convs and the
-    skip 1x1 are int8 (JAX's unfused int8 ResBlock); ``emb_layers`` stays fp."""
+    skip 1x1 are int8; ``emb_layers`` stays fp.
 
-    def __init__(self, cin: int, cout: int, emb_dim: int, dtype=torch.float32, quant: bool = False):
+    ``fused`` (JAX: unet.py:382-423, ``LEFTREFILL_FUSED_RES`` on): in a bf16
+    int8 block whose two convs qualify, each GN + SiLU + conv stack is
+    ``gn_silu_conv3x3_int8`` (K4, then KI1 on its int8 output), the emb-add
+    folded into the second GN.  Otherwise the unfused int8 arm runs."""
+
+    def __init__(self, cin: int, cout: int, emb_dim: int, dtype=torch.float32, quant: bool = False,
+                 fused: bool = True):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.quant, self.fused = dtype, quant, fused
         self.in_layers = nn.ModuleList([GroupNorm32(cin), nn.SiLU(), Conv3x3(cin, cout, dtype=dtype, quant=quant)])
         self.emb_layers = nn.ModuleList([nn.SiLU(), Linear(emb_dim, cout, dtype=dtype)])
         self.out_layers = nn.ModuleList(
@@ -147,16 +167,37 @@ class ResBlock(nn.Module):
         )
         self.skip_connection = Conv1x1(cin, cout, dtype=dtype, quant=quant) if cin != cout else None
 
+    def _fused_groups(self, x: torch.Tensor):
+        """(g1, g2) where the fused arm applies to x, else None."""
+        if not (self.fused and self.quant and self.dtype == torch.bfloat16 and x.ndim == 4):
+            return None
+        _, hh, ww, cin = x.shape
+        cout = self.out_layers[3].weight.shape[0]
+        g1, g2 = adjust_groups(32, cin), adjust_groups(32, cout)
+        if (q8.gn_silu_conv3x3_int8_qualifies(hh, ww, cin, cout, g1)
+                and q8.gn_silu_conv3x3_int8_qualifies(hh, ww, cout, cout, g2)):
+            return g1, g2
+        return None
+
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        h = F.silu(self.in_layers[0](x))
-        h = self.in_layers[2](h)
-        # projected at the full batch, then cut to h's (half, under cfg_dup)
-        # batch: a 1-row product takes another CPU path than a 2-row one,
-        # and the shared prefix must stay bit-identical to the doubled run
-        eo = self.emb_layers[1](F.silu(emb))[: h.shape[0]].to(h.dtype)
-        h = h + eo[:, None, None, :]
-        h = F.silu(self.out_layers[0](h))
-        h = self.out_layers[3](h)
+        # emb is projected at the full batch, then cut to h's (half, under
+        # cfg_dup) batch: a 1-row product takes another CPU path than a 2-row
+        # one, and the shared prefix must stay bit-identical to the doubled run
+        groups = self._fused_groups(x)
+        if groups is not None:
+            (n1, _, c1), (n2, _, _, c2) = self.in_layers, self.out_layers
+            h = q8.gn_silu_conv3x3_int8(x.to(self.dtype), n1.weight, n1.bias, c1.weight.permute(0, 2, 3, 1),
+                                        c1.weight_scale, c1.bias, num_groups=groups[0], eps=n1.eps)
+            eo = self.emb_layers[1](F.silu(emb))[: h.shape[0]]
+            h = q8.gn_silu_conv3x3_int8(h, n2.weight, n2.bias, c2.weight.permute(0, 2, 3, 1), c2.weight_scale,
+                                        c2.bias, num_groups=groups[1], eps=n2.eps, emb=eo)
+        else:
+            h = F.silu(self.in_layers[0](x))
+            h = self.in_layers[2](h)
+            eo = self.emb_layers[1](F.silu(emb))[: h.shape[0]].to(h.dtype)
+            h = h + eo[:, None, None, :]
+            h = F.silu(self.out_layers[0](h))
+            h = self.out_layers[3](h)
         skip = x if self.skip_connection is None else self.skip_connection(x)
         return skip.to(h.dtype) + h
 
@@ -185,8 +226,11 @@ class CrossAttention(nn.Module):
         cq, cs = pre if pre is not None else self._quantized(context)
         return self.to_k(context, cq, cs), self.to_v(context, cq, cs)
 
-    def forward(self, x, context=None, kv=None) -> torch.Tensor:
-        xq, sx = self._quantized(x)
+    def forward(self, x, context=None, kv=None, pre_quant=None) -> torch.Tensor:
+        """``pre_quant``: (xq, scales) of x from the fused LN + quant prenorm
+        (JAX: unet.py:603-620); x is then only a stand-in and is not read
+        by the int8 projections."""
+        xq, sx = pre_quant if pre_quant is not None else self._quantized(x)
         q = self.to_q(x, xq, sx)
         if kv is not None:
             k, v = kv
@@ -228,25 +272,31 @@ class GEGLUFeedForward(nn.Module):
             [GEGLUProj(dim, self.inner, dtype, quant), nn.Identity(), _ff_linear(self.inner, dim, dtype, quant)]
         )
 
-    def _int8(self, x2: torch.Tensor) -> torch.Tensor:
+    def _int8(self, x2: torch.Tensor, pre_quant=None) -> torch.Tensor:
         p1, p2 = self.net[0].proj, self.net[2]
         r, din = x2.shape
         if self.dtype == torch.bfloat16 and mlp.geglu_int8_qualifies(r, din, self.inner, self.dim):
             chunk = mlp.geglu_int8_chunk(r, din, self.inner, self.dim)
             kernels.note_site("geglu_int8", (r, din, self.inner, self.dim, chunk))
-            xq, sx = q8.quantize_activation_rowwise(x2.to(self.dtype))
+            if pre_quant is not None:
+                xq, sx = pre_quant[0].reshape(r, din), pre_quant[1].reshape(r, 1)
+            else:
+                xq, sx = q8.quantize_activation_rowwise(x2.to(self.dtype))
             fn = mlp.geglu_int8_plain if kernels.plain_kernels_active("geglu_int8") else mlp.geglu_int8_fused
             return fn(xq, sx, p1.weight, p1.weight_scale, p1.bias, p2.weight, p2.weight_scale, p2.bias, chunk)
         val, gate = p1(x2).chunk(2, dim=-1)
         return p2(val * F.gelu(gate.to(torch.float32)).to(val.dtype))
 
-    def forward(self, x: torch.Tensor, res: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, res: Optional[torch.Tensor] = None, pre_quant=None) -> torch.Tensor:
+        """``pre_quant``: (xq, scales) of x from the fused LN + quant prenorm
+        (JAX: unet.py:498-541), taken by KI3 in place of its own per-row
+        quantization; the two-dense fallback reads x itself."""
         d = self.dtype
         din = x.shape[-1]
         x2 = x.reshape(-1, din)
         p1, p2 = self.net[0].proj, self.net[2]
         if self.quant:
-            out = self._int8(x2)
+            out = self._int8(x2, pre_quant)
         elif d == torch.bfloat16 and mlp.geglu_fused_qualifies(x2, din, self.inner, self.dim):
             kernels.note_site("geglu", (x2.shape[0], din, self.inner, self.dim))
             fn = mlp.geglu_plain if kernels.plain_kernels_active("geglu") else mlp.geglu_fused
@@ -263,11 +313,19 @@ class GEGLUFeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     """Self-attention -> cross-attention(context) -> GEGLU FF, pre-norm and
-    residual."""
+    residual.
+
+    ``lnq`` (``quant`` and ``fused``; JAX: unet.py:736-773,
+    ``LEFTREFILL_FUSED_LNQ`` on): the three prenorms go through K7, whose
+    int8 rows feed the attention projections and KI3 directly.  Every
+    consumer of norm1 and norm2 is int8, so they write no bf16 output; norm3
+    writes it only where the feed-forward falls back to its two dense
+    products (which read it)."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int, context_dim: int, dtype=torch.float32,
-                 quant: bool = False):
+                 quant: bool = False, fused: bool = True):
         super().__init__()
+        self.dim, self.dtype, self.lnq = dim, dtype, quant and fused
         self.attn1 = CrossAttention(dim, n_heads, d_head, dtype=dtype, quant=quant)
         self.ff = GEGLUFeedForward(dim, dtype=dtype, quant=quant)
         self.attn2 = CrossAttention(dim, n_heads, d_head, context_dim=context_dim, dtype=dtype, quant=quant)
@@ -278,30 +336,58 @@ class BasicTransformerBlock(nn.Module):
     def cross_kv(self, context: torch.Tensor):
         return self.attn2.kv(context)
 
+    def _prenorm(self, norm: LayerNormF32, x: torch.Tensor, norm_out: bool = False):
+        """(input for the consumer, its pre_quant or None) from a prenorm."""
+        if not self.lnq:
+            return norm(x), None
+        xn, xq, sx = norm.quant_rows(x, norm_out=norm_out)
+        return (xn if xn is not None else xq), (None if xq is None else (xq, sx))
+
+    def self_attention(self, x: torch.Tensor) -> torch.Tensor:
+        """norm1 -> attn1 -> + x (the multi-view block regroups the tokens
+        around this)."""
+        xin, pq = self._prenorm(self.norm1, x)
+        return self.attn1(xin, pre_quant=pq) + x
+
+    def cross_attention_ff(self, x: torch.Tensor, context, cross_kv) -> torch.Tensor:
+        """norm2 -> attn2(context) -> + x, then norm3 -> GEGLU FF -> + x."""
+        xin, pq = self._prenorm(self.norm2, x)
+        x = self.attn2(xin, context, kv=cross_kv, pre_quant=pq) + x
+        r = x.numel() // self.dim
+        ff_int8 = self.dtype == torch.bfloat16 and mlp.geglu_int8_qualifies(r, self.dim, 4 * self.dim, self.dim)
+        xin, pq = self._prenorm(self.norm3, x, norm_out=not ff_int8)
+        return self.ff(xin, res=x, pre_quant=pq)
+
     def forward(self, x, context=None, cross_kv=None, dup_to_context: bool = False):
         """``dup_to_context``: x carries half the context batch (the CFG
         shared prefix); it is duplicated right before the cross-attention."""
-        x = self.attn1(self.norm1(x)) + x
+        x = self.self_attention(x)
         if dup_to_context:
             x = torch.cat([x, x], dim=0)
-        x = self.attn2(self.norm2(x), context, kv=cross_kv) + x
-        return self.ff(self.norm3(x), res=x)
+        return self.cross_attention_ff(x, context, cross_kv)
 
 
 class SpatialTransformer(nn.Module):
     """GroupNorm -> linear proj_in -> transformer blocks -> proj_out, residual.
     ``quant``: every projection int8; proj_out and the residual go through
-    KI2 where JAX's rule takes K9, otherwise ``dense_int8`` and a bf16 add."""
+    KI2 where JAX's rule takes K9, otherwise ``dense_int8`` and a bf16 add.
+    ``quant`` and ``fused`` (JAX: unet.py:853-877): for bf16 x where JAX's
+    rule takes it, the GroupNorm and proj_in's per-pixel quantization are
+    one K8 pass (no bf16 output: proj_in reads the int8 side).
+    ``block_cls`` / ``block_kwargs`` (JAX's fields of the same names) build
+    the transformer blocks, the multi-view block among them."""
 
     def __init__(self, channels: int, n_heads: int, d_head: int, depth: int = 1,
-                 context_dim: int = 1024, dtype=torch.float32, quant: bool = False):
+                 context_dim: int = 1024, dtype=torch.float32, quant: bool = False, fused: bool = True,
+                 block_cls=BasicTransformerBlock, block_kwargs: Optional[dict] = None):
         super().__init__()
         inner = n_heads * d_head
-        self.dtype, self.quant = dtype, quant
+        self.dtype, self.quant, self.fused = dtype, quant, fused
         self.norm = GroupNorm32(channels, eps=1e-6)
         self.proj_in = Linear(channels, inner, dtype=dtype, quant=quant)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(inner, n_heads, d_head, context_dim, dtype=dtype, quant=quant)
+            [block_cls(inner, n_heads, d_head, context_dim, dtype=dtype, quant=quant, fused=fused,
+                       **(block_kwargs or {}))
              for _ in range(depth)]
         )
         self.proj_out = Linear(inner, channels, dtype=dtype, quant=quant)
@@ -312,8 +398,15 @@ class SpatialTransformer(nn.Module):
     def forward(self, x, context=None, cross_kv=None, dup_to_context: bool = False):
         b, h, w, c = x.shape
         x_in = x
-        x = self.norm(x).reshape(b, h * w, c)
-        x = self.proj_in(x)
+        if (self.quant and self.fused and x.dtype == torch.bfloat16
+                and q8.gn_quant_qualifies(h, w, c, self.norm.num_groups)):
+            _, xq, sc = q8.gn_quant_rowwise(x, self.norm.weight, self.norm.bias, num_groups=self.norm.num_groups,
+                                            eps=self.norm.eps, norm_out=False)
+            xq = xq.reshape(b, h * w, c)
+            x = self.proj_in(xq, xq, sc.reshape(b, h * w, 1))
+        else:
+            x = self.norm(x).reshape(b, h * w, c)
+            x = self.proj_in(x)
         for i, blk in enumerate(self.transformer_blocks):
             x = blk(x, context, cross_kv=None if cross_kv is None else cross_kv[i],
                     dup_to_context=dup_to_context and i == 0)
@@ -336,7 +429,10 @@ class UNetModel(nn.Module):
     """The SD2-inpainting UNet: 9 -> 4 channels, model_channels 320,
     ch_mult (1, 2, 4, 4), 2 res blocks per level, spatial transformers at
     ds 1/2/4 (depth 1, linear projections, head dim 64), context 1024.
-    ``quant``: the W8A8 int8 UNet (module docstring)."""
+    ``quant``: the W8A8 int8 UNet (module docstring); ``fused`` (default on,
+    as JAX's two fusion flags) selects its fused prologues, ``fused=False``
+    the unfused arm.  ``block_cls`` / ``block_kwargs``: the transformer block
+    of every SpatialTransformer (``models.multiview``)."""
 
     def __init__(
         self,
@@ -351,6 +447,9 @@ class UNetModel(nn.Module):
         context_dim: int = 1024,
         dtype: torch.dtype = torch.float32,
         quant: bool = False,
+        fused: bool = True,
+        block_cls=BasicTransformerBlock,
+        block_kwargs: Optional[dict] = None,
     ):
         super().__init__()
         self.model_channels, self.out_channels = model_channels, out_channels
@@ -361,14 +460,18 @@ class UNetModel(nn.Module):
         )
 
         def st(ch):
-            return SpatialTransformer(ch, ch // num_head_channels, num_head_channels,
-                                      transformer_depth, context_dim, dtype=dtype, quant=quant)
+            return SpatialTransformer(ch, ch // num_head_channels, num_head_channels, transformer_depth,
+                                      context_dim, dtype=dtype, quant=quant, fused=fused,
+                                      block_cls=block_cls, block_kwargs=block_kwargs)
+
+        def res(cin, cout):
+            return ResBlock(cin, cout, emb_dim, dtype=dtype, quant=quant, fused=fused)
 
         self.input_blocks = nn.ModuleList([nn.ModuleList([Conv3x3(in_channels, model_channels, dtype=dtype)])])
         chans, ch, ds = [model_channels], model_channels, 1
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):
-                layers = [ResBlock(ch, mult * model_channels, emb_dim, dtype=dtype, quant=quant)]
+                layers = [res(ch, mult * model_channels)]
                 ch = mult * model_channels
                 if ds in attention_resolutions:
                     layers.append(st(ch))
@@ -379,14 +482,13 @@ class UNetModel(nn.Module):
                 chans.append(ch)
                 ds *= 2
         self.middle_block = nn.ModuleList(
-            [ResBlock(ch, ch, emb_dim, dtype=dtype, quant=quant), st(ch),
-             ResBlock(ch, ch, emb_dim, dtype=dtype, quant=quant)]
+            [res(ch, ch), st(ch), res(ch, ch)]
         )
         self.output_blocks = nn.ModuleList()
         for level, mult in reversed(list(enumerate(channel_mult))):
             for i in range(num_res_blocks + 1):
                 skip_ch = chans.pop()
-                layers = [ResBlock(ch + skip_ch, model_channels * mult, emb_dim, dtype=dtype, quant=quant)]
+                layers = [res(ch + skip_ch, model_channels * mult)]
                 ch = model_channels * mult
                 if ds in attention_resolutions:
                     layers.append(st(ch))

@@ -1,7 +1,10 @@
-"""K1: flash-attention forward with the clamp softmax.
+"""K1 and K11: flash-attention forward with the clamp softmax.
 
 Source note.  Replaces ``leftrefill_tpu/ops/flash_attention.py:_flash_kernel``
-(``_flash_forward``).  The kernel (``csrc/flash_fwd.cu``) computes, per query
+(K1, K/V resident, Nk <= 8192) and ``_flash_kvchunk_kernel`` (K11, K/V
+streamed in chunks beyond 8192, the multi-view joint attention at V=4): the
+same function, blocked two ways for VMEM, which one kernel covers here; it
+is held against both.  The kernel (``csrc/flash_fwd.cu``) computes, per query
 row, s = scale * q.k, p = exp(min(s, 75)), l = max(sum p, FLT_MIN),
 o = (bf16(p) . v) / l and lse = log l; no row max is taken, so no online
 rescale is needed and the K/V tiles just add into l and o.  On the H100 a
@@ -13,6 +16,10 @@ are materialized).  At head dim 64 the exp and the shared-memory round trip
 of the score tile, not the tensor cores, bound this first version.
 The kernel takes bf16 only: no workload runs attention in fp32 on the card,
 and the dispatcher sends fp32 to the exact-softmax path.
+Long sequences: the grid is (Nq / 64, B*H), every global offset is a size_t
+product, and shared memory holds one 64-row Q tile and two 64-key K/V tiles
+whatever Nk is, so 16384 and 32768 tokens (V=4 at 64x64 and 64x128 views)
+need no change; B*H must stay within the grid's 65535 rows.
 
 The backward (TPU kernels K12-K14) is not ported yet: differentiating through
 :func:`flash_attention` raises.
@@ -27,21 +34,36 @@ from leftrefill_torch import kernels
 CLAMP = 75.0
 
 
+SCORE_CHUNK_BYTES = 1 << 30  # fp32 scores the plain version holds at once
+
+
 def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: float):
     """The kernel's plain version at its precision: fp32 scores from the bf16
     operands, fp32 exp and row sum, p rounded to v's dtype before an
     fp32-accumulated PV product.  q [B, Nq, H*D], k/v [B, Nk, H*D] ->
-    (o [B, Nq, H*D] in q's dtype, lse [B*H, Nq] fp32)."""
+    (o [B, Nq, H*D] in q's dtype, lse [B*H, Nq] fp32).
+
+    Query rows share nothing, so they run in chunks of as many rows as keep
+    the [B*H, rows, Nk] fp32 scores within ``SCORE_CHUNK_BYTES``: at the V=4
+    multi-view shape (B*H = 10, Nq = Nk = 16384) the whole score tensor
+    would take 10.7 GB."""
     b, nq, inner = q.shape
     nk, d = k.shape[1], inner // heads
-    qh = q.reshape(b, nq, heads, d).transpose(1, 2).to(torch.float32)
+    q_chunk = max(1, SCORE_CHUNK_BYTES // (b * heads * nk * 4))
     kh = k.reshape(b, nk, heads, d).transpose(1, 2).to(torch.float32)
-    vh = v.reshape(b, nk, heads, d).transpose(1, 2)
-    s = torch.matmul(qh * scale, kh.transpose(-1, -2))
-    p = torch.exp(torch.clamp(s, max=CLAMP))
-    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=torch.finfo(torch.float32).tiny)
-    o = torch.matmul(p.to(v.dtype).to(torch.float32), vh.to(torch.float32)) / l
-    return o.to(q.dtype).transpose(1, 2).reshape(b, nq, inner), torch.log(l).reshape(b * heads, nq)
+    vh = v.reshape(b, nk, heads, d).transpose(1, 2).to(torch.float32)
+    outs, lses = [], []
+    for q0 in range(0, nq, q_chunk):
+        qc = q[:, q0:q0 + q_chunk]
+        qh = qc.reshape(b, qc.shape[1], heads, d).transpose(1, 2).to(torch.float32)
+        s = torch.matmul(qh * scale, kh.transpose(-1, -2))
+        p = torch.exp(torch.clamp(s, max=CLAMP))
+        l = torch.clamp(p.sum(dim=-1, keepdim=True), min=torch.finfo(torch.float32).tiny)
+        del s
+        o = torch.matmul(p.to(v.dtype).to(torch.float32), vh) / l
+        outs.append(o.to(q.dtype).transpose(1, 2).reshape(b, qc.shape[1], inner))
+        lses.append(torch.log(l).reshape(b * heads, qc.shape[1]))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: float):

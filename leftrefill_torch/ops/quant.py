@@ -1,7 +1,9 @@
 """W8A8 int8 inference ops (counterpart of ``leftrefill_tpu/ops/quant.py``):
 the quantization helpers, the int8 dense, the TPU dispatch rules of the int8
-kernels, and kernels KI1 (int8 3x3 conv) and KI2 (int8 proj_out GEMM plus
-residual), each beside its plain PyTorch version.
+kernels, kernels KI1 (int8 3x3 conv) and KI2 (int8 proj_out GEMM plus
+residual), and the fused int8 prologues of JAX's default configuration, K4
+(GN affine + SiLU + quantize), K7 (LayerNorm + per-row quantize) and K8 (GN
+affine + per-pixel quantize), each kernel beside its plain PyTorch version.
 
 Scheme, as the JAX package: weights per output channel, symmetric, int8 at
 rest; activations quantized at run time, per tensor for the convs and per row
@@ -28,6 +30,11 @@ Source notes.
   (K9) without its [B, 4, N] moments output, which nothing reads.
 - ``dense_int8`` is an XLA dot in JAX, outside any Pallas kernel: here it is
   ``torch._int_mm`` (int32 accumulation) on both devices.
+- K4, K7 and K8 (``csrc/quant_prologue.cu``) replace
+  ``_affine_silu_quant_kernel``, ``_ln_quant_kernel`` and
+  ``_gn_affine_quant_kernel``: elementwise and row passes bound by device
+  memory, each rounding spelled out so the plain versions repeat them (K4
+  multiplies by 1 / scale, K7 and K8 divide by the scale, as JAX does).
 """
 
 from __future__ import annotations
@@ -45,11 +52,15 @@ F32 = torch.float32
 # quantization helpers (JAX: quant.py:51-103), bit-equal to the JAX package's
 
 
-def over_127(t: torch.Tensor) -> torch.Tensor:
-    """t / 127 as an IEEE division, as the JAX package and the kernels divide
+def divide(t: torch.Tensor, d: float) -> torch.Tensor:
+    """t / d as an IEEE division, as the JAX package and the kernels divide
     (a Python-scalar divisor would make PyTorch on CUDA multiply by the
     rounded reciprocal instead, which differs in the last bit)."""
-    return t / torch.full((), 127.0, dtype=t.dtype, device=t.device)
+    return t / torch.full((), d, dtype=t.dtype, device=t.device)
+
+
+def over_127(t: torch.Tensor) -> torch.Tensor:
+    return divide(t, 127.0)
 
 
 def quantize_weight(w: torch.Tensor, axis: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
@@ -263,15 +274,23 @@ def conv3x3_int8_op(xq: torch.Tensor, scale: torch.Tensor, w: torch.Tensor, bias
 conv3x3_int8_op.launches = 0
 
 
+def conv3x3_int8_pre(xq: torch.Tensor, sx: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+                     bias: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """KI1 on a pre-quantized activation (JAX ``_conv3x3_int8_pre``,
+    quant.py:877, and the ``*_pre`` kernels): xq [B, H, W, Ci] int8 with its
+    per-tensor scale sx, w OHWI int8, w_scale [Co], bias [Co] fp32."""
+    kernels.note_site("conv3x3_int8", (*xq.shape, w.shape[0]))
+    fn = conv3x3_int8_plain if kernels.plain_kernels_active("conv3x3_int8") else conv3x3_int8_op
+    return fn(xq, sx * w_scale, w, bias, out_dtype)
+
+
 def conv3x3_int8_apply(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """The int8 conv site (JAX ``conv3x3_int8``, the caller having checked
     :func:`conv3x3_int8_qualifies`): x quantized per tensor, then KI1, with
     the output in x's dtype (bf16, or fp32 for an fp32 model: JAX's kernel
     takes either).  x [B, H, W, Ci], w OHWI int8, w_scale [Co], bias [Co] fp32."""
     xq, sx = quantize_activation(x)
-    kernels.note_site("conv3x3_int8", (*x.shape, w.shape[0]))
-    fn = conv3x3_int8_plain if kernels.plain_kernels_active("conv3x3_int8") else conv3x3_int8_op
-    return fn(xq, sx * w_scale, w, bias, x.dtype)
+    return conv3x3_int8_pre(xq, sx, w, w_scale, bias, x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -317,3 +336,256 @@ def dense_int8_res_op(xq, sx, wq, w_scale, bias, res) -> torch.Tensor:
 
 
 dense_int8_res_op.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the fused int8 prologues of JAX's default configuration (LEFTREFILL_FUSED_RES
+# and LEFTREFILL_FUSED_LNQ on): K4, K7 and K8, and the functions around them.
+# The statistics and the per-tensor amax stay plain PyTorch, as they are XLA
+# outside the Pallas kernels in JAX.
+
+
+def sigmoid(y: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-y)), spelled as K4 computes it (an IEEE divide)."""
+    one = torch.ones((), dtype=y.dtype, device=y.device)
+    return one / (1.0 + torch.exp(-y))
+
+
+def gn_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, channel) spatial mean and E[x^2] of x [B, H, W, C], fp32."""
+    xf = x.to(F32)
+    return xf.mean(dim=(1, 2)), (xf * xf).mean(dim=(1, 2))
+
+
+def gn_affine_ab(m_c, q_c, gamma, beta, num_groups: int, eps: float, emb=None, scale_shift=None):
+    """GroupNorm (+ emb-add before it, or scale-shift after it) folded into a
+    per-(batch, channel) affine, normalize(x) == x * a + bb, from the channel
+    moments m_c, q_c [B, C] (JAX ``_gn_affine_ab``, quant.py:841-874): with e
+    constant over space, the group mean of x + e is mean_g(m_c + e_c) and
+    E[(x + e)^2] = q_c + 2 e_c m_c + e_c^2.  Returns (a, bb) [B, C] fp32."""
+    b, c = m_c.shape
+    g = num_groups
+    e_c = emb.to(F32) if emb is not None else torch.zeros_like(m_c)
+    mg = (m_c + e_c).reshape(b, g, c // g).mean(dim=-1)
+    q2 = q_c + 2.0 * e_c * m_c + e_c * e_c
+    vg = q2.reshape(b, g, c // g).mean(dim=-1) - mg * mg
+    rstd_c = torch.rsqrt(vg + eps).repeat_interleave(c // g, dim=-1)
+    mg_c = mg.repeat_interleave(c // g, dim=-1)
+    a = rstd_c * gamma.to(F32)[None]
+    bb = (e_c - mg_c) * a + beta.to(F32)[None]
+    if scale_shift is not None:
+        s, t = scale_shift
+        s = 1.0 + s.to(F32)
+        a = a * s
+        bb = bb * s + t.to(F32)
+    return a.contiguous(), bb.contiguous()
+
+
+def _affine(x: torch.Tensor, a: torch.Tensor, bb: torch.Tensor) -> torch.Tensor:
+    """x * a + bb in fp32 (a multiply, then an add), a/bb [B, C] over [B, H, W, C]."""
+    return x.to(F32) * a[:, None, None, :] + bb[:, None, None, :]
+
+
+def _round_int8(v: torch.Tensor) -> torch.Tensor:
+    return torch.round(v).clamp(-127, 127).to(torch.int8)
+
+
+# ---- K4: GN affine + SiLU + per-tensor quantize -----------------------------
+
+
+def affine_silu_quant_plain(x, a, bb, inv_scale) -> torch.Tensor:
+    """K4's plain version, the kernel's fp32 operations in its order:
+    int8(clip(round(silu(x * a + bb) * inv_scale))).  x [B, H, W, C] bf16,
+    a/bb [B, C] fp32, inv_scale a 0-dim fp32 tensor."""
+    y = _affine(x, a, bb)
+    return _round_int8(y * sigmoid(y) * inv_scale)
+
+
+def affine_silu_quant_op(x, a, bb, inv_scale) -> torch.Tensor:
+    """K4 (JAX ``affine_silu_quant``, quant.py:631; kernel :603) -> [B, H, W, C]
+    int8.  A CPU tensor runs the plain version; a CUDA tensor launches K4 or
+    raises."""
+    if not x.is_cuda:
+        return affine_silu_quant_plain(x, a, bb, inv_scale)
+    b, h, w, c = x.shape
+    kernels.require(x, "x", torch.bfloat16)
+    kernels.require(a, "a", F32, (b, c))
+    kernels.require(bb, "bb", F32, (b, c))
+    kernels.require(inv_scale, "inv_scale", F32, ())
+    if c % 8:
+        raise ValueError(f"K4 needs C % 8 == 0, got {c}")
+    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        code = kernels.library().lr_affine_silu_quant(
+            x.data_ptr(), a.data_ptr(), bb.data_ptr(), inv_scale.data_ptr(), out.data_ptr(),
+            b, h * w, c, kernels.stream_of(x))
+    kernels.check(code, "affine_silu_quant")
+    affine_silu_quant_op.launches += 1
+    return out
+
+
+affine_silu_quant_op.launches = 0
+
+
+def silu_scale(x: torch.Tensor, a: torch.Tensor, bb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(scale, 1 / scale) of the per-tensor int8 quantization of
+    silu(x * a + bb): a plain-PyTorch amax of those values (JAX: an XLA
+    reduce, quant.py:924-928), 0-dim fp32 tensors."""
+    y = _affine(x, a, bb)
+    scale = over_127((y * sigmoid(y)).abs().amax().clamp_min(1e-8))
+    return scale, torch.ones_like(scale) / scale
+
+
+def silu_quant(x: torch.Tensor, a: torch.Tensor, bb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(xq, scale): the per-tensor int8 quantization of silu(x * a + bb),
+    :func:`silu_scale`, then K4 on 1 / scale."""
+    scale, inv_scale = silu_scale(x, a, bb)
+    kernels.note_site("affine_silu_quant", tuple(x.shape))
+    fn = affine_silu_quant_plain if kernels.plain_kernels_active("affine_silu_quant") else affine_silu_quant_op
+    return fn(x.contiguous(), a, bb, inv_scale), scale
+
+
+def gn_silu_conv3x3_int8_qualifies(h: int, w: int, ci: int, co: int, num_groups: int = 32) -> bool:
+    """JAX's rule (quant.py:932) without the TPU probe."""
+    return conv3x3_int8_qualifies(h, w, ci, co) and ci % num_groups == 0
+
+
+def gn_silu_conv3x3_int8(x, gamma, beta, w, w_scale, bias, *, num_groups: int = 32, eps: float = 1e-5,
+                         emb=None, scale_shift=None) -> torch.Tensor:
+    """GroupNorm (+ emb-add | scale-shift) + SiLU + int8 quantize + 3x3 int8
+    conv (JAX ``gn_silu_conv3x3_int8``, quant.py:887-929): the moments and
+    the fold plain, K4, then KI1 on the pre-quantized input.  x [B, H, W, C]
+    bf16 (the pre-GN activation), w OHWI int8, w_scale/bias [Co] fp32 (the
+    bias is not rounded to bf16 here, as in JAX), emb [B, C] added before the
+    GN, scale_shift (s, t) [B, C] applied after it.  Output in x's dtype."""
+    m_c, q_c = gn_moments(x)
+    a, bb = gn_affine_ab(m_c, q_c, gamma, beta, num_groups, eps, emb, scale_shift)
+    xq, scale = silu_quant(x, a, bb)
+    return conv3x3_int8_pre(xq, scale, w, w_scale, bias, x.dtype)
+
+
+# ---- K7: LayerNorm + per-row quantize ---------------------------------------
+
+
+def plan_ln_rows(r: int, c: int) -> Optional[int]:
+    """K7's row block (JAX ``_plan_ln_rows``, quant.py:663): the largest of
+    512..32 dividing r with the block's ~22 bytes an element in 8 MiB."""
+    for blk in (512, 256, 128, 64, 32):
+        if r % blk == 0 and blk * c * 22 <= 8 * 1024 * 1024:
+            return blk
+    return None
+
+
+def ln_quant_qualifies(r: int, c: int) -> bool:
+    """JAX's ``ln_quant_qualifies`` (quant.py:676) without the TPU probe."""
+    return plan_ln_rows(r, c) is not None
+
+
+def ln_quant_plain(x, gamma, beta, eps: float, norm_out: bool):
+    """K7's plain version: fp32 mean, two-pass variance,
+    y = (x - m) * rsqrt(v + eps) * gamma + beta, then scale =
+    max(max|y|, 1e-8) / 127 per row and xq = int8(clip(round(y / scale))).
+    x [R, C] bf16, gamma/beta [C] fp32 -> (y in bf16 or None, xq [R, C] int8,
+    scale [R, 1] fp32)."""
+    c = x.shape[-1]
+    xf = x.to(F32)
+    d = xf - divide(xf.sum(dim=-1, keepdim=True), c)
+    v = divide((d * d).sum(dim=-1, keepdim=True), c)
+    y = d * torch.rsqrt(v + eps) * gamma + beta
+    scale = over_127(y.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8))
+    return (y.to(x.dtype) if norm_out else None), _round_int8(y / scale), scale
+
+
+def ln_quant_op(x, gamma, beta, eps: float, norm_out: bool):
+    """K7 (kernel quant.py:682) on the arguments of :func:`ln_quant_plain`.
+    A CPU tensor runs the plain version; a CUDA tensor launches K7 or raises."""
+    if not x.is_cuda:
+        return ln_quant_plain(x, gamma, beta, eps, norm_out)
+    r, c = x.shape
+    kernels.require(x, "x", torch.bfloat16)
+    kernels.require(gamma, "gamma", F32, (c,))
+    kernels.require(beta, "beta", F32, (c,))
+    if c % 8 or c > 2048:
+        raise ValueError(f"K7 needs C % 8 == 0 and C <= 2048, got {c}")
+    xn = torch.empty_like(x) if norm_out else None
+    xq = torch.empty((r, c), dtype=torch.int8, device=x.device)
+    scale = torch.empty((r, 1), dtype=F32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = kernels.library().lr_ln_quant(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), None if xn is None else xn.data_ptr(),
+            xq.data_ptr(), scale.data_ptr(), r, c, float(eps), kernels.stream_of(x))
+    kernels.check(code, "ln_quant")
+    ln_quant_op.launches += 1
+    return xn, xq, scale
+
+
+ln_quant_op.launches = 0
+
+
+def ln_quant_rowwise(x, gamma, beta, eps: float = 1e-5, norm_out: bool = True):
+    """Fused fp32 LayerNorm + per-row int8 quantization over the last dim
+    (JAX ``ln_quant_rowwise``, quant.py:703; the caller checked
+    :func:`ln_quant_qualifies`): (x_norm or None, xq, scales [..., 1])."""
+    *lead, c = x.shape
+    x2 = x.reshape(-1, c).contiguous()
+    kernels.note_site("ln_quant", (x2.shape[0], c, norm_out))
+    fn = ln_quant_plain if kernels.plain_kernels_active("ln_quant") else ln_quant_op
+    xn, xq, sc = fn(x2, gamma, beta, eps, norm_out)
+    return (None if xn is None else xn.reshape(*lead, c)), xq.reshape(*lead, c), sc.reshape(*lead, 1)
+
+
+# ---- K8: GroupNorm affine + per-pixel quantize ------------------------------
+
+
+def gn_quant_qualifies(h: int, w: int, c: int, num_groups: int = 32) -> bool:
+    """JAX's ``gn_quant_qualifies`` (quant.py:776) without the TPU probe."""
+    return c % num_groups == 0 and w % 8 == 0
+
+
+def gn_quant_plain(x, a, bb, norm_out: bool):
+    """K8's plain version: y = x * a + bb in fp32, then per pixel scale =
+    max(max|y|, 1e-8) / 127 and xq = int8(clip(round(y / scale))).
+    x [B, H, W, C] bf16, a/bb [B, C] fp32 -> (y in bf16 or None, xq int8,
+    scale [B, H, W, 1] fp32)."""
+    y = _affine(x, a, bb)
+    scale = over_127(y.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8))
+    return (y.to(x.dtype) if norm_out else None), _round_int8(y / scale), scale
+
+
+def gn_quant_op(x, a, bb, norm_out: bool):
+    """K8 (kernel quant.py:758) on the arguments of :func:`gn_quant_plain`.
+    A CPU tensor runs the plain version; a CUDA tensor launches K8 or raises."""
+    if not x.is_cuda:
+        return gn_quant_plain(x, a, bb, norm_out)
+    b, h, w, c = x.shape
+    kernels.require(x, "x", torch.bfloat16)
+    kernels.require(a, "a", F32, (b, c))
+    kernels.require(bb, "bb", F32, (b, c))
+    if c % 8 or c > 2048:
+        raise ValueError(f"K8 needs C % 8 == 0 and C <= 2048, got {c}")
+    xn = torch.empty_like(x) if norm_out else None
+    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty((b, h, w, 1), dtype=F32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = kernels.library().lr_gn_quant(
+            x.data_ptr(), a.data_ptr(), bb.data_ptr(), None if xn is None else xn.data_ptr(),
+            xq.data_ptr(), scale.data_ptr(), b, h * w, c, kernels.stream_of(x))
+    kernels.check(code, "gn_quant")
+    gn_quant_op.launches += 1
+    return xn, xq, scale
+
+
+gn_quant_op.launches = 0
+
+
+def gn_quant_rowwise(x, gamma, beta, *, num_groups: int = 32, eps: float = 1e-6, norm_out: bool = True):
+    """Fused GroupNorm + per-pixel int8 quantization for the
+    SpatialTransformer norm -> proj_in site (JAX ``gn_quant_rowwise``,
+    quant.py:782; the caller checked :func:`gn_quant_qualifies`): the moments
+    and the fold plain, then K8.  Returns (x_norm or None, xq, scales
+    [B, H, W, 1])."""
+    m_c, q_c = gn_moments(x)
+    a, bb = gn_affine_ab(m_c, q_c, gamma, beta, num_groups, eps)
+    kernels.note_site("gn_quant", (*x.shape, norm_out))
+    fn = gn_quant_plain if kernels.plain_kernels_active("gn_quant") else gn_quant_op
+    return fn(x.contiguous(), a, bb, norm_out)

@@ -2,7 +2,10 @@
 ``leftrefill_tpu/pipeline.py``): stitch [reference | target], VAE-encode the
 masked canvas, build the prompt context, run the sampler with CFG over the
 UNet (cross-attention K/V computed once per canvas, the CFG prefix shared at
-half batch), decode, clip and composite into the hole."""
+half batch), decode, clip and composite into the hole.  The multi-view
+request (``MultiViewInpaintPipeline``) runs the same steps over the views of
+a scene, one row each.  Both run on the card unless the caller passes
+``device="cpu"``; without a card they raise."""
 
 from __future__ import annotations
 
@@ -12,16 +15,26 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from leftrefill_tpu.diffusion.schedules import DiffusionSchedule
-from leftrefill_tpu.models.tokenizer import SimpleTokenizer
-
 from leftrefill_torch.diffusion.core import Conditioning, LeftRefillModel
 from leftrefill_torch.diffusion.ddim import NoiseFn, ddim_sample
 from leftrefill_torch.diffusion.samplers_extra import dpm_solver_pp_2m_sample
+from leftrefill_torch.diffusion.schedules import DiffusionSchedule
 from leftrefill_torch.models.autoencoder import AutoencoderKL, DDConfig
 from leftrefill_torch.models.clip import PromptCLIPEmbedder
+from leftrefill_torch.models.multiview import MultiViewUnetModel
+from leftrefill_torch.models.tokenizer import SimpleTokenizer, multiview_prompts
 from leftrefill_torch.models.unet import UNetModel
 from leftrefill_torch.ops.quant import quantize_params_like
+
+
+def _device(device) -> torch.device:
+    """The request's device; the card unless the caller asked for the CPU,
+    and an error, not the CPU, where there is no card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the pipeline runs on the card and CUDA is not available (pass device='cpu' "
+                           "to run on the CPU)")
+    return dev
 
 
 @dataclasses.dataclass
@@ -32,7 +45,7 @@ class RefInpaintPipeline:
     model: LeftRefillModel
     tokenizer: SimpleTokenizer
     special_tokens: Sequence[str]
-    device: torch.device | str = "cpu"
+    device: torch.device | str = "cuda"
     ddim_steps: int = 50
     guidance_scale: float = 2.5
     eta: float = 1.0
@@ -62,7 +75,7 @@ class RefInpaintPipeline:
     ) -> torch.Tensor:
         """image [B, H, 2W, 3] in [-1, 1] (stitched, NHWC), mask [B, H, 2W, 1]
         with 1 = hole.  Returns the composited canvas [B, H, 2W, 3] fp32."""
-        dev = torch.device(self.device)
+        dev = _device(self.device)
         image = torch.as_tensor(image, dtype=torch.float32, device=dev)
         mask = torch.as_tensor(mask, dtype=torch.float32, device=dev)
         b = image.shape[0]
@@ -91,7 +104,10 @@ def _generate(
     x_T: Optional[torch.Tensor] = None,
     noise_fn: Optional[NoiseFn] = None,
     vae_noise: Optional[torch.Tensor] = None,
+    cfg_dup: bool = True,
 ) -> torch.Tensor:
+    """``cfg_dup``: share the UNet prefix of the CFG pair at half batch (the
+    1-reference request; the multi-view UNet runs without it)."""
     masked_image = image * (mask < 0.5)
     cond = model.build_inpaint_cond(tokens, mask, masked_image, vae_noise)
     uncond = Conditioning(cond.c_concat, model.get_learned_conditioning(uncond_tokens))
@@ -106,7 +122,7 @@ def _generate(
     def apply_fn(x, t, c):
         # cond and uncond share x and c_concat: the prefix before the first
         # cross-attention runs once at half batch
-        return model.apply_model(x, t, c, cross_kv=kv, cfg_dup=use_cfg)
+        return model.apply_model(x, t, c, cross_kv=kv, cfg_dup=use_cfg and cfg_dup)
 
     common = dict(uncond=uncond, guidance_scale=guidance_scale, x_T=x_T, generator=generator,
                   device=image.device)
@@ -118,6 +134,66 @@ def _generate(
         z = ddim_sample(apply_fn, tables, cond, shape, noise_fn=noise_fn, **common)
     pred = model.decode_first_stage(z).to(torch.float32).clamp(-1.0, 1.0)
     return pred * mask + image * (1.0 - mask)
+
+
+@dataclasses.dataclass
+class MultiViewInpaintPipeline:
+    """Multi-view reference inpainting (JAX: ``MultiViewRefInpaintTask.log_images``,
+    tasks.py:333-351, over the DDIM sampling of tasks.py:142-164, then the
+    composite of the test CLI).  A scene is V views; view 0 is the masked
+    target and views 1..V-1 carry zero masks.  The B·V views run as one flat
+    batch, view j with ``view_prompts[j]``, through a ``MultiViewUnetModel``
+    of ``view_num`` V, whose self-attention folds each scene's V rows into
+    one sequence.  CFG runs [uncond; cond] as one doubled batch with the
+    cross-attention K/V computed once, and without the shared-prefix
+    ``cfg_dup``, as JAX's multi-view sampling does."""
+
+    model: LeftRefillModel
+    tokenizer: SimpleTokenizer
+    view_prompts: Sequence[str]
+    device: torch.device | str = "cuda"
+    ddim_steps: int = 50
+    guidance_scale: float = 2.5
+    eta: float = 1.0
+
+    def __post_init__(self):
+        self._tokens = np.asarray(self.tokenizer.tokenize(list(self.view_prompts)))
+        self._uncond_tokens = np.asarray(self.tokenizer.tokenize(""))
+
+    def prompt_tokens(self, scenes: int) -> np.ndarray:
+        """[scenes * V, 77]: each scene's V view prompts in view order."""
+        return np.tile(self._tokens, (scenes, 1))
+
+    def uncond_tokens(self, scenes: int) -> np.ndarray:
+        return np.repeat(self._uncond_tokens, scenes * len(self.view_prompts), axis=0)
+
+    @torch.inference_mode()
+    def __call__(
+        self,
+        images,
+        masks,
+        generator: Optional[torch.Generator] = None,
+        x_T: Optional[torch.Tensor] = None,
+        noise_fn: Optional[NoiseFn] = None,
+        vae_noise: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """images [B, V, H, W, 3] in [-1, 1] (NHWC), masks [B, V, H, W, 1]
+        with 1 = hole.  Returns the composited views [B, V, H, W, 3] fp32;
+        ``x_T``, ``noise_fn`` and ``vae_noise`` are over the B·V flat rows."""
+        dev = _device(self.device)
+        image = torch.as_tensor(images, dtype=torch.float32, device=dev)
+        mask = torch.as_tensor(masks, dtype=torch.float32, device=dev)
+        b, v = image.shape[:2]
+        if v != len(self.view_prompts):
+            raise ValueError(f"{v} views, but {len(self.view_prompts)} view prompts")
+        out = _generate(
+            self.model, image.flatten(0, 1), mask.flatten(0, 1),
+            torch.as_tensor(self.prompt_tokens(b), dtype=torch.long, device=dev),
+            torch.as_tensor(self.uncond_tokens(b), dtype=torch.long, device=dev),
+            ddim_steps=self.ddim_steps, eta=self.eta, guidance_scale=self.guidance_scale,
+            generator=generator, x_T=x_T, noise_fn=noise_fn, vae_noise=vae_noise, cfg_dup=False,
+        )
+        return out.reshape(b, v, *out.shape[1:])
 
 
 def stitch_canvas(reference: np.ndarray, source: np.ndarray, mask_right: np.ndarray):
@@ -149,37 +225,47 @@ def fill_random_(model: torch.nn.Module, generator: torch.Generator) -> None:
                 p.copy_(0.02 * n)
 
 
-def _empty_bundle(device, dtype: torch.dtype, quant: bool) -> LeftRefillModel:
+def _empty_bundle(device, dtype: torch.dtype, quant: bool, fused: bool, view_num: Optional[int]) -> LeftRefillModel:
     with torch.device("meta"):
+        if view_num is None:
+            unet, n_special = UNetModel(dtype=dtype, quant=quant, fused=fused), 50
+        else:
+            unet = MultiViewUnetModel(view_num=view_num, dtype=dtype, quant=quant, fused=fused)
+            n_special = len(multiview_prompts(view_num)[0])
         model = LeftRefillModel(
-            unet=UNetModel(dtype=dtype, quant=quant),
+            unet=unet,
             vae=AutoencoderKL(DDConfig(), embed_dim=4, dtype=dtype),
-            cond_model=PromptCLIPEmbedder(dtype=dtype),
+            cond_model=PromptCLIPEmbedder(dtype=dtype, num_special_tokens=n_special),
             schedule=sd2_schedule(),
         )
     return model.to_empty(device=device)
 
 
 def build_sd2_inpaint_bundle(
-    device, dtype: torch.dtype = torch.bfloat16, generator: Optional[torch.Generator] = None,
-    quant: bool = False,
+    device="cuda", dtype: torch.dtype = torch.bfloat16, generator: Optional[torch.Generator] = None,
+    quant: bool = False, fused: bool = True, view_num: Optional[int] = None,
 ) -> LeftRefillModel:
     """The full-width SD2-inpainting bundle (865M UNet, f8 VAE, ViT-H text
-    tower with 50 prompt tokens) computing in ``dtype``, every parameter
-    drawn from ``generator``.
+    tower) computing in ``dtype``, every parameter drawn from ``generator``.
 
-    ``quant=True`` gives the W8A8 int8 UNet (JAX's unfused int8
-    configuration; ``UNetModel``), built as ``bench.py`` builds the JAX one:
-    the fp32 weights are drawn first, exactly as for the fp bundle of the same
-    generator, then the UNet's quantized sites are quantized per output
-    channel (``quantize_params_like``)."""
+    ``view_num`` V gives the multi-view bundle (``configs/multiview_ref_inpainting.yaml``):
+    the UNet is ``MultiViewUnetModel(view_num=V)`` and the text tower holds
+    20 + 30·V prompt tokens (``models.tokenizer.multiview_prompts``); by
+    default the 1-reference bundle with 50 prompt tokens.
+
+    ``quant=True`` gives the W8A8 int8 UNet, built as ``bench.py`` builds
+    the JAX one: the fp32 weights are drawn first, exactly as for the fp
+    bundle of the same generator, then the UNet's quantized sites are
+    quantized per output channel (``quantize_params_like``).  ``fused``
+    (default on, JAX's default) selects its fused int8 prologues;
+    ``fused=False`` is JAX's unfused int8 configuration."""
     if not quant:
-        model = _empty_bundle(device, dtype, quant=False)
+        model = _empty_bundle(device, dtype, False, fused, view_num)
         fill_random_(model, generator)
         return model.eval()
-    fp = _empty_bundle(device, torch.float32, quant=False)
+    fp = _empty_bundle(device, torch.float32, False, fused, view_num)
     fill_random_(fp, generator)
-    model = _empty_bundle(device, dtype, quant=True)
+    model = _empty_bundle(device, dtype, True, fused, view_num)
     state = fp.state_dict()
     unet_q = quantize_params_like(model.unet, fp.unet.state_dict())
     state.update({"model.diffusion_model." + k: v for k, v in unet_q.items()})

@@ -1,10 +1,12 @@
 """Measurement scripts for the port on one CUDA GPU, and the helpers they
 share with ``chip_smoke.py``.
 
-- ``python -m leftrefill_torch.tools.profile_request [--int8]``: where the
-  time of a full-width 512x1024 request goes (stage times, a profiled
-  request with device time by kernel group and the device idle share, and
-  DPM-Solver++(2M) requests), on the bf16 or the W8A8 int8 bundle.
+- ``python -m leftrefill_torch.tools.profile_request [--int8 [--unfused] |
+  --multiview V]``: where the time of a full-width request goes (stage
+  times, a profiled request with device time by kernel group and the device
+  idle share, and DPM-Solver++(2M) requests), on the bf16 bundle, the W8A8
+  int8 bundle (JAX's default fused configuration, or ``--unfused``) or the
+  V-view multi-view bundle.
 - ``python -m leftrefill_torch.tools.library_baselines``: each hand-written
   kernel against the library path for the same product, at the main path's
   shapes.  The library calls are timed for reference only; none is on the
@@ -18,6 +20,7 @@ from collections import Counter
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from leftrefill_torch import kernels
 from leftrefill_torch.ops import conv, flash_attention, mlp, quant
@@ -31,16 +34,28 @@ KERNEL_FNS = {
     "conv3x3_int8": (quant.conv3x3_int8_op, quant.conv3x3_int8_plain),
     "dense_int8_res": (quant.dense_int8_res_op, quant.dense_int8_res_plain),
     "geglu_int8": (mlp.geglu_int8_fused, mlp.geglu_int8_plain),
+    "affine_silu_quant": (quant.affine_silu_quant_op, quant.affine_silu_quant_plain),
+    "ln_quant": (quant.ln_quant_op, quant.ln_quant_plain),
+    "gn_quant": (quant.gn_quant_op, quant.gn_quant_plain),
 }
-# kernel launches per CFG-batch-2 UNet forward at full width (cfg_dup and the
-# cross-attention K/V cache on): the JAX package's Pallas counts on a TPU
-PER_FORWARD_BF16 = {"flash_fwd": 15, "conv3x3": 33, "geglu": 16,
-                    "conv3x3_int8": 0, "dense_int8_res": 0, "geglu_int8": 0}
-PER_FORWARD_INT8 = {"flash_fwd": 15, "conv3x3": 0, "geglu": 0,
-                    "conv3x3_int8": 47, "dense_int8_res": 11, "geglu_int8": 16}
 LAUNCH_COUNTERS = {"flash_fwd": flash_attention.flash_forward, "conv3x3": conv.conv3x3_op,
                    "geglu": mlp.geglu_fused, "conv3x3_int8": quant.conv3x3_int8_op,
-                   "dense_int8_res": quant.dense_int8_res_op, "geglu_int8": mlp.geglu_int8_fused}
+                   "dense_int8_res": quant.dense_int8_res_op, "geglu_int8": mlp.geglu_int8_fused,
+                   "affine_silu_quant": quant.affine_silu_quant_op, "ln_quant": quant.ln_quant_op,
+                   "gn_quant": quant.gn_quant_op}
+# kernel launches per CFG-doubled UNet forward at full width (the K/V cache
+# on; cfg_dup on in 1-reference requests): the JAX package's Pallas counts on
+# a TPU (tests/test_torch_tools.py holds them to the port's dispatch on meta)
+_NONE = dict.fromkeys(LAUNCH_COUNTERS, 0)
+PER_FORWARD_BF16 = {**_NONE, "flash_fwd": 15, "conv3x3": 33, "geglu": 16}
+PER_FORWARD_INT8_UNFUSED = {**_NONE, "flash_fwd": 15, "conv3x3_int8": 47, "dense_int8_res": 11, "geglu_int8": 16}
+PER_FORWARD_INT8 = {**PER_FORWARD_INT8_UNFUSED, "affine_silu_quant": 44, "ln_quant": 48, "gn_quant": 16}
+# the V=4 multi-view bf16 forward: 8 rows of 64x64 views, no cfg_dup; five of
+# the 16 flash launches are the 16384-token joint attentions (K11's sites)
+PER_FORWARD_MV4 = {**_NONE, "flash_fwd": 16, "conv3x3": 33, "geglu": 16}
+
+# the H100 SXM's published dense peaks and memory rate (NVIDIA's data sheet)
+PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
 
 
 def card_line() -> str:
@@ -82,7 +97,7 @@ def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
 def site_args(name: str, shape: tuple, generator: torch.Generator) -> tuple:
     """Seeded arguments on the card for one kernel site, ``shape`` as
     ``kernels.record_sites`` reports it."""
-    bf, dev = torch.bfloat16, "cuda"
+    bf, dev, f32 = torch.bfloat16, "cuda", torch.float32
 
     def randn(*s, scale=1.0, dtype=bf):
         return (torch.randn(s, generator=generator, device=dev) * scale).to(dtype)
@@ -93,14 +108,13 @@ def site_args(name: str, shape: tuple, generator: torch.Generator) -> tuple:
     if name == "conv3x3":
         b, h, w, ci, co = shape
         return (randn(b, h, w, ci), randn(co, 3, 3, ci, scale=(9 * ci) ** -0.5),
-                randn(co, scale=0.1, dtype=torch.float32))
+                randn(co, scale=0.1, dtype=f32))
     if name == "geglu":
         r, din, inner, dout = shape
         return (randn(r, din), randn(2 * inner, din, scale=din**-0.5),
-                randn(2 * inner, scale=0.1, dtype=torch.float32),
-                randn(dout, inner, scale=inner**-0.5), randn(dout, scale=0.1, dtype=torch.float32))
+                randn(2 * inner, scale=0.1, dtype=f32),
+                randn(dout, inner, scale=inner**-0.5), randn(dout, scale=0.1, dtype=f32))
     # int8 kernels: seeded bf16 activations and fp32 weights, quantized as the UNet quantizes them
-    f32 = torch.float32
     if name == "conv3x3_int8":
         b, h, w, ci, co = shape
         xq, sx = quant.quantize_activation(randn(b, h, w, ci))
@@ -111,28 +125,102 @@ def site_args(name: str, shape: tuple, generator: torch.Generator) -> tuple:
         xq, sx = quant.quantize_activation_rowwise(randn(r, k))
         wq, sw = quant.quantize_weight(randn(n, k, scale=k**-0.5, dtype=f32))
         return xq, sx, wq, sw, randn(n, scale=0.1, dtype=f32), randn(r, n)
-    r, din, inner, dout, chunk = shape
-    xq, sx = quant.quantize_activation_rowwise(randn(r, din))
-    w1q, s1 = quant.quantize_weight(randn(2 * inner, din, scale=din**-0.5, dtype=f32))
-    w2q, s2 = quant.quantize_weight(randn(dout, inner, scale=inner**-0.5, dtype=f32))
-    return (xq, sx, w1q, s1, randn(2 * inner, scale=0.1, dtype=f32), w2q, s2,
-            randn(dout, scale=0.1, dtype=f32), chunk)
+    if name == "geglu_int8":
+        r, din, inner, dout, chunk = shape
+        xq, sx = quant.quantize_activation_rowwise(randn(r, din))
+        w1q, s1 = quant.quantize_weight(randn(2 * inner, din, scale=din**-0.5, dtype=f32))
+        w2q, s2 = quant.quantize_weight(randn(dout, inner, scale=inner**-0.5, dtype=f32))
+        return (xq, sx, w1q, s1, randn(2 * inner, scale=0.1, dtype=f32), w2q, s2,
+                randn(dout, scale=0.1, dtype=f32), chunk)
+    # the fused prologues: a GroupNorm-like fold (a, bb) per (batch, channel)
+    if name == "ln_quant":
+        r, c, norm_out = shape
+        return randn(r, c, scale=2.0), 1 + randn(c, scale=0.1, dtype=f32), randn(c, scale=0.1, dtype=f32), 1e-5, norm_out
+    b, h, w, c = shape[:4]
+    x, a, bb = randn(b, h, w, c), 1 + randn(b, c, scale=0.3, dtype=f32), randn(b, c, scale=0.5, dtype=f32)
+    if name == "gn_quant":
+        return x, a, bb, shape[4]
+    return x, a, bb, quant.silu_scale(x, a, bb)[1]
 
 
-def unet_inputs(generator: torch.Generator):
-    """One full-width CFG-batch-2 UNet call: x [2, 64, 128, 9] (the two
-    halves equal, as CFG gives them), t, context [2, 77, 1024]."""
-    x = torch.randn((1, 64, 128, 9), generator=generator, device="cuda").repeat(2, 1, 1, 1)
-    t = torch.full((2,), 981, dtype=torch.long, device="cuda")
-    ctx = torch.randn((2, 77, 1024), generator=generator, device="cuda")
+def site_cost(name: str, shape: tuple) -> tuple[float, float]:
+    """(bytes, operations) one launch at ``shape`` must move and compute:
+    each input read once, each output written once; tensor-core operations
+    for the products (bf16, or int8 for the int8 kernels), none counted for
+    the elementwise prologues (a few fp32 operations an element, far below
+    the bytes' time)."""
+    if name == "flash_fwd":
+        b, h, nq, nk, d = shape
+        return 2 * b * h * d * (2 * nq + 2 * nk) + 4 * b * h * nq, 4 * b * h * nq * nk * d
+    if name in ("conv3x3", "conv3x3_int8"):
+        b, h, w, ci, co = shape
+        e = 2 if name == "conv3x3" else 1
+        return e * (b * h * w * ci + 9 * ci * co) + 8 * co + 2 * b * h * w * co, 2 * b * h * w * 9 * ci * co
+    if name in ("geglu", "geglu_int8"):
+        r, din, inner, dout = shape[:4]
+        e = 2 if name == "geglu" else 1
+        return (e * (r * din + 2 * inner * din + inner * dout) + 8 * (2 * inner + dout) + 2 * r * dout + 4 * r,
+                2 * r * din * 2 * inner + 2 * r * inner * dout)
+    if name == "dense_int8_res":
+        r, k, n = shape
+        return r * k + 4 * r + k * n + 8 * n + 4 * r * n, 2 * r * k * n
+    if name == "ln_quant":
+        r, c, norm_out = shape
+        return (3 + 2 * norm_out) * r * c + 4 * r + 8 * c, 0
+    b, h, w, c = shape[:4]
+    n = b * h * w * c
+    if name == "gn_quant":
+        return (3 + 2 * shape[4]) * n + 4 * b * h * w + 8 * b * c, 0
+    return 3 * n + 8 * b * c + 4, 0  # affine_silu_quant
+
+
+def bound_ms(name: str, shape: tuple) -> tuple[float, str]:
+    """The least time the H100 could take for one launch: the larger of its
+    bytes over the memory rate and its operations over the tensor-core peak
+    of their type.  Returns (ms, "bytes" | "operations")."""
+    nbytes, ops = site_cost(name, shape)
+    peak = PEAK_INT8 if name in ("conv3x3_int8", "dense_int8_res", "geglu_int8") else PEAK_BF16
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def library_fn(name: str, args: tuple):
+    """One PyTorch call computing a kernel's function on the same inputs,
+    where there is one (timed for reference only, never on the port's path):
+    ``scaled_dot_product_attention`` for the flash forward (exact softmax: the
+    clamp at 75 is not reached by these inputs) and cuDNN's ``conv2d`` for the
+    bf16 3x3 conv; None for the others (no single call computes a fused
+    GEGLU, an int8 conv, a GEMM with its residual epilogue or a fused
+    normalize-and-quantize)."""
+    if name == "flash_fwd":
+        q, k, v, h, scale = args
+        b, nq, inner = q.shape
+        heads = lambda a: a.view(b, a.shape[1], h, inner // h).transpose(1, 2)
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale).transpose(1, 2).reshape(b, nq, inner)
+    if name == "conv3x3":
+        x, w, bias = args
+        xc, wc, bb = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2), bias.to(x.dtype)
+        return lambda: F.conv2d(xc, wc, bb, padding=1).permute(0, 2, 3, 1)
+    return None
+
+
+def unet_inputs(generator: torch.Generator, rows: int = 2, hw: tuple = (64, 128)):
+    """One full-width CFG-doubled UNet call: x [rows, *hw, 9] (the two
+    halves equal, as CFG gives them), t, context [rows, 77, 1024].  The
+    default is the 1-reference canvas; the V-view multi-view scene is
+    ``rows=2 * V, hw=(64, 64)``."""
+    x = torch.randn((rows // 2, *hw, 9), generator=generator, device="cuda").repeat(2, 1, 1, 1)
+    t = torch.full((rows,), 981, dtype=torch.long, device="cuda")
+    ctx = torch.randn((rows, 77, 1024), generator=generator, device="cuda")
     return x, t, ctx
 
 
-def unet_sites(unet, x, t, ctx, kv) -> Counter:
-    """(kernel, shape) -> number of sites in one forward with cfg_dup and
-    the cross-attention K/V cache on."""
+def unet_sites(unet, x, t, ctx, kv, cfg_dup: bool = True) -> Counter:
+    """(kernel, shape) -> number of sites in one forward with the
+    cross-attention K/V cache on."""
     with kernels.record_sites() as sites:
-        unet(x, t, ctx, cross_kv=kv, cfg_dup=True)
+        unet(x, t, ctx, cross_kv=kv, cfg_dup=cfg_dup)
     torch.cuda.synchronize()
     return Counter(sites)
 
@@ -150,6 +238,17 @@ def request_canvas(seed: int = 0):
     )
 
 
+def multiview_scene(view_num: int, seed: int = 0):
+    """One scene of ``view_num`` 512x512 views in [-1, 1] and their masks:
+    view 0 holds a 256x384 hole, the other views none (NHWC numpy,
+    [1, V, 512, 512, 3] and [1, V, 512, 512, 1])."""
+    rng = np.random.RandomState(seed)
+    images = rng.uniform(-1, 1, (1, view_num, 512, 512, 3)).astype(np.float32)
+    masks = np.zeros((1, view_num, 512, 512, 1), np.float32)
+    masks[0, 0, 128:384, 64:448] = 1.0
+    return images, masks
+
+
 def serving_pipeline(model, sampler: str = "ddim", steps: int = 50):
     """The 1-reference pipeline on the card with 50 prompt tokens, CFG 2.5
     (and eta 1 for DDIM)."""
@@ -159,6 +258,38 @@ def serving_pipeline(model, sampler: str = "ddim", steps: int = 50):
     tok, sp, _ = build_prompt_tokenizer(["repeat_50_<special-token>"], ["init"])
     return RefInpaintPipeline(model=model, tokenizer=tok, special_tokens=sp, device="cuda",
                               ddim_steps=steps, guidance_scale=2.5, eta=1.0, sampler=sampler)
+
+
+def multiview_pipeline(model, view_num: int, steps: int = 50):
+    """The multi-view pipeline on the card: DDIM at eta 1, CFG 2.5, the
+    view prompts of ``configs/multiview_ref_inpainting.yaml``."""
+    from leftrefill_torch.models.clip import build_multiview_prompt_tokenizer
+    from leftrefill_torch.pipeline import MultiViewInpaintPipeline
+
+    tok, _, prompts = build_multiview_prompt_tokenizer(view_num)
+    return MultiViewInpaintPipeline(model=model, tokenizer=tok, view_prompts=prompts, device="cuda",
+                                    ddim_steps=steps, guidance_scale=2.5, eta=1.0)
+
+
+def with_unet(model, unet):
+    """The same bundle (VAE, text tower, schedule: shared, not copied) around
+    another UNet."""
+    from leftrefill_torch.diffusion.core import LeftRefillModel
+
+    return LeftRefillModel(unet, model.first_stage_model, model.cond_stage_model, model.schedule,
+                           model.scale_factor).eval()
+
+
+def unfused_twin(model):
+    """The int8 bundle with JAX's unfused int8 UNet (``fused=False``) on the
+    same int8 weights."""
+    from leftrefill_torch.models.unet import UNetModel
+
+    with torch.device("meta"):
+        unet = UNetModel(dtype=model.unet.dtype, quant=True, fused=False)
+    unet = unet.to_empty(device=next(model.unet.parameters()).device)
+    unet.load_state_dict(model.unet.state_dict(), strict=True)
+    return with_unet(model, unet)
 
 
 def reset_launches() -> None:

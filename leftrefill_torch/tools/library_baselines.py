@@ -3,14 +3,14 @@ at the main path's own shapes, on one CUDA GPU.
 
     python -m leftrefill_torch.tools.library_baselines [--json PATH]
 
-The library paths, all bf16 with fp32 accumulation:
+The library paths (``tools.library_fn``), bf16 with fp32 accumulation:
 - K1 flash forward: ``scaled_dot_product_attention`` on the same q, k, v
   viewed as [B, H, N, D] (exact softmax; the kernel clamps at 75, which these
   inputs never reach);
 - K2 3x3 conv: ``conv2d`` (cuDNN) on the same NHWC input and OHWI weight
-  viewed as channels-last NCHW / OIHW;
-- K3 fused GEGLU: two ``linear`` calls (cuBLAS) with the value * gelu(gate)
-  between them, h written to device memory.
+  viewed as channels-last NCHW / OIHW.
+K3 has no single library call (two cuBLAS products with the GEGLU between
+them would write h to device memory) and is left out.
 They are timed for reference only (CUDA events, after warm-up, kernel and
 library in turn within one process); none of them is on the port's path.
 Each line also gives the relative L2 between the two outputs.
@@ -23,31 +23,9 @@ import functools
 import json
 
 import torch
-import torch.nn.functional as F
 
 from leftrefill_torch import tools
 from leftrefill_torch.models.unet import UNetModel
-
-
-def library_fn(name: str, args: tuple):
-    if name == "flash_fwd":
-        q, k, v, h, scale = args
-        b, nq, inner = q.shape
-        heads = lambda a: a.view(b, a.shape[1], h, inner // h).transpose(1, 2)
-        qh, kh, vh = heads(q), heads(k), heads(v)
-        return lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale).transpose(1, 2).reshape(b, nq, inner)
-    if name == "conv3x3":
-        x, w, bias = args
-        xc, wc, bb = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2), bias.to(x.dtype)
-        return lambda: F.conv2d(xc, wc, bb, padding=1).permute(0, 2, 3, 1)
-    x, w1, b1, w2, b2 = args
-    b1b, b2b = b1.to(x.dtype), b2.to(x.dtype)
-
-    def geglu():
-        val, gate = F.linear(x, w1, b1b).chunk(2, dim=-1)
-        return F.linear(val * F.gelu(gate), w2, b2b)
-
-    return geglu
 
 
 def main() -> int:
@@ -72,7 +50,9 @@ def main() -> int:
         for (name, shape), n_sites in sorted(sites.items()):
             site = tools.site_args(name, shape, gen)
             kernel = functools.partial(tools.KERNEL_FNS[name][0], *site)
-            library = library_fn(name, site)
+            library = tools.library_fn(name, site)
+            if library is None:
+                continue
             err = tools.rel_l2(kernel(), library())
             row = {"kernel": name, "shape": list(shape), "sites": n_sites, "rel_l2": err,
                    "kernel_ms": tools.cuda_ms(kernel, 20), "library_ms": tools.cuda_ms(library, 20)}

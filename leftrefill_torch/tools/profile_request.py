@@ -1,26 +1,30 @@
-"""Where the time of one full-width 512x1024 request goes, on one CUDA GPU.
+"""Where the time of one full-width request goes, on one CUDA GPU.
 
-    python -m leftrefill_torch.tools.profile_request [--int8] [--json PATH]
+    python -m leftrefill_torch.tools.profile_request [--int8 [--unfused] | --multiview V] [--json PATH]
 
 The bundle is the full-width SD2-inpainting one (``build_sd2_inpaint_bundle``,
 random weights from seed 0), bf16, CFG 2.5, batch 1; ``--int8`` takes its
-W8A8 int8 twin (the same weights quantized, ``quant=True``).  It prints, and
-writes to PATH as one JSON object:
+W8A8 int8 twin (the same weights quantized) in JAX's default configuration,
+the fused prologues K4, K7 and K8 (``--unfused``: JAX's unfused int8
+configuration); ``--multiview V`` the V-view multi-view bundle, a scene of V
+512x512 views.  It prints, and writes to PATH as one JSON object:
 
 1. stage times: VAE encode, the text tower for [uncond; cond], the
-   cross-attention K/V, one CFG-batch-2 UNet forward and VAE decode (host
+   cross-attention K/V, one CFG-doubled UNet forward and VAE decode (host
    clock around synchronised calls, median of 5 after a warm-up);
 2. one request (bf16: DDIM-50; int8: DPM-Solver++(2M) 15 steps, its serving
-   configuration) timed without the profiler, then the same request
-   under ``torch.profiler`` (after a profiled warm-up request, which absorbs
-   the tracer's start-up): the sum of device time (kernels, copies,
-   memsets; one stream, so they do not overlap), the device idle share
-   1 - device/wall against both wall times, device time by group (K1-K3,
-   KI1-KI3, cuDNN convs, cuBLAS GEMMs, everything else) and the largest
-   kernels by name;
-3. DPM-Solver++(2M) requests at 15 and 50 steps: seconds per request (two
-   each, after a warm-up), kernel launches per UNet call, and the left half
-   of each canvas checked against the input.
+   configuration; multi-view: DDIM-50) timed without the profiler, with its
+   kernel launches per UNet forward, then the same request under
+   ``torch.profiler`` (after a profiled warm-up request, which absorbs the
+   tracer's start-up): the sum of device time (kernels, copies, memsets;
+   one stream, so they do not overlap) and their count, the device idle share 1 -
+   device/wall against both wall times, device time by group (K1-K3,
+   KI1-KI3, K4/K7/K8, cuDNN convs, cuBLAS GEMMs, everything else) and the
+   largest kernels by name;
+3. for the 1-reference bundles, DPM-Solver++(2M) requests at 15 and 50
+   steps: seconds per request (two each, after a warm-up), kernel launches
+   per UNet call, and the left half of each canvas checked against the
+   input.
 """
 
 from __future__ import annotations
@@ -47,6 +51,9 @@ GROUPS = (
     ("KI1 conv3x3_int8", r"conv3x3_int8_"),
     ("KI2 dense_int8_res", r"dense_int8_res_"),
     ("KI3 geglu_int8", r"geglu_int8_"),
+    ("K4 affine_silu_quant", r"affine_silu_quant_kernel"),
+    ("K7 ln_quant", r"row_quant_kernel<true>|row_quant_kernelILb1E"),
+    ("K8 gn_quant", r"row_quant_kernel<false>|row_quant_kernelILb0E"),
     ("cuDNN conv", r"fprop|conv|cudnn"),
     ("cuBLAS GEMM", r"gemm|nvjet|cublas|cutlass|splitK"),
 )
@@ -64,25 +71,28 @@ def host_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def stage_times(model, pipe, image, mask) -> dict:
+def stage_times(model, pipe, image, mask, multiview: bool) -> dict:
     img = torch.as_tensor(image, device="cuda")
     msk = torch.as_tensor(mask, device="cuda")
+    if multiview:
+        img, msk = img.flatten(0, 1), msk.flatten(0, 1)
+    rows = img.shape[0]
     masked = img * (msk < 0.5)
     tokens = torch.as_tensor(np.concatenate([pipe.uncond_tokens(1), pipe.prompt_tokens(1)]),
                              dtype=torch.long, device="cuda")
     z = model.encode_first_stage(masked)
     ctx = model.get_learned_conditioning(tokens)
     kv = model.cross_attention_kv(ctx)
-    c_concat = torch.zeros((2, *z.shape[1:3], 5), device="cuda")
+    c_concat = torch.zeros((2 * rows, *z.shape[1:3], 5), device="cuda")
     cond = Conditioning(c_concat, ctx)
-    x = torch.randn((2, *z.shape[1:]), device="cuda")
-    t = torch.full((2,), 981, dtype=torch.long, device="cuda")
+    x = torch.randn((2 * rows, *z.shape[1:]), device="cuda")
+    t = torch.full((2 * rows,), 981, dtype=torch.long, device="cuda")
     return {
         "vae_encode_ms": host_ms(lambda: model.encode_first_stage(masked)),
         "text_tower_ms": host_ms(lambda: model.get_learned_conditioning(tokens)),
         "cross_attention_kv_ms": host_ms(lambda: model.cross_attention_kv(ctx)),
-        "unet_forward_ms": host_ms(lambda: model.apply_model(x, t, cond, cross_kv=kv, cfg_dup=True)),
-        "vae_decode_ms": host_ms(lambda: model.decode_first_stage(z[:1])),
+        "unet_forward_ms": host_ms(lambda: model.apply_model(x, t, cond, cross_kv=kv, cfg_dup=not multiview)),
+        "vae_decode_ms": host_ms(lambda: model.decode_first_stage(z)),
     }
 
 
@@ -100,11 +110,13 @@ def timed_request(pipe, image, mask) -> float:
     return time.perf_counter() - t0
 
 
-def profiled_request(pipe, image, mask) -> dict:
+def profiled_request(pipe, image, mask, unet_calls: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    tools.reset_launches()
     unprofiled_s = timed_request(pipe, image, mask)
+    per_call = {n: c / unet_calls for n, c in tools.launches().items()}
     with profile(activities=activities):  # warm-up: the tracer's start-up
         timed_request(pipe, image, mask)
     with profile(activities=activities) as prof:
@@ -124,8 +136,10 @@ def profiled_request(pipe, image, mask) -> dict:
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     return {
         "unprofiled_wall_s": unprofiled_s,
+        "kernel_launches_per_unet_call": per_call,
         "profiled_wall_s": wall_s,
         "device_s": device_s,
+        "device_kernel_launches": sum(c for _, c in per_kernel.values()),
         "idle_share_profiled": 1.0 - device_s / wall_s,
         "idle_share_unprofiled": 1.0 - device_s / unprofiled_s,
         "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
@@ -159,32 +173,43 @@ def dpm_requests(model, image, mask, per_forward: dict) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--int8", action="store_true", help="profile the W8A8 int8 bundle")
+    ap.add_argument("--int8", action="store_true", help="profile the W8A8 int8 bundle (fused prologues)")
+    ap.add_argument("--unfused", action="store_true", help="with --int8: JAX's unfused int8 configuration")
+    ap.add_argument("--multiview", type=int, metavar="V", help="profile the V-view multi-view bundle (bf16)")
     ap.add_argument("--json", help="also write the result to this file")
     args = ap.parse_args()
+    if args.unfused and not args.int8 or args.multiview and args.int8:
+        ap.error("--unfused goes with --int8, --multiview with neither")
     if not torch.cuda.is_available():
         raise SystemExit("profile_request: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    result = {"card": tools.card_line(), "torch": torch.__version__, "cuda": torch.version.cuda,
-              "bundle": "int8" if args.int8 else "bf16"}
+    bundle = (f"multiview_v{args.multiview}" if args.multiview else
+              ("int8_unfused" if args.unfused else "int8_fused") if args.int8 else "bf16")
+    result = {"card": tools.card_line(), "torch": torch.__version__, "cuda": torch.version.cuda, "bundle": bundle}
     print(result["card"])
     model = build_sd2_inpaint_bundle("cuda", torch.bfloat16, torch.Generator("cuda").manual_seed(0),
-                                     quant=args.int8)
-    image, mask = tools.request_canvas()
+                                     quant=args.int8, fused=not args.unfused, view_num=args.multiview)
     sampler, steps = ("dpm++2m", 15) if args.int8 else ("ddim", 50)
-    pipe = tools.serving_pipeline(model, sampler=sampler, steps=steps)
+    if args.multiview:
+        image, mask = tools.multiview_scene(args.multiview)
+        pipe = tools.multiview_pipeline(model, args.multiview, steps=steps)
+    else:
+        image, mask = tools.request_canvas()
+        pipe = tools.serving_pipeline(model, sampler=sampler, steps=steps)
     with torch.inference_mode():
-        result["stages"] = stage_times(model, pipe, image, mask)
+        result["stages"] = stage_times(model, pipe, image, mask, multiview=bool(args.multiview))
     print("stages", json.dumps(result["stages"]))
     pipe(image, mask, torch.Generator("cuda").manual_seed(99))  # warm-up request
     torch.cuda.synchronize()
     key = f"{sampler}{steps}_profiled"
-    result[key] = profiled_request(pipe, image, mask)
+    result[key] = profiled_request(pipe, image, mask, unet_calls=steps)
     print(key, json.dumps(result[key]))
-    per_forward = tools.PER_FORWARD_INT8 if args.int8 else tools.PER_FORWARD_BF16
-    result["dpm"] = dpm_requests(model, image, mask, per_forward)
-    print("dpm++2m", json.dumps(result["dpm"]))
+    if not args.multiview:
+        per_forward = (tools.PER_FORWARD_INT8_UNFUSED if args.unfused else tools.PER_FORWARD_INT8) if args.int8 \
+            else tools.PER_FORWARD_BF16
+        result["dpm"] = dpm_requests(model, image, mask, per_forward)
+        print("dpm++2m", json.dumps(result["dpm"]))
     if args.json:
         with open(args.json, "w") as f:
             json.dump(result, f, indent=1)

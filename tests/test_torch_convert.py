@@ -148,10 +148,10 @@ def test_full_width_dispatch_counts(monkeypatch, dtype, cfg_dup, expected):
 
 
 def test_port_imports_no_jax_or_flax():
-    """Statically: no module of the port imports jax or flax (it may import
-    the JAX package's numpy-only modules: the schedule tables and the
+    """Statically: no module of the port imports jax, flax or the JAX
+    package (it keeps its own copies of the schedule tables and the
     tokenizer).  At run time: a fresh interpreter importing the pipeline
-    loads neither jax, jaxlib nor flax."""
+    loads neither jax, jaxlib, flax nor the JAX package."""
     for path in (REPO / "leftrefill_torch").rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
@@ -160,12 +160,12 @@ def test_port_imports_no_jax_or_flax():
             elif isinstance(node, ast.ImportFrom) and node.module:
                 names = [node.module]
             for n in names:
-                assert n.split(".")[0] not in ("jax", "jaxlib", "flax"), f"{path}: imports {n}"
+                assert n.split(".")[0] not in ("jax", "jaxlib", "flax", "leftrefill_tpu"), f"{path}: imports {n}"
     code = (
         "import sys; before = set(sys.modules)\n"
         "import leftrefill_torch.pipeline, leftrefill_torch.kernels\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
-        "assert not new & {'jax', 'flax', 'jaxlib'}, new\n"
+        "assert not new & {'jax', 'flax', 'jaxlib', 'leftrefill_tpu'}, new\n"
         "assert 'jax' not in sys.modules and 'flax' not in sys.modules\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

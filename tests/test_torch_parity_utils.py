@@ -83,18 +83,39 @@ def rel_l2(got, ref) -> float:
 def int8_activations_off():
     """The control of the int8 parity tests: inside, every int8 site of the
     port multiplies its unquantized activation (fp32 values, scale 1) by the
-    dequantized weight, as an arm that quantized weights only would.  A
-    bound that this control also meets cannot tell a sound int8 arm from
+    dequantized weight, as an arm that quantized weights only would; the
+    fused prologues (K4, K7, K8) hand on their fp32 values unquantized too.
+    A bound that this control also meets cannot tell a sound int8 arm from
     that fault."""
+    import torch.nn.functional as F
+
     from leftrefill_torch.ops import mlp, quant
 
     def matmul(a, b_t):
         return a.float() @ b_t.float().t()
 
+    def ones(x):
+        return torch.ones((*x.shape[:-1], 1), dtype=torch.float32)
+
+    def silu_off(x, a, bb):
+        y = quant._affine(x, a, bb)
+        return y * quant.sigmoid(y), torch.ones((), dtype=torch.float32)
+
+    def ln_off(x, gamma, beta, eps=1e-5, norm_out=True):
+        y = F.layer_norm(x.float(), x.shape[-1:], gamma, beta, eps)
+        return (y.to(x.dtype) if norm_out else None), y, ones(y)
+
+    def gn_off(x, gamma, beta, *, num_groups=32, eps=1e-6, norm_out=True):
+        a, bb = quant.gn_affine_ab(*quant.gn_moments(x), gamma, beta, num_groups, eps)
+        y = quant._affine(x, a, bb)
+        return (y.to(x.dtype) if norm_out else None), y, ones(y)
+
     with pytest.MonkeyPatch.context() as m:
         m.setattr(quant, "quantize_activation", lambda x: (x.float(), torch.ones((), dtype=torch.float32)))
-        m.setattr(quant, "quantize_activation_rowwise",
-                  lambda x: (x.float(), torch.ones((*x.shape[:-1], 1), dtype=torch.float32)))
+        m.setattr(quant, "quantize_activation_rowwise", lambda x: (x.float(), ones(x)))
+        m.setattr(quant, "silu_quant", silu_off)
+        m.setattr(quant, "ln_quant_rowwise", ln_off)
+        m.setattr(quant, "gn_quant_rowwise", gn_off)
         m.setattr(quant, "int_mm", matmul)
         m.setattr(mlp, "int_mm", matmul)
         yield
@@ -178,7 +199,7 @@ def run_both_pipelines(sampler: str, steps: int = 4, seed: int = 3):
         rng.uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32),
         np.ones((1, 32, 32, 1), np.float32),
     )
-    pipe = RefInpaintPipeline(model=tm, tokenizer=tok, special_tokens=sp, ddim_steps=steps,
+    pipe = RefInpaintPipeline(model=tm, tokenizer=tok, special_tokens=sp, device="cpu", ddim_steps=steps,
                               guidance_scale=2.5, eta=1.0, sampler=sampler)
     shape = (1, 16, 32, 4)  # the tiny VAE downsamples by 2
     key = jax.random.PRNGKey(seed)

@@ -266,14 +266,50 @@ def test_full_width_int8_key_set_matches_jax():
 
 @pytest.mark.parametrize("cfg_dup", [True, False])
 def test_full_width_int8_dispatch_counts(monkeypatch, cfg_dup):
-    """One full-width CFG-batch-2 int8 forward (64x128 latent, cross-attention
-    K/V cache) reaches 47 int8 convs, 11 int8 proj_out GEMMs, 16 int8
+    """One full-width CFG-batch-2 int8 forward of the unfused arm
+    (``fused=False``; 64x128 latent, cross-attention K/V cache) reaches 47 int8 convs, 11 int8 proj_out GEMMs, 16 int8
     GEGLUs, 15 flash attentions and neither bf16 kernel: JAX's Pallas counts
     in its unfused int8 configuration (K5 + K6, K9, K10, K1).  The K/V cache
     and the forward together make JAX's 163 ``dense_int8`` calls, each on an
     int8 activation: 32 context K/V projections, then 131 (each
     transformer's proj_in, q, k, v, second q and two output projections,
     the five ds-1 proj_outs, the 14 skip 1x1s)."""
+    from leftrefill_torch.models.unet import UNetModel
+
+    monkeypatch.setattr(kernels, "uses_kernel", lambda t: t.device.type in ("cuda", "meta"))
+    dense = Counter()
+
+    def counted_dense(xq, *a, _f=tq.dense_int8, **k):
+        dense[xq.dtype] += 1
+        return _f(xq, *a, **k)
+
+    monkeypatch.setattr(tq, "dense_int8", counted_dense)
+    with torch.device("meta"):
+        unet = UNetModel(dtype=torch.bfloat16, quant=True, fused=False)
+        x = torch.empty(2, 64, 128, 9)
+        ts = torch.empty(2, dtype=torch.long)
+        ctx = torch.empty(2, 77, 1024)
+    with torch.no_grad(), kernels.record_sites() as sites:
+        out = unet(x, ts, ctx, cross_kv=unet.cross_kv(ctx), cfg_dup=cfg_dup)
+    assert out.shape == (2, 64, 128, 4)
+    assert dense == {torch.int8: 163}
+    assert Counter(name for name, _ in sites) == {"conv3x3_int8": 47, "dense_int8_res": 11,
+                                                 "geglu_int8": 16, "flash_fwd": 15}
+    convs = Counter(shape for name, shape in sites if name == "conv3x3_int8")
+    assert sum(n for s, n in convs.items() if s[1:3] == (8, 16)) == 14  # K6's sites in JAX
+    assert sum(n for s, n in convs.items() if s[0] == 1) == (2 if cfg_dup else 0)  # the shared prefix
+    chunks = {shape[0]: shape[4] for name, shape in sites if name == "geglu_int8"}
+    assert chunks == {16384: 640, 4096: 640, 1024: 256, 256: 640}
+
+
+@pytest.mark.parametrize("cfg_dup", [True, False])
+def test_full_width_fused_int8_dispatch_counts(monkeypatch, cfg_dup):
+    """The int8 UNet in JAX's default configuration (``fused=True``), one
+    full-width CFG-batch-2 forward with the cross-attention K/V cache: JAX's
+    pinned Pallas counts (tests/test_dispatch_structure.py): 44 fused
+    ResBlock conv stacks through K4 into KI1 plus the 3 Upsample convs on
+    KI1, 48 K7 prenorms, 16 K8 GroupNorms into proj_in, 11 KI2, 16 KI3, 15
+    K1, no bf16 kernel, and 163 ``dense_int8`` calls on int8 activations."""
     from leftrefill_torch.models.unet import UNetModel
 
     monkeypatch.setattr(kernels, "uses_kernel", lambda t: t.device.type in ("cuda", "meta"))
@@ -293,13 +329,11 @@ def test_full_width_int8_dispatch_counts(monkeypatch, cfg_dup):
         out = unet(x, ts, ctx, cross_kv=unet.cross_kv(ctx), cfg_dup=cfg_dup)
     assert out.shape == (2, 64, 128, 4)
     assert dense == {torch.int8: 163}
-    assert Counter(name for name, _ in sites) == {"conv3x3_int8": 47, "dense_int8_res": 11,
-                                                 "geglu_int8": 16, "flash_fwd": 15}
-    convs = Counter(shape for name, shape in sites if name == "conv3x3_int8")
-    assert sum(n for s, n in convs.items() if s[1:3] == (8, 16)) == 14  # K6's sites in JAX
-    assert sum(n for s, n in convs.items() if s[0] == 1) == (2 if cfg_dup else 0)  # the shared prefix
-    chunks = {shape[0]: shape[4] for name, shape in sites if name == "geglu_int8"}
-    assert chunks == {16384: 640, 4096: 640, 1024: 256, 256: 640}
+    assert Counter(name for name, _ in sites) == {"affine_silu_quant": 44, "conv3x3_int8": 47, "ln_quant": 48,
+                                                 "gn_quant": 16, "dense_int8_res": 11, "geglu_int8": 16,
+                                                 "flash_fwd": 15}
+    # no prenorm writes its bf16 output: every consumer reads the int8 side
+    assert {shape[-1] for name, shape in sites if name in ("ln_quant", "gn_quant")} == {False}
 
 
 def test_tiny_int8_bundle_serves_a_canvas():
@@ -320,7 +354,8 @@ def test_tiny_int8_bundle_serves_a_canvas():
                                 rng.uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32),
                                 np.ones((1, 32, 32, 1), np.float32))
     x_t = torch.from_numpy(rng.standard_normal((1, 16, 32, 4)).astype(np.float32))
-    pipe = RefInpaintPipeline(model=tm, tokenizer=tok, special_tokens=sp, ddim_steps=4, sampler="dpm++2m")
+    pipe = RefInpaintPipeline(model=tm, tokenizer=tok, special_tokens=sp, device="cpu", ddim_steps=4,
+                              sampler="dpm++2m")
     fp_canvas = pipe(image, mask, x_T=x_t)
     qunet = UNetModel(**TINY_UNET, quant=True)
     qunet.load_state_dict(tq.quantize_params_like(qunet, tm.unet.state_dict()), strict=True)
@@ -331,3 +366,25 @@ def test_tiny_int8_bundle_serves_a_canvas():
     assert canvas.shape == (1, 32, 64, 3) and torch.isfinite(canvas).all()
     assert torch.equal(canvas[:, :, :32], torch.from_numpy(image[:, :, :32]))
     assert not torch.equal(canvas, fp_canvas) and float((canvas - fp_canvas).abs().max()) < 0.25
+
+
+def test_fp32_int8_unet_keeps_the_unfused_arm():
+    """JAX gates its fused prologues on bf16, so an fp32 int8 UNet computes
+    the unfused arm whatever ``fused`` says: the same sites (no K4, K7 or
+    K8) and the same output, on the tiny int8 UNet of the CPU tests."""
+    from leftrefill_torch.models.unet import UNetModel
+
+    _, qtree = _jax_int8_tree()
+    sd = {k[len("model.diffusion_model."):]: v for k, v in state_dict_from_flax({"unet": qtree}).items()}
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 32, 9)).astype(np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((2, 77, 96)).astype(np.float32))
+    outs, sites = [], []
+    for fused in (True, False):
+        unet = UNetModel(**TINY_Q, dtype=torch.float32, quant=True, fused=fused)
+        unet.load_state_dict(sd, strict=True)
+        with torch.no_grad(), kernels.record_sites() as s:
+            outs.append(unet.eval()(x, torch.tensor([500, 500]), ctx))
+        sites.append(Counter(name for name, _ in s))
+    assert sites[0] == sites[1] == {"conv3x3_int8": 17}
+    assert torch.equal(outs[0], outs[1])

@@ -81,7 +81,7 @@ def _resblocks(dtype: str):
     qtree = _int8_params(jr(False), jr(True), 22, xj, ej)
     with pltpu.force_tpu_interpret_mode():
         ref = jr(True).apply({"params": qtree}, xj, ej)
-    tr = _load(TR(128, 256, 512, dtype=getattr(torch, dtype), quant=True), qtree)
+    tr = _load(TR(128, 256, 512, dtype=getattr(torch, dtype), quant=True, fused=False), qtree)
     with torch.no_grad(), kernels.record_sites() as sites:
         out = tr(xt, et)
     with torch.no_grad(), int8_activations_off():
@@ -120,7 +120,7 @@ def test_int8_spatial_transformer_matches_jax(unfused_int8_tpu_dispatch):
     qtree = _int8_params(js(False), js(True), 24, xj, cj)
     with pltpu.force_tpu_interpret_mode():
         ref = js(True).apply({"params": qtree}, xj, cj)
-    ts = _load(TS(128, 4, 32, 1, 96, dtype=torch.bfloat16, quant=True), qtree)
+    ts = _load(TS(128, 4, 32, 1, 96, dtype=torch.bfloat16, quant=True, fused=False), qtree)
     with torch.no_grad(), kernels.record_sites() as sites:
         out = ts(xt, ct)
         kv_out = ts(xt, ct, cross_kv=ts.cross_kv(ct))

@@ -71,6 +71,25 @@ def test_geglu_int8_plan_and_rule_match_jax(on_tpu, r, din, inner, dout):
         assert tmlp.geglu_int8_chunk(r, din, inner, dout) == jmlp._plan(r, din, inner, dout, 1, 1)[1]
 
 
+# (r, c): the 48 prenorm sites' shapes at full width (CFG batch 2, the first
+# transformer's norm1 at half batch), the multi-view V=4 ones, test shapes
+LN_SHAPES = [(8192, 320), (16384, 320), (4096, 640), (1024, 1280), (256, 1280), (32768, 320), (8192, 640),
+             (2048, 1280), (512, 1280), (1024, 128), (512, 128), (256, 256), (96, 128), (100, 64), (64, 20000)]
+
+
+@pytest.mark.parametrize("r,c", LN_SHAPES)
+def test_ln_quant_plan_and_rule_match_jax(on_tpu, r, c):
+    assert tquant.plan_ln_rows(r, c) == jquant._plan_ln_rows(r, c)
+    assert tquant.ln_quant_qualifies(r, c) == jquant.ln_quant_qualifies(r, c)
+
+
+@pytest.mark.parametrize("h,w,c", [(64, 128, 320), (8, 16, 1280), (64, 64, 320), (16, 32, 128), (8, 12, 256),
+                                   (8, 16, 100)])
+def test_fused_conv_and_gn_rules_match_jax(on_tpu, h, w, c):
+    assert tquant.gn_quant_qualifies(h, w, c) == jquant.gn_quant_qualifies(h, w, c)
+    assert tquant.gn_silu_conv3x3_int8_qualifies(h, w, c, c) == jquant.gn_silu_conv3x3_int8_qualifies(h, w, c, c)
+
+
 def test_full_width_geglu_chunk_widths():
     """The requant chunk is part of the function: 640 / 640 / 256 / 640."""
     assert [tmlp.geglu_int8_chunk(*s) for s in GEGLU_SHAPES[:4]] == [640, 640, 256, 640]

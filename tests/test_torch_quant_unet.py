@@ -34,9 +34,12 @@ until they differ by about the int8 noise itself: measured 4.8e-2 (bf16)
 and 3.9e-2 (fp32), against 4.9e-2 between JAX's own int8 and bf16 forwards
 of these weights, and the 0.08 JAX's test allows between its fused and
 unfused int8 arms for the same reason (tests/test_quant.py).  This bound
-reads no control: the block-wise one does.
+cannot tell a sound int8 arm from the control: the port's free-running bf16
+forward under ``int8_activations_off`` is 4.1e-2 from JAX's, inside it.  It
+checks the output's scale; the block-wise bounds check parity.
 """
 
+import functools
 from collections import Counter
 
 import jax
@@ -52,37 +55,52 @@ import leftrefill_tpu.ops.mlp as jmlp
 import leftrefill_tpu.ops.quant as jq
 from leftrefill_torch import kernels
 from leftrefill_torch.convert.from_jax import _unet_module, state_dict_from_flax
+from leftrefill_torch.ops import quant as tq
 
 CFG = dict(in_channels=9, model_channels=128, out_channels=4, num_res_blocks=1,
            attention_resolutions=(1, 2), channel_mult=(1, 2), num_head_channels=32, context_dim=96)
-JAX_KERNELS = ("conv3x3_int8_copy3_pre", "conv3x3_int8_single_pre", "dense_int8_res_mom", "geglu_fused_int8")
+JAX_KERNELS = ("conv3x3_int8_copy3_pre", "conv3x3_int8_single_pre", "dense_int8_res_mom", "geglu_fused_int8",
+               "affine_silu_quant", "ln_quant_rowwise", "gn_quant_rowwise")
 
 
-def run_tiny_int8_unets(monkeypatch, dtype: str):
+def run_tiny_int8_unets(monkeypatch, dtype: str, fused: bool = False, views: int = 0):
     """The same int8 weights and inputs through JAX (TPU dispatch, interpret
-    mode) and the port, both computing in ``dtype``.  Returns the port's and
-    JAX's outputs, JAX's kernel calls, the port's kernel sites, and each
-    top-level block's class, its teacher-forced error (max-abs relative and
-    rel L2), and its rel L2 with the int8 activations off (the control)."""
+    mode) and the port, both computing in ``dtype``, in the unfused
+    configuration (both fusion flags 0, the port's ``fused=False``) or with
+    ``fused`` in JAX's default one (both flags on, the port's default).
+    With ``views`` the UNets are the multi-view ones and the batch is one
+    scene of that many views (no cfg_dup, as in multi-view sampling).
+    Returns the port's and JAX's outputs, JAX's kernel calls (and their
+    first operand's shapes), the port's kernel sites, and each top-level
+    block's class, its teacher-forced error (max-abs relative and rel L2),
+    and its rel L2 with the int8 activations off (the control).  With
+    ``fused`` the teacher-forced blocks take the GroupNorm statistics and
+    fold from JAX (see below); ``own_*`` are the same blocks with the port's
+    own."""
+    from leftrefill_tpu.models.multiview import MultiViewUnetModel as JMV
     from leftrefill_tpu.models.unet import UNetModel as JU
 
+    from leftrefill_torch.models.multiview import MultiViewUnetModel as TMV
     from leftrefill_torch.models.unet import UNetModel as TU
 
     monkeypatch.setattr(jconv, "on_tpu", lambda: True)
-    monkeypatch.setenv("LEFTREFILL_FUSED_RES", "0")
-    monkeypatch.setenv("LEFTREFILL_FUSED_LNQ", "0")
-    calls = Counter()
+    monkeypatch.setenv("LEFTREFILL_FUSED_RES", "1" if fused else "0")
+    monkeypatch.setenv("LEFTREFILL_FUSED_LNQ", "1" if fused else "0")
+    calls, shapes = Counter(), Counter()
     for name in JAX_KERNELS:
         mod = jmlp if name == "geglu_fused_int8" else jq
 
         def counted(*a, _f=getattr(mod, name), _n=name, **k):
             calls[_n] += 1
+            shapes[_n, a[0].shape] += 1
             return _f(*a, **k)
 
         monkeypatch.setattr(mod, name, counted)
 
     rng = np.random.RandomState(31)
     x = np.repeat(rng.standard_normal((1, 16, 32, 9)).astype(np.float32), 2, axis=0)  # CFG layout
+    if views:  # one scene: views that differ
+        x = np.concatenate([x[:1], rng.standard_normal((views - 1, 16, 32, 9)).astype(np.float32)])
     ts = np.array([412, 412])
     ctx = rng.standard_normal((2, 77, 96)).astype(np.float32)  # [uncond; cond] differ
     tdt = getattr(torch, dtype)
@@ -91,26 +109,33 @@ def run_tiny_int8_unets(monkeypatch, dtype: str):
     args = (xj, jnp.asarray(ts, jnp.int32), cj)
 
     fp = fill_tree(jax.eval_shape(JU(**CFG).init, jax.random.PRNGKey(0), *args)["params"], 32)
-    ju = JU(**CFG, dtype=getattr(jnp, dtype), quant=True)
+    jcls = functools.partial(JMV, view_num=views) if views else JU
+    ju = jcls(**CFG, dtype=getattr(jnp, dtype), quant=True)
     qstruct = jax.eval_shape(ju.init, jax.random.PRNGKey(0), *args)["params"]
     qtree = jax.tree_util.tree_map(np.asarray, jq.quantize_params_like(qstruct, fp))
+    calls.clear()  # the fused prenorms also run while eval_shape traces init
+    shapes.clear()
+    cfg_dup = not views
     with pltpu.force_tpu_interpret_mode():
         kv = ju.apply({"params": qtree}, cj, method="cross_kv")
-        ref, state = ju.apply({"params": qtree}, *args, cross_kv=kv, cfg_dup=True,
+        ref, state = ju.apply({"params": qtree}, *args, cross_kv=kv, cfg_dup=cfg_dup,
                               capture_intermediates=True, mutable=["intermediates"])
     ref = np.asarray(ref, np.float32)
     block_refs = {name: np.array(v["__call__"][0], np.float32) for name, v in state["intermediates"].items()
                   if name.startswith(("input_blocks", "middle_block", "output_blocks"))}
 
     sd = state_dict_from_flax({"unet": qtree})
-    tu = TU(**CFG, dtype=tdt, quant=True)
+    tcls = functools.partial(TMV, view_num=views) if views else TU
+    tu = tcls(**CFG, dtype=tdt, quant=True, fused=fused)
     tu.load_state_dict({k[len("model.diffusion_model."):]: v for k, v in sd.items()}, strict=True)
+    fwd = lambda: tu(xt, torch.from_numpy(ts), ct, cross_kv=kv_t, cfg_dup=cfg_dup)
     with torch.no_grad(), kernels.record_sites() as sites:
         kv_t = tu.eval().cross_kv(ct)
-        out = tu(xt, torch.from_numpy(ts), ct, cross_kv=kv_t, cfg_dup=True)
-    with torch.no_grad():  # the shared CFG prefix is exact in int8 too
-        assert torch.equal(out, tu(xt, torch.from_numpy(ts), ct, cross_kv=kv_t, cfg_dup=False))
-    assert out.shape == (2, 16, 32, 4) and out.dtype == tdt
+        out = fwd()
+    if cfg_dup:
+        with torch.no_grad():  # the shared CFG prefix is exact in int8 too
+            assert torch.equal(out, tu(xt, torch.from_numpy(ts), ct, cross_kv=kv_t, cfg_dup=False))
+    assert out.shape == (x.shape[0], 16, 32, 4) and out.dtype == tdt
     assert np.isfinite(ref).all() and np.abs(ref).max() > 0.1
 
     # teacher forcing: every block of the port gets JAX's input to it (each
@@ -125,27 +150,62 @@ def run_tiny_int8_unets(monkeypatch, dtype: str):
 
             hooks.append(tu.get_submodule(_unet_module(key)).register_forward_hook(hook))
         with torch.no_grad():
-            tu(xt, torch.from_numpy(ts), ct, cross_kv=kv_t, cfg_dup=True)
+            fwd()
         for h in hooks:
             h.remove()
         assert errs.keys() == block_refs.keys() and len(errs) == 18
         return errs
 
+    own = {}
+    if fused:
+        own = forced_block_errors()
+        # the fused prologues quantize fp32 GroupNorm output, where a
+        # last-bit difference in the fold (a, bb) moves int8 steps that the
+        # unfused arm's bf16 GroupNorm would absorb; the block comparison
+        # takes the statistics from JAX too (test_torch_quant_prologues.py
+        # holds the port's own to JAX's), the free-running output above not
+        monkeypatch.setattr(tq, "gn_moments", jax_gn_moments)
+        monkeypatch.setattr(tq, "gn_affine_ab", jax_gn_affine_ab)
     errs = forced_block_errors()
     with int8_activations_off():
         control = forced_block_errors()
-    return dict(out=out.float().numpy(), ref=ref, calls=calls, sites=Counter(n for n, _ in sites),
+    return dict(out=out.float().numpy(), ref=ref, calls=calls, shapes=shapes, sites=Counter(n for n, _ in sites),
+                site_shapes=Counter(sites),
                 kinds={k: type(tu.get_submodule(_unet_module(k))).__name__ for k in block_refs},
                 block_errs={k: e[0] for k, e in errs.items()}, block_l2={k: e[1] for k, e in errs.items()},
-                control_l2={k: e[1] for k, e in control.items()})
+                own_block_errs={k: e[0] for k, e in own.items()}, own_block_l2={k: e[1] for k, e in own.items()},
+                control_l2={k: e[1] for k, e in control.items()},
+                block_norm={k: float(np.linalg.norm(v)) for k, v in block_refs.items()})
 
 
-def check_blocks(r, kinds: tuple, bound: float) -> None:
-    """Every block of the classes ``kinds`` within ``bound`` rel L2, and the
-    control outside it at each of them."""
+def jax_gn_moments(x: torch.Tensor):
+    """JAX's per-channel moments (quant.py:916-918) of a port tensor."""
+    xf = jnp.asarray(x.float().numpy())
+    return (torch.from_numpy(np.array(jnp.mean(xf, axis=(1, 2)))),
+            torch.from_numpy(np.array(jnp.mean(xf * xf, axis=(1, 2)))))
+
+
+def jax_gn_affine_ab(m_c, q_c, gamma, beta, num_groups, eps, emb=None, scale_shift=None):
+    """JAX's ``_gn_affine_ab`` on port tensors."""
+    j = lambda t: None if t is None else jnp.asarray(t.float().numpy())
+    ss = None if scale_shift is None else tuple(j(t) for t in scale_shift)
+    a, bb = jq._gn_affine_ab(j(m_c), j(q_c), j(gamma), j(beta), num_groups, eps, j(emb), ss)
+    return torch.from_numpy(np.array(a)), torch.from_numpy(np.array(bb))
+
+
+def check_blocks(r, kinds: tuple, bound: float, aggregate: bool = False, errs: str = "block_l2") -> None:
+    """Every block of the classes ``kinds`` within ``bound`` rel L2 (with
+    ``aggregate``: their rel L2 taken together, over all their elements;
+    ``errs``: the run's key of the errors to read), and the control outside
+    it at each of them."""
     blocks = [k for k, kind in r["kinds"].items() if kind in kinds]
     assert blocks
-    assert max(r["block_l2"][k] for k in blocks) < bound, r["block_l2"]
+    if aggregate:
+        sq = sum((r[errs][k] * r["block_norm"][k]) ** 2 for k in blocks)
+        err = (sq / sum(r["block_norm"][k] ** 2 for k in blocks)) ** 0.5
+    else:
+        err = max(r[errs][k] for k in blocks)
+    assert err < bound, r[errs]
     assert min(r["control_l2"][k] for k in blocks) > bound, r["control_l2"]
 
 
