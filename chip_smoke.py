@@ -61,7 +61,28 @@ Phases, one line each (the kernel phases one line per kernel shape):
    output, the unmasked views and view 0 outside its hole returned as they
    were, different outputs for different seeds, and the launch counts of
    phase 3m per forward; seconds per scene.
-The line before the last is a JSON summary of the nine kernels; the last
+2t. the flash-attention backward kernels (dq: K12 + K14; dk/dv: K13) at
+   every shape a full-width train step gives them (1-reference batch 8:
+   8192/2048/512 tokens; the V=4 scene: 16384 (K14's path in JAX), 4096,
+   1024 and 256 tokens), on seeded normal inputs (every 16th query row's
+   logits past the clamp at 75), with o and lse from K1: dq, dk and dv each
+   within relative L2 1e-2 of the plain version, outside the rows that a
+   score within 1e-3 of the clamp reaches (there the envelope mask steps,
+   and the two versions' sums may round to its two sides), and over every
+   row once each such score's term is put on the kernel's side; timed
+   beside the bound and the backward of ``scaled_dot_product_attention``;
+   then both at head dim 128, off the main path;
+7. 1-reference prompt-tuning training at full width (remat on, the released
+   AdamW: lr 3e-5, weight decay 0.01): batch 8 of seeded 512x1024 canvases,
+   a warm-up step, then three timed steps with the launches per step of
+   every kernel checked; the loss finite, the prompt table moved, every
+   other parameter bit-unchanged; then at batch 2 one step's prompt-table
+   gradient through the kernels against the same step with every kernel
+   routed to its plain version (relative L2 <= 5e-2);
+8. V=4 multi-view prompt-tuning training: one scene of four 512x512 views a
+   step, the view-0 loss, a warm-up step and two timed steps with their
+   launches checked; the loss finite and the table moved.
+The line before the last is a JSON summary of the eleven kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
 """
@@ -70,12 +91,14 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-REL_L2 = {"flash_fwd": 1e-2, "conv3x3": 1e-2, "geglu": 1e-2}  # kernel vs plain
+REL_L2 = {"flash_fwd": 1e-2, "flash_bwd_dq": 1e-2, "flash_bwd_dkv": 1e-2, "conv3x3": 1e-2,
+          "geglu": 1e-2}  # kernel vs plain
 # exact int32 sums and the plain version's fp32 operations in its order (KI3:
 # the same erff, so the requant of h agrees too); 1 ulp leaves room for a
 # contracted multiply-add, which the kernels avoid
@@ -90,11 +113,19 @@ STEP_SHARE, SCALE_ULPS, NORM_MAX_REL = 1e-3, 8, 2.0**-8
 BF16_NAMES, INT8_NAMES = ("flash_fwd", "conv3x3", "geglu"), ("conv3x3_int8", "dense_int8_res", "geglu_int8")
 PROLOGUES = ("affine_silu_quant", "ln_quant", "gn_quant")
 UNET_REL_L2 = 3e-2  # 16 transformer blocks and 22 res blocks of rounding
+# the prompt table's gradient through the kernels against the plain versions:
+# the forward's rounding differences (rel L2 ~1.6e-2 at the UNet output) and
+# the backward's, through every layer after the first cross-attention
+PROMPT_GRAD_REL_L2 = 5e-2
+BWD_NAMES = ("flash_bwd_dq", "flash_bwd_dkv")
 BLOCK_MAX_REL, TRANSFORMERS_L2 = 2e-2, 3e-3  # teacher-forced blocks (tests/test_torch_quant_unet_fused.py)
 VIEWS = 4
 KERNELS = {
     "flash_fwd": ("leftrefill_torch/csrc/flash_fwd.cu",
                   "leftrefill_tpu/ops/flash_attention.py:211 (K1) and leftrefill_tpu/ops/flash_attention.py:252 (K11)"),
+    "flash_bwd_dq": ("leftrefill_torch/csrc/flash_bwd.cu",
+                     "leftrefill_tpu/ops/flash_attention.py:418 (K12) and leftrefill_tpu/ops/flash_attention.py:456 (K14)"),
+    "flash_bwd_dkv": ("leftrefill_torch/csrc/flash_bwd.cu", "leftrefill_tpu/ops/flash_attention.py:506 (K13)"),
     "conv3x3": ("leftrefill_torch/csrc/conv3x3.cu", "leftrefill_tpu/ops/conv.py:181"),
     "geglu": ("leftrefill_torch/csrc/geglu.cu", "leftrefill_tpu/ops/mlp.py:86"),
     "conv3x3_int8": ("leftrefill_torch/csrc/conv3x3_int8.cu",
@@ -133,6 +164,9 @@ def compare(name: str, got, ref) -> tuple[str, float]:
                 raise SystemExit(f"{name}: bf16 output {d:.3e} of its max apart ({bf16_ulps(gn, rn)} ulps)")
             reading += f" norm_max_rel={d:.3e} norm_ulps={bf16_ulps(gn, rn)}"
         return reading, float(steps.max())
+    if isinstance(got, tuple):  # dk and dv: each held to the bound
+        readings = [compare(name, g, r) for g, r in zip(got, ref)]
+        return " ".join(r for r, _ in readings), max(m for _, m in readings)
     if not torch.isfinite(got).all():
         raise SystemExit(f"{name}: non-finite output")
     err, mae = rel_l2(got, ref), float((got.float() - ref.float()).abs().max())
@@ -144,6 +178,59 @@ def compare(name: str, got, ref) -> tuple[str, float]:
     if err > REL_L2[name]:
         raise SystemExit(f"{name}: rel L2 {err:.3e} > {REL_L2[name]}")
     return f"rel_l2={err:.3e}", mae
+
+
+def compare_backward(name: str, site: tuple, got, ref) -> tuple[str, float]:
+    """Hold a backward kernel's dq, or dk and dv, to the plain version's
+    outside the rows that a score within a rounding of the clamp at 75
+    reaches (``tools.clamp_straddles``: dq's query rows and dk's key rows of
+    those scores; dv does not see the mask), each within ``REL_L2``.  Also
+    reads every row: as they are, and with each straddling score's dS term
+    put on the side of the clamp the kernel's row shows
+    (``tools.kernel_side``); the latter must hold too, which locates every
+    difference past the bound at those scores.  Returns (the readings, max
+    abs difference of the held rows) or exits."""
+    import torch
+
+    from leftrefill_torch import tools
+    from leftrefill_torch.tools import rel_l2
+
+    q, _, _, _, _, _, heads, scale = site
+    idx, s = tools.clamp_straddles(q, site[1], heads, scale)
+    dq_term, dk_term, kept = tools.straddle_terms(*site, idx, s)
+    d = q.shape[2] // heads
+    if name == "flash_bwd_dq":
+        parts = [("dq", got, ref, idx[:, 2], dq_term)]
+    else:
+        parts = [("dk", got[0], ref[0], idx[:, 3], dk_term), ("dv", got[1], ref[1], None, None)]
+    readings, mae = [f"straddling_scores={len(idx)}"], 0.0
+    for label, g, r, rows, terms in parts:
+        if not torch.isfinite(g).all():
+            raise SystemExit(f"{name} {label}: non-finite output")
+        gm, rm = g.float().clone(), r.float().clone()
+        if rows is not None:
+            for b, n, h in zip(idx[:, 0].tolist(), rows.tolist(), idx[:, 1].tolist()):
+                gm[b, n, h * d:(h + 1) * d] = rm[b, n, h * d:(h + 1) * d] = 0.0
+        err, every = rel_l2(gm, rm), rel_l2(g, r)
+        reading = f"{label}_rel_l2={err:.3e}"
+        if rows is not None:
+            side, moved = tools.kernel_side(g, r, idx[:, 0], rows, idx[:, 1], terms, kept)
+            at_side = rel_l2(g, side)
+            reading += (f" (rows out: {len(set(zip(idx[:, 0].tolist(), rows.tolist(), idx[:, 1].tolist())))}) "
+                        f"{label}_rel_l2_every_row={every:.3e} terms_on_the_other_side={len(moved)} "
+                        f"{label}_rel_l2_kernel_side={at_side:.3e}")
+            if moved:  # each moved score: the plain version's fp32 sum and the fp64 one, in fp32 ulps of 75
+                exact = tools.exact_scores(q, site[1], heads, scale, idx[moved])
+                reading += " moved=" + ",".join(
+                    f"{tuple(idx[i].tolist())}:plain_s={float(s[i]):.7f}({(float(s[i]) - 75) / 2**-17:+.1f}ulp)"
+                    f"/fp64_s={float(e):.9f}({(float(e) - 75) / 2**-17:+.2f}ulp)"
+                    for i, e in zip(moved, exact))
+            err = max(err, at_side)
+        if err > REL_L2[name]:
+            raise SystemExit(f"{name}: {reading} > {REL_L2[name]}")
+        readings.append(reading)
+        mae = max(mae, float((gm - rm).abs().max()))
+    return " ".join(readings), mae
 
 
 def check_site(name: str, shape: tuple, gen, n_sites: int, report: dict, label: str) -> None:
@@ -158,7 +245,7 @@ def check_site(name: str, shape: tuple, gen, n_sites: int, report: dict, label: 
     run, plain = (functools.partial(fn, *site) for fn in tools.KERNEL_FNS[name])
     got, ref = run(), plain()
     torch.cuda.synchronize()
-    reading, mae = compare(name, got, ref)
+    reading, mae = compare_backward(name, site, got, ref) if name in BWD_NAMES else compare(name, got, ref)
     ms, plain_ms = cuda_ms(run, 20), cuda_ms(plain, 5)
     library = tools.library_fn(name, site)
     library_ms = None if library is None else cuda_ms(library, 20)
@@ -320,6 +407,40 @@ def serve_multiview(model, per_forward: dict, label: str) -> dict:
     print(f"{label}: seconds_per_scene={[round(s, 3) for s in secs]} launches={launches} "
           f"unet_forwards={2 * pipe.ddim_steps}")
     return launches
+
+
+def train_steps(step, state, batch, steps: int, per_step: dict, sites: dict, label: str):
+    """A warm-up step with its backward kernel sites recorded and checked
+    against ``sites``, then ``steps`` timed steps with their kernel launches
+    checked against ``per_step``.  Returns (state, the losses, seconds per
+    timed step, the timed steps' launches)."""
+    import torch
+    from collections import Counter
+
+    from leftrefill_torch import kernels, tools
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    with kernels.record_sites() as recorded:
+        state, metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    for name in BWD_NAMES:
+        got = dict(Counter(shape for n, shape in recorded if n == name))
+        if got != sites:
+            raise SystemExit(f"{label}: {name} sites per step {got}, expected {sites}")
+    losses = [float(metrics["loss"])]
+    tools.reset_launches()
+    secs = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        losses.append(float(metrics["loss"]))  # reads the loss back: the step has ended
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = tools.launches()
+    check_launches(launches, per_step, steps, label)
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"{label}: non-finite loss {losses}")
+    return state, losses, secs, launches
 
 
 def main() -> int:
@@ -493,16 +614,118 @@ def main() -> int:
     launches["multiview_v4_ddim50"] = serve_multiview(mvmodel, tools.PER_FORWARD_MV4,
                                                       f"phase 6 serving V={VIEWS} 512x512 views bf16 ddim50 eta1 cfg2.5")
 
+    del mvmodel, mvunet
+
+    # ---- phase 2t: the flash backward kernels at the train steps' shapes ---
+    # (outside inference mode: the library time is SDPA's autograd backward)
+    mv_train = {}
+    for shape, n_sites in sorted(tools.TRAIN_SITES.items()):
+        for name in BWD_NAMES:
+            check_site(name, shape, gen, n_sites, report, "2t 1-reference")
+    for shape, n_sites in sorted(tools.TRAIN_SITES_MV4.items()):
+        for name in BWD_NAMES:
+            check_site(name, shape, gen, n_sites, mv_train, f"2t V={VIEWS}")
+    # the backward kernels' other instantiation, off the main path: head dim 128
+    shape = (2, 5, 1024, 1024, 128)
+    site = tools.site_args("flash_bwd_dq", shape, gen)
+    for name in BWD_NAMES:
+        run, plain = (functools.partial(fn, *site) for fn in tools.KERNEL_FNS[name])
+        reading, _ = compare_backward(name, site, run(), plain())
+        print(f"phase 2t {name} shape={shape} (off the main path) {reading} "
+              f"kernel_ms={cuda_ms(run, 5):.4f} plain_ms={cuda_ms(plain, 5):.4f}")
+
+    # ---- phase 7: 1-reference prompt-tuning training at full width --------
+    from leftrefill_torch.models.clip import init_prompt_table
+    from leftrefill_torch.train import OptimizerConfig, compute_loss, create_train_state, make_train_step, view_options
+
+    t0 = time.perf_counter()
+    model = build_sd2_inpaint_bundle("cuda", torch.bfloat16, torch.Generator("cuda").manual_seed(0), remat=True)
+    tok, sp, init = tools.prompt_tokenizer()
+    init_prompt_table(model.cond_stage_model, tok, sp, init)
+    state, tx = create_train_state(model, OptimizerConfig())  # the released optimizer: AdamW 3e-5, wd 0.01
+    table = model.cond_stage_model.special_embeddings.weight
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = tools.training_batch(8)
+    torch.cuda.synchronize()
+    print(f"phase 7 set-up: remat bundle, prompt table {tuple(table.shape)} {table.dtype} initialised from "
+          f"its init text, {sum(p.numel() for p in model.parameters() if p.requires_grad)} trainable of "
+          f"{sum(p.numel() for p in model.parameters())} parameters, in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, secs, launches["train_1ref_b8"] = train_steps(
+        make_train_step(model, tx, *view_options(model)), state, batch, 3, tools.PER_TRAIN_STEP,
+        tools.TRAIN_SITES, "phase 7 training")
+    after = model.state_dict()
+    changed = sorted(k for k in before if not torch.equal(before[k], after[k]))
+    if changed != ["cond_stage_model.special_embeddings.weight"]:
+        raise SystemExit(f"phase 7: parameters changed by training: {changed[:5]} (only the prompt table may)")
+    per_step = {n: c // 3 for n, c in launches["train_1ref_b8"].items() if c}
+    print(f"phase 7 training 1-reference b8 512x1024 remat AdamW(3e-5, wd 0.01): seconds_per_step="
+          f"{[round(x, 3) for x in secs]} losses={[round(x, 5) for x in losses]} launches_per_step={per_step} "
+          f"table_moved_max_abs={float((after[changed[0]].float() - before[changed[0]].float()).abs().max()):.3e} "
+          f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.1f}")
+    del before, after
+
+    # one step's prompt-table gradient at batch 2, kernels against plain versions
+    small = {k: v[:2] for k, v in batch.items()}
+    g2 = torch.Generator("cuda").manual_seed(11)
+    t_fix = torch.randint(0, 1000, (2,), generator=g2, device="cuda")
+    noise = torch.randn((2, 64, 128, 4), generator=g2, device="cuda").to(torch.bfloat16)
+
+    def prompt_grad():
+        table.grad = None
+        compute_loss(model, small, t_fix, noise)[0].backward()
+        torch.cuda.synchronize()
+        return table.grad.clone()
+
+    grad_k = prompt_grad()
+    with kernels.plain_kernels():
+        grad_p = prompt_grad()
+    table.grad = None
+    err = rel_l2(grad_k, grad_p)
+    if not (torch.isfinite(grad_k).all() and grad_k.abs().max() > 0 and err <= PROMPT_GRAD_REL_L2):
+        raise SystemExit(f"phase 7: prompt-table gradient through the kernels rel L2 {err:.3e} from the plain "
+                         f"versions' (limit {PROMPT_GRAD_REL_L2}) or zero / non-finite")
+    print(f"phase 7 prompt-table gradient b2 t={t_fix.tolist()}: kernels vs plain versions rel_l2={err:.3e} "
+          f"(limit {PROMPT_GRAD_REL_L2}) grad_norm={float(grad_k.norm()):.4e}")
+    del model, state, tx, table, grad_k, grad_p, batch, small
+
+    # ---- phase 8: V=4 multi-view prompt-tuning training --------------------
+    model = build_sd2_inpaint_bundle("cuda", torch.bfloat16, torch.Generator("cuda").manual_seed(0),
+                                     view_num=VIEWS, remat=True)
+    state, tx = create_train_state(model, OptimizerConfig())
+    table = model.cond_stage_model.special_embeddings.weight
+    start = table.detach().clone()
+    reduced, view_num = view_options(model)
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, secs, launches["train_mv4"] = train_steps(
+        make_train_step(model, tx, reduced, view_num), state, tools.multiview_training_batch(VIEWS), 2,
+        tools.PER_TRAIN_STEP_MV4, tools.TRAIN_SITES_MV4, "phase 8 training")
+    moved = float((table.detach() - start).abs().max())
+    if not moved > 0:
+        raise SystemExit("phase 8: the prompt table did not move")
+    per_step = {n: c // 2 for n, c in launches["train_mv4"].items() if c}
+    print(f"phase 8 training V={VIEWS} 512x512 views, view-0 loss (view_reduced={reduced}), table "
+          f"{tuple(table.shape)}: seconds_per_step={[round(x, 3) for x in secs]} losses={[round(x, 5) for x in losses]} "
+          f"launches_per_step={per_step} table_moved_max_abs={moved:.3e} "
+          f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.1f}")
+    del model, state, tx, table
+
     entries = []
     for name, (source, replaces) in KERNELS.items():
         rep = report[name]
         by_path = {path: counts[name] for path, counts in launches.items()}
-        entry = {"name": name + (" (K1, K11)" if name == "flash_fwd" else ""), "route": "cuda", "source": source,
+        tag = {"flash_fwd": " (K1, K11)", "flash_bwd_dq": " (K12, K14)", "flash_bwd_dkv": " (K13)"}.get(name, "")
+        entry = {"name": name + tag, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,
                  "max_abs_err": rep["max_abs_err"], "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                  "bound_ms": rep["bound_ms"],
                  "bound_by": "operations" if 2 * rep["bound_ops_ms"] > rep["bound_ms"] else "bytes",
-                 "library_ms": rep["library_ms"], "sites_per_forward": rep["sites"]}
+                 "library_ms": rep["library_ms"],
+                 ("sites_per_train_step" if name in BWD_NAMES else "sites_per_forward"): rep["sites"]}
+        if name in mv_train:  # the V=4 train step's sites, held and timed in phase 2t
+            entry["multiview_v4_train_step"] = {k: mv_train[name][k] for k in
+                                                ("sites", "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
+            entry["max_abs_err"] = max(entry["max_abs_err"], mv_train[name]["max_abs_err"])
         if name in mv_forward:  # the V=4 forward's sites, held and timed in phase 3m
             entry["multiview_v4_forward"] = {k: mv_forward[name][k] for k in
                                              ("sites", "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}

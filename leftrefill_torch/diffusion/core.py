@@ -1,5 +1,6 @@
-"""Latent diffusion core: the model bundle, conditioning assembly and
-q_sample (counterpart of ``leftrefill_tpu/diffusion/core.py``).
+"""Latent diffusion core: the model bundle, conditioning assembly, q_sample,
+the parameterizations and the training loss (counterpart of
+``leftrefill_tpu/diffusion/core.py``).
 
 ``LeftRefillModel`` is an ``nn.Module`` laid out like the LDM checkpoint:
 ``model.diffusion_model`` (UNet), ``first_stage_model`` (VAE) and
@@ -62,7 +63,7 @@ class LeftRefillModel(nn.Module):
         self.first_stage_model = vae
         self.cond_stage_model = cond_model
         self.schedule = schedule
-        self.scale_factor = scale_factor  # eps parameterization, as SD2-inpainting
+        self.scale_factor = scale_factor
 
     @property
     def unet(self) -> UNetModel:
@@ -112,11 +113,69 @@ class LeftRefillModel(nn.Module):
         xc = torch.cat([x_noisy, cond.c_concat.to(x_noisy.dtype)], dim=-1)
         return self.unet(xc, t, cond.c_crossattn, **kwargs)
 
+    # ---------- forward process / parameterizations ------------------------
+
+    def _bcast(self, name: str, t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """The schedule table ``name`` at each row's t, broadcast over x."""
+        v = torch.as_tensor(getattr(self.schedule, name), device=x.device)[t.to(torch.long)]
+        return v.reshape(t.shape[0], *([1] * (x.ndim - 1)))
+
     def q_sample(self, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-        s = self.schedule
+        return (self._bcast("sqrt_alphas_cumprod", t, x_start) * x_start
+                + self._bcast("sqrt_one_minus_alphas_cumprod", t, x_start) * noise)
 
-        def bcast(table):
-            v = torch.as_tensor(table, device=x_start.device)[t.to(torch.long)]
-            return v.reshape(t.shape[0], *([1] * (x_start.ndim - 1)))
+    def get_v(self, x: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        return (self._bcast("sqrt_alphas_cumprod", t, x) * noise
+                - self._bcast("sqrt_one_minus_alphas_cumprod", t, x) * x)
 
-        return bcast(s.sqrt_alphas_cumprod) * x_start + bcast(s.sqrt_one_minus_alphas_cumprod) * noise
+    def predict_eps_from_z_and_v(self, x: torch.Tensor, t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        return (self._bcast("sqrt_alphas_cumprod", t, x) * v
+                + self._bcast("sqrt_one_minus_alphas_cumprod", t, x) * x)
+
+    def predict_start_from_z_and_v(self, x: torch.Tensor, t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        return (self._bcast("sqrt_alphas_cumprod", t, x) * x
+                - self._bcast("sqrt_one_minus_alphas_cumprod", t, x) * v)
+
+    # ---------- training loss ----------------------------------------------
+
+    def p_losses(
+        self,
+        z: torch.Tensor,
+        cond: Conditioning,
+        t: torch.Tensor,
+        noise: torch.Tensor,
+        loss_type: str = "l2",
+        l_simple_weight: float = 1.0,
+        original_elbo_weight: float = 0.0,
+        per_element: bool = False,
+    ):
+        """The latent loss with logvar 0 (LeftRefill never learns it):
+        ``l_simple_weight`` * mean(loss_simple) + ``original_elbo_weight`` *
+        the lvlb term; returns (loss, metrics).  ``per_element=True``
+        returns the unreduced [B, H, W, C] error (the multi-view loss keeps
+        view 0 of it).  The target follows the schedule's parameterization
+        ("eps" for SD2-inpainting), which also set its ``lvlb_weights``."""
+        model_output = self.apply_model(self.q_sample(z, t, noise), t, cond)
+        parameterization = self.schedule.parameterization
+        if parameterization == "x0":
+            target = z
+        elif parameterization == "eps":
+            target = noise
+        elif parameterization == "v":
+            target = self.get_v(z, noise, t)
+        else:
+            raise NotImplementedError(parameterization)
+        diff = model_output.to(torch.float32) - target
+        if loss_type == "l1":
+            err = diff.abs()
+        elif loss_type == "l2":
+            err = diff**2
+        else:
+            raise NotImplementedError(loss_type)
+        if per_element:
+            return err
+        loss_simple = err.mean(dim=(1, 2, 3))
+        weights = torch.as_tensor(self.schedule.lvlb_weights, device=err.device)[t.to(torch.long)]
+        loss_vlb = (weights * loss_simple).mean()
+        loss = l_simple_weight * loss_simple.mean() + original_elbo_weight * loss_vlb
+        return loss, {"loss_simple": loss_simple.mean(), "loss_vlb": loss_vlb, "loss": loss}

@@ -34,6 +34,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, lse, batch, heads, nq, nk, d, scale, stream
     "lr_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, dout, lse, delta, dq, batch, heads, nq, nk, d, scale, stream
+    "lr_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, dout, lse, delta, dk, dv, batch, heads, nq, nk, d, scale, stream
+    "lr_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, w, bias, out, b, h, w, ci, co, stream
     "lr_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, w1, b1, w2, b2, out, partial, r, din, inner, dout, splits, stream
@@ -152,11 +156,12 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None 
 
 
 # ---------------------------------------------------------------------------
-# routing of the dispatchers (flash attention, the bf16 and int8 3x3 convs,
-# the int8 proj_out GEMM, the bf16 and int8 GEGLUs, the fused int8 prologues)
+# routing of the dispatchers (flash attention and its backward, the bf16 and
+# int8 3x3 convs, the int8 proj_out GEMM, the bf16 and int8 GEGLUs, the fused
+# int8 prologues)
 
-NAMES = ("flash_fwd", "conv3x3", "geglu", "conv3x3_int8", "dense_int8_res", "geglu_int8",
-         "affine_silu_quant", "ln_quant", "gn_quant")
+NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "conv3x3", "geglu", "conv3x3_int8", "dense_int8_res",
+         "geglu_int8", "affine_silu_quant", "ln_quant", "gn_quant")
 _plain: frozenset = frozenset()
 
 
@@ -170,8 +175,8 @@ def plain_kernels(names=NAMES):
     kernels' plain PyTorch versions.
 
     Only the full-model comparisons in ``chip_smoke.py`` enter this: they
-    run the same forward through the plain versions to hold the kernels'
-    forward against.  The serving path never does."""
+    run the same forward (or train step) through the plain versions to hold
+    the kernels' result against.  The serving and training paths never do."""
     global _plain
     unknown = set(names) - set(NAMES)
     if unknown:

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -114,3 +115,46 @@ def build_multiview_prompt_tokenizer(view_num: int, bpe_path: str | None = None)
     reads these ids is ``PromptCLIPEmbedder(num_special_tokens=len(special))``."""
     sp, prompts = multiview_prompts(view_num)
     return SimpleTokenizer(bpe_path=bpe_path, special_tokens=sp), sp, prompts
+
+
+def init_special_embeddings(
+    tokenizer: SimpleTokenizer,
+    special_tokens: Sequence[str],
+    token_embedding: np.ndarray,
+    init_text: Sequence[str] | None,
+    tokenwise_init: bool = False,
+) -> np.ndarray:
+    """The prompt table's first values from the frozen token embedding
+    (JAX: ``models/clip.py:init_special_embeddings``): per token the mean
+    embedding of its init sentence (of its own name without the brackets,
+    dashes as spaces, when there is no init text), or, ``tokenwise_init``,
+    the first sentence's tokens one by one and the mean of the following
+    sentences for the rest.  fp32 [len(special_tokens), width]."""
+    width = token_embedding.shape[1]
+    out = np.zeros((len(special_tokens), width), dtype=np.float32)
+    if tokenwise_init:
+        assert init_text is not None
+        origin = tokenizer.encode(init_text[0])[: len(special_tokens)]
+        for i, tok_idx in enumerate(origin):
+            out[i] = token_embedding[tok_idx]
+        for i in range(len(origin), len(special_tokens)):
+            out[i] = token_embedding[np.asarray(tokenizer.encode(init_text[i]))].mean(axis=0)
+        return out
+    for i, sp_token in enumerate(special_tokens):
+        text = sp_token.strip("<").strip(">").replace("-", " ") if init_text is None else init_text[i]
+        out[i] = token_embedding[np.asarray(tokenizer.encode(text))].mean(axis=0)
+    return out
+
+
+def init_prompt_table(embedder: PromptCLIPEmbedder, tokenizer: SimpleTokenizer, special_tokens: Sequence[str],
+                      init_text: Sequence[str] | None, tokenwise_init: bool = False) -> None:
+    """Set ``embedder.special_embeddings`` (fp32, as JAX's parameters) from
+    :func:`init_special_embeddings`, as the JAX task does at set-up
+    (``tasks.py:_init_special_embeddings``): left as it is when
+    ``init_text`` is None or starts with "<random>"."""
+    if init_text is None or (init_text and init_text[0] == "<random>"):
+        return
+    table = embedder.model.token_embedding.weight.detach().to(torch.float32).cpu().numpy()
+    w = init_special_embeddings(tokenizer, special_tokens, table, init_text, tokenwise_init)
+    with torch.no_grad():
+        embedder.special_embeddings.weight.copy_(torch.from_numpy(w))

@@ -30,6 +30,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from leftrefill_torch import kernels
 from leftrefill_torch.ops.attention import multi_head_attention
@@ -299,9 +300,8 @@ class GEGLUFeedForward(nn.Module):
             out = self._int8(x2, pre_quant)
         elif d == torch.bfloat16 and mlp.geglu_fused_qualifies(x2, din, self.inner, self.dim):
             kernels.note_site("geglu", (x2.shape[0], din, self.inner, self.dim))
-            fn = mlp.geglu_plain if kernels.plain_kernels_active("geglu") else mlp.geglu_fused
-            out = fn(x2.to(d).contiguous(), p1.weight.to(d), p1.bias.to(torch.float32),
-                     p2.weight.to(d), p2.bias.to(torch.float32))
+            out = mlp.geglu_apply(x2.to(d).contiguous(), p1.weight.to(d), p1.bias.to(torch.float32),
+                                  p2.weight.to(d), p2.bias.to(torch.float32))
         else:
             xg = F.linear(x2.to(d), p1.weight.to(d), p1.bias.to(d))
             val, gate = xg.chunk(2, dim=-1)
@@ -432,7 +432,10 @@ class UNetModel(nn.Module):
     ``quant``: the W8A8 int8 UNet (module docstring); ``fused`` (default on,
     as JAX's two fusion flags) selects its fused prologues, ``fused=False``
     the unfused arm.  ``block_cls`` / ``block_kwargs``: the transformer block
-    of every SpatialTransformer (``models.multiview``)."""
+    of every SpatialTransformer (``models.multiview``).  ``remat`` (JAX:
+    ``nn.remat`` on ResBlock and SpatialTransformer, the training path)
+    recomputes each such block in the backward instead of keeping its
+    activations; the forward's values are unchanged."""
 
     def __init__(
         self,
@@ -450,8 +453,10 @@ class UNetModel(nn.Module):
         fused: bool = True,
         block_cls=BasicTransformerBlock,
         block_kwargs: Optional[dict] = None,
+        remat: bool = False,
     ):
         super().__init__()
+        self.remat = remat
         self.model_channels, self.out_channels = model_channels, out_channels
         self.in_channels, self.context_dim, self.dtype = in_channels, context_dim, dtype
         emb_dim = 4 * model_channels
@@ -510,13 +515,21 @@ class UNetModel(nn.Module):
         context = context.to(self.dtype)
         return [st.cross_kv(context) for st in self.spatial_transformers()]
 
+    def _run(self, layer, *args, **kwargs):
+        """A ResBlock or SpatialTransformer; under ``remat`` (while autograd
+        records) through ``torch.utils.checkpoint``, which keeps only the
+        block's inputs and runs its forward again in the backward."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(layer, *args, use_reentrant=False, **kwargs)
+        return layer(*args, **kwargs)
+
     def _apply_seq(self, layers, h, emb, context, kv_iter, state):
         for layer in layers:
             if isinstance(layer, ResBlock):
-                h = layer(h, emb)
+                h = self._run(layer, h, emb)
             elif isinstance(layer, SpatialTransformer):
                 kv = next(kv_iter) if kv_iter is not None else None
-                h = layer(h, context, cross_kv=kv, dup_to_context=state["dup"])
+                h = self._run(layer, h, context, cross_kv=kv, dup_to_context=state["dup"])
                 state["dup"] = False
             else:
                 h = layer(h)

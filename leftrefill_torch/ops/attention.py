@@ -1,5 +1,6 @@
 """Multi-head attention: the exact-softmax plain path and the dispatcher to
-the flash kernel K1 (counterpart of ``leftrefill_tpu/ops/attention.py``).
+the flash kernel K1 and its backward (counterpart of
+``leftrefill_tpu/ops/attention.py``).
 Packed layout at the public functions: q, k, v are [B, N, H*D]."""
 
 from __future__ import annotations
@@ -52,8 +53,7 @@ def multi_head_attention(
     scale = d**-0.5
     if not plain and q.dtype == torch.bfloat16 and flash_qualifies(q, k, num_heads):
         kernels.note_site("flash_fwd", (b, num_heads, nq, nk, d))
-        fn = fa.flash_attention_plain if kernels.plain_kernels_active("flash_fwd") else fa.flash_attention
-        return fn(q.contiguous(), k.contiguous(), v.contiguous(), num_heads, scale)
+        return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), num_heads, scale)
     qh = q.reshape(b, nq, num_heads, d).transpose(1, 2)
     kh = k.reshape(b, nk, num_heads, d).transpose(1, 2)
     vh = v.reshape(b, nk, num_heads, d).transpose(1, 2)

@@ -12,6 +12,9 @@ memory, so no per-call transpose is needed.
 At the UNet's shapes K is 2880..23040, far above the H100's ~295 flop/byte
 ridge: the tensor cores bound it.  This first version (bf16 WMMA, 128x64
 tiles, a two-stage copy pipeline) does not reach that bound.
+The gradient, as JAX's custom VJP (``conv3x3_op``: the XLA conv's VJP), is
+cuDNN's gradient of the plain convolution in x's dtype: the TPU package has
+no backward kernel for it.
 """
 
 from __future__ import annotations
@@ -63,6 +66,33 @@ def conv3x3_op(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Te
 conv3x3_op.launches = 0
 
 
+class _Conv3x3(torch.autograd.Function):
+    """K2 forward (:func:`conv3x3_op`, the plain version on a CPU tensor);
+    the backward is the convolution's gradient in x's dtype, for the inputs
+    that need one (a frozen weight gets none)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        ctx.save_for_backward(x, w)
+        return conv3x3_op(x, w, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad
+        g = grad.to(x.dtype).permute(0, 3, 1, 2)
+        w_oihw = w.to(x.dtype).permute(0, 3, 1, 2)
+        dx = dw = db = None
+        if need_x:
+            dx = torch.nn.grad.conv2d_input(x.permute(0, 3, 1, 2).shape, w_oihw, g, padding=1).permute(0, 2, 3, 1)
+        if need_w:
+            dw = torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2), w_oihw.shape, g, padding=1)
+            dw = dw.permute(0, 2, 3, 1).to(w.dtype)
+        if need_b:
+            db = grad.to(torch.float32).sum(dim=(0, 1, 2))
+        return dx, dw, db
+
+
 def conv3x3_qualifies(x: torch.Tensor, co: int) -> bool:
     """The JAX dispatcher's rule (bf16, Ci and Co at least 64, H*W at least
     256) on a CUDA tensor, plus the kernel's 8-channel alignment."""
@@ -83,10 +113,11 @@ def conv3x3_apply(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> 
     torch-layout OIHW ``weight``: K2 where the shape qualifies, the plain
     convolution in x's dtype otherwise.  The bias is rounded to x's dtype
     first, as the JAX call site casts it before the kernel.  A channels-last
-    weight in x's dtype reaches the kernel without a copy."""
+    weight in x's dtype reaches the kernel without a copy.  Differentiable on
+    every device (``_Conv3x3``)."""
     if conv3x3_qualifies(x, weight.shape[0]):
         kernels.note_site("conv3x3", (*x.shape, weight.shape[0]))
         w = weight.to(x.dtype).permute(0, 2, 3, 1).contiguous()
-        fn = conv3x3_plain if kernels.plain_kernels_active("conv3x3") else conv3x3_op
+        fn = conv3x3_plain if kernels.plain_kernels_active("conv3x3") else _Conv3x3.apply
         return fn(x.contiguous(), w, bias.to(x.dtype).to(torch.float32).contiguous())
     return conv2d_nhwc(x, weight, bias)

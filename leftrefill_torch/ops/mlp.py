@@ -13,7 +13,9 @@ never reaches device memory.  A block owns 32 rows and keeps their
 the rows give fewer blocks than SMs (R = 256, 1024, 4096), the inner
 dimension is also split and the fp32 partials are added in a fixed order by
 a second kernel.  At these widths the products bound it (compute, with
-W1/W2 re-read from L2 per 32-row block).
+W1/W2 re-read from L2 per 32-row block).  The gradient differentiates
+:func:`geglu_vjp_math` recomputed from the saved inputs (``_GEGLU``), as
+JAX's custom VJP differentiates ``_geglu_xla_math``: bf16 products.
 
 KI3 replaces ``leftrefill_tpu/ops/mlp.py:_geglu_int8_kernel`` (K10,
 ``geglu_fused_int8`` with its default int8 second product; the
@@ -70,6 +72,17 @@ def geglu_plain(x, w1, b1, w2, b2) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def geglu_vjp_math(x, w1, b1, w2, b2) -> torch.Tensor:
+    """The function the GEGLU's gradient differentiates, JAX's
+    ``_geglu_xla_math``: bf16 products with fp32 accumulation (fp32 ones for
+    an fp32 x) and bf16 biases, v * gelu_erf(g) in fp32, h rounded to bf16
+    before the second product.  Arguments as :func:`geglu_plain`."""
+    cd = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
+    val, gate = F.linear(x.to(cd), w1.to(cd), b1.to(cd)).chunk(2, dim=-1)
+    h = val.float() * F.gelu(gate.float())
+    return F.linear(h.to(cd), w2.to(cd), b2.to(cd)).to(x.dtype)
+
+
 def geglu_fused(x, w1, b1, w2, b2) -> torch.Tensor:
     """x [R, din] bf16, w1 [2I, din] bf16, b1 [2I] fp32, w2 [dout, I] bf16,
     b2 [dout] fp32 -> [R, dout] bf16.  A CPU tensor runs the plain version;
@@ -101,6 +114,36 @@ def geglu_fused(x, w1, b1, w2, b2) -> torch.Tensor:
 
 
 geglu_fused.launches = 0
+
+
+class _GEGLU(torch.autograd.Function):
+    """K3 forward (:func:`geglu_fused`, the plain version on a CPU tensor);
+    the backward recomputes :func:`geglu_vjp_math` from the saved inputs and
+    differentiates it, as JAX's custom VJP differentiates
+    ``_geglu_xla_math``: the TPU package has no backward kernel for it.
+    Only the inputs that need a gradient get one."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return geglu_fused(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t, need in zip(inputs, ctx.needs_input_grad) if need]
+        with torch.enable_grad():
+            out = geglu_vjp_math(*inputs)
+        grads = iter(torch.autograd.grad(out, wanted, grad.to(out.dtype)))
+        return tuple(next(grads) if need else None for need in ctx.needs_input_grad)
+
+
+def geglu_apply(x, w1, b1, w2, b2) -> torch.Tensor:
+    """The GEGLU dispatcher's call for a qualifying site: K3, differentiable
+    on every device, or its plain version where ``kernels.plain_kernels``
+    routes it."""
+    fn = geglu_plain if kernels.plain_kernels_active("geglu") else _GEGLU.apply
+    return fn(x, w1, b1, w2, b2)
 
 
 def geglu_fused_qualifies(x: torch.Tensor, din: int, inner: int, dout: int) -> bool:

@@ -225,12 +225,13 @@ def fill_random_(model: torch.nn.Module, generator: torch.Generator) -> None:
                 p.copy_(0.02 * n)
 
 
-def _empty_bundle(device, dtype: torch.dtype, quant: bool, fused: bool, view_num: Optional[int]) -> LeftRefillModel:
+def _empty_bundle(device, dtype: torch.dtype, quant: bool, fused: bool, view_num: Optional[int],
+                  remat: bool = False) -> LeftRefillModel:
     with torch.device("meta"):
         if view_num is None:
-            unet, n_special = UNetModel(dtype=dtype, quant=quant, fused=fused), 50
+            unet, n_special = UNetModel(dtype=dtype, quant=quant, fused=fused, remat=remat), 50
         else:
-            unet = MultiViewUnetModel(view_num=view_num, dtype=dtype, quant=quant, fused=fused)
+            unet = MultiViewUnetModel(view_num=view_num, dtype=dtype, quant=quant, fused=fused, remat=remat)
             n_special = len(multiview_prompts(view_num)[0])
         model = LeftRefillModel(
             unet=unet,
@@ -243,7 +244,7 @@ def _empty_bundle(device, dtype: torch.dtype, quant: bool, fused: bool, view_num
 
 def build_sd2_inpaint_bundle(
     device="cuda", dtype: torch.dtype = torch.bfloat16, generator: Optional[torch.Generator] = None,
-    quant: bool = False, fused: bool = True, view_num: Optional[int] = None,
+    quant: bool = False, fused: bool = True, view_num: Optional[int] = None, remat: bool = False,
 ) -> LeftRefillModel:
     """The full-width SD2-inpainting bundle (865M UNet, f8 VAE, ViT-H text
     tower) computing in ``dtype``, every parameter drawn from ``generator``.
@@ -258,14 +259,18 @@ def build_sd2_inpaint_bundle(
     bundle of the same generator, then the UNet's quantized sites are
     quantized per output channel (``quantize_params_like``).  ``fused``
     (default on, JAX's default) selects its fused int8 prologues;
-    ``fused=False`` is JAX's unfused int8 configuration."""
+    ``fused=False`` is JAX's unfused int8 configuration.
+
+    ``remat=True`` (training, ``leftrefill_torch.train``) recomputes the
+    UNet's ResBlocks and SpatialTransformers in the backward, as JAX's
+    training UNet does; the forward is the same."""
     if not quant:
-        model = _empty_bundle(device, dtype, False, fused, view_num)
+        model = _empty_bundle(device, dtype, False, fused, view_num, remat)
         fill_random_(model, generator)
         return model.eval()
     fp = _empty_bundle(device, torch.float32, False, fused, view_num)
     fill_random_(fp, generator)
-    model = _empty_bundle(device, dtype, True, fused, view_num)
+    model = _empty_bundle(device, dtype, True, fused, view_num, remat)
     state = fp.state_dict()
     unet_q = quantize_params_like(model.unet, fp.unet.state_dict())
     state.update({"model.diffusion_model." + k: v for k, v in unet_q.items()})

@@ -6,7 +6,8 @@ share with ``chip_smoke.py``.
   times, a profiled request with device time by kernel group and the device
   idle share, and DPM-Solver++(2M) requests), on the bf16 bundle, the W8A8
   int8 bundle (JAX's default fused configuration, or ``--unfused``) or the
-  V-view multi-view bundle.
+  V-view multi-view bundle; ``--train [--multiview V]``: the same for one
+  prompt-tuning train step.
 - ``python -m leftrefill_torch.tools.library_baselines``: each hand-written
   kernel against the library path for the same product, at the main path's
   shapes.  The library calls are timed for reference only; none is on the
@@ -29,6 +30,8 @@ from leftrefill_torch.ops import conv, flash_attention, mlp, quant
 KERNEL_FNS = {
     "flash_fwd": (lambda *a: flash_attention.flash_forward(*a)[0],
                   lambda *a: flash_attention.flash_forward_plain(*a)[0]),
+    "flash_bwd_dq": (flash_attention.flash_bwd_dq, flash_attention.flash_bwd_dq_plain),
+    "flash_bwd_dkv": (flash_attention.flash_bwd_dkv, flash_attention.flash_bwd_dkv_plain),
     "conv3x3": (conv.conv3x3_op, conv.conv3x3_plain),
     "geglu": (mlp.geglu_fused, mlp.geglu_plain),
     "conv3x3_int8": (quant.conv3x3_int8_op, quant.conv3x3_int8_plain),
@@ -38,7 +41,8 @@ KERNEL_FNS = {
     "ln_quant": (quant.ln_quant_op, quant.ln_quant_plain),
     "gn_quant": (quant.gn_quant_op, quant.gn_quant_plain),
 }
-LAUNCH_COUNTERS = {"flash_fwd": flash_attention.flash_forward, "conv3x3": conv.conv3x3_op,
+LAUNCH_COUNTERS = {"flash_fwd": flash_attention.flash_forward, "flash_bwd_dq": flash_attention.flash_bwd_dq,
+                   "flash_bwd_dkv": flash_attention.flash_bwd_dkv, "conv3x3": conv.conv3x3_op,
                    "geglu": mlp.geglu_fused, "conv3x3_int8": quant.conv3x3_int8_op,
                    "dense_int8_res": quant.dense_int8_res_op, "geglu_int8": mlp.geglu_int8_fused,
                    "affine_silu_quant": quant.affine_silu_quant_op, "ln_quant": quant.ln_quant_op,
@@ -53,6 +57,23 @@ PER_FORWARD_INT8 = {**PER_FORWARD_INT8_UNFUSED, "affine_silu_quant": 44, "ln_qua
 # the V=4 multi-view bf16 forward: 8 rows of 64x64 views, no cfg_dup; five of
 # the 16 flash launches are the 16384-token joint attentions (K11's sites)
 PER_FORWARD_MV4 = {**_NONE, "flash_fwd": 16, "conv3x3": 33, "geglu": 16}
+# kernel launches per prompt-tuning train step at full width, remat on (the
+# UNet's ResBlocks and SpatialTransformers run their forward again in the
+# backward): 1-reference batch 8 and the V=4 scene.  The prompt reaches the
+# UNet only through the cross-attentions, so nothing before the first one
+# has a backward: the first transformer's self-attention and the ResBlock
+# before it are neither differentiated nor run again (flash: 15 forward + 15
+# again, 14 backward; conv: 33 + the 28 in ResBlocks after the first
+# cross-attention, the Upsample convs are not rematerialized; GEGLU: 16 + 16).
+# The multi-view UNet adds its mid-block joint attention (256 tokens)
+PER_TRAIN_STEP = {**_NONE, "flash_fwd": 30, "flash_bwd_dq": 14, "flash_bwd_dkv": 14, "conv3x3": 61, "geglu": 32}
+PER_TRAIN_STEP_MV4 = {**PER_TRAIN_STEP, "flash_fwd": 32, "flash_bwd_dq": 15, "flash_bwd_dkv": 15}
+# each backward kernel's sites per train step, (b, heads, nq, nk, d) -> launches:
+# batch 8 of 64x128 latents; one V=4 scene of 64x64 views (joint sequences of
+# 4 x 4096 / 1024 / 256 / 64 tokens, the mid block's 256 among them)
+TRAIN_SITES = {(8, 5, 8192, 8192, 64): 4, (8, 10, 2048, 2048, 64): 5, (8, 20, 512, 512, 64): 5}
+TRAIN_SITES_MV4 = {(1, 5, 16384, 16384, 64): 4, (1, 10, 4096, 4096, 64): 5, (1, 20, 1024, 1024, 64): 5,
+                   (1, 20, 256, 256, 64): 1}
 
 # the H100 SXM's published dense peaks and memory rate (NVIDIA's data sheet)
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
@@ -105,6 +126,8 @@ def site_args(name: str, shape: tuple, generator: torch.Generator) -> tuple:
     if name == "flash_fwd":
         b, h, nq, nk, d = shape
         return randn(b, nq, h * d), randn(b, nk, h * d), randn(b, nk, h * d), h, d**-0.5
+    if name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        return flash_backward_args(shape, generator)
     if name == "conv3x3":
         b, h, w, ci, co = shape
         return (randn(b, h, w, ci), randn(co, 3, 3, ci, scale=(9 * ci) ** -0.5),
@@ -143,6 +166,93 @@ def site_args(name: str, shape: tuple, generator: torch.Generator) -> tuple:
     return x, a, bb, quant.silu_scale(x, a, bb)[1]
 
 
+def flash_backward_args(shape: tuple, generator: torch.Generator) -> tuple:
+    """Seeded arguments of the backward kernels at ``shape`` (b, heads, nq,
+    nk, d) on the card: q, k, v and dO normal, every 16th query row's q
+    scaled by 25 (its scores, std 25, pass the clamp at 75, so the envelope
+    mask is exercised); o and lse from K1, D = rowsum(dO * O).  A few scores
+    fall within a rounding of 75 (:func:`clamp_straddles`)."""
+    b, h, nq, nk, d = shape
+    amp = torch.where(torch.arange(nq, device="cuda")[None, :, None] % 16 == 0, 25.0, 1.0)
+    q, k, v, do = (torch.randn((b, n, h * d), generator=generator, device="cuda") for n in (nq, nk, nk, nq))
+    q, k, v, do = ((q * amp).to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16), do.to(torch.bfloat16))
+    o, lse = flash_attention.flash_forward(q, k, v, h, d**-0.5)
+    return q, k, v, do, lse, flash_attention.flash_delta(o, do, h), h, d**-0.5
+
+
+# scores this close to the clamp may lie on its other side in the kernels: their
+# fp32 sums of the same bf16 products run in another order than cuBLAS's (a few
+# fp32 ulps of q.k, ~1e-5 at 75; the band is ~100 times wider)
+STRADDLE_BAND = 1e-3
+
+
+def clamp_straddles(q, k, heads: int, scale: float, band: float = STRADDLE_BAND):
+    """The scores within ``band`` of the clamp at 75 as the plain backward
+    computes them ((scale q).k in fp32, in its query chunks): (their
+    (batch, head, query, key) indices [m, 4], the scores [m]).  The envelope
+    mask steps there: a kernel whose sum lands on the other side of 75 keeps
+    a dS term the plain version zeroes, or zeroes one it keeps."""
+    fa = flash_attention
+    nq = q.shape[1]
+    chunk = fa._q_chunk(q, k, heads)
+    kh = fa._heads(k, heads).transpose(-1, -2)
+    idx, vals = [], []
+    for q0 in range(0, nq, chunk):
+        s = torch.matmul(fa._heads(q[:, q0:q0 + chunk], heads) * scale, kh)
+        hit = ((s - fa.CLAMP).abs() <= band).nonzero()
+        vals.append(s[tuple(hit.T)])
+        hit[:, 2] += q0
+        idx.append(hit)
+    return torch.cat(idx), torch.cat(vals)
+
+
+def straddle_terms(q, k, v, do, lse, delta, heads: int, scale: float, idx, s):
+    """Each straddling score's share of the gradients, as the plain version
+    computes it unmasked: dS = p (dO_i.v_j - D_i) rounded to bf16, its term
+    of dq at query i (scale dS k_j) and of dk at key j (dS bf16(scale q_i)),
+    and whether the plain version keeps it (s <= 75)."""
+    bi, hi, qi, kj = idx.T
+    d = q.shape[2] // heads
+    cols = hi[:, None] * d + torch.arange(d, device=q.device)
+    row = lambda t, n: t[bi[:, None], n[:, None], cols].float()  # noqa: E731
+    bh = bi * heads + hi
+    p = torch.exp(torch.clamp(s, max=flash_attention.CLAMP) - lse[bh, qi])
+    ds = (p * ((row(do, qi) * row(v, kj)).sum(-1) - delta[bh, qi])).to(q.dtype).float()
+    dq_term = scale * ds[:, None] * row(k, kj)
+    dk_term = ds[:, None] * (row(q, qi) * scale).to(q.dtype).float()
+    return dq_term, dk_term, s <= flash_attention.CLAMP
+
+
+def kernel_side(got, ref, batch, rows, heads: int, terms, kept):
+    """``ref`` (fp32) with each straddling term put on the side of the clamp
+    that brings ``got``'s row (of ``rows``, head ``heads`` of each entry)
+    nearer: removed if the plain version kept it, added if it zeroed it, or
+    left as it is.  Returns (that tensor, the positions of the entries whose
+    term moved)."""
+    out, moved = ref.float().clone(), []
+    d = terms.shape[1]
+    entries = zip(batch.tolist(), rows.tolist(), heads.tolist(), terms, kept.tolist())
+    for i, (b, n, h, t, keep) in enumerate(entries):
+        c = slice(h * d, (h + 1) * d)
+        cur, g = out[b, n, c], got[b, n, c].float()
+        alt = cur - t if keep else cur + t
+        if (g - alt).norm() < (g - cur).norm():
+            out[b, n, c] = alt
+            moved.append(i)
+    return out, moved
+
+
+def exact_scores(q, k, heads: int, scale: float, idx) -> torch.Tensor:
+    """The scores at ``idx`` [m, 4] (batch, head, query, key), scale q.k
+    summed in fp64: exact to fp64's rounding (each bf16 product is exact),
+    so it tells which side of 75 a score lies on whatever order an fp32 sum
+    takes."""
+    bi, hi, qi, kj = idx.T
+    d = q.shape[2] // heads
+    cols = hi[:, None] * d + torch.arange(d, device=q.device)
+    return (q[bi[:, None], qi[:, None], cols].double() * k[bi[:, None], kj[:, None], cols].double()).sum(-1) * scale
+
+
 def site_cost(name: str, shape: tuple) -> tuple[float, float]:
     """(bytes, operations) one launch at ``shape`` must move and compute:
     each input read once, each output written once; tensor-core operations
@@ -152,6 +262,14 @@ def site_cost(name: str, shape: tuple) -> tuple[float, float]:
     if name == "flash_fwd":
         b, h, nq, nk, d = shape
         return 2 * b * h * d * (2 * nq + 2 * nk) + 4 * b * h * nq, 4 * b * h * nq * nk * d
+    if name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        # q, dO, k, v bf16 and lse, D fp32 in; dq (or dk and dv) bf16 out; the
+        # products S and dP, then dQ (or dV and dK), each 2 B H Nq Nk D
+        b, h, nq, nk, d = shape
+        reads = 2 * b * h * d * (2 * nq + 2 * nk) + 8 * b * h * nq
+        if name == "flash_bwd_dq":
+            return reads + 2 * b * h * nq * d, 3 * 2 * b * h * nq * nk * d
+        return reads + 4 * b * h * nk * d, 4 * 2 * b * h * nq * nk * d
     if name in ("conv3x3", "conv3x3_int8"):
         b, h, w, ci, co = shape
         e = 2 if name == "conv3x3" else 1
@@ -188,8 +306,10 @@ def library_fn(name: str, args: tuple):
     """One PyTorch call computing a kernel's function on the same inputs,
     where there is one (timed for reference only, never on the port's path):
     ``scaled_dot_product_attention`` for the flash forward (exact softmax: the
-    clamp at 75 is not reached by these inputs) and cuDNN's ``conv2d`` for the
-    bf16 3x3 conv; None for the others (no single call computes a fused
+    clamp at 75 is not reached by these inputs) and its backward through
+    ``torch.autograd.grad`` on a kept graph for the backward kernels (exact
+    softmax too: the same work, not the same values), cuDNN's ``conv2d`` for
+    the bf16 3x3 conv; None for the others (no single call computes a fused
     GEGLU, an int8 conv, a GEMM with its residual epilogue or a fused
     normalize-and-quantize)."""
     if name == "flash_fwd":
@@ -202,6 +322,15 @@ def library_fn(name: str, args: tuple):
         x, w, bias = args
         xc, wc, bb = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2), bias.to(x.dtype)
         return lambda: F.conv2d(xc, wc, bb, padding=1).permute(0, 2, 3, 1)
+    if name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        # SDPA's backward computes dq, dk and dv in one call: both rows time it
+        q, k, v, do, _, _, h, scale = args
+        b, nq, inner = q.shape
+        heads = lambda a: a.detach().view(b, a.shape[1], h, inner // h).transpose(1, 2)  # noqa: E731
+        qh, kh, vh = (heads(a).requires_grad_(True) for a in (q, k, v))
+        out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+        g = heads(do)
+        return lambda: torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True)
     return None
 
 
@@ -249,15 +378,47 @@ def multiview_scene(view_num: int, seed: int = 0):
     return images, masks
 
 
+def prompt_tokenizer():
+    """The 1-reference prompt set-up: (tokenizer, the 50 prompt tokens, their
+    init text)."""
+    from leftrefill_torch.models.clip import build_prompt_tokenizer
+
+    return build_prompt_tokenizer(["repeat_50_<special-token>"], ["init"])
+
+
 def serving_pipeline(model, sampler: str = "ddim", steps: int = 50):
     """The 1-reference pipeline on the card with 50 prompt tokens, CFG 2.5
     (and eta 1 for DDIM)."""
-    from leftrefill_torch.models.clip import build_prompt_tokenizer
     from leftrefill_torch.pipeline import RefInpaintPipeline
 
-    tok, sp, _ = build_prompt_tokenizer(["repeat_50_<special-token>"], ["init"])
+    tok, sp, _ = prompt_tokenizer()
     return RefInpaintPipeline(model=model, tokenizer=tok, special_tokens=sp, device="cuda",
                               ddim_steps=steps, guidance_scale=2.5, eta=1.0, sampler=sampler)
+
+
+def training_batch(rows: int = 8, seed: int = 0) -> dict:
+    """A 1-reference training batch: ``rows`` seeded 512x1024 canvases
+    [reference | target] in [-1, 1], the target (right) half masked, and the
+    50 prompt tokens (numpy)."""
+    tok, sp, _ = prompt_tokenizer()
+    rng = np.random.RandomState(seed)
+    image = rng.uniform(-1, 1, (rows, 512, 1024, 3)).astype(np.float32)
+    mask = np.zeros((rows, 512, 1024, 1), np.float32)
+    mask[:, :, 512:] = 1.0
+    return {"image": image, "mask": mask, "masked_image": image * (mask < 0.5),
+            "tokens": tok.tokenize([" ".join(sp)] * rows)}
+
+
+def multiview_training_batch(view_num: int, seed: int = 0) -> dict:
+    """One multi-view scene (``multiview_scene``) with its view prompts,
+    flattened to V consecutive rows."""
+    from leftrefill_torch.data import flatten_views
+    from leftrefill_torch.models.clip import build_multiview_prompt_tokenizer
+
+    tok, _, prompts = build_multiview_prompt_tokenizer(view_num)
+    images, masks = multiview_scene(view_num, seed)
+    return flatten_views({"image": images, "mask": masks, "masked_image": images * (masks < 0.5),
+                          "tokens": tok.tokenize(prompts)[None]})
 
 
 def multiview_pipeline(model, view_num: int, steps: int = 50):

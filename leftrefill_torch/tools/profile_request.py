@@ -1,6 +1,8 @@
-"""Where the time of one full-width request goes, on one CUDA GPU.
+"""Where the time of one full-width request, or one train step, goes, on one
+CUDA GPU.
 
     python -m leftrefill_torch.tools.profile_request [--int8 [--unfused] | --multiview V] [--json PATH]
+    python -m leftrefill_torch.tools.profile_request --train [--multiview V] [--json PATH]
 
 The bundle is the full-width SD2-inpainting one (``build_sd2_inpaint_bundle``,
 random weights from seed 0), bf16, CFG 2.5, batch 1; ``--int8`` takes its
@@ -25,6 +27,15 @@ configuration); ``--multiview V`` the V-view multi-view bundle, a scene of V
    steps: seconds per request (two each, after a warm-up), kernel launches
    per UNet call, and the left half of each canvas checked against the
    input.
+
+``--train`` profiles prompt-tuning training instead (``leftrefill_torch.train``,
+the released AdamW, remat on): a 1-reference batch of 8 512x1024 canvases, or
+with ``--multiview V`` one scene of V 512x512 views a step.  After two
+warm-up steps: one step timed without the profiler with its kernel launches,
+then one under ``torch.profiler`` as for a request, the device time grouped
+into the forward kernels (K1-K3, forward and remat recompute), the backward
+kernels (dq: K12 + K14, dk/dv: K13), the library backward (cuDNN's conv
+gradients, cuBLAS GEMMs) and the plain ops, with the idle share.
 """
 
 from __future__ import annotations
@@ -46,6 +57,8 @@ from leftrefill_torch.pipeline import build_sd2_inpaint_bundle
 # device-time groups, tried in order on each kernel's name
 GROUPS = (
     ("K1 flash_fwd", r"flash_fwd_kernel"),
+    ("K12+K14 flash_bwd_dq", r"flash_bwd_dq_kernel"),
+    ("K13 flash_bwd_dkv", r"flash_bwd_dkv_kernel"),
     ("K2 conv3x3", r"conv3x3_kernel"),
     ("K3 geglu", r"geglu_(reduce_)?kernel"),
     ("KI1 conv3x3_int8", r"conv3x3_int8_"),
@@ -54,9 +67,15 @@ GROUPS = (
     ("K4 affine_silu_quant", r"affine_silu_quant_kernel"),
     ("K7 ln_quant", r"row_quant_kernel<true>|row_quant_kernelILb1E"),
     ("K8 gn_quant", r"row_quant_kernel<false>|row_quant_kernelILb0E"),
-    ("cuDNN conv", r"fprop|conv|cudnn"),
+    ("cuDNN conv", r"fprop|dgrad|wgrad|conv|cudnn"),
     ("cuBLAS GEMM", r"gemm|nvjet|cublas|cutlass|splitK"),
 )
+
+
+# a train step's device-time groups by kind
+TRAIN_KINDS = {"K1 flash_fwd": "forward kernels", "K2 conv3x3": "forward kernels", "K3 geglu": "forward kernels",
+               "K12+K14 flash_bwd_dq": "backward kernels", "K13 flash_bwd_dkv": "backward kernels",
+               "cuDNN conv": "cuDNN / cuBLAS", "cuBLAS GEMM": "cuDNN / cuBLAS"}
 
 
 def host_ms(fn, reps: int = 5) -> float:
@@ -110,17 +129,20 @@ def timed_request(pipe, image, mask) -> float:
     return time.perf_counter() - t0
 
 
-def profiled_request(pipe, image, mask, unet_calls: int) -> dict:
+def profiled(run, calls: int, launches_key: str) -> dict:
+    """``run()`` (returns its wall seconds) once without the profiler, with
+    the kernel launches per one of its ``calls``, then once under
+    ``torch.profiler`` after a profiled warm-up run."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     tools.reset_launches()
-    unprofiled_s = timed_request(pipe, image, mask)
-    per_call = {n: c / unet_calls for n, c in tools.launches().items()}
+    unprofiled_s = run()
+    per_call = {n: c / calls for n, c in tools.launches().items()}
     with profile(activities=activities):  # warm-up: the tracer's start-up
-        timed_request(pipe, image, mask)
+        run()
     with profile(activities=activities) as prof:
-        wall_s = timed_request(pipe, image, mask)
+        wall_s = run()
     per_kernel = defaultdict(lambda: [0.0, 0])
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
@@ -136,7 +158,7 @@ def profiled_request(pipe, image, mask, unet_calls: int) -> dict:
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     return {
         "unprofiled_wall_s": unprofiled_s,
-        "kernel_launches_per_unet_call": per_call,
+        launches_key: per_call,
         "profiled_wall_s": wall_s,
         "device_s": device_s,
         "device_kernel_launches": sum(c for _, c in per_kernel.values()),
@@ -171,19 +193,68 @@ def dpm_requests(model, image, mask, per_forward: dict) -> dict:
     return out
 
 
+def profile_training(view_num) -> dict:
+    """One full-width train step (module docstring), profiled."""
+    from leftrefill_torch.models.clip import init_prompt_table
+    from leftrefill_torch.train import OptimizerConfig, create_train_state, make_train_step, view_options
+
+    model = build_sd2_inpaint_bundle("cuda", torch.bfloat16, torch.Generator("cuda").manual_seed(0),
+                                     view_num=view_num, remat=True)
+    if view_num:
+        batch = tools.multiview_training_batch(view_num)
+    else:
+        tok, sp, init = tools.prompt_tokenizer()
+        init_prompt_table(model.cond_stage_model, tok, sp, init)
+        batch = tools.training_batch(8)
+    state, tx = create_train_state(model, OptimizerConfig())
+    step = make_train_step(model, tx, *view_options(model))
+    gen = torch.Generator("cuda").manual_seed(7)
+
+    def run() -> float:
+        nonlocal state
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        if not np.isfinite(float(metrics["loss"])):
+            raise SystemExit("profile_request --train: non-finite loss")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for _ in range(2):  # warm-up steps
+        run()
+    torch.cuda.reset_peak_memory_stats()
+    out = profiled(run, 1, "kernel_launches_per_step")
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    kinds = defaultdict(float)
+    for group, ms in out["device_ms_by_group"].items():
+        kinds[TRAIN_KINDS.get(group, "plain ops")] += ms
+    out["device_ms_by_kind"] = dict(kinds)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--int8", action="store_true", help="profile the W8A8 int8 bundle (fused prologues)")
     ap.add_argument("--unfused", action="store_true", help="with --int8: JAX's unfused int8 configuration")
     ap.add_argument("--multiview", type=int, metavar="V", help="profile the V-view multi-view bundle (bf16)")
+    ap.add_argument("--train", action="store_true", help="profile one prompt-tuning train step (bf16)")
     ap.add_argument("--json", help="also write the result to this file")
     args = ap.parse_args()
-    if args.unfused and not args.int8 or args.multiview and args.int8:
-        ap.error("--unfused goes with --int8, --multiview with neither")
+    if args.unfused and not args.int8 or args.multiview and args.int8 or args.train and args.int8:
+        ap.error("--unfused goes with --int8, --multiview and --train with neither")
     if not torch.cuda.is_available():
         raise SystemExit("profile_request: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.train:
+        result = {"card": tools.card_line(), "torch": torch.__version__, "cuda": torch.version.cuda,
+                  "bundle": f"train_multiview_v{args.multiview}" if args.multiview else "train_1ref_b8"}
+        print(result["card"])
+        result["train_step_profiled"] = profile_training(args.multiview)
+        print("train_step_profiled", json.dumps(result["train_step_profiled"]))
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(result, f, indent=1)
+        return 0
     bundle = (f"multiview_v{args.multiview}" if args.multiview else
               ("int8_unfused" if args.unfused else "int8_fused") if args.int8 else "bf16")
     result = {"card": tools.card_line(), "torch": torch.__version__, "cuda": torch.version.cuda, "bundle": bundle}
@@ -203,7 +274,7 @@ def main() -> int:
     pipe(image, mask, torch.Generator("cuda").manual_seed(99))  # warm-up request
     torch.cuda.synchronize()
     key = f"{sampler}{steps}_profiled"
-    result[key] = profiled_request(pipe, image, mask, unet_calls=steps)
+    result[key] = profiled(lambda: timed_request(pipe, image, mask), steps, "kernel_launches_per_unet_call")
     print(key, json.dumps(result[key]))
     if not args.multiview:
         per_forward = (tools.PER_FORWARD_INT8_UNFUSED if args.unfused else tools.PER_FORWARD_INT8) if args.int8 \

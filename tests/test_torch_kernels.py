@@ -161,11 +161,26 @@ def test_flash_qualifies_mirrors_jax(monkeypatch, dtype, d, nq, nk):
     assert attention.flash_qualifies(q, k, heads) == ref
 
 
-def test_flash_backward_raises():
-    q = torch.randn(1, 64, 64, dtype=torch.bfloat16, requires_grad=True)
-    out = tfa.flash_attention(q, q.detach(), q.detach(), 1, 0.125)
-    with pytest.raises(NotImplementedError, match="K12-K14"):
-        out.float().sum().backward()
+def test_flash_backward_raises(monkeypatch):
+    """The backward kernels' argument checks raise, rather than hand over to
+    the plain version, where a kernel does not take its arguments: a
+    non-CUDA tensor, and (the device check stood in for) a head dim outside
+    (64, 128) or a length that is not a multiple of 64.  The gradients
+    themselves: ``tests/test_torch_flash_bwd.py``."""
+    from leftrefill_torch import kernels
+
+    def args(n, heads, d):
+        q = torch.zeros(1, n, heads * d, dtype=torch.bfloat16)
+        stats = torch.zeros(heads, n)
+        return q, q, q, q, stats, stats, heads
+
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa._require_backward(*args(64, 1, 64))
+    monkeypatch.setattr(kernels, "require", lambda *a, **k: None)
+    assert tfa._require_backward(*args(128, 2, 64)) == (1, 128, 128, 64, 128)
+    for n, heads, d in ((64, 2, 32), (96, 1, 64)):
+        with pytest.raises(ValueError, match="D in"):
+            tfa._require_backward(*args(n, heads, d))
 
 
 def test_cuda_wrappers_reject_bad_arguments():

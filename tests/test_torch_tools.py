@@ -1,6 +1,6 @@
 """The measurement helpers shared by ``chip_smoke.py`` and the profiling
-scripts: the launch counts per forward they check equal the port's dispatch
-at full width (on torch's ``meta`` device), and the bound of a kernel site
+scripts: the launch counts per forward and per train step they check equal
+the port's dispatch at full width (on torch's ``meta`` device), and the bound of a kernel site
 is the larger of its bytes over the memory rate and its operations over the
 tensor-core peak."""
 
@@ -33,6 +33,33 @@ def test_per_forward_counts_match_the_dispatch(monkeypatch, path):
     assert set(expected) == set(tools.LAUNCH_COUNTERS) == set(kernels.NAMES) == set(tools.KERNEL_FNS)
 
 
+@pytest.mark.parametrize("path", ["1ref_b8", "multiview_v4"])
+def test_per_train_step_counts_match_the_dispatch(monkeypatch, path):
+    """A full-width remat train step on ``meta`` (the frozen UNet, the
+    context carrying the prompt's gradient): its kernel sites, forward,
+    recompute and backward, are ``tools.PER_TRAIN_STEP(_MV4)``, and the
+    backward kernels' sites by shape ``tools.TRAIN_SITES(_MV4)``."""
+    from leftrefill_torch.models.multiview import MultiViewUnetModel
+    from leftrefill_torch.models.unet import UNetModel
+
+    monkeypatch.setattr(kernels, "uses_kernel", lambda t: t.device.type in ("cuda", "meta"))
+    mv = path == "multiview_v4"
+    rows, hw = (4, (64, 64)) if mv else (8, (64, 128))
+    with torch.device("meta"):
+        unet = (MultiViewUnetModel(view_num=4, dtype=torch.bfloat16, remat=True) if mv
+                else UNetModel(dtype=torch.bfloat16, remat=True))
+        x, ts = torch.empty(rows, *hw, 9), torch.empty(rows, dtype=torch.long)
+        ctx = torch.empty(rows, 77, 1024, requires_grad=True)
+    unet.requires_grad_(False)
+    with kernels.record_sites() as sites:
+        unet(x, ts, ctx).float().sum().backward()
+    per_step, by_shape = (tools.PER_TRAIN_STEP_MV4, tools.TRAIN_SITES_MV4) if mv else \
+        (tools.PER_TRAIN_STEP, tools.TRAIN_SITES)
+    assert Counter(name for name, _ in sites) == Counter({k: v for k, v in per_step.items() if v})
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert Counter(shape for n, shape in sites if n == name) == Counter(by_shape)
+
+
 def test_bounds():
     """The ds-1 flash site is bound by its operations (4 B H N^2 D at the
     bf16 peak), the fused prologues by their bytes (2 + 1 bytes an element
@@ -45,3 +72,9 @@ def test_bounds():
     nbytes, ops = tools.site_cost("ln_quant", (16384, 320, True))
     assert ops == 0 and nbytes == 5 * 16384 * 320 + 4 * 16384 + 8 * 320
     assert tools.bound_ms("conv3x3_int8", (2, 64, 128, 320, 320))[1] == "operations"
+    # the backward: S, dP and dQ (three products), or S, dP, dV and dK (four)
+    shape, ops = (8, 5, 8192, 8192, 64), 2 * 40 * 8192**2 * 64
+    assert tools.bound_ms("flash_bwd_dq", shape) == (pytest.approx(3 * ops / tools.PEAK_BF16 * 1e3), "operations")
+    assert tools.bound_ms("flash_bwd_dkv", shape) == (pytest.approx(4 * ops / tools.PEAK_BF16 * 1e3), "operations")
+    nbytes, _ = tools.site_cost("flash_bwd_dkv", shape)
+    assert nbytes == 2 * 40 * 64 * 4 * 8192 + 8 * 40 * 8192 + 4 * 40 * 8192 * 64
