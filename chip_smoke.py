@@ -4,12 +4,18 @@
     python3 chip_smoke.py
 
 Phases, one line each (the kernel phases one line per kernel shape):
-1. set-up: the card's name and power limit, versions, the kernel build;
+1. set-up: the card's name and power limit, versions, the kernel build (its
+   time, and ptxas's registers, spills and barriers with the dynamic shared
+   memory of each instantiation of the flash forward and the bf16 conv);
 2. each bf16 kernel (K1 flash forward, K2 3x3 conv, K3 fused GEGLU) at every
    shape one full-width bf16 UNet forward gives it, against its plain
    PyTorch version (relative L2 <= 1e-2), timed with CUDA events beside its
-   bound and the library call where one exists; then the flash kernel's
-   head-dim-128 instantiation, off the main path;
+   bound and the library call where one exists, with the share of the bound
+   it reaches and its factor to the library call (as at every kernel site
+   below); then off the main path, against the plain versions: the flash
+   kernel's head-dim-128 instantiation, the flash kernel at 1088 tokens (a
+   key and a query tail past a multiple of 128), and K2 at 72 input
+   channels (a channel tail past a multiple of 64);
 3. one full-width bf16 UNet forward (CFG batch 2, 64x128 latent, cfg_dup
    and the cross-attention K/V cache on) through the kernels against the
    same forward through the plain versions (relative L2 <= 3e-2);
@@ -92,6 +98,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import re
 import sys
 import time
 from pathlib import Path
@@ -136,6 +143,27 @@ KERNELS = {
     "ln_quant": ("leftrefill_torch/csrc/quant_prologue.cu", "leftrefill_tpu/ops/quant.py:682"),
     "gn_quant": ("leftrefill_torch/csrc/quant_prologue.cu", "leftrefill_tpu/ops/quant.py:758"),
 }
+
+
+# off the main path, held to the plain versions in phase 2
+OFF_PATH = (("flash_fwd", (2, 5, 1024, 1024, 128)), ("flash_fwd", (2, 5, 1088, 1088, 64)),
+            ("conv3x3", (2, 32, 64, 72, 64)))
+
+
+def ptxas_report(log: str, kernel: str) -> list[str]:
+    """ptxas's report (``-Xptxas -v`` in the build log) for each template
+    instantiation of ``kernel``: registers, barriers, stack and spills."""
+    lines, current = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            current = entry.group(1) if kernel in entry.group(1) else None
+            if current:
+                arg = re.search(r"ILi(\d+)E", current)
+                lines.append(f"{kernel}<{arg.group(1) if arg else ''}>:")
+        elif current and ("stack frame" in line or "Used" in line):
+            lines[-1] += " " + line.split(":", 1)[-1].strip() + ";"
+    return lines
 
 
 def compare(name: str, got, ref) -> tuple[str, float]:
@@ -238,7 +266,7 @@ def check_site(name: str, shape: tuple, gen, n_sites: int, report: dict, label: 
     library call where one exists, the bound beside them."""
     import torch
 
-    from leftrefill_torch import tools
+    from leftrefill_torch import kernels, tools
     from leftrefill_torch.tools import cuda_ms
 
     site = tools.site_args(name, shape, gen)
@@ -250,9 +278,12 @@ def check_site(name: str, shape: tuple, gen, n_sites: int, report: dict, label: 
     library = tools.library_fn(name, site)
     library_ms = None if library is None else cuda_ms(library, 20)
     bound, bound_by = tools.bound_ms(name, shape)
+    if name == "conv3x3":  # the launch plan's output channels per block
+        reading += f" channels_per_block={kernels.library().lr_conv3x3_tile(*shape[:3], shape[4])}"
     print(f"phase {label} {name} shape={shape} sites={n_sites} {reading} max_abs_err={mae:.3e} "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({bound_by}) "
-          f"library_ms={'none' if library_ms is None else f'{library_ms:.4f}'}")
+          f"bound_share={bound / ms:.3f} library_ms={'none' if library_ms is None else f'{library_ms:.4f}'}"
+          f"{'' if library_ms is None else f' kernel_over_library={ms / library_ms:.2f}'}")
     r = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                                  "library_ms": None if library_ms is None else 0.0, "sites": 0,
                                  "bound_ops_ms": 0.0})
@@ -463,11 +494,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    kernels.library()
+    lib = kernels.library()
     print(f"phase 1 setup: torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}; kernels built from leftrefill_torch/csrc "
           f"in {time.perf_counter() - t0:.1f} s -> {kernels.library_path().relative_to(ROOT)}; "
           f"tf32 off")
+    log = (kernels.library_path().parent / "build.log").read_text()
+    for kernel, smem_of in (("flash_fwd_kernel", lib.lr_flash_fwd_smem), ("conv3x3_kernel", lib.lr_conv3x3_smem)):
+        for line in ptxas_report(log, kernel):
+            n = int(re.search(r"<(\d+)>", line).group(1))
+            print(f"phase 1 ptxas {line}; dynamic shared memory {smem_of(n)} bytes")
 
     from leftrefill_torch.pipeline import build_sd2_inpaint_bundle
 
@@ -482,13 +518,13 @@ def main() -> int:
     with torch.inference_mode():
         kv = unet.cross_kv(ctx)
         check_kernels(tools.unet_sites(unet, x, tsteps, ctx, kv, True), gen, report, "2", BF16_NAMES)
-        # the flash kernel's other instantiation, off the main path: head dim 128
-        shape = (2, 5, 1024, 1024, 128)
-        site = tools.site_args("flash_fwd", shape, gen)
-        run, plain = (functools.partial(fn, *site) for fn in tools.KERNEL_FNS["flash_fwd"])
-        reading, _ = compare("flash_fwd", run(), plain())
-        print(f"phase 2 flash_fwd shape={shape} (off the main path) {reading} "
-              f"kernel_ms={cuda_ms(run, 5):.4f} plain_ms={cuda_ms(plain, 5):.4f}")
+        # off the main path: head dim 128, and the key/query and channel tails
+        for name, shape in OFF_PATH:
+            site = tools.site_args(name, shape, gen)
+            run, plain = (functools.partial(fn, *site) for fn in tools.KERNEL_FNS[name])
+            reading, _ = compare(name, run(), plain())
+            print(f"phase 2 {name} shape={shape} (off the main path) {reading} "
+                  f"kernel_ms={cuda_ms(run, 5):.4f} plain_ms={cuda_ms(plain, 5):.4f}")
         check_sites(report, {n: tools.PER_FORWARD_BF16[n] for n in BF16_NAMES}, "bf16")
 
         # ---- phase 3: the full-width UNet forward, kernels vs plain --------

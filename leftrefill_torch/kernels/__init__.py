@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels of ``leftrefill_torch/csrc``.
 
-The sources are compiled at first launch with ``nvcc`` for ``sm_90a`` into
+The sources are compiled at first launch with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per ``.cu`` file, all started together, then linked into
 ``leftrefill_torch/_build/<hash>/libleftrefill_kernels.so`` (the hash covers
 every source, so an edit rebuilds) and loaded with ``ctypes``.  Each C entry
 point takes device pointers, ints and the CUDA stream and returns
@@ -27,7 +28,7 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 LIB_NAME = "libleftrefill_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -38,8 +39,14 @@ _SIGNATURES = {
     "lr_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, dout, lse, delta, dk, dv, batch, heads, nq, nk, d, scale, stream
     "lr_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # d -> dynamic shared memory of a block, bytes
+    "lr_flash_fwd_smem": [_I],
     # x, w, bias, out, b, h, w, ci, co, stream
     "lr_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # b, h, w, co -> output channels per block of the launch plan
+    "lr_conv3x3_tile": [_I, _I, _I, _I],
+    # output channels per block -> dynamic shared memory of a block, bytes
+    "lr_conv3x3_smem": [_I],
     # x, w1, b1, w2, b2, out, partial, r, din, inner, dout, splits, stream
     "lr_geglu": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, w, scale, bias, out, partial, b, h, w, ci, co, splits, out_f32, stream
@@ -92,17 +99,36 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless this source hash is already built."""
+    """Compile the sources unless this source hash is already built: one
+    ``nvcc`` per source, all at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    jobs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(out.parent / f"{src.stem}.{tag}.o"), str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, proc in jobs:
+        logs.append(" ".join(cmd) + "\n" + proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(logs[-1])
+    objs = [cmd[cmd.index("-o") + 1] for cmd, _ in jobs]
+    if not failed:
+        tmp = out.with_suffix(f".{tag}")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(logs[-1])
+    (out.parent / "build.log").write_text("\n".join(logs))
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{failed[0][-4000:]}")
     os.replace(tmp, out)
     return out
 

@@ -3,15 +3,21 @@
 Source note.  Replaces ``leftrefill_tpu/ops/conv.py:_conv_kernel`` (sum9 taps,
 ``_conv3x3_pallas`` / ``conv3x3_op``).  The kernel (``csrc/conv3x3.cu``) is an
 implicit GEMM: M = B*H*W output pixels, N = Co, K = 9*Ci, accumulated in fp32,
-bias added in fp32, one cast to bf16.  It gathers each tap's input tile
-straight from the NHWC tensor and zero-fills the border in the async copy, so
-the TPU kernel's padded copy and its three column-shifted copies (which exist
-for VMEM blocking) are gone, and Ci = 960 or 1920 needs no channel padding.
-The weight is read as OHWI: the module's OIHW weight is held in channels-last
-memory, so no per-call transpose is needed.
-At the UNet's shapes K is 2880..23040, far above the H100's ~295 flop/byte
-ridge: the tensor cores bound it.  This first version (bf16 WMMA, 128x64
-tiles, a two-stage copy pipeline) does not reach that bound.
+bias added in fp32, one cast to bf16.  At the UNet's shapes K is
+2880..23040, far above the H100's ~295 flop/byte ridge: the tensor cores
+bound it, and at the 16x32 level (8 tiles of 128 pixels) so does filling
+132 SMs.  Design (wgmma + TMA):
+a block owns a 128-pixel patch of one image by 160, 128, 80 or 64 output
+channels (the host's launch plan picks the width that fills the card in the
+fewest waves: 80 at the 16x32 level), two consumer warpgroups run wgmma
+from shared memory, and a producer warp walks K as (tap, 64-channel slice)
+steps through a 4-stage TMA ring.  Each step's input tile is one TMA box
+over x at the tap's shifted origin, and TMA zero-fills what lies outside the
+image or past Ci, so the TPU kernel's padded copy and its three
+column-shifted copies (which exist for VMEM blocking) are gone and Ci = 960
+or 1920 needs no channel padding.  The weight is read as OHWI: the module's
+OIHW weight is held in channels-last memory, so no per-call transpose is
+needed.
 The gradient, as JAX's custom VJP (``conv3x3_op``: the XLA conv's VJP), is
 cuDNN's gradient of the plain convolution in x's dtype: the TPU package has
 no backward kernel for it.

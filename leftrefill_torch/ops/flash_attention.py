@@ -5,22 +5,29 @@ Source note, forward.  Replaces ``leftrefill_tpu/ops/flash_attention.py:_flash_k
 (K1, K/V resident, Nk <= 8192) and ``_flash_kvchunk_kernel`` (K11, K/V
 streamed in chunks beyond 8192, the multi-view joint attention at V=4): the
 same function, blocked two ways for VMEM, which one kernel covers here; it
-is held against both.  The kernel (``csrc/flash_fwd.cu``) computes, per query
-row, s = scale * q.k, p = exp(min(s, 75)), l = max(sum p, FLT_MIN),
+is held against both.  The kernel computes, per
+query row, s = scale * q.k, p = exp(min(s, 75)), l = max(sum p, FLT_MIN),
 o = (bf16(p) . v) / l and lse = log l; no row max is taken, so no online
-rescale is needed and the K/V tiles just add into l and o.  On the H100 a
-block owns 64 query rows and streams K/V in 64-key tiles (at Nk = 8192 one
-head's K/V, 2 MB, cannot stay in shared memory); the products run on the
-tensor cores through bf16 WMMA fragments with fp32 accumulation, and q, k, v
-and o stay in the packed [B, N, H*D] projection layout (no head transposes
-are materialized).  At head dim 64 the exp and the shared-memory round trip
-of the score tile, not the tensor cores, bound this first version.
+rescale is needed and the K/V tiles just add into l and o.
+What bounds it on the H100: at head dim 64 each score costs 256
+tensor-core flops and one exp, and an SM does about 8 times more of the
+former per clock, so the exps take about as long as the products and only
+overlapping them reaches the tensor-core bound.  Design (``csrc/flash_fwd.cu``,
+wgmma + TMA): a block owns 128
+query rows of one (batch, head), two consumer warpgroups of 64 rows and a
+producer warp that streams K/V tiles (128 keys at D = 64) through a 3-stage
+TMA ring on mbarriers, straight from the packed [B, N, H*D] projection
+layout (no head transposes are materialized); S = Q K^T runs on wgmma from
+shared memory, p stays in registers and feeds O += P V as wgmma's register
+operand, and the two warpgroups take turns to issue their products so one's
+exps run under the other's products.  A last K/V tile past Nk has its p
+zeroed; a ragged query tile is clipped by the TMA store.
 The kernel takes bf16 only: no workload runs attention in fp32 on the card,
 and the dispatcher sends fp32 to the exact-softmax path.
-Long sequences: the grid is (Nq / 64, B*H), every global offset is a size_t
-product, and shared memory holds one 64-row Q tile and two 64-key K/V tiles
-whatever Nk is, so 16384 and 32768 tokens (V=4 at 64x64 and 64x128 views)
-need no change; B*H must stay within the grid's 65535 rows.
+Long sequences: the grid is (Nq / 128, B*H), and shared memory holds one
+128-row Q tile and three K/V tiles whatever Nk is, so 16384 and 32768 tokens
+(V=4 at 64x64 and 64x128 views) need no change; B*H must stay within the
+grid's 65535 rows.
 
 Source note, backward.  Replaces ``_flash_bwd_dq_kernel`` (K12, K/V
 resident), ``_flash_bwd_dq_chunk_kernel`` (K14, K/V streamed beyond 8192
@@ -37,8 +44,9 @@ dv += bf16(p)^T . dO and dk += bf16(dS)^T . q, scaled at the end; no block
 writes another's rows, so there are no atomics and the result is
 deterministic.  Both read the packed layout and take bf16, D in (64, 128)
 and N % 64 == 0.  At D = 64 the exp/convert pass through shared memory
-bounds them, as in the forward.  The safe-softmax and exp2 modes of the JAX
-package are not ported (off by default there).
+bounds them (the forward overlaps its exps with wgmma products instead).
+The safe-softmax and exp2 modes of the JAX package are not ported (off by
+default there).
 """
 
 from __future__ import annotations

@@ -78,3 +78,35 @@ def test_bounds():
     assert tools.bound_ms("flash_bwd_dkv", shape) == (pytest.approx(4 * ops / tools.PEAK_BF16 * 1e3), "operations")
     nbytes, _ = tools.site_cost("flash_bwd_dkv", shape)
     assert nbytes == 2 * 40 * 64 * 4 * 8192 + 8 * 40 * 8192 + 4 * 40 * 8192 * 64
+
+
+def test_ptxas_report_reads_each_instantiation():
+    """``chip_smoke.py`` phase 1 reads ptxas's report from the build log: one
+    line per template instantiation of the named kernel, with its stack,
+    spills, registers and barriers, and nothing of other kernels."""
+    import chip_smoke
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN2lr12_GLOBAL__N_116flash_fwd_kernelILi64EEEv14CUtensorMap_st'"
+        " for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN2lr12_GLOBAL__N_116flash_fwd_kernelILi64EEEv14CUtensorMap_st",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 16 barriers",
+        "ptxas info    : Compiling entry function '_ZN2lr12_GLOBAL__N_114conv3x3_kernelILi80EEEv14CUtensorMap_st'"
+        " for 'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 72 registers, used 2 barriers",
+        "ptxas info    : Compiling entry function '_ZN2lr12_GLOBAL__N_116flash_fwd_kernelILi128EEEv14CUtensorMap_st'"
+        " for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 162 registers, used 16 barriers",
+    ])
+    assert chip_smoke.ptxas_report(log, "flash_fwd_kernel") == [
+        "flash_fwd_kernel<64>: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; "
+        "Used 168 registers, used 16 barriers;",
+        "flash_fwd_kernel<128>: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; "
+        "Used 162 registers, used 16 barriers;",
+    ]
+    assert chip_smoke.ptxas_report(log, "conv3x3_kernel") == [
+        "conv3x3_kernel<80>: 8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads; "
+        "Used 72 registers, used 2 barriers;"]
