@@ -6,7 +6,8 @@
 Phases, one line each (the kernel phases one line per kernel shape):
 1. set-up: the card's name and power limit, versions, the kernel build (its
    time, and ptxas's registers, spills and barriers with the dynamic shared
-   memory of each instantiation of the flash forward and the bf16 conv);
+   memory of each instantiation of the flash forward, the bf16 conv and the
+   two flash backward kernels);
 2. each bf16 kernel (K1 flash forward, K2 3x3 conv, K3 fused GEGLU) at every
    shape one full-width bf16 UNet forward gives it, against its plain
    PyTorch version (relative L2 <= 1e-2), timed with CUDA events beside its
@@ -77,7 +78,10 @@ Phases, one line each (the kernel phases one line per kernel shape):
    and the two versions' sums may round to its two sides), and over every
    row once each such score's term is put on the kernel's side; timed
    beside the bound and the backward of ``scaled_dot_product_attention``;
-   then both at head dim 128, off the main path;
+   then both off the main path, held the same way: at head dim 128, at
+   1088 tokens (a 64-row tail past a multiple of 128) and at 576 queries
+   against 1216 keys (Nq != Nk, both with tails); and two launches of each
+   at the 8192-token site must give bit-equal outputs (no atomics);
 7. 1-reference prompt-tuning training at full width (remat on, the released
    AdamW: lr 3e-5, weight decay 0.01): batch 8 of seeded 512x1024 canvases,
    a warm-up step, then three timed steps with the launches per step of
@@ -148,6 +152,9 @@ KERNELS = {
 # off the main path, held to the plain versions in phase 2
 OFF_PATH = (("flash_fwd", (2, 5, 1024, 1024, 128)), ("flash_fwd", (2, 5, 1088, 1088, 64)),
             ("conv3x3", (2, 32, 64, 72, 64)))
+# the backward kernels off the main path, held to the plain versions in phase
+# 2t: head dim 128, a 64-row tail past a multiple of 128, Nq != Nk with tails
+OFF_PATH_BWD = ((2, 5, 1024, 1024, 128), (2, 5, 1088, 1088, 64), (2, 5, 576, 1216, 64))
 
 
 def ptxas_report(log: str, kernel: str) -> list[str]:
@@ -500,7 +507,9 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.1f} s -> {kernels.library_path().relative_to(ROOT)}; "
           f"tf32 off")
     log = (kernels.library_path().parent / "build.log").read_text()
-    for kernel, smem_of in (("flash_fwd_kernel", lib.lr_flash_fwd_smem), ("conv3x3_kernel", lib.lr_conv3x3_smem)):
+    for kernel, smem_of in (("flash_fwd_kernel", lib.lr_flash_fwd_smem), ("conv3x3_kernel", lib.lr_conv3x3_smem),
+                            ("flash_bwd_dq_kernel", lib.lr_flash_bwd_dq_smem),
+                            ("flash_bwd_dkv_kernel", lib.lr_flash_bwd_dkv_smem)):
         for line in ptxas_report(log, kernel):
             n = int(re.search(r"<(\d+)>", line).group(1))
             print(f"phase 1 ptxas {line}; dynamic shared memory {smem_of(n)} bytes")
@@ -661,14 +670,23 @@ def main() -> int:
     for shape, n_sites in sorted(tools.TRAIN_SITES_MV4.items()):
         for name in BWD_NAMES:
             check_site(name, shape, gen, n_sites, mv_train, f"2t V={VIEWS}")
-    # the backward kernels' other instantiation, off the main path: head dim 128
-    shape = (2, 5, 1024, 1024, 128)
+    # off the main path: head dim 128, the 64-row tails, Nq != Nk
+    for shape in OFF_PATH_BWD:
+        site = tools.site_args("flash_bwd_dq", shape, gen)
+        for name in BWD_NAMES:
+            run, plain = (functools.partial(fn, *site) for fn in tools.KERNEL_FNS[name])
+            reading, _ = compare_backward(name, site, run(), plain())
+            print(f"phase 2t {name} shape={shape} (off the main path) {reading} "
+                  f"kernel_ms={cuda_ms(run, 5):.4f} plain_ms={cuda_ms(plain, 5):.4f}")
+    # determinism: no block writes another's rows, so two launches agree bit for bit
+    shape = max(tools.TRAIN_SITES, key=lambda sh: sh[2])
     site = tools.site_args("flash_bwd_dq", shape, gen)
     for name in BWD_NAMES:
-        run, plain = (functools.partial(fn, *site) for fn in tools.KERNEL_FNS[name])
-        reading, _ = compare_backward(name, site, run(), plain())
-        print(f"phase 2t {name} shape={shape} (off the main path) {reading} "
-              f"kernel_ms={cuda_ms(run, 5):.4f} plain_ms={cuda_ms(plain, 5):.4f}")
+        first, second = (tools.KERNEL_FNS[name][0](*site) for _ in range(2))
+        if not all(torch.equal(a, b) for a, b in zip(*(o if isinstance(o, tuple) else (o,) for o in (first, second)))):
+            raise SystemExit(f"phase 2t {name} {shape}: two launches differ")
+        print(f"phase 2t {name} shape={shape}: two launches bit-equal")
+    del site, first, second
 
     # ---- phase 7: 1-reference prompt-tuning training at full width --------
     from leftrefill_torch.models.clip import init_prompt_table

@@ -11,339 +11,480 @@
 //   dq = scale * sum_k bf16(dS) k,  dv = sum_q bf16(p) dO,
 //   dk = scale * sum_q bf16(dS) q.
 // K12 and K14 exist only because of TPU VMEM; they compute the same function,
-// so one dq kernel here streams K/V in 64-key tiles for any Nk.  dk takes the
-// scale after the product (TPU: bf16(scale * q) before it): at D = 64 the
-// scale is 1/8 and the two are the same bits; at D = 128 they differ by one
-// bf16 rounding of q.
+// so one dq kernel here streams K/V for any Nk.  dk takes the scale after the
+// product (TPU: bf16(scale * q) before it): at D = 64 the scale is 1/8 and
+// the two are the same bits; at D = 128 they differ by one bf16 rounding of q.
 //
-// Design: as the forward (flash_fwd.cu), a block of four warps owns 64 rows
-// of one (batch, head) and streams the other side's 64-row tiles through a
-// two-stage async-copy pipeline; each warp owns 16 rows, keeps its A operands
-// in registers as WMMA fragments and stages the two 16 x 64 fp32 score tiles
-// (s and dP) through shared memory for the elementwise pass.
-// - dq: the block owns 64 queries and walks the keys; dq accumulates in fp32
-//   fragments and is scaled and rounded once at the end.
-// - dk/dv: the block owns 64 keys and walks the queries with their lse and D;
-//   dk and dv accumulate in fp32 fragments.  No block writes another's rows,
-//   so there are no atomics and the results are deterministic.
-// All tensors are read in the packed [B, N, H*D] projection layout (no head
-// transposes are materialized).
-// Bound on the H100: dq does three products of 2*Nq*Nk*D flops and dk/dv four,
-// against one exp per score; at D = 64 the exp/convert pass through shared
-// memory, not the tensor cores, limits this simple version (wgmma, TMA and a
-// fused one-kernel backward are later work).
+// What bounds them on the H100: dq does three products of 2 Nq Nk D flops
+// (S, dP, dS K) and dk/dv four (S, dP, P^T dO, dS^T Q) against one exp and a
+// handful of fp32 operations per score.  At D = 64 the SM's 16 exps a clock
+// take 2/3 (dq) or 1/2 (dk/dv) of the products' time at the tensor cores'
+// peak, and the other elementwise operations about as much again, so the
+// elementwise pass has to run under the products, and the registers that
+// hold S, dP and the gradient accumulators decide the tile shapes.
+//
+// Design (wgmma + TMA, warp-specialised, as K1).  A block has two consumer
+// warpgroups of 64 rows and a producer warpgroup, which hands its registers
+// to the consumers (setmaxnreg: 24 a thread for it, 240 for them) and in
+// which one thread loads the block's own tiles once and streams the other
+// side's tiles through a 4-stage ring of full/empty mbarriers, with TMA on
+// 4-D tensor maps over the packed [B, N, H*D] layout (D, H, N, B),
+// 128-byte swizzled.
+// - dq: a block owns 128 query rows; Q and dO are loaded once, K and V stream
+//   in tiles of 128 keys (64 at D = 128); each thread keeps lse and D of its
+//   two rows in registers.  Per tile, S = Q K^T and dP = dO V^T are wgmma
+//   products from shared memory; exp, the clamp mask and dS run in
+//   registers; bf16(dS) is packed pairwise into the register A operand of
+//   dq += dS K (K read MN-major, the role V plays in the forward's P V).  A
+//   last tile past Nk (zero-filled by TMA) has its dS masked.
+// - dk/dv: a block owns 128 keys; K and V are loaded once, Q and dO stream in
+//   64-query tiles with that tile's lse and D (a bulk copy into the same
+//   stage).  Per tile, S^T = K Q^T and dP^T = V dO^T are computed directly,
+//   so P^T and dS^T sit in the accumulator layout that packs into the A
+//   operand of dv += P^T dO and dk += dS^T Q (dO and Q read MN-major: the
+//   same swizzled tiles that were the K-major B operands of dP^T and S^T);
+//   lse and D are indexed by the accumulator's column.
+// The two warpgroups take turns to issue their products (named barriers), so
+// one's elementwise pass runs under the other's products, and within a
+// warpgroup the S/dP products of tile t are issued before the gradient
+// products of tile t - 1 are waited on.  dq, dk and dv stay in fp32
+// accumulators across the whole loop and leave through shared memory by a TMA
+// store, which clips a ragged last tile (a 64-row tail past a 128-row tile
+// is read as TMA's zero fill: its rows compute values that are never
+// stored).  No block writes another's rows: no atomics, deterministic.
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace lr {
 namespace {
 
-constexpr int BR = 64;  // rows per block and per streamed tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
+using namespace sm90;
+
+constexpr int BR = 128;         // rows a block owns (queries for dq, keys for dk/dv)
+constexpr int CONSUMERS = 256;  // two warpgroups of 64 rows
+constexpr int NTHREADS = CONSUMERS + 128;  // and a producer warpgroup
+// the producer warpgroup hands its registers to the consumers: 128 x 24 +
+// 256 x 240 of the SM's 65536 (at launch each thread has 168)
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int STAGES = 4;
 constexpr float CLAMP = 75.0f;
 
 template <int D>
-struct BwdSmem {
-  static constexpr int LDQ = D + 8;                  // bf16 stride of the 64 x D operand tiles
-  static constexpr int LDS = (D > BR ? D : BR) + 4;  // fp32 stride of the score tiles (and output staging)
-  static constexpr int LDP = BR + 8;                 // bf16 stride of the P / dS tiles
-  static constexpr size_t TILE = size_t(BR) * LDQ * 2;
-  static constexpr size_t F32 = size_t(BR) * LDS * 4;
-  static constexpr size_t B16 = size_t(BR) * LDP * 2;
-  static constexpr size_t ROW = size_t(BR) * 4;  // 64 fp32 row statistics
-  // dq: Q, dO, K and V double-buffered, s, dP, dS
-  static constexpr size_t dq_bytes = 6 * TILE + 2 * F32 + B16;
-  // dk/dv: K, V, Q and dO double-buffered, lse and D double-buffered, s, dP, P, dS
-  static constexpr size_t dkv_bytes = 6 * TILE + 4 * ROW + 2 * F32 + 2 * B16;
+struct Bwd {
+  static constexpr int CH = D / 64;             // 128-byte column boxes per row
+  static constexpr int OWN_BYTES = BR * D * 2;  // one of the block's own tiles (Q or dO; K or V)
+  // rows of a streamed tile: dq streams 128 keys at D = 64 (S and dP then
+  // take 64 registers each, dS's fragments 32, dq 32), 64 at D = 128; dk/dv
+  // streams 64 queries (dk and dv take D registers together)
+  static constexpr int BT_DQ = D == 64 ? 128 : 64;
+  static constexpr int BT_DKV = 64;
+  static constexpr int ROWS_BYTES = BT_DKV * 4;  // one streamed fp32 row vector (lse or D)
+  // dq: per stage K then V; dk/dv: per stage Q, dO, then lse and D (padded
+  // so that every stage's tiles start on a 1024-byte boundary)
+  static constexpr int DQ_STAGE = 2 * BT_DQ * D * 2;
+  static constexpr int DKV_STAGE = 2 * BT_DKV * D * 2 + 1024;
+  static constexpr int DQ_SMEM = 1024 + 2 * OWN_BYTES + STAGES * DQ_STAGE + (2 * STAGES + 1) * 8;
+  static constexpr int DKV_SMEM = 1024 + 2 * OWN_BYTES + STAGES * DKV_STAGE + (2 * STAGES + 1) * 8;
 };
 
-// Copy a 64 x D bf16 tile whose rows are ``ld`` elements apart into shared
-// memory (row stride LDQ), 16 bytes per copy.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, size_t ld, int tid) {
-  constexpr int CPR = D / 8;
-  for (int c = tid; c < BR * CPR; c += NTHREADS) {
-    const int r = c / CPR, cc = (c % CPR) * 8;
-    cp_async16(dst + r * BwdSmem<D>::LDQ + cc, src + r * ld + cc, true);
+// exp(x) on the SFU as 2^(x log2 e), a result below FLT_MIN flushed to 0.
+// With __expf's ex2, which does not flush, the elementwise pass and not
+// the products set the dq kernel's time.
+__device__ __forceinline__ float exp_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// acc = A_w B^T for one streamed tile: A the warpgroup's 64 rows of an own
+// tile [BR rows], B a streamed tile [BT rows], both K-major over D; D / 16
+// steps of 16 head-dim values (a 128-byte column box holds 4).
+template <int D, int BT>
+__device__ __forceinline__ void issue_rows(float (&acc)[BT / 2], const unsigned char* Aw, const unsigned char* B) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    Wgmma<BT>::ss(acc, desc_sw128(Aw + (kk / 4) * BR * 128 + (kk % 4) * 32, 16, 1024),
+                  desc_sw128(B + (kk / 4) * BT * 128 + (kk % 4) * 32, 16, 1024), kk > 0);
+}
+
+// acc += F B for one streamed tile: F the bf16 A fragments of 16 streamed
+// rows each, B the streamed tile [BT rows][D] read MN-major, BT / 16 steps
+// of 16 rows (2048 bytes each); a second 64-column box (D = 128) lies
+// BT * 128 bytes on.
+template <int D, int BT>
+__device__ __forceinline__ void issue_grad(float (&acc)[D / 2], const uint32_t (&f)[BT / 16][4],
+                                           const unsigned char* B) {
+#pragma unroll
+  for (int kk = 0; kk < BT / 16; ++kk) Wgmma<D>::rs(acc, f[kk], desc_sw128(B + kk * 2048, BT * 128, 1024));
+}
+
+// dq's elementwise pass: s (scores / scale) becomes dS in place; dp is dP.
+// Rows g and g + 8 of this thread have lse l0, l1 and D d0, d1.  Masked: dS
+// is 0 for keys at or past `valid` (the last tile's tail, zero-filled by
+// TMA, where exp(0 - lse) could overflow).
+template <int BT, bool Masked>
+__device__ __forceinline__ void ds_tile(float (&s)[BT / 2], const float (&dp)[BT / 2], float scale, float l0,
+                                        float l1, float d0, float d1, int valid) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < BT / 2; ++i) {
+    const bool hi = (i / 2) % 2;
+    const float sv = s[i] * scale;
+    const float p = exp_ftz(fminf(sv, CLAMP) - (hi ? l1 : l0));
+    s[i] = sv <= CLAMP ? p * (dp[i] - (hi ? d1 : d0)) : 0.0f;
+    if (Masked && 8 * (i / 4) + 2 * (lane % 4) + (i % 2) >= valid) s[i] = 0.0f;
   }
 }
 
-// The two score tiles of one warp's 16 rows against a 64-row tile:
-// s = A1 . B1^T and dP = A2 . B2^T, both stored fp32 into Sw and Pw.
-template <int D>
-__device__ __forceinline__ void score_tiles(const FragA (&a1)[D / 16], const FragA (&a2)[D / 16],
-                                            const bf16* b1, const bf16* b2, float* Sw, float* Pw) {
-  using L = BwdSmem<D>;
+// dS of a tile with `valid` keys inside Nk: only a last tile that reaches
+// past Nk pays for the mask.
+template <int BT>
+__device__ __forceinline__ void ds_by_row(float (&s)[BT / 2], const float (&dp)[BT / 2], float scale, float l0,
+                                          float l1, float d0, float d1, int valid) {
+  if (valid < BT)
+    ds_tile<BT, true>(s, dp, scale, l0, l1, d0, d1, valid);
+  else
+    ds_tile<BT, false>(s, dp, scale, l0, l1, d0, d1, BT);
+}
+
+// dk/dv's elementwise pass on the transposed tile: s (scores^T / scale)
+// becomes p^T and dp (dP^T) becomes dS^T in place; the accumulator's column
+// is the query, whose lse and D come from the stage's row vectors.
+template <int BT>
+__device__ __forceinline__ void pds_by_col(float (&s)[BT / 2], float (&dp)[BT / 2], float scale, const float* lse,
+                                           const float* dd) {
+  const int c0 = 2 * (threadIdx.x % 4);
 #pragma unroll
-  for (int n = 0; n < BR / 16; ++n) {
-    FragC sf, pf;
-    wmma::fill_fragment(sf, 0.0f);
-    wmma::fill_fragment(pf, 0.0f);
+  for (int g = 0; g < BT / 8; ++g) {
+    const float2 l = *reinterpret_cast<const float2*>(lse + 8 * g + c0);
+    const float2 d = *reinterpret_cast<const float2*>(dd + 8 * g + c0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragBCol bf;
-      wmma::load_matrix_sync(bf, b1 + n * 16 * L::LDQ + kk * 16, L::LDQ);
-      wmma::mma_sync(sf, a1[kk], bf, sf);
-      wmma::load_matrix_sync(bf, b2 + n * 16 * L::LDQ + kk * 16, L::LDQ);
-      wmma::mma_sync(pf, a2[kk], bf, pf);
+    for (int i = 4 * g; i < 4 * g + 4; ++i) {
+      const float sv = s[i] * scale;
+      const float p = exp_ftz(fminf(sv, CLAMP) - (i % 2 ? l.y : l.x));
+      dp[i] = sv <= CLAMP ? p * (dp[i] - (i % 2 ? d.y : d.x)) : 0.0f;
+      s[i] = p;
     }
-    wmma::store_matrix_sync(Sw + n * 16, sf, L::LDS, wmma::mem_row_major);
-    wmma::store_matrix_sync(Pw + n * 16, pf, L::LDS, wmma::mem_row_major);
   }
 }
 
-// Write one warp's 16 x D fp32 accumulator, times ``mul``, as bf16 rows of
-// the packed layout (``dst`` points at the warp's first row; staged through Sw).
+// One warpgroup's 64 x D fp32 accumulator, times ``mul``, as bf16 into its
+// 64 rows of an own tile (the same swizzled layout TMA reads), then out by a
+// TMA store of its CH column boxes at rows row0.. of (h, b).
 template <int D>
-__device__ __forceinline__ void store_rows(FragC (&acc)[D / 16], float* Sw, bf16* dst, size_t ld,
-                                           float mul, int lane) {
-  using L = BwdSmem<D>;
-  __syncwarp();
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], float mul, unsigned char* Tw,
+                                           const CUtensorMap* map, int h, int row0, int b, int wg) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = (warp % 4) * 16 + lane / 4;  // row g of the warpgroup's 64; g + 8 is r0 + 8
 #pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::store_matrix_sync(Sw + j * 16, acc[j], L::LDS, wmma::mem_row_major);
-  __syncwarp();
-  const int prow = lane & 15, c0 = (lane >> 4) * (D / 2);
-  bf16* out = dst + prow * ld;
-  for (int j = c0; j < c0 + D / 2; ++j) out[j] = __float2bfloat16(Sw[prow * L::LDS + j] * mul);
-  __syncwarp();
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      *reinterpret_cast<uint32_t*>(Tw + (n / 8) * BR * 128 + r * 128 + (((n % 8) ^ (r % 8)) * 16) + (lane % 4) * 4) =
+          pack_bf16(acc[4 * n + 2 * half] * mul, acc[4 * n + 2 * half + 1] * mul);
+    }
+  fence_proxy_async();
+  bar_sync(3 + wg, 128);
+  if (warp % 4 == 0 && lane == 0) {
+    for (int c = 0; c < D / 64; ++c) tma_store_4d(map, Tw + c * BR * 128, 64 * c, h, row0, b);
+    tma_store_wait();
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int heads, int nq, int nk, float scale) {
-  using L = BwdSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Os = reinterpret_cast<bf16*>(smem + L::TILE);
-  bf16* Ks[2] = {reinterpret_cast<bf16*>(smem + 2 * L::TILE), reinterpret_cast<bf16*>(smem + 3 * L::TILE)};
-  bf16* Vs[2] = {reinterpret_cast<bf16*>(smem + 4 * L::TILE), reinterpret_cast<bf16*>(smem + 5 * L::TILE)};
-  float* Ss = reinterpret_cast<float*>(smem + 6 * L::TILE);
-  float* Ps = reinterpret_cast<float*>(smem + 6 * L::TILE + L::F32);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + 6 * L::TILE + 2 * L::F32);
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
+                        const __grid_constant__ CUtensorMap dqmap, const float* __restrict__ lse,
+                        const float* __restrict__ delta, int heads, int nq, int nk, float scale) {
+  using F = Bwd<D>;
+  constexpr int BT = F::BT_DQ, TB = BT * D * 2;  // streamed rows; bytes of a streamed tile
+  constexpr int CH = F::CH;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);  // CH boxes of [BR rows][64]
+  unsigned char* Os = Qs + F::OWN_BYTES;    // dO, the same
+  unsigned char* ring = Os + F::OWN_BYTES;  // per stage: CH K boxes, then CH V boxes, [BT rows][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * F::DQ_STAGE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* own = empty + STAGES;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.y;
-  const int b = bh / heads, h = bh - b * heads;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
   const int q0 = blockIdx.x * BR;
-  // packed [B, N, heads*D] rows: token n of head h starts at (b*N + n)*ld + h*D
-  const size_t ld = size_t(heads) * D;
-  const bf16* kg = k + size_t(b) * nk * ld + h * D;
-  const bf16* vg = v + size_t(b) * nk * ld + h * D;
+  const int ntiles = (nk + BT - 1) / BT;
 
-  load_tile<D>(Qs, q + (size_t(b) * nq + q0) * ld + h * D, ld, tid);
-  load_tile<D>(Os, dout + (size_t(b) * nq + q0) * ld + h * D, ld, tid);
-  load_tile<D>(Ks[0], kg, ld, tid);
-  load_tile<D>(Vs[0], vg, ld, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS / 32);  // one arrival per consumer warp
+    }
+    mbar_init(own, 1);
+    fence_barrier_init();
+  }
   __syncthreads();
 
-  FragA qf[D / 16], of[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(qf[kk], Qs + warp * 16 * L::LDQ + kk * 16, L::LDQ);
-    wmma::load_matrix_sync(of[kk], Os + warp * 16 * L::LDQ + kk * 16, L::LDQ);
-  }
-  FragC acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  float* Sw = Ss + warp * 16 * L::LDS;
-  float* Pw = Ps + warp * 16 * L::LDS;
-  bf16* dSw = dSs + warp * 16 * L::LDP;
-  // two lanes per query row, interleaved over the tile's 64 keys
-  const int prow = lane & 15, half = lane >> 4;
-  const int row = q0 + warp * 16 + prow;
-  const float lse_r = lse[size_t(bh) * nq + row];
-  const float d_r = delta[size_t(bh) * nq + row];
-
-  const int ntiles = nk / BR;
-  for (int t = 0; t < ntiles; ++t) {
-    if (t + 1 < ntiles) {
-      load_tile<D>(Ks[(t + 1) & 1], kg + size_t(t + 1) * BR * ld, ld, tid);
-      load_tile<D>(Vs[(t + 1) & 1], vg + size_t(t + 1) * BR * ld, ld, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Kt = Ks[t & 1];
-
-    score_tiles<D>(qf, of, Kt, Vs[t & 1], Sw, Pw);  // s/scale = Q K^T, dP = dO V^T
-    __syncwarp();
-#pragma unroll 8
-    for (int j = 0; j < BR / 2; ++j) {
-      const int col = half + 2 * j;
-      const float s = Sw[prow * L::LDS + col] * scale;
-      const float p = __expf(fminf(s, CLAMP) - lse_r);
-      const float ds = s <= CLAMP ? p * (Pw[prow * L::LDS + col] - d_r) : 0.0f;
-      dSw[prow * L::LDP + col] = __float2bfloat16(ds);
-    }
-    __syncwarp();
-
-    // dq += dS K
-#pragma unroll
-    for (int kk = 0; kk < BR / 16; ++kk) {
-      FragA a;
-      wmma::load_matrix_sync(a, dSw + kk * 16, L::LDP);
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        FragBRow kb;
-        wmma::load_matrix_sync(kb, Kt + kk * 16 * L::LDQ + j * 16, L::LDQ);
-        wmma::mma_sync(acc[j], a, kb, acc[j]);
+  if (warp >= CONSUMERS / 32) {  // the producer warpgroup: one thread issues the copies
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == CONSUMERS / 32 && lane == 0) {
+      mbar_expect_tx(own, 2 * F::OWN_BYTES);
+      for (int c = 0; c < CH; ++c) {
+        tma_load_4d(Qs + c * BR * 128, &qmap, own, 64 * c, h, q0, b);
+        tma_load_4d(Os + c * BR * 128, &omap, own, 64 * c, h, q0, b);
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
+        unsigned char* st = ring + s * F::DQ_STAGE;
+        mbar_expect_tx(&full[s], F::DQ_STAGE);
+        for (int c = 0; c < CH; ++c) {
+          tma_load_4d(st + c * BT * 128, &kmap, &full[s], 64 * c, h, t * BT, b);
+          tma_load_4d(st + TB + c * BT * 128, &vmap, &full[s], 64 * c, h, t * BT, b);
+        }
       }
     }
-    __syncthreads();  // this stage is refilled at the next iteration's prefetch
+    return;
   }
-  store_rows<D>(acc, Sw, dq + (size_t(b) * nq + q0 + warp * 16) * ld + h * D, ld, scale, lane);
+
+  // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 ----------
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = warp / 4;
+  const unsigned char* Qw = Qs + wg * 64 * 128;
+  const unsigned char* Ow = Os + wg * 64 * 128;
+  const int row = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;  // rows g and g + 8 of this thread
+  // rows past nq (a ragged last tile) read as zeros: their q and dO are TMA's zero fill
+  const float l0 = row < nq ? lse[size_t(bh) * nq + row] : 0.0f;
+  const float l1 = row + 8 < nq ? lse[size_t(bh) * nq + row + 8] : 0.0f;
+  const float d0 = row < nq ? delta[size_t(bh) * nq + row] : 0.0f;
+  const float d1 = row + 8 < nq ? delta[size_t(bh) * nq + row + 8] : 0.0f;
+  float s[BT / 2], dp[BT / 2];  // S (then dS) and dP of one tile
+  uint32_t f[BT / 16][4];       // bf16(dS) as the A fragments of dq += dS K
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+
+  auto stage = [&](int t) { return ring + (t % STAGES) * F::DQ_STAGE; };
+  // the turn protocol of flash_fwd.cu: warpgroup w issues its products after
+  // bar_sync(1 + w) and hands the turn over with bar_arrive(2 - w)
+  const int my_turn = 1 + wg, next_turn = 2 - wg;
+  if (wg == 1) bar_arrive(1, CONSUMERS);
+
+  mbar_wait(own, 0);
+  mbar_wait(&full[0], 0);
+  bar_sync(my_turn, CONSUMERS);
+  wgmma_fence();
+  issue_rows<D, BT>(s, Qw, stage(0));
+  issue_rows<D, BT>(dp, Ow, stage(0) + TB);
+  wgmma_commit();
+  if (wg == 0 || ntiles > 1) bar_arrive(next_turn, CONSUMERS);
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+  ds_by_row<BT>(s, dp, scale, l0, l1, d0, d1, nk);
+  pack_frags<BT>(f, s);
+
+  for (int t = 1; t < ntiles; ++t) {
+    mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+    bar_sync(my_turn, CONSUMERS);
+    wgmma_fence();
+    issue_rows<D, BT>(s, Qw, stage(t));
+    issue_rows<D, BT>(dp, Ow, stage(t) + TB);
+    wgmma_commit();
+    issue_grad<D, BT>(dq, f, stage(t - 1));
+    wgmma_commit();
+    if (wg == 0 || t < ntiles - 1) bar_arrive(next_turn, CONSUMERS);
+    wgmma_wait<1>();  // S and dP of tile t are in; dq of tile t - 1 runs on
+    fence_regs(s);
+    fence_regs(dp);
+    ds_by_row<BT>(s, dp, scale, l0, l1, d0, d1, nk - t * BT);
+    wgmma_wait<0>();
+    fence_regs(dq);
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) fence_regs(f[kk]);  // the product has read them
+    if (lane == 0) mbar_arrive(&empty[(t - 1) % STAGES]);
+    pack_frags<BT>(f, s);
+  }
+  wgmma_fence();
+  issue_grad<D, BT>(dq, f, stage(ntiles - 1));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dq);
+
+  // dq * scale through this warpgroup's rows of the Q tile (its products are
+  // done with them), clipped to nq by the store
+  store_rows<D>(dq, scale, Qs + wg * 64 * 128, &dqmap, h, q0 + wg * 64, b, wg);
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int nq, int nk,
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
+                         const __grid_constant__ CUtensorMap dkmap, const __grid_constant__ CUtensorMap dvmap,
+                         const float* __restrict__ lse, const float* __restrict__ delta, int heads, int nq, int nk,
                          float scale) {
-  using L = BwdSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::TILE);
-  bf16* Qs[2] = {reinterpret_cast<bf16*>(smem + 2 * L::TILE), reinterpret_cast<bf16*>(smem + 3 * L::TILE)};
-  bf16* Os[2] = {reinterpret_cast<bf16*>(smem + 4 * L::TILE), reinterpret_cast<bf16*>(smem + 5 * L::TILE)};
-  unsigned char* rows = smem + 6 * L::TILE;
-  float* Ls[2] = {reinterpret_cast<float*>(rows), reinterpret_cast<float*>(rows + L::ROW)};
-  float* Ds[2] = {reinterpret_cast<float*>(rows + 2 * L::ROW), reinterpret_cast<float*>(rows + 3 * L::ROW)};
-  float* Ss = reinterpret_cast<float*>(rows + 4 * L::ROW);
-  float* dPs = reinterpret_cast<float*>(rows + 4 * L::ROW + L::F32);
-  bf16* Pb = reinterpret_cast<bf16*>(rows + 4 * L::ROW + 2 * L::F32);
-  bf16* dSb = reinterpret_cast<bf16*>(rows + 4 * L::ROW + 2 * L::F32 + L::B16);
+  using F = Bwd<D>;
+  constexpr int BT = F::BT_DKV, TB = BT * D * 2;  // streamed rows; bytes of a streamed tile
+  constexpr int CH = F::CH;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = align1024(smem_raw);  // CH boxes of [BR rows][64]
+  unsigned char* Vs = Ks + F::OWN_BYTES;    // V, the same
+  unsigned char* ring = Vs + F::OWN_BYTES;  // per stage: CH Q boxes, CH dO boxes [BT rows][64], lse, D
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * F::DKV_STAGE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* own = empty + STAGES;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.y;
-  const int b = bh / heads, h = bh - b * heads;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
   const int k0 = blockIdx.x * BR;
-  const size_t ld = size_t(heads) * D;
-  const bf16* qg = q + size_t(b) * nq * ld + h * D;
-  const bf16* og = dout + size_t(b) * nq * ld + h * D;
-  const float* lg = lse + size_t(bh) * nq;
-  const float* dg = delta + size_t(bh) * nq;
+  const int ntiles = nq / BT;
 
-  // one 64-query tile: Q and dO rows, their lse and D (16 copies of 16 bytes each)
-  auto load_q = [&](int tile, int stage) {
-    load_tile<D>(Qs[stage], qg + size_t(tile) * BR * ld, ld, tid);
-    load_tile<D>(Os[stage], og + size_t(tile) * BR * ld, ld, tid);
-    if (tid < 16) cp_async16(Ls[stage] + tid * 4, lg + tile * BR + tid * 4, true);
-    else if (tid < 32) cp_async16(Ds[stage] + (tid - 16) * 4, dg + tile * BR + (tid - 16) * 4, true);
-  };
-
-  load_tile<D>(Ks, k + (size_t(b) * nk + k0) * ld + h * D, ld, tid);
-  load_tile<D>(Vs, v + (size_t(b) * nk + k0) * ld + h * D, ld, tid);
-  load_q(0, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    mbar_init(own, 1);
+    fence_barrier_init();
+  }
   __syncthreads();
 
-  FragA kf[D / 16], vf[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(kf[kk], Ks + warp * 16 * L::LDQ + kk * 16, L::LDQ);
-    wmma::load_matrix_sync(vf[kk], Vs + warp * 16 * L::LDQ + kk * 16, L::LDQ);
-  }
-  FragC dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(dk_acc[j], 0.0f);
-    wmma::fill_fragment(dv_acc[j], 0.0f);
-  }
-
-  float* Sw = Ss + warp * 16 * L::LDS;
-  float* dPw = dPs + warp * 16 * L::LDS;
-  bf16* Pw = Pb + warp * 16 * L::LDP;
-  bf16* dSw = dSb + warp * 16 * L::LDP;
-  // two lanes per key row, interleaved over the tile's 64 queries
-  const int prow = lane & 15, half = lane >> 4;
-
-  const int ntiles = nq / BR;
-  for (int t = 0; t < ntiles; ++t) {
-    if (t + 1 < ntiles) load_q(t + 1, (t + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Qt = Qs[t & 1];
-    const bf16* Ot = Os[t & 1];
-    const float* Lt = Ls[t & 1];
-    const float* Dt = Ds[t & 1];
-
-    score_tiles<D>(kf, vf, Qt, Ot, Sw, dPw);  // s^T/scale = K Q^T, dP^T = V dO^T
-    __syncwarp();
-#pragma unroll 8
-    for (int j = 0; j < BR / 2; ++j) {
-      const int col = half + 2 * j;
-      const float s = Sw[prow * L::LDS + col] * scale;
-      const float p = __expf(fminf(s, CLAMP) - Lt[col]);
-      const float ds = s <= CLAMP ? p * (dPw[prow * L::LDS + col] - Dt[col]) : 0.0f;
-      Pw[prow * L::LDP + col] = __float2bfloat16(p);
-      dSw[prow * L::LDP + col] = __float2bfloat16(ds);
-    }
-    __syncwarp();
-
-    // dv += P^T dO, dk += dS^T Q
-#pragma unroll
-    for (int kk = 0; kk < BR / 16; ++kk) {
-      FragA pa, sa;
-      wmma::load_matrix_sync(pa, Pw + kk * 16, L::LDP);
-      wmma::load_matrix_sync(sa, dSw + kk * 16, L::LDP);
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        FragBRow bf;
-        wmma::load_matrix_sync(bf, Ot + kk * 16 * L::LDQ + j * 16, L::LDQ);
-        wmma::mma_sync(dv_acc[j], pa, bf, dv_acc[j]);
-        wmma::load_matrix_sync(bf, Qt + kk * 16 * L::LDQ + j * 16, L::LDQ);
-        wmma::mma_sync(dk_acc[j], sa, bf, dk_acc[j]);
+  if (warp >= CONSUMERS / 32) {  // the producer warpgroup: one thread issues the copies
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == CONSUMERS / 32 && lane == 0) {
+      mbar_expect_tx(own, 2 * F::OWN_BYTES);
+      for (int c = 0; c < CH; ++c) {
+        tma_load_4d(Ks + c * BR * 128, &kmap, own, 64 * c, h, k0, b);
+        tma_load_4d(Vs + c * BR * 128, &vmap, own, 64 * c, h, k0, b);
+      }
+      const float* lrow = lse + size_t(bh) * nq;
+      const float* drow = delta + size_t(bh) * nq;
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
+        unsigned char* st = ring + s * F::DKV_STAGE;
+        mbar_expect_tx(&full[s], 2 * TB + 2 * F::ROWS_BYTES);
+        for (int c = 0; c < CH; ++c) {
+          tma_load_4d(st + c * BT * 128, &qmap, &full[s], 64 * c, h, t * BT, b);
+          tma_load_4d(st + TB + c * BT * 128, &omap, &full[s], 64 * c, h, t * BT, b);
+        }
+        bulk_load(st + 2 * TB, lrow + t * BT, F::ROWS_BYTES, &full[s]);
+        bulk_load(st + 2 * TB + F::ROWS_BYTES, drow + t * BT, F::ROWS_BYTES, &full[s]);
       }
     }
-    __syncthreads();  // this stage is refilled at the next iteration's prefetch
+    return;
   }
-  const size_t first = (size_t(b) * nk + k0 + warp * 16) * ld + h * D;
-  store_rows<D>(dk_acc, Sw, dk + first, ld, scale, lane);
-  store_rows<D>(dv_acc, Sw, dv + first, ld, 1.0f, lane);
+
+  // ---- consumers: warpgroup wg owns keys k0 + 64 wg .. + 63 -----------------
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = warp / 4;
+  const unsigned char* Kw = Ks + wg * 64 * 128;
+  const unsigned char* Vw = Vs + wg * 64 * 128;
+  float s[BT / 2], dp[BT / 2];       // S^T then P^T, dP^T then dS^T, of one tile
+  uint32_t fp[BT / 16][4], fs[BT / 16][4];  // bf16(P^T), bf16(dS^T) as A fragments
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
+
+  // per stage: Q, dO, then the fp32 lse and D of its queries
+  auto stage = [&](int t) { return ring + (t % STAGES) * F::DKV_STAGE; };
+  auto rows = [&](int t) { return reinterpret_cast<const float*>(stage(t) + 2 * TB); };
+  const int my_turn = 1 + wg, next_turn = 2 - wg;
+  if (wg == 1) bar_arrive(1, CONSUMERS);
+
+  mbar_wait(own, 0);
+  mbar_wait(&full[0], 0);
+  bar_sync(my_turn, CONSUMERS);
+  wgmma_fence();
+  issue_rows<D, BT>(s, Kw, stage(0));                   // S^T = K Q^T
+  issue_rows<D, BT>(dp, Vw, stage(0) + TB);  // dP^T = V dO^T
+  wgmma_commit();
+  if (wg == 0 || ntiles > 1) bar_arrive(next_turn, CONSUMERS);
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+  pds_by_col<BT>(s, dp, scale, rows(0), rows(0) + BT);
+  pack_frags<BT>(fp, s);
+  pack_frags<BT>(fs, dp);
+
+  for (int t = 1; t < ntiles; ++t) {
+    mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+    bar_sync(my_turn, CONSUMERS);
+    wgmma_fence();
+    issue_rows<D, BT>(s, Kw, stage(t));
+    issue_rows<D, BT>(dp, Vw, stage(t) + TB);
+    wgmma_commit();
+    issue_grad<D, BT>(dv, fp, stage(t - 1) + TB);  // dv += P^T dO
+    issue_grad<D, BT>(dk, fs, stage(t - 1));                  // dk += dS^T Q
+    wgmma_commit();
+    if (wg == 0 || t < ntiles - 1) bar_arrive(next_turn, CONSUMERS);
+    wgmma_wait<1>();  // S^T and dP^T of tile t are in; dk, dv of tile t - 1 run on
+    fence_regs(s);
+    fence_regs(dp);
+    pds_by_col<BT>(s, dp, scale, rows(t), rows(t) + BT);
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      fence_regs(fp[kk]);
+      fence_regs(fs[kk]);
+    }
+    if (lane == 0) mbar_arrive(&empty[(t - 1) % STAGES]);
+    pack_frags<BT>(fp, s);
+    pack_frags<BT>(fs, dp);
+  }
+  wgmma_fence();
+  issue_grad<D, BT>(dv, fp, stage(ntiles - 1) + TB);
+  issue_grad<D, BT>(dk, fs, stage(ntiles - 1));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dk);
+  fence_regs(dv);
+
+  // dk * scale and dv through this warpgroup's rows of the K and V tiles,
+  // clipped to nk by the stores
+  store_rows<D>(dk, scale, Ks + wg * 64 * 128, &dkmap, h, k0 + wg * 64, b, wg);
+  store_rows<D>(dv, 1.0f, Vs + wg * 64 * 128, &dvmap, h, k0 + wg * 64, b, wg);
 }
 
 template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, void* dq, int batch, int heads, int nq, int nk, float scale,
-              cudaStream_t stream) {
-  const size_t smem = BwdSmem<D>::dq_bytes;
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<D>, smem);
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
+              void* dq, int batch, int heads, int nq, int nk, float scale, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, om, dqm;
+  cudaError_t e = packed_map(&qm, q, D, batch, heads, nq, BR);
+  if (e == cudaSuccess) e = packed_map(&om, dout, D, batch, heads, nq, BR);
+  if (e == cudaSuccess) e = packed_map(&km, k, D, batch, heads, nk, Bwd<D>::BT_DQ);
+  if (e == cudaSuccess) e = packed_map(&vm, v, D, batch, heads, nk, Bwd<D>::BT_DQ);
+  if (e == cudaSuccess) e = packed_map(&dqm, dq, D, batch, heads, nq, 64);
+  if (e == cudaSuccess) e = allow_smem(flash_bwd_dq_kernel<D>, Bwd<D>::DQ_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(nq / BR, batch * heads);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), heads, nq, nk, scale);
+  dim3 grid((nq + BR - 1) / BR, batch * heads);
+  flash_bwd_dq_kernel<D><<<grid, NTHREADS, Bwd<D>::DQ_SMEM, stream>>>(
+      qm, km, vm, om, dqm, static_cast<const float*>(lse), static_cast<const float*>(delta), heads, nq, nk, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, void* dk, void* dv, int batch, int heads, int nq, int nk, float scale,
-               cudaStream_t stream) {
-  const size_t smem = BwdSmem<D>::dkv_bytes;
-  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<D>, smem);
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
+               void* dk, void* dv, int batch, int heads, int nq, int nk, float scale, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, om, dkm, dvm;
+  cudaError_t e = packed_map(&qm, q, D, batch, heads, nq, Bwd<D>::BT_DKV);
+  if (e == cudaSuccess) e = packed_map(&om, dout, D, batch, heads, nq, Bwd<D>::BT_DKV);
+  if (e == cudaSuccess) e = packed_map(&km, k, D, batch, heads, nk, BR);
+  if (e == cudaSuccess) e = packed_map(&vm, v, D, batch, heads, nk, BR);
+  if (e == cudaSuccess) e = packed_map(&dkm, dk, D, batch, heads, nk, 64);
+  if (e == cudaSuccess) e = packed_map(&dvm, dv, D, batch, heads, nk, 64);
+  if (e == cudaSuccess) e = allow_smem(flash_bwd_dkv_kernel<D>, Bwd<D>::DKV_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(nk / BR, batch * heads);
-  flash_bwd_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, nq, nk, scale);
+  dim3 grid((nk + BR - 1) / BR, batch * heads);
+  flash_bwd_dkv_kernel<D><<<grid, NTHREADS, Bwd<D>::DKV_SMEM, stream>>>(
+      qm, km, vm, om, dkm, dvm, static_cast<const float*>(lse), static_cast<const float*>(delta), heads, nq, nk,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool bad_shape(int batch, int heads, int nq, int nk) {
-  return nq % BR || nk % BR || nq <= 0 || nk <= 0 || batch <= 0 || heads <= 0 || batch * heads > 65535;
+  return nq % 64 || nk % 64 || nq <= 0 || nk <= 0 || batch <= 0 || heads <= 0 || batch * heads > 65535;
 }
 
 }  // namespace
@@ -372,4 +513,13 @@ extern "C" int lr_flash_bwd_dkv(const void* q, const void* k, const void* v, con
   if (d == 64) return lr::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, batch, heads, nq, nk, scale, s);
   if (d == 128) return lr::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, batch, heads, nq, nk, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The dynamic shared memory of one block at head dim d (64 or 128), bytes; -1 otherwise.
+extern "C" int lr_flash_bwd_dq_smem(int d) {
+  return d == 64 ? lr::Bwd<64>::DQ_SMEM : d == 128 ? lr::Bwd<128>::DQ_SMEM : -1;
+}
+
+extern "C" int lr_flash_bwd_dkv_smem(int d) {
+  return d == 64 ? lr::Bwd<64>::DKV_SMEM : d == 128 ? lr::Bwd<128>::DKV_SMEM : -1;
 }

@@ -101,16 +101,6 @@ __device__ __forceinline__ void exp_p(float (&s)[BK / 2], float scale, int valid
     exp_tile<BK, false>(s, scale, BK, l0, l1);
 }
 
-// bf16(p) in the A-fragment order of the next product: pairs of the
-// accumulator layout, 16 keys per fragment.
-template <int BK>
-__device__ __forceinline__ void pack_p(uint32_t (&p)[BK / 16][4], const float (&s)[BK / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) p[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
-}
-
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
@@ -184,7 +174,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   wgmma_wait<0>();
   fence_regs(s);
   exp_p<BK>(s, scale, nk, l0, l1);
-  pack_p<BK>(p, s);
+  pack_frags<BK>(p, s);
 
   for (int t = 1; t < ntiles; ++t) {
     mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
@@ -203,7 +193,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) fence_regs(p[kk]);  // the product has read them
     if (lane == 0) mbar_arrive(&empty[(t - 1) % STAGES]);
-    pack_p<BK>(p, s);
+    pack_frags<BK>(p, s);
   }
   wgmma_fence();
   issue_pv<D, BK>(o, p, stage(ntiles - 1) + F::KV_BYTES);
@@ -249,17 +239,11 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int heads, int nq, int nk,
            float scale, cudaStream_t stream) {
   using F = Flash<D>;
-  // the packed [B, N, H*D] layout as a 4-D tensor (D, H, N, B), innermost first
-  const uint64_t ld = uint64_t(heads) * D * 2;  // bytes per token
-  const uint64_t qdims[4] = {D, uint64_t(heads), uint64_t(nq), uint64_t(batch)};
-  const uint64_t kdims[4] = {D, uint64_t(heads), uint64_t(nk), uint64_t(batch)};
-  const uint64_t qstrides[3] = {D * 2, ld, ld * nq}, kstrides[3] = {D * 2, ld, ld * nk};
-  const uint32_t qbox[4] = {64, 1, BQ, 1}, kbox[4] = {64, 1, F::BK, 1}, obox[4] = {64, 1, 64, 1};
   CUtensorMap qm, km, vm, om;
-  cudaError_t e = encode_map(&qm, q, 4, qdims, qstrides, qbox);
-  if (e == cudaSuccess) e = encode_map(&km, k, 4, kdims, kstrides, kbox);
-  if (e == cudaSuccess) e = encode_map(&vm, v, 4, kdims, kstrides, kbox);
-  if (e == cudaSuccess) e = encode_map(&om, o, 4, qdims, qstrides, obox);
+  cudaError_t e = packed_map(&qm, q, D, batch, heads, nq, BQ);
+  if (e == cudaSuccess) e = packed_map(&km, k, D, batch, heads, nk, F::BK);
+  if (e == cudaSuccess) e = packed_map(&vm, v, D, batch, heads, nk, F::BK);
+  if (e == cudaSuccess) e = packed_map(&om, o, D, batch, heads, nq, 64);
   if (e == cudaSuccess) e = allow_smem(flash_fwd_kernel<D>, F::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((nq + BQ - 1) / BQ, batch * heads);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the kernels that run on wgmma and TMA
-// (csrc/flash_fwd.cu, csrc/conv3x3.cu): mbarriers, TMA tile loads and stores
-// on tensor maps, warpgroup matrix products with shared-memory descriptors,
-// named barriers, and the host-side encoding of a tensor map.
+// (csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/conv3x3.cu): mbarriers, TMA
+// tile loads and stores on tensor maps, bulk copies, warpgroup matrix
+// products with shared-memory descriptors, named barriers, and the
+// host-side encoding of a tensor map.
 //
 // Layout convention.  Every operand tile is written by TMA with 128-byte
 // swizzling: rows of 64 bf16 values (128 bytes), 8-row atoms of 1024 bytes
@@ -96,6 +97,15 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A contiguous global -> shared copy of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned) by the bulk-copy unit, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
 // Shared -> global through a tensor map; elements outside the tensor are not written.
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0, int c1, int c2,
                                              int c3) {
@@ -125,6 +135,21 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
 
 __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- register reallocation between warpgroups --------------------------------
+
+// Lower (dec) or raise (inc) this warpgroup's registers a thread to R, a
+// multiple of 8 in [24, 256]: a producer warpgroup gives its registers to
+// the consumers, whose accumulators need them.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
 // ---- wgmma ------------------------------------------------------------------
@@ -162,6 +187,16 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// An m64nN accumulator as bf16 A fragments of the next register product
+// (see the top): pairs of the accumulator layout, 16 columns per fragment.
+template <int N>
+__device__ __forceinline__ void pack_frags(uint32_t (&f)[N / 16][4], const float (&a)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) f[kk][j] = pack_bf16(a[8 * kk + 2 * j], a[8 * kk + 2 * j + 1]);
 }
 
 // wgmma.mma_async m64nNk16, bf16 operands, fp32 accumulators d[N / 2].
@@ -327,6 +362,17 @@ inline cudaError_t encode_map(CUtensorMap* map, const void* base, int rank, cons
                       dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The attention kernels' packed [B, N, H*d] bf16 layout (no head transpose
+// is materialized) as a 4-D tensor map (d, H, N, B), innermost first, with
+// boxes of 64 head-dim values by `rows` tokens.
+inline cudaError_t packed_map(CUtensorMap* map, const void* base, int d, int batch, int heads, int n, int rows) {
+  const uint64_t ld = uint64_t(heads) * d * 2;  // bytes per token
+  const uint64_t dims[4] = {uint64_t(d), uint64_t(heads), uint64_t(n), uint64_t(batch)};
+  const uint64_t strides[3] = {uint64_t(d) * 2, ld, ld * n};
+  const uint32_t box[4] = {64, 1, uint32_t(rows), 1};
+  return encode_map(map, base, 4, dims, strides, box);
 }
 
 }  // namespace sm90

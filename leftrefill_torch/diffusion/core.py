@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from leftrefill_torch.diffusion.schedules import DiffusionSchedule
+from leftrefill_torch.diffusion.schedules import DiffusionSchedule, eps_from_z_and_v, start_from_z_and_v
 
 from leftrefill_torch.models.autoencoder import AutoencoderKL, DiagonalGaussian
 from leftrefill_torch.models.clip import PromptCLIPEmbedder
@@ -129,12 +129,12 @@ class LeftRefillModel(nn.Module):
                 - self._bcast("sqrt_one_minus_alphas_cumprod", t, x) * x)
 
     def predict_eps_from_z_and_v(self, x: torch.Tensor, t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        return (self._bcast("sqrt_alphas_cumprod", t, x) * v
-                + self._bcast("sqrt_one_minus_alphas_cumprod", t, x) * x)
+        return eps_from_z_and_v(x, v, self._bcast("sqrt_alphas_cumprod", t, x),
+                                self._bcast("sqrt_one_minus_alphas_cumprod", t, x))
 
     def predict_start_from_z_and_v(self, x: torch.Tensor, t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        return (self._bcast("sqrt_alphas_cumprod", t, x) * x
-                - self._bcast("sqrt_one_minus_alphas_cumprod", t, x) * v)
+        return start_from_z_and_v(x, v, self._bcast("sqrt_alphas_cumprod", t, x),
+                                  self._bcast("sqrt_one_minus_alphas_cumprod", t, x))
 
     # ---------- training loss ----------------------------------------------
 

@@ -9,9 +9,10 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from leftrefill_torch.diffusion.schedules import DDIMTables
+from leftrefill_torch.diffusion.schedules import DDIMTables, DiffusionSchedule, eps_from_z_and_v, start_from_z_and_v
 
 from leftrefill_torch.diffusion.core import Conditioning
 
@@ -31,10 +32,17 @@ def _guided_eps(apply_fn: ApplyFn, x, t, cond: Conditioning, uncond: Optional[Co
     return out_uncond + scale * (out_cond - out_uncond)
 
 
-def _ddim_update(x, e_t, a_t, a_prev, sqrt_one_minus_at, sigma, noise):
-    """x_t -> x_{t-1} for the eps parameterization; the table entries are
-    0-d fp32 tensors so the arithmetic stays in fp32."""
-    pred_x0 = (x - sqrt_one_minus_at * e_t) / torch.sqrt(a_t)
+def _ddim_update(x, out, a_t, a_prev, sqrt_one_minus_at, sigma, noise, v_coef=None):
+    """x_t -> x_{t-1}; the table entries are 0-d fp32 tensors so the
+    arithmetic stays in fp32.  With ``v_coef`` (the training schedule's
+    sqrt(alphas_cumprod[t]) and sqrt(1 - alphas_cumprod[t])) the model output
+    is v, turned into eps and x0 as JAX's ``predict_*_from_z_and_v``; else it
+    is eps."""
+    if v_coef is not None:
+        e_t, pred_x0 = eps_from_z_and_v(x, out, *v_coef), start_from_z_and_v(x, out, *v_coef)
+    else:
+        e_t = out
+        pred_x0 = (x - sqrt_one_minus_at * e_t) / torch.sqrt(a_t)
     dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev - sigma**2, min=0.0)) * e_t
     return torch.sqrt(a_prev) * pred_x0 + dir_xt + sigma * noise
 
@@ -44,18 +52,29 @@ def default_noise_fn(generator: Optional[torch.Generator], device) -> NoiseFn:
     return lambda i, shape: torch.randn(shape, generator=generator, device=device)
 
 
-def _step_tables(tables: DDIMTables, device):
-    """(t, a_t, a_prev, sqrt(1 - a_t), sigma) per step, largest t first."""
+def _step_tables(tables: DDIMTables, schedule: DiffusionSchedule, device):
+    """(t, a_t, a_prev, sqrt(1 - a_t), sigma, v) per step, largest t first;
+    v is the training schedule's (sqrt(alphas_cumprod[t]), sqrt(1 -
+    alphas_cumprod[t])) where its model predicts v, else None."""
+    t = tables.timesteps[::-1].astype("int64")
 
     def col(a):
-        return torch.as_tensor(a[::-1].copy(), dtype=torch.float32, device=device)
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
 
-    return (tables.timesteps[::-1].astype("int64"), col(tables.alphas), col(tables.alphas_prev),
-            col(tables.sqrt_one_minus_alphas), col(tables.sigmas))
+    v = (col(schedule.sqrt_alphas_cumprod[t]), col(schedule.sqrt_one_minus_alphas_cumprod[t])
+         ) if schedule.predicts_v() else None
+    return (t, col(tables.alphas[::-1]), col(tables.alphas_prev[::-1]), col(tables.sqrt_one_minus_alphas[::-1]),
+            col(tables.sigmas[::-1]), v)
+
+
+def _step_v(v, i: int):
+    """Step i's v coefficients (``_step_tables``), or None for an eps model."""
+    return None if v is None else (v[0][i], v[1][i])
 
 
 def ddim_sample(
     apply_fn: ApplyFn,
+    schedule: DiffusionSchedule,
     tables: DDIMTables,
     cond: Conditioning,
     shape: tuple,
@@ -66,23 +85,27 @@ def ddim_sample(
     noise_fn: Optional[NoiseFn] = None,
     device=None,
 ) -> torch.Tensor:
-    """The DDIM loop over the tables in descending t; returns the final latent."""
+    """The DDIM loop over the tables in descending t; returns the final
+    latent.  ``schedule`` is the model's training schedule, whose
+    parameterization says what the model predicts."""
     use_cfg = uncond is not None and guidance_scale != 1.0
     uncond_ = uncond if use_cfg else None
     img = x_T if x_T is not None else torch.randn(shape, generator=generator, device=device)
     device = img.device
     noise_fn = noise_fn or default_noise_fn(generator, device)
-    t_steps, a_t, a_prev, s1m, sig = _step_tables(tables, device)
+    t_steps, a_t, a_prev, s1m, sig, v = _step_tables(tables, schedule, device)
     b = shape[0]
     for i in range(tables.num_steps):
         t = torch.full((b,), int(t_steps[i]), dtype=torch.long, device=device)
         out = _guided_eps(apply_fn, img, t, cond, uncond_, guidance_scale)
-        img = _ddim_update(img, out, a_t[i], a_prev[i], s1m[i], sig[i], noise_fn(i, tuple(img.shape)))
+        img = _ddim_update(img, out, a_t[i], a_prev[i], s1m[i], sig[i], noise_fn(i, tuple(img.shape)),
+                           _step_v(v, i))
     return img
 
 
 def ddim_multi_sample(
     apply_fn: ApplyFn,
+    schedule: DiffusionSchedule,
     tables: DDIMTables,
     conds: Conditioning,
     shape: tuple,
@@ -125,13 +148,14 @@ def ddim_multi_sample(
         return Conditioning(fl(c.c_concat), fl(c.c_crossattn))
 
     conds_flat, unconds_flat = flatten(conds), flatten(unconds if use_cfg else None)
-    t_steps, a_t, a_prev, s1m, sig = _step_tables(tables, device)
+    t_steps, a_t, a_prev, s1m, sig, v = _step_tables(tables, schedule, device)
     for i in range(tables.num_steps):
         noise = noise_fn(i, tuple(imgs.shape))
         t = torch.full((k * b,), int(t_steps[i]), dtype=torch.long, device=device)
         flat = imgs.reshape(flat_shape)
         out = _guided_eps(apply_fn, flat, t, conds_flat, unconds_flat, guidance_scale)
-        imgs = _ddim_update(flat, out, a_t[i], a_prev[i], s1m[i], sig[i], noise.reshape(flat_shape)).reshape(imgs.shape)
+        imgs = _ddim_update(flat, out, a_t[i], a_prev[i], s1m[i], sig[i], noise.reshape(flat_shape),
+                            _step_v(v, i)).reshape(imgs.shape)
         right = imgs[pick_fn(i, k), :, :, w_half:]
         imgs = torch.cat([imgs[..., :w_half, :], right.expand(k, *right.shape)], dim=3)
     return imgs[0]

@@ -13,11 +13,12 @@ import torch
 
 from leftrefill_torch.diffusion.core import Conditioning
 from leftrefill_torch.diffusion.ddim import ApplyFn, _guided_eps
+from leftrefill_torch.diffusion.schedules import DiffusionSchedule, eps_from_z_and_v
 
 
 def dpm_solver_pp_2m_sample(
     apply_fn: ApplyFn,
-    alphas_cumprod: np.ndarray,
+    schedule: DiffusionSchedule,
     cond: Conditioning,
     shape: tuple,
     num_steps: int,
@@ -27,8 +28,13 @@ def dpm_solver_pp_2m_sample(
     generator: Optional[torch.Generator] = None,
     device=None,
 ) -> torch.Tensor:
+    """``schedule``: the model's training schedule (its alphas_cumprod make
+    the grid; a "v" parameterization has each model output turned into eps,
+    alpha v + sigma x, as JAX's ``x0_of_t``)."""
+    predicts_v = schedule.predicts_v()
     uncond_ = uncond if (uncond is not None and guidance_scale != 1.0) else None
     b = shape[0]
+    alphas_cumprod = schedule.alphas_cumprod
     n_train = len(alphas_cumprod)
     steps = num_steps
     x = x_T if x_T is not None else torch.randn(shape, generator=generator, device=device)
@@ -47,6 +53,8 @@ def dpm_solver_pp_2m_sample(
     def x0_of(x, t, a, s):
         tvec = torch.full((b,), f32(t), dtype=torch.float32, device=x.device)
         out = _guided_eps(apply_fn, x, tvec, cond, uncond_, guidance_scale)
+        if predicts_v:
+            out = eps_from_z_and_v(x, out, f32(a), f32(s))
         return (x - f32(s) * out) / f32(a)
 
     m_prev = x0_of(x, t_input[0], alpha[0], sigma[0])

@@ -56,6 +56,17 @@ def make_ddim_sampling_parameters(alphacums: np.ndarray, ddim_timesteps: np.ndar
     return sigmas, alphas, alphas_prev
 
 
+def eps_from_z_and_v(z, v, sqrt_alpha, sqrt_one_minus_alpha):
+    """eps of a v prediction at the latent z_t, where alpha_t = sqrt_alpha**2
+    (torch tensors or numpy arrays)."""
+    return sqrt_alpha * v + sqrt_one_minus_alpha * z
+
+
+def start_from_z_and_v(z, v, sqrt_alpha, sqrt_one_minus_alpha):
+    """x0 of a v prediction at the latent z_t (as :func:`eps_from_z_and_v`)."""
+    return sqrt_alpha * z - sqrt_one_minus_alpha * v
+
+
 @dataclasses.dataclass(frozen=True)
 class DDIMTables:
     """Per-step DDIM tables in ascending timestep order (the samplers walk
@@ -145,6 +156,13 @@ class DiffusionSchedule:
             parameterization=parameterization,
             v_posterior=float(v_posterior),
         )
+
+    def predicts_v(self) -> bool:
+        """Whether a model trained on this schedule predicts v (else eps);
+        the samplers refuse the other parameterizations."""
+        if self.parameterization not in ("eps", "v"):
+            raise NotImplementedError(f"sampling a {self.parameterization!r}-parameterized model")
+        return self.parameterization == "v"
 
     def ddim_tables(self, num_steps: int, eta: float = 0.0, method: str = "uniform") -> DDIMTables:
         ts = make_ddim_timesteps(method, num_steps, self.num_timesteps)

@@ -41,6 +41,8 @@ _SIGNATURES = {
     "lr_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # d -> dynamic shared memory of a block, bytes
     "lr_flash_fwd_smem": [_I],
+    "lr_flash_bwd_dq_smem": [_I],
+    "lr_flash_bwd_dkv_smem": [_I],
     # x, w, bias, out, b, h, w, ci, co, stream
     "lr_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # b, h, w, co -> output channels per block of the launch plan

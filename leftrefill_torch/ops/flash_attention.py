@@ -36,15 +36,26 @@ D = rowsum(dO * O) is one plain fp32 pass, as in JAX; then per score
 p = exp(min(s, 75) - lse) from the forward's lse, dS = p * (dP - D) with
 dP = dO . v, zeroed where s > 75 (the clamp envelope: the forward is flat in
 s there).  ``csrc/flash_bwd.cu`` holds two kernels.  ``lr_flash_bwd_dq``
-covers K12 and K14 (they differ only in VMEM blocking): a block owns 64
-query rows and streams K/V in 64-key tiles for any Nk, dq += bf16(dS) . k in
-fp32 WMMA accumulators, scaled and rounded once.  ``lr_flash_bwd_dkv`` (K13):
-a block owns 64 keys and streams q, dO, lse and D in 64-row tiles,
-dv += bf16(p)^T . dO and dk += bf16(dS)^T . q, scaled at the end; no block
-writes another's rows, so there are no atomics and the result is
-deterministic.  Both read the packed layout and take bf16, D in (64, 128)
-and N % 64 == 0.  At D = 64 the exp/convert pass through shared memory
-bounds them (the forward overlaps its exps with wgmma products instead).
+covers K12 and K14 (they differ only in VMEM blocking), dq = scale *
+bf16(dS) . k; ``lr_flash_bwd_dkv`` (K13), dv = bf16(p)^T . dO and dk =
+scale * bf16(dS)^T . q.  What bounds them on the H100: three (dq) or four
+(dk/dv) products of 2 Nq Nk D flops against one exp and a few fp32
+operations per score, which at D = 64 cost about as much SM time as the
+products, as in the forward (the exp is ``ex2.approx.ftz``: without flush
+to zero the elementwise pass, not the products, set dq's time).  Design (wgmma + TMA, as K1): a block
+owns 128 rows (queries for dq, keys for dk/dv), two consumer warpgroups of
+64 and a producer warpgroup that gives them its registers (setmaxnreg) and
+streams the other side's tiles (dq: 128 keys at D = 64; dk/dv: 64 queries
+with their lse and D) through a 4-stage TMA ring; S and dP (dk/dv: S^T = K Q^T and
+dP^T = V dO^T, so P^T and dS^T come out in the layout of the next product's
+A operand) are wgmma products from shared memory, the elementwise pass runs
+in registers, and bf16(dS) (and bf16(P^T)) feed the gradient products as
+wgmma's register operand with the streamed tile read transposed; the two
+warpgroups take turns to issue products so one's elementwise pass runs
+under the other's.  The gradients stay in fp32 accumulators and leave by a
+TMA store, which clips a ragged tile; no block writes another's rows, so
+there are no atomics and the result is deterministic.  Both read the packed
+layout and take bf16, D in (64, 128) and N % 64 == 0.
 The safe-softmax and exp2 modes of the JAX package are not ported (off by
 default there).
 """

@@ -127,11 +127,11 @@ def _generate(
     common = dict(uncond=uncond, guidance_scale=guidance_scale, x_T=x_T, generator=generator,
                   device=image.device)
     if sampler == "dpm++2m":
-        z = dpm_solver_pp_2m_sample(apply_fn, model.schedule.alphas_cumprod, cond, shape,
+        z = dpm_solver_pp_2m_sample(apply_fn, model.schedule, cond, shape,
                                     num_steps=ddim_steps, **common)
     else:
         tables = model.schedule.ddim_tables(ddim_steps, eta=eta)
-        z = ddim_sample(apply_fn, tables, cond, shape, noise_fn=noise_fn, **common)
+        z = ddim_sample(apply_fn, model.schedule, tables, cond, shape, noise_fn=noise_fn, **common)
     pred = model.decode_first_stage(z).to(torch.float32).clamp(-1.0, 1.0)
     return pred * mask + image * (1.0 - mask)
 

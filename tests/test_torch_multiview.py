@@ -205,10 +205,12 @@ def test_multiview_request_matches_jax(monkeypatch):
     assert not torch.equal(out[0, 0], torch.from_numpy(images[0, 0]))
 
 
-def test_ddim_multi_sample_matches_jax():
+@pytest.mark.parametrize("parameterization", ["eps", "v"])
+def test_ddim_multi_sample_matches_jax(parameterization):
     """Multi-cond consistent sampling with K=2 conditionings on the tiny
-    1-reference model, fp32, 4 steps at eta 1, CFG 2.5, with JAX's shared
-    x_T, step noise and right-half picks fed to the port."""
+    1-reference model (its schedule of ``parameterization``), fp32, 4 steps
+    at eta 1, CFG 2.5, with JAX's shared x_T, step noise and right-half
+    picks fed to the port."""
     from leftrefill_tpu.diffusion.core import Conditioning as JCond
     from leftrefill_tpu.diffusion.ddim import ddim_multi_sample as jax_multi
 
@@ -217,7 +219,8 @@ def test_ddim_multi_sample_matches_jax():
     from leftrefill_torch.diffusion.core import Conditioning
     from leftrefill_torch.diffusion.ddim import ddim_multi_sample
 
-    jm, params, tm, _, _ = tiny_bundles()
+    jm, params, tm, _, _ = tiny_bundles(parameterization=parameterization)
+    assert jm.parameterization == tm.schedule.parameterization == parameterization
     rng = np.random.RandomState(12)
     k, steps, shape = 2, 4, (1, 8, 16, 4)
     c_concat = rng.standard_normal((k, 1, 8, 16, 5)).astype(np.float32)
@@ -235,7 +238,7 @@ def test_ddim_multi_sample_matches_jax():
         unconds=JCond(j(c_concat), j(uctx)), guidance_scale=2.5))(params)
     with torch.no_grad():
         out = ddim_multi_sample(
-            tm.apply_model, tm.schedule.ddim_tables(steps, eta=1.0), Conditioning(t(c_concat), t(ctx)), shape,
+            tm.apply_model, tm.schedule, tm.schedule.ddim_tables(steps, eta=1.0), Conditioning(t(c_concat), t(ctx)), shape,
             unconds=Conditioning(t(c_concat), t(uctx)), guidance_scale=2.5,
             x_T=t(x_T).expand(k, *shape), noise_fn=lambda i, s: t(noise[i]), pick_fn=lambda i, n: picks[i])
     assert out.shape == shape

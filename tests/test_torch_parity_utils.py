@@ -147,9 +147,10 @@ TINY_VAE = dict(z_channels=4, resolution=64, ch=16, ch_mult=(1, 2), num_res_bloc
 TINY_CLIP = dict(vocab_size=49408, width=24, heads=2, layers=2, num_special_tokens=4)
 
 
-def tiny_bundles(seed: int = 0):
+def tiny_bundles(seed: int = 0, parameterization: str = "eps"):
     """The tiny bundle of tests/test_pipeline.py on both sides, with the same
-    seeded weights: (jax model, jax params, port model, tokenizer, tokens)."""
+    seeded weights and an SD2 schedule of ``parameterization``: (jax model,
+    jax params, port model, tokenizer, tokens)."""
     import warnings
 
     from leftrefill_tpu.diffusion.core import LeftRefillModel as JM
@@ -161,20 +162,21 @@ def tiny_bundles(seed: int = 0):
     from leftrefill_torch.diffusion.core import LeftRefillModel as TM
     from leftrefill_torch.models.autoencoder import AutoencoderKL as TV, DDConfig as TD
     from leftrefill_torch.models.clip import PromptCLIPEmbedder as TC, build_prompt_tokenizer
+    from leftrefill_torch.diffusion.schedules import DiffusionSchedule as TS
     from leftrefill_torch.models.unet import UNetModel as TU
-    from leftrefill_torch.pipeline import sd2_schedule
 
-    sched = DiffusionSchedule.create(timesteps=1000, beta_schedule="linear",
-                                     linear_start=0.00085, linear_end=0.0120)
+    sd2 = dict(timesteps=1000, beta_schedule="linear", linear_start=0.00085, linear_end=0.0120,
+               parameterization=parameterization)
     jm = JM(unet=JU(**TINY_UNET), vae=JV(ddconfig=JD(**TINY_VAE), embed_dim=4),
-            cond_model=JC(**TINY_CLIP), schedule=sched)
+            cond_model=JC(**TINY_CLIP), schedule=DiffusionSchedule.create(**sd2),
+            parameterization=parameterization)
     params = {
         "unet": init_flax(jm.unet, seed, jnp.zeros((1, 8, 16, 9)), jnp.zeros((1,), jnp.int32),
                           jnp.zeros((1, 77, 24))),
         "vae": init_flax(jm.vae, seed + 1, jnp.zeros((1, 32, 64, 3))),
         "cond": init_flax(jm.cond_model, seed + 2, jnp.zeros((1, 77), jnp.int32)),
     }
-    tm = TM(TU(**TINY_UNET), TV(TD(**TINY_VAE), embed_dim=4), TC(**TINY_CLIP), sd2_schedule())
+    tm = TM(TU(**TINY_UNET), TV(TD(**TINY_VAE), embed_dim=4), TC(**TINY_CLIP), TS.create(**sd2))
     tm.load_state_dict(state_dict_from_flax(params), strict=True)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -182,17 +184,18 @@ def tiny_bundles(seed: int = 0):
     return jm, params, tm.eval(), tok, sp
 
 
-def run_both_pipelines(sampler: str, steps: int = 4, seed: int = 3):
+def run_both_pipelines(sampler: str, steps: int = 4, seed: int = 3, parameterization: str = "eps"):
     """The tiny canvas through JAX ``_generate`` and the port's
     ``RefInpaintPipeline``, fp32 on the CPU, with JAX's x_T, per-step noise
-    and VAE noise reproduced by ``jax.random`` and fed to the port.
-    Returns (port canvas, jax canvas, image)."""
+    and VAE noise reproduced by ``jax.random`` and fed to the port; the
+    bundles' schedule of ``parameterization``.  Returns (port canvas, jax
+    canvas, image)."""
     from leftrefill_tpu.models.autoencoder import DiagonalGaussian
     from leftrefill_tpu.pipeline import _generate
 
     from leftrefill_torch.pipeline import RefInpaintPipeline, stitch_canvas
 
-    jm, params, tm, tok, sp = tiny_bundles()
+    jm, params, tm, tok, sp = tiny_bundles(parameterization=parameterization)
     rng = np.random.RandomState(seed)
     image, mask = stitch_canvas(
         rng.uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32),

@@ -100,6 +100,18 @@ def test_ptxas_report_reads_each_instantiation():
         " for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 162 registers, used 16 barriers",
+        "ptxas info    : Compiling entry function '_ZN2lr12_GLOBAL__N_119flash_bwd_dq_kernelILi64EEEv14CUtensorMap_st'"
+        " for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 154 registers, used 16 barriers",
+        "ptxas info    : Compiling entry function '_ZN2lr12_GLOBAL__N_120flash_bwd_dkv_kernelILi128EEEv14CUtensorMap_st'"
+        " for 'sm_90a'",
+        "    16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 224 registers, used 16 barriers",
+        "ptxas info    : Compiling entry function '_ZN2lr12_GLOBAL__N_119flash_bwd_dq_kernelILi128EEEv14CUtensorMap_st'"
+        " for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 200 registers, used 16 barriers",
     ])
     assert chip_smoke.ptxas_report(log, "flash_fwd_kernel") == [
         "flash_fwd_kernel<64>: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; "
@@ -110,3 +122,30 @@ def test_ptxas_report_reads_each_instantiation():
     assert chip_smoke.ptxas_report(log, "conv3x3_kernel") == [
         "conv3x3_kernel<80>: 8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads; "
         "Used 72 registers, used 2 barriers;"]
+    assert chip_smoke.ptxas_report(log, "flash_bwd_dq_kernel") == [
+        "flash_bwd_dq_kernel<64>: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; "
+        "Used 154 registers, used 16 barriers;",
+        "flash_bwd_dq_kernel<128>: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; "
+        "Used 200 registers, used 16 barriers;",
+    ]
+    assert chip_smoke.ptxas_report(log, "flash_bwd_dkv_kernel") == [
+        "flash_bwd_dkv_kernel<128>: 16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads; "
+        "Used 224 registers, used 16 barriers;"]
+
+
+@pytest.mark.parametrize("views,per_step", [(None, tools.PER_TRAIN_STEP), (4, tools.PER_TRAIN_STEP_MV4)])
+def test_library_baselines_train_walks_every_backward_site(views, per_step):
+    """``library_baselines --train [--multiview 4]`` times the flash
+    backward at each shape of one train step once: its sites' launches add up
+    to the step's dq and dk/dv launches, the 8192-token (V=4: 16384) site
+    among them; another view count is refused before anything runs."""
+    from leftrefill_torch.tools.library_baselines import train_sites
+
+    sites = train_sites(views)
+    shapes = [shape for shape, _ in sites]
+    assert len(set(shapes)) == len(shapes) == (3 if views is None else 4)
+    assert sum(n for _, n in sites) == per_step["flash_bwd_dq"] == per_step["flash_bwd_dkv"]
+    assert max(shape[2] for shape in shapes) == (8192 if views is None else 16384)
+    assert all(nq % 64 == 0 and nk % 64 == 0 and d == 64 for _, _, nq, nk, d in shapes)
+    with pytest.raises(SystemExit):
+        train_sites(2)
