@@ -6,14 +6,20 @@
 Phases, one line each (the kernel phases one line per kernel shape):
 1. set-up: the card's name and power limit, versions, the kernel build (its
    time, and ptxas's registers, spills and barriers with the dynamic shared
-   memory of each instantiation of the flash forward, the bf16 conv and the
-   two flash backward kernels);
+   memory of each instantiation of the flash forward, the bf16 conv, the
+   two flash backward kernels and the GEGLUs' up and down kernels, bf16 and
+   int8);
 2. each bf16 kernel (K1 flash forward, K2 3x3 conv, K3 fused GEGLU) at every
    shape one full-width bf16 UNet forward gives it, against its plain
    PyTorch version (relative L2 <= 1e-2), timed with CUDA events beside its
    bound and the library call where one exists, with the share of the bound
    it reaches and its factor to the library call (as at every kernel site
-   below); then off the main path, against the plain versions: the flash
+   below; K3 and KI3, which no single call computes, beside their
+   yardsticks: the cuBLAS composition of the same function, and the two
+   int8 products alone, ``tools.COMPOSED``), and K3's and KI3's launch plan
+   (``mlp.geglu_plan``) equal to the launchers'; two launches of K3 at its
+   largest site bit-equal; then off the main path, against the plain
+   versions: the flash
    kernel's head-dim-128 instantiation, the flash kernel at 1088 tokens (a
    key and a query tail past a multiple of 128), and K2 at 72 input
    channels (a channel tail past a multiple of 64);
@@ -27,8 +33,11 @@ Phases, one line each (the kernel phases one line per kernel shape):
 2i. JAX's unfused int8 configuration (``fused=False``, the same fp weights
    quantized): each int8 kernel (KI1 3x3 conv, KI2 proj_out GEMM + residual,
    KI3 GEGLU) at every shape one full-width int8 forward gives it, against
-   its plain version, each within 1 bf16 ulp per element, timed; then KI1's
-   fp32 output arm, off the main path, equal to its plain version;
+   its plain version, each within 1 bf16 ulp per element, timed, and two
+   launches of KI3 at its largest site bit-equal; then off the main path:
+   KI1's fp32 output arm equal to its plain version, and KI3 at a 1280-wide
+   requant chunk (a cluster of 10 blocks, past the portable 8) and din = 320
+   within 1 ulp;
 3i. that full-width int8 forward through the kernels against the same
    forward with KI1-KI3 through their plain versions (relative L2 <= 3e-2;
    K1 stays on its kernel in both), and, for information, against the
@@ -81,7 +90,10 @@ Phases, one line each (the kernel phases one line per kernel shape):
    then both off the main path, held the same way: at head dim 128, at
    1088 tokens (a 64-row tail past a multiple of 128) and at 576 queries
    against 1216 keys (Nq != Nk, both with tails); and two launches of each
-   at the 8192-token site must give bit-equal outputs (no atomics);
+   at the 8192-token site must give bit-equal outputs (no atomics); then
+   K3 at every GEGLU site of both train steps (the forward and the remat
+   recompute launch each), held and timed as in phase 2, and two launches
+   at the 65536-row site bit-equal;
 7. 1-reference prompt-tuning training at full width (remat on, the released
    AdamW: lr 3e-5, weight decay 0.01): batch 8 of seeded 512x1024 canvases,
    a warm-up step, then three timed steps with the launches per step of
@@ -138,7 +150,7 @@ KERNELS = {
                      "leftrefill_tpu/ops/flash_attention.py:418 (K12) and leftrefill_tpu/ops/flash_attention.py:456 (K14)"),
     "flash_bwd_dkv": ("leftrefill_torch/csrc/flash_bwd.cu", "leftrefill_tpu/ops/flash_attention.py:506 (K13)"),
     "conv3x3": ("leftrefill_torch/csrc/conv3x3.cu", "leftrefill_tpu/ops/conv.py:181"),
-    "geglu": ("leftrefill_torch/csrc/geglu.cu", "leftrefill_tpu/ops/mlp.py:86"),
+    "geglu": ("leftrefill_torch/csrc/geglu.cu", "leftrefill_tpu/ops/mlp.py:86"),  # and csrc/geglu.cuh
     "conv3x3_int8": ("leftrefill_torch/csrc/conv3x3_int8.cu",
                      "leftrefill_tpu/ops/quant.py:390 and leftrefill_tpu/ops/quant.py:277"),
     "dense_int8_res": ("leftrefill_torch/csrc/dense_int8_res.cu", "leftrefill_tpu/ops/quant.py:106"),
@@ -171,6 +183,41 @@ def ptxas_report(log: str, kernel: str) -> list[str]:
         elif current and ("stack frame" in line or "Used" in line):
             lines[-1] += " " + line.split(":", 1)[-1].strip() + ";"
     return lines
+
+
+def check_plan(name: str, shape: tuple) -> str:
+    """K3's or KI3's launch plan as ``mlp.geglu_plan`` mirrors it, held to
+    the launchers' own (down tile and shared memory); returns its reading."""
+    import torch
+
+    from leftrefill_torch import kernels
+    from leftrefill_torch.ops import mlp
+
+    lib = kernels.library()
+    int8 = name == "geglu_int8"
+    tile, smem = (lib.lr_geglu_int8_tile, lib.lr_geglu_int8_smem) if int8 else (lib.lr_geglu_tile, lib.lr_geglu_smem)
+    plan = mlp.geglu_plan(*shape[:4], torch.cuda.get_device_properties(0).multi_processor_count,
+                          chunk=shape[4] if int8 else None)
+    up, down = plan["up"], plan["down"]
+    bn = tile(shape[0], shape[3])
+    if (bn, smem(0, 0), smem(1, bn)) != (down["tile"][1], up["smem"], down["smem"]):
+        raise SystemExit(f"{name} {shape}: the plan mirror {plan} differs from the launcher's "
+                         f"(tile {bn}, shared memory {smem(0, 0)} / {smem(1, bn)})")
+    return (f"up_grid={up['grid'] or 'persistent'} up_items={up['items']} up_cluster={up['cluster']} "
+            f"down_tile={down['tile']} down_grid={down['grid']} smem={up['smem']}/{down['smem']}")
+
+
+def check_bit_equal(name: str, shape: tuple, gen, label: str) -> None:
+    """Two launches of one kernel on the same inputs give the same bits."""
+    import torch
+
+    from leftrefill_torch import tools
+
+    site = tools.site_args(name, shape, gen)
+    first, second = (tools.KERNEL_FNS[name][0](*site) for _ in range(2))
+    if not torch.equal(first, second):
+        raise SystemExit(f"phase {label} {name} {shape}: two launches differ")
+    print(f"phase {label} {name} shape={shape}: two launches bit-equal")
 
 
 def compare(name: str, got, ref) -> tuple[str, float]:
@@ -283,17 +330,23 @@ def check_site(name: str, shape: tuple, gen, n_sites: int, report: dict, label: 
     reading, mae = compare_backward(name, site, got, ref) if name in BWD_NAMES else compare(name, got, ref)
     ms, plain_ms = cuda_ms(run, 20), cuda_ms(plain, 5)
     library = tools.library_fn(name, site)
+    # a composition of calls (tools.COMPOSED) is a yardstick, not a library time
+    composed = name in tools.COMPOSED
     library_ms = None if library is None else cuda_ms(library, 20)
+    composition_ms, library_ms = (library_ms, None) if composed else (None, library_ms)
     bound, bound_by = tools.bound_ms(name, shape)
     if name == "conv3x3":  # the launch plan's output channels per block
         reading += f" channels_per_block={kernels.library().lr_conv3x3_tile(*shape[:3], shape[4])}"
+    if composed:
+        reading += " " + check_plan(name, shape)
     print(f"phase {label} {name} shape={shape} sites={n_sites} {reading} max_abs_err={mae:.3e} "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({bound_by}) "
           f"bound_share={bound / ms:.3f} library_ms={'none' if library_ms is None else f'{library_ms:.4f}'}"
-          f"{'' if library_ms is None else f' kernel_over_library={ms / library_ms:.2f}'}")
+          f"{'' if library_ms is None else f' kernel_over_library={ms / library_ms:.2f}'}"
+          f"{'' if composition_ms is None else f' composition_ms={composition_ms:.4f} kernel_over_composition={ms / composition_ms:.2f}'}")
     r = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                                  "library_ms": None if library_ms is None else 0.0, "sites": 0,
-                                 "bound_ops_ms": 0.0})
+                                 "bound_ops_ms": 0.0, **({"composition_ms": 0.0} if composed else {})})
     r["max_abs_err"] = max(r["max_abs_err"], mae)
     r["ms"] += n_sites * ms
     r["plain_ms"] += n_sites * plain_ms
@@ -301,6 +354,8 @@ def check_site(name: str, shape: tuple, gen, n_sites: int, report: dict, label: 
     r["bound_ops_ms"] += n_sites * bound * (bound_by == "operations")
     if library_ms is not None:
         r["library_ms"] += n_sites * library_ms
+    if composition_ms is not None:
+        r["composition_ms"] += n_sites * composition_ms
     r["sites"] += n_sites
 
 
@@ -495,6 +550,7 @@ def main() -> int:
     # ---- phase 1: set-up ---------------------------------------------------
     from leftrefill_torch import kernels, tools
     from leftrefill_torch.tools import cuda_ms, rel_l2
+    from leftrefill_torch.tools.library_baselines import geglu_sites
 
     print(tools.card_line())
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -509,10 +565,14 @@ def main() -> int:
     log = (kernels.library_path().parent / "build.log").read_text()
     for kernel, smem_of in (("flash_fwd_kernel", lib.lr_flash_fwd_smem), ("conv3x3_kernel", lib.lr_conv3x3_smem),
                             ("flash_bwd_dq_kernel", lib.lr_flash_bwd_dq_smem),
-                            ("flash_bwd_dkv_kernel", lib.lr_flash_bwd_dkv_smem)):
+                            ("flash_bwd_dkv_kernel", lib.lr_flash_bwd_dkv_smem),
+                            ("geglu_up_kernel", lambda n: lib.lr_geglu_smem(0, 0)),
+                            ("geglu_down_kernel", lambda n: lib.lr_geglu_smem(1, n)),
+                            ("geglu_int8_up_kernel", lambda n: lib.lr_geglu_int8_smem(0, 0)),
+                            ("geglu_int8_down_kernel", lambda n: lib.lr_geglu_int8_smem(1, n))):
         for line in ptxas_report(log, kernel):
-            n = int(re.search(r"<(\d+)>", line).group(1))
-            print(f"phase 1 ptxas {line}; dynamic shared memory {smem_of(n)} bytes")
+            n = re.search(r"<(\d*)>", line).group(1)
+            print(f"phase 1 ptxas {line}; dynamic shared memory {smem_of(int(n or 0))} bytes")
 
     from leftrefill_torch.pipeline import build_sd2_inpaint_bundle
 
@@ -526,7 +586,8 @@ def main() -> int:
     # ---- phase 2: each bf16 kernel at the UNet forward's own shapes --------
     with torch.inference_mode():
         kv = unet.cross_kv(ctx)
-        check_kernels(tools.unet_sites(unet, x, tsteps, ctx, kv, True), gen, report, "2", BF16_NAMES)
+        sites_bf16 = tools.unet_sites(unet, x, tsteps, ctx, kv, True)
+        check_kernels(sites_bf16, gen, report, "2", BF16_NAMES)
         # off the main path: head dim 128, and the key/query and channel tails
         for name, shape in OFF_PATH:
             site = tools.site_args(name, shape, gen)
@@ -535,6 +596,7 @@ def main() -> int:
             print(f"phase 2 {name} shape={shape} (off the main path) {reading} "
                   f"kernel_ms={cuda_ms(run, 5):.4f} plain_ms={cuda_ms(plain, 5):.4f}")
         check_sites(report, {n: tools.PER_FORWARD_BF16[n] for n in BF16_NAMES}, "bf16")
+        check_bit_equal("geglu", max(s for n, s in sites_bf16 if n == "geglu"), gen, "2")
 
         # ---- phase 3: the full-width UNet forward, kernels vs plain --------
         out_bf16, _, err, kern_ms, plain_ms = check_forward(unet, x, tsteps, ctx, kv, "bf16", kernels.NAMES)
@@ -556,8 +618,18 @@ def main() -> int:
     qunet, uunet = qmodel.unet, umodel.unet
     with torch.inference_mode():
         qkv = uunet.cross_kv(ctx)
-        check_kernels(tools.unet_sites(uunet, x, tsteps, ctx, qkv, True), gen, report, "2i", INT8_NAMES)
+        sites_int8 = tools.unet_sites(uunet, x, tsteps, ctx, qkv, True)
+        check_kernels(sites_int8, gen, report, "2i", INT8_NAMES)
         check_sites(report, {n: tools.PER_FORWARD_INT8_UNFUSED[n] for n in INT8_NAMES}, "int8")
+        check_bit_equal("geglu_int8", max(s for n, s in sites_int8 if n == "geglu_int8"), gen, "2i")
+        # KI3 off the main path: a 1280-wide requant chunk (the up kernel's
+        # cluster of 10 blocks) over a din of 320 (a 64-byte K tail)
+        shape = (128, 320, 1280, 320, 1280)
+        site = tools.site_args("geglu_int8", shape, gen)
+        run, plain = (functools.partial(fn, *site) for fn in tools.KERNEL_FNS["geglu_int8"])
+        reading, _ = compare("geglu_int8", run(), plain())
+        print(f"phase 2i geglu_int8 shape={shape} (off the main path) {reading} {check_plan('geglu_int8', shape)} "
+              f"kernel_ms={cuda_ms(run, 20):.4f} plain_ms={cuda_ms(plain, 5):.4f}")
         # KI1's fp32 output arm (an fp32 int8 model), off the main path
         shape = (2, 32, 64, 640, 640)
         site = (*tools.site_args("conv3x3_int8", shape, gen), torch.float32)
@@ -687,6 +759,16 @@ def main() -> int:
             raise SystemExit(f"phase 2t {name} {shape}: two launches differ")
         print(f"phase 2t {name} shape={shape}: two launches bit-equal")
     del site, first, second
+    # K3 at the train steps' GEGLU sites: the forward and the remat recompute
+    train_geglu = {}
+    with torch.inference_mode():
+        for views, key in ((None, "train_1ref_b8"), (VIEWS, "train_mv4")):
+            train_geglu[key] = {}
+            for shape, n_sites in geglu_sites(views, True, False):
+                check_site("geglu", shape, gen, n_sites, train_geglu[key], f"2t {key}")
+            if train_geglu[key]["geglu"]["sites"] != tools.PER_TRAIN_STEP["geglu"]:
+                raise SystemExit(f"phase 2t {key}: {train_geglu[key]['geglu']['sites']} GEGLU sites a step")
+        check_bit_equal("geglu", max(s for s, _ in geglu_sites(None, True, False)), gen, "2t")
 
     # ---- phase 7: 1-reference prompt-tuning training at full width --------
     from leftrefill_torch.models.clip import init_prompt_table
@@ -780,9 +862,17 @@ def main() -> int:
             entry["multiview_v4_train_step"] = {k: mv_train[name][k] for k in
                                                 ("sites", "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
             entry["max_abs_err"] = max(entry["max_abs_err"], mv_train[name]["max_abs_err"])
+        if name in tools.COMPOSED:  # the yardstick: a composition of calls, not one library call
+            entry["composition_ms"] = rep["composition_ms"]
+        if name == "geglu":  # the train steps' sites, held and timed in phase 2t
+            for key, rep_t in train_geglu.items():
+                entry[key] = {k: rep_t["geglu"][k] for k in
+                              ("sites", "ms", "plain_ms", "bound_ms", "composition_ms", "max_abs_err")}
+                entry["max_abs_err"] = max(entry["max_abs_err"], rep_t["geglu"]["max_abs_err"])
         if name in mv_forward:  # the V=4 forward's sites, held and timed in phase 3m
             entry["multiview_v4_forward"] = {k: mv_forward[name][k] for k in
-                                             ("sites", "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
+                                             ("sites", "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err",
+                                              "composition_ms") if k in mv_forward[name]}
             entry["max_abs_err"] = max(entry["max_abs_err"], mv_forward[name]["max_abs_err"])
         if name == "flash_fwd":
             entry["multiview_joint_attention"] = multiview

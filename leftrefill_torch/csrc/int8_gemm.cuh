@@ -1,5 +1,5 @@
-// Shared int8 tensor-core machinery of KI1 (csrc/conv3x3_int8.cu), KI2
-// (csrc/dense_int8_res.cu) and KI3 (csrc/geglu_int8.cu).
+// Shared int8 tensor-core machinery of KI1 (csrc/conv3x3_int8.cu) and KI2
+// (csrc/dense_int8_res.cu).
 //
 // The products run on mma.sync.m16n8k32 with int8 operands and int32
 // accumulators, so every sum is exact (the UNet's reach 9 * 2560 * 127^2,

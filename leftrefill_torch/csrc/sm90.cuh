@@ -1,16 +1,18 @@
 // Hopper (sm_90a) building blocks of the kernels that run on wgmma and TMA
-// (csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/conv3x3.cu): mbarriers, TMA
-// tile loads and stores on tensor maps, bulk copies, warpgroup matrix
-// products with shared-memory descriptors, named barriers, and the
-// host-side encoding of a tensor map.
+// (csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/conv3x3.cu, csrc/geglu.cu,
+// csrc/geglu_int8.cu): mbarriers, TMA tile loads and stores on tensor maps,
+// bulk copies, warpgroup matrix products (bf16, and int8 with int32 sums)
+// with shared-memory descriptors, named barriers, and the host-side encoding
+// of a tensor map.
 //
 // Layout convention.  Every operand tile is written by TMA with 128-byte
-// swizzling: rows of 64 bf16 values (128 bytes), 8-row atoms of 1024 bytes
-// in which the 16-byte chunk j of row r sits at chunk j ^ (r % 8).  Tiles
-// start on 1024-byte boundaries.  A wgmma descriptor then names:
-// - a K-major tile (rows = M or N, the 64 values of a row = K): stride 1024
-//   bytes between 8-row groups (SBO), and a K step of 16 values is a start
-//   address 32 bytes further on;
+// swizzling: rows of 128 bytes (64 bf16 or 128 int8 values), 8-row atoms of
+// 1024 bytes in which the 16-byte chunk j of row r sits at chunk j ^ (r % 8).
+// Tiles start on 1024-byte boundaries.  A wgmma descriptor then names:
+// - a K-major tile (rows = M or N, the 128 bytes of a row = K): stride 1024
+//   bytes between 8-row groups (SBO), and a K step of 32 bytes (16 bf16
+//   values, or the 32 int8 values of an int8 product) is a start address 32
+//   bytes further on;
 // - an MN-major tile (rows = K, a row's 64 values = N, read transposed):
 //   SBO 1024 bytes between groups of 8 K rows, LBO the distance to the
 //   next 64 values of N (a second tile), and a K step of 16 rows is a start
@@ -79,6 +81,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---- TMA ------------------------------------------------------------------
 
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
                                             int c2) {
   asm volatile(
@@ -113,6 +123,21 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
                    reinterpret_cast<uint64_t>(map)),
                "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
                : "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+// Commit the issued TMA stores (a bulk group), and wait until every committed
+// group has read its shared memory.
+__device__ __forceinline__ void tma_store_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // Commit the issued TMA stores and wait until they have read shared memory.
@@ -180,6 +205,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
@@ -335,14 +366,103 @@ struct Wgmma<160> {
   }
 };
 
+// wgmma.mma_async m64nNk32, int8 operands (s8 x s8), int32 accumulators
+// d[N / 2] in the fp32 accumulator's layout; ss only: A and B K-major in
+// shared memory (the only layout int8 products take), D = A . B^T (+ D
+// where scale_d != 0).  Integer sums are exact.
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<64> {
+  static __device__ __forceinline__ void ss(int32_t (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<128> {
+  static __device__ __forceinline__ void ss(int32_t (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<160> {
+  static __device__ __forceinline__ void ss(int32_t (&d)[80], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79])
+      : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
 // ---- host: tensor maps -------------------------------------------------------
 
-// A bf16 tensor map with 128-byte swizzling and zero fill out of bounds:
-// dims innermost first, strides in bytes of dims 1.., box in elements.
-// cuTensorMapEncodeTiled is taken from the driver through the runtime, so
-// nothing links against libcuda.
+// A tensor map (bf16 unless `type` says otherwise; int8 data as UINT8) with
+// 128-byte swizzling and zero fill out of bounds: dims innermost first,
+// strides in bytes of dims 1.., box in elements.  cuTensorMapEncodeTiled is
+// looked up through the runtime's entry-point query, so nothing links against
+// libcuda.
 inline cudaError_t encode_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                              const uint64_t* strides, const uint32_t* box) {
+                              const uint64_t* strides, const uint32_t* box,
+                              CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                               const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                               CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
@@ -358,10 +478,19 @@ inline cudaError_t encode_map(CUtensorMap* map, const void* base, int rank, cons
   }();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank), const_cast<void*>(base),
+  CUresult r = encode(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base),
                       dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A row-major [rows, cols] matrix (cols contiguous, `elem` bytes a value) as
+// a 2-D tensor map with boxes of box_cols x box_rows.
+inline cudaError_t matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int elem, int box_cols,
+                              int box_rows, CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  const uint64_t dims[2] = {uint64_t(cols), uint64_t(rows)}, strides[1] = {uint64_t(cols) * elem};
+  const uint32_t box[2] = {uint32_t(box_cols), uint32_t(box_rows)};
+  return encode_map(map, base, 2, dims, strides, box, type);
 }
 
 // The attention kernels' packed [B, N, H*d] bf16 layout (no head transpose

@@ -49,8 +49,14 @@ _SIGNATURES = {
     "lr_conv3x3_tile": [_I, _I, _I, _I],
     # output channels per block -> dynamic shared memory of a block, bytes
     "lr_conv3x3_smem": [_I],
-    # x, w1, b1, w2, b2, out, partial, r, din, inner, dout, splits, stream
-    "lr_geglu": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w1, b1, w2, b2, h, out, r, din, inner, dout, stream
+    "lr_geglu": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # r, dout -> output columns of a down block (lr_geglu_int8_tile: KI3's)
+    "lr_geglu_tile": [_I, _I],
+    "lr_geglu_int8_tile": [_I, _I],
+    # kernel (0 up, 1 down), bn -> dynamic shared memory of a block, bytes
+    "lr_geglu_smem": [_I, _I],
+    "lr_geglu_int8_smem": [_I, _I],
     # x, w, scale, bias, out, partial, b, h, w, ci, co, splits, out_f32, stream
     "lr_conv3x3_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # b, h, w, ci, co -> split count of K
@@ -59,8 +65,8 @@ _SIGNATURES = {
     "lr_dense_int8_res": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # r, k, n -> split count of K
     "lr_dense_int8_res_splits": [_I, _I, _I],
-    # xq, sx, w1, s1, b1, w2, s2, b2, out, partial, r, din, inner, dout, cw, stream
-    "lr_geglu_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # xq, sx, w1, s1, b1, w2, s2, b2, hq, sh, out, r, din, inner, dout, cw, stream
+    "lr_geglu_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, a, bb, inv_scale, out, batch, hw, c, stream
     "lr_affine_silu_quant": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, gamma, beta, xn, xq, scale, rows, c, eps, stream

@@ -3,17 +3,17 @@
 Source note.  Replaces ``leftrefill_tpu/ops/mlp.py:_geglu_kernel``
 (``_geglu_pallas`` / ``geglu_fused``).  The kernel (``csrc/geglu.cu``)
 takes the weights in torch's Linear layout (W1 [2I, din] with the value
-rows first, W2 [dout, I]: no per-call transposes) and computes, per 64-wide
-inner chunk c, v = x.W1[c]^T + b1, g = x.W1[I+c]^T + b1,
-h = v * gelu(g) in fp32 (exact erf through CUDA's ``erff``; the TPU kernel
-used the Abramowitz-Stegun 7.1.26 polynomial), then acc += bf16(h).W2[:, c]^T
-in fp32 and out = bf16(acc + b2).  Both products run in the kernel body; h
-never reaches device memory.  A block owns 32 rows and keeps their
-[32, dout] fp32 accumulator in shared memory (160 KB at dout = 1280); where
-the rows give fewer blocks than SMs (R = 256, 1024, 4096), the inner
-dimension is also split and the fp32 partials are added in a fixed order by
-a second kernel.  At these widths the products bound it (compute, with
-W1/W2 re-read from L2 per 32-row block).  The gradient differentiates
+rows first, W2 [dout, I]: no per-call transposes) and computes
+v = x.W1[c]^T + b1, g = x.W1[I+c]^T + b1, h = bf16(v * gelu(g)) in fp32
+(exact erf through CUDA's ``erff``; the TPU kernel used the
+Abramowitz-Stegun 7.1.26 polynomial), and out = bf16(h.W2^T + b2), one fp32
+sum over the whole inner dimension.  It is two wgmma + TMA launches
+(``csrc/geglu.cuh``): an up kernel whose blocks own 128 rows x 128 inner
+columns and write h [R, I] in bf16 to device memory (a 128-row fp32
+accumulator of the TPU kernel's kind, 640 KB at dout 1280, fits no SM), and
+a down kernel whose blocks own 128 rows x 160, 128 or 64 output columns
+(:func:`geglu_plan`) and read h back: 2 R I bytes each way, mostly from L2.
+At these widths the products bound it.  The gradient differentiates
 :func:`geglu_vjp_math` recomputed from the saved inputs (``_GEGLU``), as
 JAX's custom VJP differentiates ``_geglu_xla_math``: bf16 products.
 
@@ -26,9 +26,13 @@ h = v * gelu_erf(g), h requantized per row over the chunk
 fp32 sum, b2 at the end.  The chunk width is part of the function (the
 requant scale spans one chunk), so it is the TPU plan's
 (:func:`geglu_int8_chunk`, a copy of ``_plan``).  The kernel
-(``csrc/geglu_int8.cu``) runs one block per (32 rows, chunk), keeps h in
-shared memory, and adds the chunks' fp32 contributions in chunk order in a
-second kernel.
+(``csrc/geglu_int8.cu``) is the same two launches on int8 wgmma.  The up
+kernel runs persistent thread clusters of chunk / 128 blocks (5 or 2 at full
+width, 10 at a 1280-wide chunk), each walking (128 rows, chunk) items and
+exchanging its rows' max |h| through distributed shared memory, so h in
+fp32 never leaves the SM and only hq (int8, [R, I]) and sh ([R, I / chunk])
+cross device memory; the down kernel adds the chunks' contributions in
+chunk order in registers.
 """
 
 from __future__ import annotations
@@ -40,22 +44,49 @@ from leftrefill_torch import kernels
 from leftrefill_torch.ops.quant import int_mm, over_127
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+# the kernels' frame (csrc/geglu.cuh): 128-row blocks, up blocks 128 inner
+# columns wide, a 4-stage ring of tiles 128 bytes wide
+BM, BI, STAGES, TILE = 128, 128, 4, 128 * 128
+UP_SMEM = 1024 + STAGES * 3 * TILE + 16 * STAGES
+MAX_CLUSTER = 16  # blocks of a thread cluster on an H100 (8 portable)
+# the int8 up block also stages its hq tile and two items' row maxima of its cluster
+UP8_SMEM = UP_SMEM + TILE + 2 * 4 * BM * MAX_CLUSTER
 
 
-def _smem_bytes(dout: int) -> int:
-    """Shared memory of the kernel's block (mirrors csrc/geglu.cu)."""
-    return 32 * (dout + 4) * 4 + 32 * 72 * 2 + 2 * 64 * 72 * 2 + 2 * 32 * 68 * 4 + 32 * 72 * 2 + 64 * 72 * 2
+def down_smem(bn: int) -> int:
+    return 1024 + STAGES * (TILE + bn * 128) + 16 * STAGES
 
 
-def inner_splits(r: int, inner: int, sms: int) -> int:
-    """How many ways the kernel splits the inner dimension: doubled while the
-    doubled grid still fits in one wave over the SMs (one block per SM: the
-    fp32 accumulator takes most of the shared memory), as long as every split
-    stays a whole number of 64-wide chunks."""
-    s = 1
-    while (r // 32) * s * 2 <= sms and inner % (2 * s * 64) == 0:
-        s *= 2
-    return s
+def down_tile(r: int, dout: int, sms: int) -> int:
+    """The down kernel's output columns per block (``geglu.cuh:down_tile``):
+    among 160 and 128 (each where it divides dout) and 64, the one whose
+    waves over the SMs times its width is least, the widest on a tie."""
+    best = None
+    for bn in (160, 128, 64):
+        if dout % bn and bn != 64:
+            continue
+        blocks = -(-r // BM) * -(-dout // bn)
+        cost = -(-blocks // sms) * bn
+        if best is None or cost < best[0]:
+            best = (cost, bn)
+    return best[1]
+
+
+def geglu_plan(r: int, din: int, inner: int, dout: int, sms: int, chunk: int | None = None) -> dict:
+    """The launch plan of K3 (or, with ``chunk``, KI3) at this shape, as the
+    ``.cu`` launchers compute it: each kernel's block tile (rows, columns),
+    its items (tiles), grid (x, y), thread cluster along x and dynamic shared
+    memory.  KI3's up kernel is persistent: its grid is as many clusters as
+    the card holds at once (asked of CUDA at launch), at most one an
+    item, so it has no fixed grid here."""
+    bn = down_tile(r, dout, sms)
+    rows = -(-r // BM)
+    return {
+        "up": {"tile": (BM, BI), "items": rows * inner // BI, "grid": (inner // BI, rows) if chunk is None else None,
+               "cluster": 1 if chunk is None else chunk // BI, "smem": UP_SMEM if chunk is None else UP8_SMEM},
+        "down": {"tile": (BM, bn), "items": rows * -(-dout // bn), "grid": (-(-dout // bn), rows), "cluster": 1,
+                 "smem": down_smem(bn)},
+    }
 
 
 def geglu_plain(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -86,7 +117,7 @@ def geglu_vjp_math(x, w1, b1, w2, b2) -> torch.Tensor:
 def geglu_fused(x, w1, b1, w2, b2) -> torch.Tensor:
     """x [R, din] bf16, w1 [2I, din] bf16, b1 [2I] fp32, w2 [dout, I] bf16,
     b2 [dout] fp32 -> [R, dout] bf16.  A CPU tensor runs the plain version;
-    a CUDA tensor launches K3 or raises."""
+    a CUDA tensor launches K3 (its up and down kernels) or raises."""
     if not x.is_cuda:
         return geglu_plain(x, w1, b1, w2, b2)
     r, din = x.shape
@@ -96,18 +127,14 @@ def geglu_fused(x, w1, b1, w2, b2) -> torch.Tensor:
     kernels.require(b1, "b1", torch.float32, (2 * inner,))
     kernels.require(w2, "w2", torch.bfloat16, (dout, inner))
     kernels.require(b2, "b2", torch.float32, (dout,))
-    if r % 32 or din % 64 or inner % 64 or dout % 64 or _smem_bytes(dout) > SMEM_LIMIT:
+    if not _kernel_takes(r, din, inner, dout):
         raise ValueError(f"GEGLU kernel does not take R={r} din={din} inner={inner} dout={dout}")
+    h = torch.empty((r, inner), dtype=x.dtype, device=x.device)
     out = torch.empty((r, dout), dtype=x.dtype, device=x.device)
-    splits = inner_splits(r, inner, torch.cuda.get_device_properties(x.device).multi_processor_count)
-    partial = torch.empty((splits, r, dout), dtype=torch.float32, device=x.device) if splits > 1 else None
     lib = kernels.library()
     with torch.cuda.device(x.device):
-        code = lib.lr_geglu(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            out.data_ptr(), None if partial is None else partial.data_ptr(),
-            r, din, inner, dout, splits, kernels.stream_of(x),
-        )
+        code = lib.lr_geglu(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                            h.data_ptr(), out.data_ptr(), r, din, inner, dout, kernels.stream_of(x))
     kernels.check(code, "geglu")
     geglu_fused.launches += 1
     return out
@@ -146,22 +173,25 @@ def geglu_apply(x, w1, b1, w2, b2) -> torch.Tensor:
     return fn(x, w1, b1, w2, b2)
 
 
+def _kernel_takes(r: int, din: int, inner: int, dout: int) -> bool:
+    """K3's own constraints: whole 128-row blocks and 128-wide inner tiles,
+    din in 64-wide K steps, dout in 64-wide column tiles."""
+    return r > 0 and r % BM == 0 and din % 64 == 0 and inner % BI == 0 and dout % 64 == 0
+
+
 def geglu_fused_qualifies(x: torch.Tensor, din: int, inner: int, dout: int) -> bool:
-    """The JAX dispatcher's rule for bf16 (R >= 128 in whole 128-row blocks,
-    din and dout >= 64, inner in 128-wide chunks) on a CUDA tensor, plus the
-    kernel's 64-alignment of din/dout and its shared-memory bound."""
+    """The JAX dispatcher's rule for bf16 (R >= 128, din and dout >= 64, a
+    VMEM plan of the TPU kernel) on a CUDA tensor, plus the kernel's own
+    constraints (:func:`_kernel_takes`)."""
     r = x.numel() // x.shape[-1]
     return (
         kernels.uses_kernel(x)
         and x.dtype == torch.bfloat16
         and r >= 128
-        and r % 128 == 0
         and din >= 64
         and dout >= 64
-        and inner % 128 == 0
-        and din % 64 == 0
-        and dout % 64 == 0
-        and _smem_bytes(dout) <= SMEM_LIMIT
+        and _vmem_plan(r, din, inner, dout, 2) is not None
+        and _kernel_takes(r, din, inner, dout)
     )
 
 
@@ -169,9 +199,9 @@ def geglu_fused_qualifies(x: torch.Tensor, din: int, inner: int, dout: int) -> b
 # KI3: the W8A8 GEGLU
 
 
-def geglu_int8_plan(r: int, din: int, inner: int, dout: int):
-    """(blk_r, chunk) of K10's VMEM plan, or None (a copy of
-    ``leftrefill_tpu/ops/mlp.py:_plan`` with its int8 element sizes; the
+def _vmem_plan(r: int, din: int, inner: int, dout: int, elt: int):
+    """(blk_r, chunk) of the TPU kernel's VMEM plan for operands of ``elt``
+    bytes, or None (a copy of ``leftrefill_tpu/ops/mlp.py:_plan``: the
     largest (blk_r, chunk) that fits, the first in this descending order)."""
     for blk_r in (512, 256, 128):
         if r % blk_r:
@@ -180,10 +210,16 @@ def geglu_int8_plan(r: int, din: int, inner: int, dout: int):
             if inner % ci:
                 continue
             # x, W1, W2 and the bf16 out double-buffered; the fp32 acc and three fp32 intermediates
-            vmem = 2 * blk_r * din + 4 * din * ci + 2 * ci * dout + 8 * blk_r * dout + 12 * blk_r * ci
+            vmem = (2 * elt * (blk_r * din + 2 * din * ci + ci * dout) + 8 * blk_r * dout
+                    + 12 * blk_r * ci)
             if vmem <= int(11.0 * 1024 * 1024):
                 return blk_r, ci
     return None
+
+
+def geglu_int8_plan(r: int, din: int, inner: int, dout: int):
+    """(blk_r, chunk) of K10's VMEM plan (int8 operands), or None."""
+    return _vmem_plan(r, din, inner, dout, 1)
 
 
 def geglu_int8_qualifies(r: int, din: int, inner: int, dout: int) -> bool:
@@ -217,7 +253,8 @@ def geglu_int8_plain(xq, sx, w1, s1, b1, w2, s2, b2, chunk: int) -> torch.Tensor
 
 def geglu_int8_fused(xq, sx, w1, s1, b1, w2, s2, b2, chunk: int) -> torch.Tensor:
     """KI3 on the arguments of :func:`geglu_int8_plain`.  A CPU tensor runs
-    the plain version; a CUDA tensor launches KI3 or raises."""
+    the plain version; a CUDA tensor launches KI3 (its up and down kernels)
+    or raises."""
     if not xq.is_cuda:
         return geglu_int8_plain(xq, sx, w1, s1, b1, w2, s2, b2, chunk)
     r, din = xq.shape
@@ -231,14 +268,15 @@ def geglu_int8_fused(xq, sx, w1, s1, b1, w2, s2, b2, chunk: int) -> torch.Tensor
     kernels.require(w2, "w2", torch.int8, (dout, inner))
     kernels.require(s2, "s2", f32, (dout,))
     kernels.require(b2, "b2", f32, (dout,))
-    if r % 32 or din % 64 or chunk % 128 or inner % chunk or dout % 2:
+    if din % 16 or chunk % 128 or chunk > MAX_CLUSTER * BI or inner % chunk or dout % 8:
         raise ValueError(f"int8 GEGLU kernel does not take R={r} din={din} inner={inner} dout={dout} chunk={chunk}")
+    hq = torch.empty((r, inner), dtype=torch.int8, device=xq.device)
+    sh = torch.empty((r, inner // chunk), dtype=f32, device=xq.device)
     out = torch.empty((r, dout), dtype=torch.bfloat16, device=xq.device)
-    partial = torch.empty((inner // chunk, r, dout), dtype=f32, device=xq.device)
     with torch.cuda.device(xq.device):
         code = kernels.library().lr_geglu_int8(
-            xq.data_ptr(), sx.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(), partial.data_ptr(),
+            xq.data_ptr(), sx.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            s2.data_ptr(), b2.data_ptr(), hq.data_ptr(), sh.data_ptr(), out.data_ptr(),
             r, din, inner, dout, chunk, kernels.stream_of(xq),
         )
     kernels.check(code, "geglu_int8")

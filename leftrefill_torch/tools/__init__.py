@@ -12,6 +12,8 @@ share with ``chip_smoke.py``.
   kernel against the library path for the same product, at the main path's
   shapes.  The library calls are timed for reference only; none is on the
   port's path.
+- ``python -m leftrefill_torch.tools.geglu_variants [--int8]``: the GEGLU
+  kernels' up and down device time, and that of timing-only variants.
 """
 
 from __future__ import annotations
@@ -309,9 +311,15 @@ def library_fn(name: str, args: tuple):
     clamp at 75 is not reached by these inputs) and its backward through
     ``torch.autograd.grad`` on a kept graph for the backward kernels (exact
     softmax too: the same work, not the same values), cuDNN's ``conv2d`` for
-    the bf16 3x3 conv; None for the others (no single call computes a fused
-    GEGLU, an int8 conv, a GEMM with its residual epilogue or a fused
-    normalize-and-quantize)."""
+    the bf16 3x3 conv; for the GEGLUs (no single call computes one; see
+    ``COMPOSED``) the cuBLAS composition :func:`mlp.geglu_vjp_math` at bf16
+    (two ``F.linear`` with the gated GELU in fp32 between them, the biases
+    rounded to bf16 once outside the call: the same work, not the same
+    values) and for the int8 one the two ``torch._int_mm`` products at its
+    shapes alone, [R, din] x [din, 2I] and [R, I] x [I, dout] (a floor for
+    its tensor work; the requant between them is left out); None for the
+    others (no single call computes an int8 conv, a GEMM with its residual
+    epilogue or a fused normalize-and-quantize)."""
     if name == "flash_fwd":
         q, k, v, h, scale = args
         b, nq, inner = q.shape
@@ -331,7 +339,21 @@ def library_fn(name: str, args: tuple):
         out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
         g = heads(do)
         return lambda: torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True)
+    if name == "geglu":
+        x, w1, b1, w2, b2 = args
+        b1h, b2h = b1.to(x.dtype), b2.to(x.dtype)
+        return lambda: mlp.geglu_vjp_math(x, w1, b1h, w2, b2h)
+    if name == "geglu_int8":
+        xq, w1, w2 = args[0], args[2], args[5]
+        hq = torch.ones((xq.shape[0], w2.shape[1]), dtype=torch.int8, device=xq.device)
+        return lambda: (torch._int_mm(xq, w1.t()), torch._int_mm(hq, w2.t()))
     return None
+
+
+# kernels whose ``library_fn`` is a composition of calls (or, int8, its
+# products alone), not one call computing the kernel's function: a yardstick
+# the kernel is measured against, never its library time
+COMPOSED = ("geglu", "geglu_int8")
 
 
 def unet_inputs(generator: torch.Generator, rows: int = 2, hw: tuple = (64, 128)):

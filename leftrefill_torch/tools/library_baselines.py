@@ -3,6 +3,7 @@ at the main path's own shapes, on one CUDA GPU.
 
     python -m leftrefill_torch.tools.library_baselines [--multiview V] [--json PATH]
     python -m leftrefill_torch.tools.library_baselines --train [--multiview 4] [--json PATH]
+    python -m leftrefill_torch.tools.library_baselines --geglu [--multiview 4] [--train] [--int8] [--json PATH]
 
 The sites are those of one full-width CFG-doubled bf16 UNet forward: the
 1-reference canvas (2 rows of 64x128 latents, ``cfg_dup`` on), or with
@@ -15,8 +16,6 @@ The library paths (``tools.library_fn``), bf16 with fp32 accumulation:
   inputs never reach);
 - K2 3x3 conv: ``conv2d`` (cuDNN) on the same NHWC input and OHWI weight
   viewed as channels-last NCHW / OIHW.
-K3 has no single library call (two cuBLAS products with the GEGLU between
-them would write h to device memory) and is left out.
 With ``--train`` the sites are the flash backward's in one full-width train
 step (``tools.TRAIN_SITES``; with ``--multiview 4`` the V=4 scene's,
 ``tools.TRAIN_SITES_MV4``): dq (K12 + K14) and dk/dv (K13) each, and their
@@ -26,6 +25,15 @@ its bound and bound share.  Below ~0.1 ms a launch the card waits on the
 host between back-to-back calls, so ``--train`` also gives each its device
 ms: the summed durations of the kernels one call launches (``torch.profiler``),
 which leave those gaps out.
+With ``--geglu`` the sites are every GEGLU site of the path (``geglu_sites``:
+the 1-reference or V=4 forward, with ``--train`` the train step's forward and
+remat recompute, with ``--int8`` the int8 forward's KI3 sites with their
+requant chunk), and each kernel is held against its yardstick, which is no
+single library call: K3 against the cuBLAS composition (``F.linear``, the
+gated GELU in fp32, ``F.linear``: ``mlp.geglu_vjp_math`` with bf16 biases),
+KI3 against its two ``torch._int_mm`` products alone; each in CUDA-event
+and device ms, with its bound, its share and the host's microseconds per
+call, and a per-path total.
 They are timed for reference only (CUDA events, after warm-up, kernel and
 library in turn within one process); none of them is on the port's path.
 Each line also gives the relative L2 between the two outputs, the site's
@@ -35,7 +43,9 @@ library call (host clock over back-to-back calls that nothing synchronises:
 what each costs a request whose host, not its card, sets the pace).
 The script uses only helpers that the port has had since its training
 slice (``--train``'s ``TRAIN_SITES``, ``site_args``, backward
-``library_fn`` and ``profile_request._device_us`` among them), so it can time an earlier tree's kernels too:
+``library_fn`` and ``profile_request._device_us`` among them), and keeps its
+own copy of the GEGLU yardsticks for a tree whose ``library_fn`` lacks them,
+so it can time an earlier tree's kernels too:
 ``PYTHONPATH=<that tree> python leftrefill_torch/tools/library_baselines.py``.
 """
 
@@ -47,6 +57,7 @@ import json
 import time
 
 import torch
+import torch.nn.functional as F
 
 from leftrefill_torch import tools
 from leftrefill_torch.models.multiview import MultiViewUnetModel
@@ -82,6 +93,90 @@ def device_ms(fn, calls: int = 50) -> float:
     if us == 0:
         raise SystemExit("library_baselines: the profiler recorded no device time")
     return us / 1e3 / calls
+
+
+# the GEGLU sites of each path, (R, din, inner, dout[, chunk]) -> launches
+# (tests/test_torch_tools.py holds them to the port's dispatch on meta):
+# a CFG-doubled 1-reference forward (2 rows of 64x128 latents), the V=4
+# forward (8 rows of 64x64), the int8 forward (its requant chunks), and the
+# train steps (batch 8 of 64x128, or 4 rows of 64x64), whose forward and
+# remat recompute each launch every site
+_LEVELS = ((320, 1280, 320, 5), (640, 2560, 640, 5), (1280, 5120, 1280, 5), (1280, 5120, 1280, 1))
+
+
+def _sites(rows: int, per_site: int = 1) -> dict:
+    return {(rows >> (2 * lvl), din, inner, dout): n * per_site
+            for lvl, (din, inner, dout, n) in enumerate(_LEVELS)}
+
+
+GEGLU_SITES = {"forward": _sites(16384), "forward_mv4": _sites(32768), "train": _sites(65536, 2),
+               "train_mv4": _sites(16384, 2)}
+GEGLU_INT8_SITES = {(*shape, chunk): n for (shape, n), chunk in zip(_sites(16384).items(), (640, 640, 256, 640))}
+
+
+def geglu_sites(views, train: bool, int8: bool) -> list:
+    """The GEGLU's (shape, launches) of one path, in the order ``--geglu``
+    walks them: the 1-reference or V=4 forward, their train steps, or the
+    int8 forward (the 1-reference one, its KI3 sites)."""
+    if views not in (None, 4) or int8 and (views or train):
+        raise SystemExit("library_baselines --geglu: the paths are the 1-reference and V=4 forwards and train "
+                         "steps, and the 1-reference int8 forward")
+    if int8:
+        return sorted(GEGLU_INT8_SITES.items())
+    return sorted(GEGLU_SITES[("train" if train else "forward") + ("_mv4" if views else "")].items())
+
+
+def geglu_yardstick(name: str, site: tuple):
+    """``tools.library_fn`` for the GEGLUs, or this script's own copy of it
+    where the tree's ``library_fn`` has none (a tree from before the GEGLU
+    yardsticks): the cuBLAS composition for K3, the two int8 products for
+    KI3."""
+    fn = tools.library_fn(name, site)
+    if fn is not None:
+        return fn
+    if name == "geglu":
+        x, w1, b1, w2, b2 = site
+        b1h, b2h = b1.to(x.dtype), b2.to(x.dtype)
+
+        def composition():
+            val, gate = F.linear(x, w1, b1h).chunk(2, dim=-1)
+            return F.linear((val.float() * F.gelu(gate.float())).to(x.dtype), w2, b2h)
+
+        return composition
+    xq, w1, w2 = site[0], site[2], site[5]
+    hq = torch.ones((xq.shape[0], w2.shape[1]), dtype=torch.int8, device=xq.device)
+    return lambda: (torch._int_mm(xq, w1.t()), torch._int_mm(hq, w2.t()))
+
+
+def geglu_rows(views, train: bool, int8: bool, gen) -> list:
+    """K3 (or KI3) against its yardstick at every GEGLU site of the path,
+    and the path's totals."""
+    name = "geglu_int8" if int8 else "geglu"
+    rows, total = [], {"kernel": name, "shape": "total", "sites": 0}
+    for shape, n_sites in geglu_sites(views, train, int8):
+        site = tools.site_args(name, shape, gen)
+        kernel = functools.partial(tools.KERNEL_FNS[name][0], *site)
+        yardstick = geglu_yardstick(name, site)
+        row = {"kernel": name, "shape": list(shape), "sites": n_sites,
+               "kernel_ms": tools.cuda_ms(kernel, 20), "yardstick_ms": tools.cuda_ms(yardstick, 20)}
+        if not int8:
+            row["rel_l2_to_yardstick"] = tools.rel_l2(kernel(), yardstick())
+        row["kernel_device_ms"], row["yardstick_device_ms"] = device_ms(kernel), device_ms(yardstick)
+        row["kernel_over_yardstick"] = row["kernel_device_ms"] / row["yardstick_device_ms"]
+        row["bound_ms"], row["bound_by"] = tools.bound_ms(name, shape)
+        row["bound_share"] = row["bound_ms"] / row["kernel_device_ms"]
+        row["host_us"], row["yardstick_host_us"] = host_us(kernel), host_us(yardstick)
+        rows.append(row)
+        print(json.dumps(row))
+        for key in ("kernel_ms", "yardstick_ms", "kernel_device_ms", "yardstick_device_ms", "bound_ms"):
+            total[key] = total.get(key, 0.0) + n_sites * row[key]
+        total["sites"] += n_sites
+        del site, kernel, yardstick
+    total["kernel_over_yardstick"] = total["kernel_device_ms"] / total["yardstick_device_ms"]
+    total["bound_share"] = total["bound_ms"] / total["kernel_device_ms"]
+    rows.append(total)
+    print(json.dumps(total))
+    return rows
 
 
 def train_sites(views) -> list:
@@ -151,9 +246,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--multiview", type=int, metavar="V", help="the V-view scene's sites")
     ap.add_argument("--train", action="store_true", help="the flash backward at the train step's sites")
+    ap.add_argument("--geglu", action="store_true", help="K3 (or KI3) against its yardstick at every GEGLU site")
+    ap.add_argument("--int8", action="store_true", help="with --geglu: KI3 at the int8 forward's sites")
     ap.add_argument("--json", help="also write the result to this file")
     args = ap.parse_args()
-    if args.train:
+    if args.int8 and not args.geglu:
+        ap.error("--int8 goes with --geglu")
+    if args.geglu:
+        geglu_sites(args.multiview, args.train, args.int8)
+    elif args.train:
         train_sites(args.multiview)
     if not torch.cuda.is_available():
         raise SystemExit("library_baselines: CUDA is not available")
@@ -163,11 +264,14 @@ def main() -> int:
     print(card)
     gen = torch.Generator("cuda").manual_seed(0)
     views = args.multiview
-    rows = backward_rows(views, gen) if args.train else forward_rows(views, gen)
+    if args.geglu:
+        rows = geglu_rows(views, args.train, args.int8, gen)
+    else:
+        rows = backward_rows(views, gen) if args.train else forward_rows(views, gen)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "torch": torch.__version__, "multiview": views, "train": args.train,
-                       "rows": rows}, f, indent=1)
+                       "geglu": args.geglu, "int8": args.int8, "rows": rows}, f, indent=1)
     return 0
 
 

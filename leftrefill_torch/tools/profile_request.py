@@ -60,7 +60,7 @@ GROUPS = (
     ("K12+K14 flash_bwd_dq", r"flash_bwd_dq_kernel"),
     ("K13 flash_bwd_dkv", r"flash_bwd_dkv_kernel"),
     ("K2 conv3x3", r"conv3x3_kernel"),
-    ("K3 geglu", r"geglu_(reduce_)?kernel"),
+    ("K3 geglu", r"geglu_(up|down)_kernel"),
     ("KI1 conv3x3_int8", r"conv3x3_int8_"),
     ("KI2 dense_int8_res", r"dense_int8_res_"),
     ("KI3 geglu_int8", r"geglu_int8_"),

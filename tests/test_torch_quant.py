@@ -388,3 +388,21 @@ def test_fp32_int8_unet_keeps_the_unfused_arm():
         sites.append(Counter(name for name, _ in s))
     assert sites[0] == sites[1] == {"conv3x3_int8": 17}
     assert torch.equal(outs[0], outs[1])
+
+
+def test_geglu_int8_yardstick_is_the_two_products():
+    """KI3's yardstick (``tools.library_fn("geglu_int8")``) is its two int8
+    products alone at the site's shapes, [R, din] x [din, 2I] and
+    [R, I] x [I, dout], in int32: a floor for its tensor work."""
+    from leftrefill_torch import tools
+
+    r, din, inner, dout = 128, 64, 256, 64
+    gen = torch.Generator().manual_seed(0)
+    xq, sx = tq.quantize_activation_rowwise(torch.randn(r, din, generator=gen).to(torch.bfloat16))
+    w1q, s1 = tq.quantize_weight(torch.randn(2 * inner, din, generator=gen))
+    w2q, s2 = tq.quantize_weight(torch.randn(dout, inner, generator=gen))
+    args = (xq, sx, w1q, s1, torch.zeros(2 * inner), w2q, s2, torch.zeros(dout), 128)
+    up, down = tools.library_fn("geglu_int8", args)()
+    assert up.dtype == down.dtype == torch.int32
+    assert up.shape == (r, 2 * inner) and down.shape == (r, dout)
+    assert torch.equal(up, xq.to(torch.int32) @ w1q.to(torch.int32).t())

@@ -93,3 +93,18 @@ def test_fused_conv_and_gn_rules_match_jax(on_tpu, h, w, c):
 def test_full_width_geglu_chunk_widths():
     """The requant chunk is part of the function: 640 / 640 / 256 / 640."""
     assert [tmlp.geglu_int8_chunk(*s) for s in GEGLU_SHAPES[:4]] == [640, 640, 256, 640]
+
+
+@pytest.mark.parametrize("r,din,inner,dout", GEGLU_SHAPES)
+def test_geglu_bf16_rule_matches_jax(on_tpu, monkeypatch, r, din, inner, dout):
+    """K3's dispatcher decides as JAX's bf16 rule (its VMEM plan with bf16
+    operands) at every shape here; the kernel's own constraints (whole
+    128-row blocks, din and dout in 64s, inner in 128s) refuse none of them."""
+    import torch
+
+    from leftrefill_torch import kernels
+
+    monkeypatch.setattr(kernels, "uses_kernel", lambda t: True)
+    x = torch.empty(r, din, dtype=torch.bfloat16, device="meta")
+    assert tmlp.geglu_fused_qualifies(x, din, inner, dout) == jmlp.geglu_fused_qualifies(r, din, inner, dout, False)
+    assert tmlp._vmem_plan(r, din, inner, dout, 2) == jmlp._plan(r, din, inner, dout, 2, 2)

@@ -131,6 +131,37 @@ def test_ptxas_report_reads_each_instantiation():
     assert chip_smoke.ptxas_report(log, "flash_bwd_dkv_kernel") == [
         "flash_bwd_dkv_kernel<128>: 16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads; "
         "Used 224 registers, used 16 barriers;"]
+    # the GEGLUs' up kernels (no template argument) and down kernels, bf16 and
+    # int8: each name reads its own entries only
+    geglu = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN2lr12_GLOBAL__N_115geglu_up_kernelE14CUtensorMap_st' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 3 barriers",
+        "ptxas info    : Compiling entry function '_ZN2lr12_GLOBAL__N_117geglu_down_kernelILi160EEEv14CUtensorMap_st'"
+        " for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 2 barriers",
+        "ptxas info    : Compiling entry function '_ZN2lr12_GLOBAL__N_120geglu_int8_up_kernelE14CUtensorMap_st'"
+        " for 'sm_90a'",
+        "    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 166 registers, used 3 barriers",
+        "ptxas info    : Compiling entry function '_ZN2lr12_GLOBAL__N_122geglu_int8_down_kernelILi64EEEv14CUtensorMap_st'"
+        " for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 120 registers, used 2 barriers",
+    ])
+    assert chip_smoke.ptxas_report(geglu, "geglu_up_kernel") == [
+        "geglu_up_kernel<>: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; "
+        "Used 168 registers, used 3 barriers;"]
+    assert chip_smoke.ptxas_report(geglu, "geglu_down_kernel") == [
+        "geglu_down_kernel<160>: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; "
+        "Used 168 registers, used 2 barriers;"]
+    assert chip_smoke.ptxas_report(geglu, "geglu_int8_up_kernel") == [
+        "geglu_int8_up_kernel<>: 8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; "
+        "Used 166 registers, used 3 barriers;"]
+    assert chip_smoke.ptxas_report(geglu, "geglu_int8_down_kernel") == [
+        "geglu_int8_down_kernel<64>: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; "
+        "Used 120 registers, used 2 barriers;"]
 
 
 @pytest.mark.parametrize("views,per_step", [(None, tools.PER_TRAIN_STEP), (4, tools.PER_TRAIN_STEP_MV4)])
@@ -149,3 +180,151 @@ def test_library_baselines_train_walks_every_backward_site(views, per_step):
     assert all(nq % 64 == 0 and nk % 64 == 0 and d == 64 for _, _, nq, nk, d in shapes)
     with pytest.raises(SystemExit):
         train_sites(2)
+
+
+# the GEGLU paths of library_baselines --geglu: (views, train, int8) -> the
+# dispatch they stand for on meta
+GEGLU_PATHS = {"forward": (None, False, False), "forward_mv4": (4, False, False), "train": (None, True, False),
+               "train_mv4": (4, True, False), "int8": (None, False, True)}
+
+
+def _geglu_dispatch(path: str) -> Counter:
+    """(kernel, shape) of every GEGLU site the port dispatches on one pass
+    of ``path`` at full width, on torch's ``meta`` device."""
+    from leftrefill_torch.models.multiview import MultiViewUnetModel
+    from leftrefill_torch.models.unet import UNetModel
+
+    views, train, int8 = GEGLU_PATHS[path]
+    rows, hw = ((4 if train else 8), (64, 64)) if views else ((8 if train else 2), (64, 128))
+    with torch.device("meta"):
+        unet = (MultiViewUnetModel(view_num=4, dtype=torch.bfloat16, remat=train) if views
+                else UNetModel(dtype=torch.bfloat16, quant=int8, remat=train))
+        x, ts = torch.empty(rows, *hw, 9), torch.empty(rows, dtype=torch.long)
+        ctx = torch.empty(rows, 77, 1024, requires_grad=train)
+    if train:
+        unet.requires_grad_(False)
+        with kernels.record_sites() as sites:
+            unet(x, ts, ctx).float().sum().backward()
+    else:
+        with torch.no_grad(), kernels.record_sites() as sites:
+            unet(x, ts, ctx, cross_kv=unet.cross_kv(ctx), cfg_dup=not views)
+    return Counter(s for s in sites if s[0].startswith("geglu"))
+
+
+@pytest.mark.parametrize("path", sorted(GEGLU_PATHS))
+def test_library_baselines_geglu_walks_every_site(monkeypatch, path):
+    """``library_baselines --geglu`` times K3 (or KI3) at each GEGLU shape of
+    the path once: its sites are the port's dispatch on ``meta`` shape for
+    shape, 16 a forward and 32 a train step (forward and remat recompute);
+    a path the script does not know is refused before anything runs."""
+    from leftrefill_torch.tools.library_baselines import geglu_sites
+
+    monkeypatch.setattr(kernels, "uses_kernel", lambda t: t.device.type in ("cuda", "meta"))
+    views, train, int8 = GEGLU_PATHS[path]
+    sites = geglu_sites(views, train, int8)
+    name = "geglu_int8" if int8 else "geglu"
+    assert Counter({(name, shape): n for shape, n in sites}) == _geglu_dispatch(path)
+    assert sum(n for _, n in sites) == (tools.PER_TRAIN_STEP if train else tools.PER_FORWARD_BF16)["geglu"]
+    for bad in ((2, False, False), (4, False, True), (None, True, True)):
+        with pytest.raises(SystemExit):
+            geglu_sites(*bad)
+
+
+def test_geglu_yardsticks():
+    """The GEGLU yardsticks of ``library_fn`` (``tools.COMPOSED``): K3's
+    cuBLAS composition computes K3's function within rel L2 1e-2 of
+    ``geglu_plain`` (bf16 biases and products: the same work, not the same
+    values), and ``library_baselines`` falls back to the same composition."""
+    from leftrefill_torch.ops import mlp
+    from leftrefill_torch.tools import library_baselines
+
+    gen = torch.Generator().manual_seed(0)
+    r, din, inner, dout = 128, 64, 256, 64
+    args = (torch.randn(r, din, generator=gen).to(torch.bfloat16),
+            (torch.randn(2 * inner, din, generator=gen) * din**-0.5).to(torch.bfloat16),
+            torch.randn(2 * inner, generator=gen) * 0.1,
+            (torch.randn(dout, inner, generator=gen) * inner**-0.5).to(torch.bfloat16),
+            torch.randn(dout, generator=gen) * 0.1)
+    assert set(tools.COMPOSED) == {"geglu", "geglu_int8"}
+    ref = mlp.geglu_plain(*args)
+    for fn in (tools.library_fn("geglu", args), library_baselines.geglu_yardstick("geglu", args)):
+        out = fn()
+        assert out.dtype == torch.bfloat16 and out.shape == (r, dout)
+        assert tools.rel_l2(out, ref) < 1e-2
+    assert tools.library_fn("conv3x3_int8", args) is None
+
+
+@pytest.mark.parametrize("path", sorted(GEGLU_PATHS))
+def test_geglu_plan_mirror_at_every_site(path):
+    """``mlp.geglu_plan``, the Python mirror of the ``.cu`` launchers, at
+    every GEGLU site of the path on 132 SMs: both kernels' shared memory
+    within an H100 block's, 128-row tiles, up blocks 128 inner columns wide
+    (KI3's in clusters of chunk / 128 <= 8 blocks, the portable limit, that
+    divide the inner tiles, and persistent: no fixed grid), down tiles of
+    160, 128 or 64 columns that cover dout, and grids that cover the rows."""
+    from leftrefill_torch.ops import mlp
+    from leftrefill_torch.tools.library_baselines import geglu_sites
+
+    for shape, _ in geglu_sites(*GEGLU_PATHS[path]):
+        r, din, inner, dout = shape[:4]
+        chunk = shape[4] if len(shape) > 4 else None
+        plan = mlp.geglu_plan(r, din, inner, dout, 132, chunk=chunk)
+        up, down = plan["up"], plan["down"]
+        assert max(up["smem"], down["smem"]) <= mlp.SMEM_LIMIT
+        assert up["tile"] == (128, 128) and up["items"] == inner // 128 * r // 128
+        assert up["grid"] == ((inner // 128, r // 128) if chunk is None else None)  # KI3's: persistent
+        assert up["cluster"] == (1 if chunk is None else chunk // 128) <= 8
+        assert (inner // 128) % up["cluster"] == 0
+        bn = down["tile"][1]
+        assert down["tile"][0] == 128 and bn in (160, 128, 64) and dout % bn == 0
+        assert down["grid"] == (dout // bn, r // 128) and down["cluster"] == 1
+        assert down["items"] == dout // bn * r // 128
+        assert mlp.down_tile(r, dout, 132) == bn
+    # the levels that give the rows fewer blocks than SMs take narrower tiles
+    assert mlp.down_tile(1024, 1280, 132) == 128 and mlp.down_tile(256, 1280, 132) == 64
+    assert mlp.down_tile(16384, 320, 132) == 160
+
+
+def test_profile_groups_match_the_kernel_names():
+    """``profile_request`` files every kernel that ``csrc/`` declares under
+    its own group: the GEGLUs' up and down kernels (with their template
+    arguments, as the profiler names them) under K3 and KI3, none of them
+    under another group, and nothing of K3 under KI3."""
+    import re
+
+    from leftrefill_torch.tools.profile_request import GROUPS
+
+    def group(name):
+        return next((g for g, pat in GROUPS if re.search(pat, name)), "other")
+
+    declared = {}
+    for src in kernels.CSRC.glob("*.cu"):
+        for name in re.findall(r"__global__ void.*?\b(\w+_kernel)\s*\(", src.read_text(), re.S):
+            declared[name] = src.stem
+    geglu = {n: f for n, f in declared.items() if f.startswith("geglu")}
+    assert set(geglu) == {"geglu_up_kernel", "geglu_down_kernel", "geglu_int8_up_kernel", "geglu_int8_down_kernel"}
+    for name, stem in geglu.items():
+        want = "KI3 geglu_int8" if "int8" in stem else "K3 geglu"
+        assert group(f"void lr::(anonymous namespace)::{name}(CUtensorMap_st, CUtensorMap_st)") == want
+        assert group(f"void lr::(anonymous namespace)::{name}<160>(CUtensorMap_st)") == want
+    for name, stem in declared.items():
+        assert group(f"void lr::(anonymous namespace)::{name}<true>(int)") != "other", name
+
+
+def test_geglu_variants_apply_to_the_sources():
+    """``tools/geglu_variants.py`` builds its timing-only variants by text
+    replacements in ``csrc/``: each replaced text occurs exactly once in the
+    sources as they stand (a stale variant is refused before any build), and
+    each variant changes the file it names; every kernel has the kernels as
+    built among its variants."""
+    from leftrefill_torch.tools import geglu_variants as gv
+
+    as_built = gv.variant_source("as built", [])
+    for name, variants in gv.VARIANTS.items():
+        assert variants["as built"] == []
+        for variant, edits in variants.items():
+            src = gv.variant_source(variant, edits)
+            for fname, _, _ in edits:
+                assert src[fname] != as_built[fname]
+    with pytest.raises(SystemExit):
+        gv.variant_source("stale", [("geglu.cu", "no such text", "")])
