@@ -6,17 +6,18 @@
 Phases, one line each (the kernel phases one line per kernel shape):
 1. set-up: the card's name and power limit, versions, the kernel build (its
    time, and ptxas's registers, spills and barriers with the dynamic shared
-   memory of each instantiation of the flash forward, the bf16 conv, the
-   two flash backward kernels and the GEGLUs' up and down kernels, bf16 and
-   int8);
+   memory of each instantiation of the flash forward, the bf16 and int8
+   convs, the two flash backward kernels and the GEGLUs' up and down
+   kernels, bf16 and int8, and the registers of K7's and K8's);
 2. each bf16 kernel (K1 flash forward, K2 3x3 conv, K3 fused GEGLU) at every
    shape one full-width bf16 UNet forward gives it, against its plain
    PyTorch version (relative L2 <= 1e-2), timed with CUDA events beside its
    bound and the library call where one exists, with the share of the bound
    it reaches and its factor to the library call (as at every kernel site
-   below; K3 and KI3, which no single call computes, beside their
-   yardsticks: the cuBLAS composition of the same function, and the two
-   int8 products alone, ``tools.COMPOSED``), and K3's and KI3's launch plan
+   below; K3, KI3 and KI1, which no single call computes, beside their
+   yardsticks: the cuBLAS composition of the same function, the two int8
+   products alone, and KI1's int8 product on a pre-built im2col,
+   ``tools.COMPOSED``), and K3's and KI3's launch plan
    (``mlp.geglu_plan``) equal to the launchers'; two launches of K3 at its
    largest site bit-equal; then off the main path, against the plain
    versions: the flash
@@ -34,7 +35,9 @@ Phases, one line each (the kernel phases one line per kernel shape):
    quantized): each int8 kernel (KI1 3x3 conv, KI2 proj_out GEMM + residual,
    KI3 GEGLU) at every shape one full-width int8 forward gives it, against
    its plain version, each within 1 bf16 ulp per element, timed, and two
-   launches of KI3 at its largest site bit-equal; then off the main path:
+   launches of KI3 at its largest site bit-equal, KI1's launch plan at each
+   site (``quant.conv3x3_int8_plan``: tile, K split over a thread cluster,
+   patch, shared memory) equal to the launcher's; then off the main path:
    KI1's fp32 output arm equal to its plain version, and KI3 at a 1280-wide
    requant chunk (a cluster of 10 blocks, past the portable 8) and din = 320
    within 1 ulp;
@@ -178,8 +181,8 @@ def ptxas_report(log: str, kernel: str) -> list[str]:
         if entry:
             current = entry.group(1) if kernel in entry.group(1) else None
             if current:
-                arg = re.search(r"ILi(\d+)E", current)
-                lines.append(f"{kernel}<{arg.group(1) if arg else ''}>:")
+                args = ",".join(re.findall(r"Li(\d+)E", current))
+                lines.append(f"{kernel}<{args}>:")
         elif current and ("stack frame" in line or "Used" in line):
             lines[-1] += " " + line.split(":", 1)[-1].strip() + ";"
     return lines
@@ -205,6 +208,25 @@ def check_plan(name: str, shape: tuple) -> str:
                          f"(tile {bn}, shared memory {smem(0, 0)} / {smem(1, bn)})")
     return (f"up_grid={up['grid'] or 'persistent'} up_items={up['items']} up_cluster={up['cluster']} "
             f"down_tile={down['tile']} down_grid={down['grid']} smem={up['smem']}/{down['smem']}")
+
+
+def check_conv_int8_plan(shape: tuple) -> str:
+    """KI1's launch plan as ``quant.conv3x3_int8_plan`` mirrors it, held to
+    the launcher's own (``lr_conv3x3_int8_plan``); returns its reading."""
+    import ctypes
+
+    import torch
+
+    from leftrefill_torch import kernels
+    from leftrefill_torch.ops import quant
+
+    got = (ctypes.c_int * 5)()
+    kernels.check(kernels.library().lr_conv3x3_int8_plan(*shape, ctypes.addressof(got)), "conv3x3_int8 plan")
+    plan = quant.conv3x3_int8_plan(*shape, torch.cuda.get_device_properties(0).multi_processor_count)
+    if tuple(got) != (plan["tile"][1], plan["splits"], *plan["patch"], plan["smem"]):
+        raise SystemExit(f"conv3x3_int8 {shape}: the plan mirror {plan} differs from the launcher's {tuple(got)}")
+    return (f"tile={plan['tile']} patch={plan['patch']} grid={plan['grid']} cluster={plan['cluster']} "
+            f"smem={plan['smem']}")
 
 
 def check_bit_equal(name: str, shape: tuple, gen, label: str) -> None:
@@ -337,7 +359,9 @@ def check_site(name: str, shape: tuple, gen, n_sites: int, report: dict, label: 
     bound, bound_by = tools.bound_ms(name, shape)
     if name == "conv3x3":  # the launch plan's output channels per block
         reading += f" channels_per_block={kernels.library().lr_conv3x3_tile(*shape[:3], shape[4])}"
-    if composed:
+    if name == "conv3x3_int8":
+        reading += " " + check_conv_int8_plan(shape)
+    elif composed:
         reading += " " + check_plan(name, shape)
     print(f"phase {label} {name} shape={shape} sites={n_sites} {reading} max_abs_err={mae:.3e} "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({bound_by}) "
@@ -549,6 +573,7 @@ def main() -> int:
 
     # ---- phase 1: set-up ---------------------------------------------------
     from leftrefill_torch import kernels, tools
+    from leftrefill_torch.ops import quant
     from leftrefill_torch.tools import cuda_ms, rel_l2
     from leftrefill_torch.tools.library_baselines import geglu_sites
 
@@ -569,9 +594,11 @@ def main() -> int:
                             ("geglu_up_kernel", lambda n: lib.lr_geglu_smem(0, 0)),
                             ("geglu_down_kernel", lambda n: lib.lr_geglu_smem(1, n)),
                             ("geglu_int8_up_kernel", lambda n: lib.lr_geglu_int8_smem(0, 0)),
-                            ("geglu_int8_down_kernel", lambda n: lib.lr_geglu_int8_smem(1, n))):
+                            ("geglu_int8_down_kernel", lambda n: lib.lr_geglu_int8_smem(1, n)),
+                            ("conv3x3_int8_kernel", quant.conv3x3_int8_smem),
+                            ("ln_quant_kernel", lambda n: "8 C (gamma, beta)"), ("gn_quant_kernel", lambda n: 0)):
         for line in ptxas_report(log, kernel):
-            n = re.search(r"<(\d*)>", line).group(1)
+            n = re.search(r"<(\d*)", line).group(1)
             print(f"phase 1 ptxas {line}; dynamic shared memory {smem_of(int(n or 0))} bytes")
 
     from leftrefill_torch.pipeline import build_sd2_inpaint_bundle

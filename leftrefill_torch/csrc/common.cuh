@@ -23,8 +23,8 @@ using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_majo
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 // 16-byte global -> shared copy through the async-copy unit.  With
-// pred == false nothing is read and the 16 bytes are zero-filled (the conv's
-// 1-pixel border and ragged tiles).
+// pred == false nothing is read and the 16 bytes are zero-filled (KI2's
+// ragged tiles).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
   unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   int n = pred ? 16 : 0;

@@ -1,5 +1,4 @@
-// Shared int8 tensor-core machinery of KI1 (csrc/conv3x3_int8.cu) and KI2
-// (csrc/dense_int8_res.cu).
+// The int8 tensor-core GEMM machinery of KI2 (csrc/dense_int8_res.cu).
 //
 // The products run on mma.sync.m16n8k32 with int8 operands and int32
 // accumulators, so every sum is exact (the UNet's reach 9 * 2560 * 127^2,
@@ -56,7 +55,7 @@ __device__ __forceinline__ void load_b(unsigned (&b)[2], const int8_t* cols, int
 }
 
 // ---------------------------------------------------------------------------
-// The GEMM main loop of KI1 and KI2: a 128 x 128 output tile per block of 8
+// The GEMM main loop of KI2: a 128 x 128 output tile per block of 8
 // warps (2 x 4, each warp 64 rows x 32 columns), K walked in 64-byte steps
 // through a 3-stage cp.async ring.  The caller's loader fills one step's A
 // rows and B columns; steps [s_begin, s_end) are this block's share of K

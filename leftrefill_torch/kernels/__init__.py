@@ -57,10 +57,10 @@ _SIGNATURES = {
     # kernel (0 up, 1 down), bn -> dynamic shared memory of a block, bytes
     "lr_geglu_smem": [_I, _I],
     "lr_geglu_int8_smem": [_I, _I],
-    # x, w, scale, bias, out, partial, b, h, w, ci, co, splits, out_f32, stream
-    "lr_conv3x3_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # b, h, w, ci, co -> split count of K
-    "lr_conv3x3_int8_splits": [_I, _I, _I, _I, _I],
+    # x, w, scale, bias, out, b, h, w, ci, co, out_f32, stream
+    "lr_conv3x3_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # b, h, w, ci, co, int[5] out -> the launch plan (tile, split, patch, shared memory)
+    "lr_conv3x3_int8_plan": [_I, _I, _I, _I, _I, _P],
     # x, sx, w, sw, bias, res, out, partial, r, k, n, splits, stream
     "lr_dense_int8_res": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # r, k, n -> split count of K

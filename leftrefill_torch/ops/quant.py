@@ -20,12 +20,13 @@ Source notes.
 - KI1 (``csrc/conv3x3_int8.cu``) replaces ``_conv_int8_kernel`` (K5, three
   column-shifted copies) and ``_conv_int8_single_kernel`` (K6, one padded
   slab): the same function, blocked two ways for VMEM.  It is an implicit
-  GEMM (M = B*H*W, N = Co, K = 9*Ci) on the int8 tensor cores that gathers
-  each tap from the NHWC input with the border and the Ci tail zero-filled
-  at load; at the small-M levels it splits K and adds the int32 partials
-  (exact).  Epilogue acc * (s_x * s_w[c]) + bias in fp32, one cast to bf16
-  (or an fp32 store, for an fp32 model).  The kernel library chooses the
-  split count (``lr_*_splits``) and the wrapper sizes the int32 partials.
+  GEMM (M = B*H*W, N = Co, K = 9*Ci) on int8 wgmma that loads each tap of a
+  128-pixel patch by TMA from the NHWC input, the border and the Ci tail
+  zero-filled; at the small-M levels a thread-block cluster splits K and
+  adds the int32 tiles through distributed shared memory (exact), in the
+  same launch.  Epilogue acc * (s_x * s_w[c]) + bias in fp32, one cast to
+  bf16 (or an fp32 store, for an fp32 model).  :func:`conv3x3_int8_plan`
+  mirrors the launch plan (``lr_conv3x3_int8_plan``).
 - KI2 (``csrc/dense_int8_res.cu``) replaces ``_dense_int8_res_mom_kernel``
   (K9) without its [B, 4, N] moments output, which nothing reads.
 - ``dense_int8`` is an XLA dot in JAX, outside any Pallas kernel: here it is
@@ -224,6 +225,49 @@ def dense_int8_res_qualifies(b: int, rows_per_sample: int, k: int, n: int) -> bo
 # ---------------------------------------------------------------------------
 # KI1: int8 3x3 conv
 
+# the kernel's frame (csrc/conv3x3_int8.cu): 128-pixel patches, K steps of
+# one tap by 128 input channels through a 4-stage ring, K split over a
+# thread cluster of at most 4 blocks, each split at least 4 steps
+CONV_BM, CONV_STAGES, CONV_MAX_SPLITS, CONV_MIN_SPLIT_STEPS = 128, 4, 4, 4
+
+
+def conv3x3_int8_plan(b: int, h: int, w: int, ci: int, co: int, sms: int) -> dict:
+    """KI1's launch plan at this shape, as ``lr_conv3x3_int8_plan`` computes
+    it: the patch of 128 pixels (cols the power of two at or above W, at most
+    128), the output channels per block (160 or 128 where they divide Co, or
+    64), each with the K split over a cluster that doubles from 1 while the
+    split grid stays within one wave over the SMs (up to 4, each split at
+    least 4 steps), the width with the least (waves over the SMs) x width /
+    split winning, the widest on a tie; with the grid (patches, Co tiles,
+    splits), the cluster and the dynamic shared memory."""
+    cols = 1
+    while cols < w and cols < CONV_BM:
+        cols *= 2
+    rows = CONV_BM // cols
+    m_tiles = b * -(-w // cols) * -(-h // rows)
+    nsteps = 9 * -(-ci // 128)
+    best = None
+    for bn in (160, 128, 64):
+        if co % bn and bn != 64:
+            continue
+        blocks = m_tiles * -(-co // bn)
+        s = 1
+        while 2 * s <= CONV_MAX_SPLITS and blocks * 2 * s <= sms and nsteps >= CONV_MIN_SPLIT_STEPS * 2 * s:
+            s *= 2
+        cost = -(-blocks * s // sms) * bn * (CONV_MAX_SPLITS // s)
+        if best is None or cost < best[0]:
+            best = (cost, bn, s)
+    _, bn, splits = best
+    return {"tile": (CONV_BM, bn), "patch": (rows, cols), "splits": splits,
+            "grid": (m_tiles, -(-co // bn), splits), "cluster": (1, 1, splits), "smem": conv3x3_int8_smem(bn)}
+
+
+def conv3x3_int8_smem(bn: int) -> int:
+    """KI1's dynamic shared memory a block of ``bn`` output channels, bytes:
+    the 1024-byte alignment slack, the ring of 128-pixel A and bn-row B
+    tiles 128 bytes wide, and a full and an empty barrier a stage."""
+    return 1024 + CONV_STAGES * (CONV_BM + bn) * 128 + 16 * CONV_STAGES
+
 
 def conv3x3_int8_plain(xq: torch.Tensor, scale: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                        out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -254,17 +298,13 @@ def conv3x3_int8_op(xq: torch.Tensor, scale: torch.Tensor, w: torch.Tensor, bias
     kernels.require(w, "w", torch.int8, (co, 3, 3, ci))
     kernels.require(scale, "scale", F32, (co,))
     kernels.require(bias, "bias", F32, (co,))
-    if ci % 16 or co % 2:
-        raise ValueError(f"int8 conv kernel needs Ci % 16 == 0 and even Co, got {ci}, {co}")
-    lib = kernels.library()
+    if ci % 16 or co % 8:
+        raise ValueError(f"int8 conv kernel needs Ci % 16 == 0 and Co % 8 == 0, got {ci}, {co}")
     out = torch.empty((b, h, wd, co), dtype=out_dtype, device=xq.device)
     with torch.cuda.device(xq.device):
-        splits = kernels.splits(lib.lr_conv3x3_int8_splits(b, h, wd, ci, co), "conv3x3_int8")
-        partial = torch.empty((splits, b * h * wd, co), dtype=torch.int32, device=xq.device) if splits > 1 else None
-        code = lib.lr_conv3x3_int8(
+        code = kernels.library().lr_conv3x3_int8(
             xq.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            None if partial is None else partial.data_ptr(), b, h, wd, ci, co, splits,
-            int(out_dtype == F32), kernels.stream_of(xq),
+            b, h, wd, ci, co, int(out_dtype == F32), kernels.stream_of(xq),
         )
     kernels.check(code, "conv3x3_int8")
     conv3x3_int8_op.launches += 1

@@ -10,10 +10,11 @@ share with ``chip_smoke.py``.
   prompt-tuning train step.
 - ``python -m leftrefill_torch.tools.library_baselines``: each hand-written
   kernel against the library path for the same product, at the main path's
-  shapes.  The library calls are timed for reference only; none is on the
-  port's path.
+  shapes (``--int8``: the int8 kernels in device ms).  The library calls
+  are timed for reference only; none is on the port's path.
 - ``python -m leftrefill_torch.tools.geglu_variants [--int8]``: the GEGLU
-  kernels' up and down device time, and that of timing-only variants.
+  kernels' up and down device time, and that of timing-only variants;
+  ``python -m leftrefill_torch.tools.conv_int8_variants``: KI1's.
 """
 
 from __future__ import annotations
@@ -317,9 +318,12 @@ def library_fn(name: str, args: tuple):
     rounded to bf16 once outside the call: the same work, not the same
     values) and for the int8 one the two ``torch._int_mm`` products at its
     shapes alone, [R, din] x [din, 2I] and [R, I] x [I, dout] (a floor for
-    its tensor work; the requant between them is left out); None for the
-    others (no single call computes an int8 conv, a GEMM with its residual
-    epilogue or a fused normalize-and-quantize)."""
+    its tensor work; the requant between them is left out); for the int8
+    3x3 conv (no call computes one on CUDA) the ``torch._int_mm`` product of
+    the same M x 9 Ci x Co on an int8 im2col built beforehand (its tensor
+    work alone: the gather and the epilogue are left out); None for the
+    others (no single call computes a GEMM with its residual epilogue or a
+    fused normalize-and-quantize)."""
     if name == "flash_fwd":
         q, k, v, h, scale = args
         b, nq, inner = q.shape
@@ -347,13 +351,26 @@ def library_fn(name: str, args: tuple):
         xq, w1, w2 = args[0], args[2], args[5]
         hq = torch.ones((xq.shape[0], w2.shape[1]), dtype=torch.int8, device=xq.device)
         return lambda: (torch._int_mm(xq, w1.t()), torch._int_mm(hq, w2.t()))
+    if name == "conv3x3_int8":
+        cols, wmat = conv3x3_int8_operands(args[0], args[2])
+        return lambda: torch._int_mm(cols, wmat.t())
     return None
+
+
+def conv3x3_int8_operands(xq: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """KI1's product as a plain GEMM: the int8 im2col of xq [B, H, W, Ci]
+    (zero border, taps in (dy, dx) order) as [B H W, 9 Ci], and w
+    [Co, 3, 3, Ci] as [Co, 9 Ci]."""
+    b, h, wd, ci = xq.shape
+    xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([xp[:, dy:dy + h, dx:dx + wd] for dy in range(3) for dx in range(3)], dim=-1)
+    return cols.reshape(b * h * wd, 9 * ci), w.reshape(w.shape[0], 9 * ci)
 
 
 # kernels whose ``library_fn`` is a composition of calls (or, int8, its
 # products alone), not one call computing the kernel's function: a yardstick
 # the kernel is measured against, never its library time
-COMPOSED = ("geglu", "geglu_int8")
+COMPOSED = ("geglu", "geglu_int8", "conv3x3_int8")
 
 
 def unet_inputs(generator: torch.Generator, rows: int = 2, hw: tuple = (64, 128)):

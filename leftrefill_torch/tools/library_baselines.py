@@ -4,6 +4,7 @@ at the main path's own shapes, on one CUDA GPU.
     python -m leftrefill_torch.tools.library_baselines [--multiview V] [--json PATH]
     python -m leftrefill_torch.tools.library_baselines --train [--multiview 4] [--json PATH]
     python -m leftrefill_torch.tools.library_baselines --geglu [--multiview 4] [--train] [--int8] [--json PATH]
+    python -m leftrefill_torch.tools.library_baselines --int8 [--unfused] [--json PATH]
 
 The sites are those of one full-width CFG-doubled bf16 UNet forward: the
 1-reference canvas (2 rows of 64x128 latents, ``cfg_dup`` on), or with
@@ -34,6 +35,16 @@ gated GELU in fp32, ``F.linear``: ``mlp.geglu_vjp_math`` with bf16 biases),
 KI3 against its two ``torch._int_mm`` products alone; each in CUDA-event
 and device ms, with its bound, its share and the host's microseconds per
 call, and a per-path total.
+With ``--int8`` (and no ``--geglu``) the sites are every KI1 (int8 3x3
+conv), KI2 (int8 proj_out + residual), K4 (GN affine + SiLU + quantize), K7
+(LayerNorm + row quantize) and K8 (GN affine + pixel quantize) site of one
+fused int8 forward (``INT8_SITES``; with ``--unfused`` the unfused forward's
+KI1 and KI2 sites), each in device ms, CUDA-event ms and host µs a call,
+with its bound and bound share, KI1 beside its yardstick (the
+``torch._int_mm`` product of the same M x 9 Ci x Co on a pre-built int8
+im2col: the tensor work alone), and a total per kernel a forward.  Below
+~0.1 ms a launch the CUDA-event ms are partly the host's; the device ms
+are the card's.
 They are timed for reference only (CUDA events, after warm-up, kernel and
 library in turn within one process); none of them is on the port's path.
 Each line also gives the relative L2 between the two outputs, the site's
@@ -77,22 +88,37 @@ def host_us(fn, calls: int = 50) -> float:
     return elapsed / calls * 1e6
 
 
-def device_ms(fn, calls: int = 50) -> float:
+def warm_up(fn, seconds: float = 2.0) -> None:
+    """Call ``fn`` for ``seconds``, so the card's clocks have settled under
+    load before the first timing (a cold and a warm turn of one kernel
+    differed by 13 %)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        fn()
+        torch.cuda.synchronize()
+
+
+def device_ms(fn, calls: int = 50, tries: int = 3) -> float:
     """Device ms per call of ``fn``: the durations of the kernels (and
     copies) that ``calls`` calls launch, summed by ``torch.profiler`` after a
-    warm-up call, with no host gap between launches counted."""
+    warm-up call, with no host gap between launches counted.  The profiler
+    can lose events (one of 50 in a window, or all of them), so each kernel
+    counts as its mean duration over the events recorded times its launches
+    a call (the recorded count over ``calls``, rounded, at least one); a
+    window with no device event is profiled again."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us == 0:
-        raise SystemExit("library_baselines: the profiler recorded no device time")
-    return us / 1e3 / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+        if events:
+            return sum(_device_us(e) / e.count * max(1, round(e.count / calls)) for e in events) / 1e3
+    raise SystemExit(f"library_baselines: the profiler recorded no device time in {tries} windows")
 
 
 # the GEGLU sites of each path, (R, din, inner, dout[, chunk]) -> launches
@@ -179,6 +205,97 @@ def geglu_rows(views, train: bool, int8: bool, gen) -> list:
     return rows
 
 
+# the int8 kernels' sites of one CFG-doubled 1-reference int8 forward (2
+# rows of 64x128 latents, cfg_dup on: the first level's input convs, norm
+# and transformer run on one row), (kernel, shape) -> launches
+# (tests/test_torch_tools.py holds them to the port's dispatch on meta): KI1
+# and KI2 are the same in both arms, the fused one adds K4, K7 and K8
+_KI1_SITES = {
+    (1, 64, 128, 320, 320): 2, (2, 64, 128, 320, 320): 5, (2, 64, 128, 640, 320): 2, (2, 64, 128, 640, 640): 1,
+    (2, 64, 128, 960, 320): 1, (2, 32, 64, 320, 640): 1, (2, 32, 64, 640, 640): 6, (2, 32, 64, 960, 640): 1,
+    (2, 32, 64, 1280, 640): 1, (2, 32, 64, 1280, 1280): 1, (2, 32, 64, 1920, 640): 1, (2, 16, 32, 640, 1280): 1,
+    (2, 16, 32, 1280, 1280): 7, (2, 16, 32, 1920, 1280): 1, (2, 16, 32, 2560, 1280): 2, (2, 8, 16, 1280, 1280): 11,
+    (2, 8, 16, 2560, 1280): 3,
+}
+_KI2_SITES = {(4096, 640, 640): 5, (1024, 1280, 1280): 5, (256, 1280, 1280): 1}
+# K4 runs before each KI1 site but the Upsample convs' (no GroupNorm before them)
+_K4_SITES = {
+    (1, 64, 128, 320): 2, (2, 64, 128, 320): 5, (2, 64, 128, 640): 2, (2, 64, 128, 960): 1, (2, 32, 64, 320): 1,
+    (2, 32, 64, 640): 6, (2, 32, 64, 960): 1, (2, 32, 64, 1280): 1, (2, 32, 64, 1920): 1, (2, 16, 32, 640): 1,
+    (2, 16, 32, 1280): 6, (2, 16, 32, 1920): 1, (2, 16, 32, 2560): 2, (2, 8, 16, 1280): 11, (2, 8, 16, 2560): 3,
+}
+_K7_SITES = {(8192, 320, False): 1, (16384, 320, False): 14, (4096, 640, False): 15, (1024, 1280, False): 15,
+             (256, 1280, False): 3}
+_K8_SITES = {(1, 64, 128, 320, False): 1, (2, 64, 128, 320, False): 4, (2, 32, 64, 640, False): 5,
+             (2, 16, 32, 1280, False): 5, (2, 8, 16, 1280, False): 1}
+_UNFUSED = {**{("conv3x3_int8", s): n for s, n in _KI1_SITES.items()},
+            **{("dense_int8_res", s): n for s, n in _KI2_SITES.items()}}
+INT8_SITES = {"unfused": _UNFUSED,
+              "fused": {**_UNFUSED, **{("affine_silu_quant", s): n for s, n in _K4_SITES.items()},
+                        **{("ln_quant", s): n for s, n in _K7_SITES.items()},
+                        **{("gn_quant", s): n for s, n in _K8_SITES.items()}}}
+
+
+def int8_sites(unfused: bool) -> list:
+    """The int8 kernels' ((kernel, shape), launches) of one forward of the
+    fused (JAX's default) or the unfused int8 UNet, in the order ``--int8``
+    walks them."""
+    return sorted(INT8_SITES["unfused" if unfused else "fused"].items())
+
+
+def conv_int8_yardstick(site: tuple):
+    """``tools.library_fn`` for KI1, or this script's own copy of it where
+    the tree's ``library_fn`` has none (a tree from before KI1's yardstick):
+    the ``torch._int_mm`` product on a pre-built int8 im2col."""
+    fn = tools.library_fn("conv3x3_int8", site)
+    if fn is not None:
+        return fn
+    xq, w = site[0], site[2]
+    b, h, wd, ci = xq.shape
+    xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([xp[:, dy:dy + h, dx:dx + wd] for dy in range(3) for dx in range(3)], dim=-1)
+    cols, wmat = cols.reshape(b * h * wd, 9 * ci), w.reshape(w.shape[0], 9 * ci)
+    return lambda: torch._int_mm(cols, wmat.t())
+
+
+def int8_rows(unfused: bool, gen) -> list:
+    """Each int8 kernel at every site of the forward in device ms, event ms
+    and host µs, with its bound (KI1 beside its yardstick), and each
+    kernel's total a forward."""
+    rows, totals = [], {}
+    sites = int8_sites(unfused)
+    (name, shape), _ = max(sites, key=lambda s: tools.bound_ms(*s[0])[0])
+    warm_up(functools.partial(tools.KERNEL_FNS[name][0], *tools.site_args(name, shape, gen)))
+    for (name, shape), n_sites in sites:
+        site = tools.site_args(name, shape, gen)
+        kernel = functools.partial(tools.KERNEL_FNS[name][0], *site)
+        row = {"kernel": name, "shape": list(shape), "sites": n_sites, "kernel_ms": tools.cuda_ms(kernel, 20),
+               "kernel_device_ms": device_ms(kernel)}
+        row["bound_ms"], row["bound_by"] = tools.bound_ms(name, shape)
+        row["bound_share"] = row["bound_ms"] / row["kernel_device_ms"]
+        row["host_us"] = host_us(kernel)
+        if name == "conv3x3_int8":
+            yardstick = conv_int8_yardstick(site)
+            row["yardstick_ms"], row["yardstick_device_ms"] = tools.cuda_ms(yardstick, 20), device_ms(yardstick)
+            row["kernel_over_yardstick"] = row["kernel_device_ms"] / row["yardstick_device_ms"]
+            del yardstick
+        rows.append(row)
+        print(json.dumps(row))
+        total = totals.setdefault(name, {"kernel": name, "shape": "total", "sites": 0})
+        for key in ("kernel_ms", "kernel_device_ms", "bound_ms", "yardstick_ms", "yardstick_device_ms"):
+            if key in row:
+                total[key] = total.get(key, 0.0) + n_sites * row[key]
+        total["sites"] += n_sites
+        del site, kernel
+    for total in totals.values():
+        total["bound_share"] = total["bound_ms"] / total["kernel_device_ms"]
+        if "yardstick_device_ms" in total:
+            total["kernel_over_yardstick"] = total["kernel_device_ms"] / total["yardstick_device_ms"]
+        rows.append(total)
+        print(json.dumps(total))
+    return rows
+
+
 def train_sites(views) -> list:
     """The flash backward's (shape, launches) of one train step, in the
     order ``--train`` walks them: the 1-reference step's, or the V=4 scene's."""
@@ -247,11 +364,15 @@ def main() -> int:
     ap.add_argument("--multiview", type=int, metavar="V", help="the V-view scene's sites")
     ap.add_argument("--train", action="store_true", help="the flash backward at the train step's sites")
     ap.add_argument("--geglu", action="store_true", help="K3 (or KI3) against its yardstick at every GEGLU site")
-    ap.add_argument("--int8", action="store_true", help="with --geglu: KI3 at the int8 forward's sites")
+    ap.add_argument("--int8", action="store_true",
+                    help="the int8 kernels (KI1, KI2, K4, K7, K8) at the int8 forward's sites; with --geglu: KI3")
+    ap.add_argument("--unfused", action="store_true", help="with --int8: the unfused int8 forward's KI1 and KI2")
     ap.add_argument("--json", help="also write the result to this file")
     args = ap.parse_args()
-    if args.int8 and not args.geglu:
-        ap.error("--int8 goes with --geglu")
+    if args.unfused and (not args.int8 or args.geglu):
+        ap.error("--unfused goes with --int8 alone")
+    if args.int8 and not args.geglu and (args.train or args.multiview):
+        ap.error("--int8 walks the 1-reference int8 forward")
     if args.geglu:
         geglu_sites(args.multiview, args.train, args.int8)
     elif args.train:
@@ -266,12 +387,14 @@ def main() -> int:
     views = args.multiview
     if args.geglu:
         rows = geglu_rows(views, args.train, args.int8, gen)
+    elif args.int8:
+        rows = int8_rows(args.unfused, gen)
     else:
         rows = backward_rows(views, gen) if args.train else forward_rows(views, gen)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "torch": torch.__version__, "multiview": views, "train": args.train,
-                       "geglu": args.geglu, "int8": args.int8, "rows": rows}, f, indent=1)
+                       "geglu": args.geglu, "int8": args.int8, "unfused": args.unfused, "rows": rows}, f, indent=1)
     return 0
 
 

@@ -65,8 +65,8 @@ GROUPS = (
     ("KI2 dense_int8_res", r"dense_int8_res_"),
     ("KI3 geglu_int8", r"geglu_int8_"),
     ("K4 affine_silu_quant", r"affine_silu_quant_kernel"),
-    ("K7 ln_quant", r"row_quant_kernel<true>|row_quant_kernelILb1E"),
-    ("K8 gn_quant", r"row_quant_kernel<false>|row_quant_kernelILb0E"),
+    ("K7 ln_quant", r"ln_quant_kernel"),
+    ("K8 gn_quant", r"gn_quant_kernel"),
     ("cuDNN conv", r"fprop|dgrad|wgrad|conv|cudnn"),
     ("cuBLAS GEMM", r"gemm|nvjet|cublas|cutlass|splitK"),
 )

@@ -245,13 +245,101 @@ def test_geglu_yardsticks():
             torch.randn(2 * inner, generator=gen) * 0.1,
             (torch.randn(dout, inner, generator=gen) * inner**-0.5).to(torch.bfloat16),
             torch.randn(dout, generator=gen) * 0.1)
-    assert set(tools.COMPOSED) == {"geglu", "geglu_int8"}
+    assert set(tools.COMPOSED) == {"geglu", "geglu_int8", "conv3x3_int8"}
     ref = mlp.geglu_plain(*args)
     for fn in (tools.library_fn("geglu", args), library_baselines.geglu_yardstick("geglu", args)):
         out = fn()
         assert out.dtype == torch.bfloat16 and out.shape == (r, dout)
         assert tools.rel_l2(out, ref) < 1e-2
-    assert tools.library_fn("conv3x3_int8", args) is None
+    assert tools.library_fn("dense_int8_res", args) is None
+
+
+def test_conv_int8_yardstick_has_the_kernels_product():
+    """KI1's yardstick (``tools.library_fn``, and ``library_baselines``'s
+    own copy of it for an earlier tree) is the ``torch._int_mm`` product of
+    KI1's M = B H W, N = Co and K = 9 Ci on the int8 im2col: its int32 sums
+    are the plain version's accumulators (the epilogue left out)."""
+    from leftrefill_torch.ops import quant
+    from leftrefill_torch.tools import library_baselines
+
+    gen = torch.Generator().manual_seed(0)
+    b, h, w, ci, co = 2, 4, 8, 32, 24
+    xq = torch.randint(-127, 128, (b, h, w, ci), generator=gen, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (co, 3, 3, ci), generator=gen, dtype=torch.int8)
+    ones, zeros = torch.ones(co), torch.zeros(co)
+    cols, wmat = tools.conv3x3_int8_operands(xq, wq)
+    assert cols.shape == (b * h * w, 9 * ci) and wmat.shape == (co, 9 * ci)
+    acc = quant.conv3x3_int8_plain(xq, ones, wq, zeros, torch.float32).reshape(b * h * w, co)
+    site = (xq, ones, wq, zeros)
+    for fn in (tools.library_fn("conv3x3_int8", site), library_baselines.conv_int8_yardstick(site)):
+        out = fn()
+        assert out.dtype == torch.int32 and out.shape == (b * h * w, co)
+        assert torch.equal(out.float(), acc)
+
+
+def _int8_dispatch(unfused: bool) -> Counter:
+    """(kernel, shape) of every int8 kernel site (KI1, KI2, K4, K7, K8) the
+    port dispatches in one full-width CFG-doubled int8 forward on ``meta``."""
+    from leftrefill_torch.models.unet import UNetModel
+
+    with torch.device("meta"):
+        unet = UNetModel(dtype=torch.bfloat16, quant=True, fused=not unfused)
+        x, ts, ctx = torch.empty(2, 64, 128, 9), torch.empty(2, dtype=torch.long), torch.empty(2, 77, 1024)
+    with torch.no_grad(), kernels.record_sites() as sites:
+        unet(x, ts, ctx, cross_kv=unet.cross_kv(ctx), cfg_dup=True)
+    return Counter(s for s in sites if s[0] not in ("flash_fwd", "geglu_int8"))
+
+
+@pytest.mark.parametrize("unfused", [False, True], ids=["fused", "unfused"])
+def test_library_baselines_int8_walks_every_site(monkeypatch, unfused):
+    """``library_baselines --int8 [--unfused]`` times each int8 kernel at each
+    shape of the int8 forward once: its sites are the port's dispatch on
+    ``meta`` shape for shape, 47 KI1, 11 KI2 and (fused) 44 K4, 48 K7 and 16
+    K8 a forward; ``--unfused`` goes with ``--int8`` alone."""
+    import sys
+
+    from leftrefill_torch.tools import library_baselines
+
+    monkeypatch.setattr(kernels, "uses_kernel", lambda t: t.device.type in ("cuda", "meta"))
+    sites = library_baselines.int8_sites(unfused)
+    assert Counter(dict(sites)) == _int8_dispatch(unfused)
+    per_forward = tools.PER_FORWARD_INT8_UNFUSED if unfused else tools.PER_FORWARD_INT8
+    counted = Counter()
+    for (name, _), n in sites:
+        counted[name] += n
+    assert counted == Counter({k: v for k, v in per_forward.items() if v and k not in ("flash_fwd", "geglu_int8")})
+    monkeypatch.setattr(sys, "argv", ["library_baselines", "--unfused"])
+    with pytest.raises(SystemExit):
+        library_baselines.main()
+
+
+@pytest.mark.parametrize("unfused", [False, True], ids=["fused", "unfused"])
+def test_conv_int8_plan_mirror_at_every_site(unfused):
+    """``quant.conv3x3_int8_plan``, the Python mirror of KI1's launcher, at
+    every KI1 site of the int8 forward on 132 SMs: shared memory within an
+    H100 block's, a cluster of at most 4 blocks that is the grid's K split, each split at least 4 K steps, 128-pixel patches
+    and channel tiles that cover the image and Co, and at least 64 blocks
+    at every level (64 at 8x16, where 8-block clusters took twice as long)."""
+    from leftrefill_torch.ops import mlp, quant
+    from leftrefill_torch.tools.library_baselines import int8_sites
+
+    splits = {}
+    for (name, shape), _ in int8_sites(unfused):
+        if name != "conv3x3_int8":
+            continue
+        b, h, w, ci, co = shape
+        plan = quant.conv3x3_int8_plan(b, h, w, ci, co, 132)
+        rows, cols = plan["patch"]
+        bn, s = plan["tile"][1], plan["splits"]
+        assert plan["smem"] <= mlp.SMEM_LIMIT and plan["tile"][0] == rows * cols == 128
+        assert plan["cluster"] == (1, 1, s) and s in (1, 2, 4) and plan["grid"][2] == s
+        assert s == 1 or 9 * -(-ci // 128) >= 4 * s
+        assert bn in (160, 128, 64) and (co % bn == 0 or bn == 64)
+        assert plan["grid"][0] == b * -(-h // rows) * -(-w // cols) and plan["grid"][1] * bn >= co
+        assert cols >= min(w, 128) and plan["grid"][0] * plan["grid"][1] * s >= 64
+        splits[(h, w)] = max(splits.get((h, w), 1), s)
+    # the small levels split K over a cluster, the large ones do not
+    assert splits == {(64, 128): 1, (32, 64): 1, (16, 32): 2, (8, 16): 4}
 
 
 @pytest.mark.parametrize("path", sorted(GEGLU_PATHS))
@@ -309,6 +397,17 @@ def test_profile_groups_match_the_kernel_names():
         assert group(f"void lr::(anonymous namespace)::{name}<160>(CUtensorMap_st)") == want
     for name, stem in declared.items():
         assert group(f"void lr::(anonymous namespace)::{name}<true>(int)") != "other", name
+    # KI1 (one kernel, templated on its tile and output type) under its own
+    # group, never K2's or cuDNN's; K7 and K8 each under theirs
+    assert declared["conv3x3_int8_kernel"] == "conv3x3_int8"
+    for out in ("__nv_bfloat16", "float"):
+        assert group(f"void lr::(anonymous namespace)::conv3x3_int8_kernel<160, {out}>(CUtensorMap_st)") == \
+            "KI1 conv3x3_int8"
+    assert declared["ln_quant_kernel"] == declared["gn_quant_kernel"] == "quant_prologue"
+    assert group("void lr::(anonymous namespace)::ln_quant_kernel<8, 5>(__nv_bfloat16 const*)") == "K7 ln_quant"
+    assert group("void lr::(anonymous namespace)::gn_quant_kernel<32, 5>(__nv_bfloat16 const*)") == "K8 gn_quant"
+    assert {n for n, f in declared.items() if f == "quant_prologue"} == {
+        "affine_silu_quant_kernel", "ln_quant_kernel", "gn_quant_kernel"}
 
 
 def test_geglu_variants_apply_to_the_sources():
@@ -328,3 +427,26 @@ def test_geglu_variants_apply_to_the_sources():
                 assert src[fname] != as_built[fname]
     with pytest.raises(SystemExit):
         gv.variant_source("stale", [("geglu.cu", "no such text", "")])
+
+
+def test_conv_int8_variants_apply_to_the_sources():
+    """``tools/conv_int8_variants.py`` builds KI1's timing-only variants by
+    text replacements in ``csrc/``: each replaced text occurs exactly once
+    in the sources as they stand and each variant changes
+    ``conv3x3_int8.cu``; the K6 probe's slab applies at the levels where a
+    consumer's 64 pixels lie in one patch row and K is not split (64x128,
+    32x64), the split caps where K is split (16x32, 8x16)."""
+    from leftrefill_torch.tools import conv_int8_variants as cv
+    from leftrefill_torch.tools.geglu_variants import variant_source
+    from leftrefill_torch.tools.library_baselines import int8_sites
+
+    as_built = variant_source("as built", [])
+    assert cv.VARIANTS["as built"][0] == []
+    for name, (edits, _) in cv.VARIANTS.items():
+        src = variant_source(name, edits)
+        assert all(fname == "conv3x3_int8.cu" for fname, _, _ in edits)
+        if edits:
+            assert src["conv3x3_int8.cu"] != as_built["conv3x3_int8.cu"]
+    shapes = [shape for (name, shape), _ in int8_sites(False) if name == "conv3x3_int8"]
+    assert {s[1:3] for s in shapes if cv._slab_sites(s)} == {(64, 128), (32, 64)}
+    assert {s[1:3] for s in shapes if cv._split_sites(s)} == {(16, 32), (8, 16)}
