@@ -24,6 +24,21 @@ Phases, one line each (the kernel phases one line per kernel shape):
    kernel's head-dim-128 instantiation, the flash kernel at 1088 tokens (a
    key and a query tail past a multiple of 128), and K2 at 72 input
    channels (a channel tail past a multiple of 64);
+2p. the timing probes of the JAX package's scripts (tools only, no serving
+   or training path runs them): P1 (the int8-Q.K^T flash forward, with and
+   without its int8 P.V), every built K1 variant of P2-P4 (exp, clamp, lse
+   and 128 or 256 query rows a block) at the CFG-batch-2 attention shapes
+   (2, 5, 8192), (2, 10, 2048) and (2, 20, 512), head dim 64, and P5 (the
+   no-op) on its [8, 128] tile, each wrapper once a site with the counts
+   read just after (the probes' own path), then each output held to its
+   plain version: o (and lse) within relative L2 1e-2, P1's q, k (and v)
+   codes and scales on the card equal to the CPU's, P5 bit-equal; the
+   identity-exp variant held on non-negative q and k (its o is defined only
+   where the row sum of min(s, 75) is positive) and timed on normal draws;
+   each kernel in device ms beside its bound, its plain version and SDPA
+   where one call computes the same function (the fp32-exp clamped
+   variants), or ``x + 1`` (P5); the 512-row block refused by the kernel's
+   entry (no counterpart: 1056 threads);
 3. one full-width bf16 UNet forward (CFG batch 2, 64x128 latent, cfg_dup
    and the cross-attention K/V cache on) through the kernels against the
    same forward through the plain versions (relative L2 <= 3e-2);
@@ -107,7 +122,7 @@ Phases, one line each (the kernel phases one line per kernel shape):
 8. V=4 multi-view prompt-tuning training: one scene of four 512x512 views a
    step, the view-0 loss, a warm-up step and two timed steps with their
    launches checked; the loss finite and the table moved.
-The line before the last is a JSON summary of the eleven kernels; the last
+The line before the last is a JSON summary of the fourteen kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
 """
@@ -124,7 +139,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 REL_L2 = {"flash_fwd": 1e-2, "flash_bwd_dq": 1e-2, "flash_bwd_dkv": 1e-2, "conv3x3": 1e-2,
-          "geglu": 1e-2}  # kernel vs plain
+          "geglu": 1e-2, "flash_variant": 1e-2, "flash_int8": 1e-2}  # kernel vs plain
 # exact int32 sums and the plain version's fp32 operations in its order (KI3:
 # the same erff, so the requant of h agrees too); 1 ulp leaves room for a
 # contracted multiply-add, which the kernels avoid
@@ -161,7 +176,20 @@ KERNELS = {
     "affine_silu_quant": ("leftrefill_torch/csrc/quant_prologue.cu", "leftrefill_tpu/ops/quant.py:603"),
     "ln_quant": ("leftrefill_torch/csrc/quant_prologue.cu", "leftrefill_tpu/ops/quant.py:682"),
     "gn_quant": ("leftrefill_torch/csrc/quant_prologue.cu", "leftrefill_tpu/ops/quant.py:758"),
+    "flash_int8": ("leftrefill_torch/csrc/flash_int8.cu", "scripts/tpu_r3_attnprobe.py:124 (P1)"),
+    "flash_variant": ("leftrefill_torch/csrc/flash_fwd.cu",
+                      "scripts/tpu_r3_attnprobe2.py:75 (P2), scripts/tpu_r5_headpack.py:118 (P3) and "
+                      "scripts/tpu_r5_attn_ab.py:80 (P4)"),
+    "noop": ("leftrefill_torch/csrc/noop.cu", "scripts/tpu_r3_overhead.py:62 (P5)"),
 }
+PROBE_NAMES = ("flash_int8", "flash_variant", "noop")
+# the probes' sites: the CFG-batch-2 attention shapes of the main path (B, H, N) and P5's tile
+PROBE_SHAPES = ((2, 5, 8192), (2, 10, 2048), (2, 20, 512))
+PROBE_TILE = (8, 128)
+PROBE_KERNEL = {"flash_int8": "flash_int8_kernel", "flash_variant": "flash_fwd_kernel", "noop": "noop_kernel"}
+# P1's q drawn with std 3: at std 1 and 8192 keys p / l * 127 stays below 0.5
+# for almost every key, so the int8 P.V's codes would be nearly all 0
+P1_Q_STD = 3.0
 
 
 # off the main path, held to the plain versions in phase 2
@@ -181,7 +209,7 @@ def ptxas_report(log: str, kernel: str) -> list[str]:
         if entry:
             current = entry.group(1) if kernel in entry.group(1) else None
             if current:
-                args = ",".join(re.findall(r"Li(\d+)E", current))
+                args = ",".join(re.findall(r"L[ib](\d+)E", current))
                 lines.append(f"{kernel}<{args}>:")
         elif current and ("stack frame" in line or "Used" in line):
             lines[-1] += " " + line.split(":", 1)[-1].strip() + ";"
@@ -381,6 +409,116 @@ def check_site(name: str, shape: tuple, gen, n_sites: int, report: dict, label: 
     if composition_ms is not None:
         r["composition_ms"] += n_sites * composition_ms
     r["sites"] += n_sites
+
+
+def probe_sites(gen) -> list:
+    """Phase 2p's sites: (kernel, shape, the arguments it is held on, those it
+    is timed on), every probe at every ``PROBE_SHAPES`` shape and P5 on its
+    tile (``tools.site_args``: normal draws; P1's q with std ``P1_Q_STD``;
+    the identity-exp variant held on |q| and |k|)."""
+    from leftrefill_torch import tools
+    from leftrefill_torch.ops import probes
+
+    sites = []
+    for b, h, n in PROBE_SHAPES:
+        for pv_int8 in (False, True):
+            shape = (b, h, n, n, 64, pv_int8)
+            q, *rest = tools.site_args("flash_int8", shape, gen)
+            args = ((q.float() * P1_Q_STD).to(q.dtype), *rest)
+            sites.append(("flash_int8", shape, args, args))
+        for variant in probes.VARIANTS:
+            shape = (b, h, n, n, 64, *variant)
+            args = tools.site_args("flash_variant", shape, gen)
+            held = (args[0].abs(), args[1].abs(), *args[2:]) if variant[0] == "identity" else args
+            sites.append(("flash_variant", shape, held, args))
+    args = tools.site_args("noop", PROBE_TILE, gen)
+    sites.append(("noop", PROBE_TILE, args, args))
+    return sites
+
+
+def check_probe(name: str, shape: tuple, held: tuple, timed_args: tuple, got, report: dict) -> None:
+    """One probe site: the kernel's output (from the probes' run) against its
+    plain version, then the kernel timed in device ms beside its bound, its
+    plain version and the library call where one exists."""
+    import torch
+
+    from leftrefill_torch import tools
+    from leftrefill_torch.ops import probes
+    from leftrefill_torch.tools import cuda_ms
+    from leftrefill_torch.tools.library_baselines import device_ms
+
+    run, plain = tools.KERNEL_FNS[name]
+    ref = plain(*held)
+    torch.cuda.synchronize()
+    if name == "noop":
+        if not torch.equal(got, ref):
+            raise SystemExit(f"phase 2p noop {shape}: differs from x + 1")
+        reading, mae = "bit-equal", 0.0
+    else:
+        reading, mae = compare(name, got, ref)
+    if name == "flash_int8":  # the quantization on the card against the CPU's, on the same inputs
+        q, k, v, _, pv_int8 = held
+        card = probes.int8_operands(q, k, v, pv_int8)
+        cpu = probes.int8_operands(q.cpu(), k.cpu(), v.cpu(), pv_int8)
+        if not all(a is None and b is None or torch.equal(a.cpu(), b) for a, b in zip(card, cpu)):
+            raise SystemExit(f"phase 2p flash_int8 {shape}: the card's codes or scales differ from the CPU's")
+        reading += f" codes_and_scales=equal_to_cpu o_nonzero_share={float((ref != 0).float().mean()):.3f}"
+    if name == "flash_variant" and shape[5] == "identity":
+        reading += " (held on |q|, |k|; timed on normal draws)"
+    ms = device_ms(functools.partial(run, *timed_args), 5, kernel=PROBE_KERNEL[name])
+    plain_ms = cuda_ms(functools.partial(plain, *timed_args), 1, warmup=0)
+    library = tools.library_fn(name, timed_args)
+    library_ms = None if library is None else device_ms(library, 5)
+    bound, bound_by = tools.bound_ms(name, shape)
+    print(f"phase 2p {name} shape={shape} {reading} max_abs_err={mae:.3e} kernel_device_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({bound_by}) bound_share={bound / ms:.3f} library_ms="
+          f"{'none' if library_ms is None else f'{library_ms:.4f} kernel_over_library={ms / library_ms:.2f}'}",
+          flush=True)
+    r = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_ops_ms": 0.0,
+                                 "library_ms": None, "ms_where_library": None, "sites": []})
+    r["max_abs_err"] = max(r["max_abs_err"], mae)
+    r["ms"] += ms
+    r["plain_ms"] += plain_ms
+    r["bound_ms"] += bound
+    r["bound_ops_ms"] += bound * (bound_by == "operations")
+    if library_ms is not None:
+        r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
+        r["ms_where_library"] = (r["ms_where_library"] or 0.0) + ms
+    r["sites"].append({"shape": list(shape), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "library_ms": library_ms, "max_abs_err": mae})
+
+
+def check_probes(gen, launches: dict) -> dict:
+    """Phase 2p: the probes' path (each wrapper once a site, the counts set to
+    0 just before and read just after into ``launches["probes"]``), then each
+    site held and timed (``check_probe``); returns the per-kernel report."""
+    import torch
+
+    from leftrefill_torch import tools
+    from leftrefill_torch.ops import probes
+
+    sites = probe_sites(gen)
+    tools.reset_launches()
+    outs = [tools.KERNEL_FNS[name][0](*held) for name, _, held, _ in sites]
+    torch.cuda.synchronize()
+    launches["probes"] = tools.launches()
+    want = {n: sum(1 for site in sites if site[0] == n) for n in PROBE_NAMES}
+    if launches["probes"] != {n: want.get(n, 0) for n in launches["probes"]}:
+        raise SystemExit(f"phase 2p: launches {launches['probes']}, expected {want} and no other")
+    print(f"phase 2p probes' path: launches={want}", flush=True)
+    report = {}
+    for (name, shape, held, timed_args), got in zip(sites, outs):
+        check_probe(name, shape, held, timed_args, got, report)
+    del outs
+    q, k, v, scale = sites[0][2][:4]
+    try:
+        probes.flash_variant(q, k, v, scale, exp="bf16", lse=False, rows=512)
+    except RuntimeError as e:
+        print(f"phase 2p flash_variant rows=512 (the scripts' blk_q 512): refused by the kernel's entry ({e}); "
+              f"no counterpart: 8 consumer warpgroups of 64 rows and a producer warp are 1056 threads > 1024")
+    else:
+        raise SystemExit("phase 2p: a 512-row variant was launched; none is built")
+    return report
 
 
 def check_kernels(sites: dict, gen, report: dict, label: str, names) -> None:
@@ -596,10 +734,14 @@ def main() -> int:
                             ("geglu_int8_up_kernel", lambda n: lib.lr_geglu_int8_smem(0, 0)),
                             ("geglu_int8_down_kernel", lambda n: lib.lr_geglu_int8_smem(1, n)),
                             ("conv3x3_int8_kernel", quant.conv3x3_int8_smem),
-                            ("ln_quant_kernel", lambda n: "8 C (gamma, beta)"), ("gn_quant_kernel", lambda n: 0)):
+                            ("ln_quant_kernel", lambda n: "8 C (gamma, beta)"), ("gn_quant_kernel", lambda n: 0),
+                            ("flash_int8_kernel", lib.lr_flash_int8_smem), ("noop_kernel", lambda n: 0)):
         for line in ptxas_report(log, kernel):
             n = re.search(r"<(\d*)", line).group(1)
-            print(f"phase 1 ptxas {line}; dynamic shared memory {smem_of(int(n or 0))} bytes")
+            rows = re.search(r",(\d+)>", line)  # a flash forward's query rows a block, its last argument
+            smem = (lib.lr_flash_fwd_variant_smem(int(rows.group(1))) if kernel == "flash_fwd_kernel" and n == "64"
+                    else smem_of(int(n or 0)))
+            print(f"phase 1 ptxas {line}; dynamic shared memory {smem} bytes")
 
     from leftrefill_torch.pipeline import build_sd2_inpaint_bundle
 
@@ -624,6 +766,9 @@ def main() -> int:
                   f"kernel_ms={cuda_ms(run, 5):.4f} plain_ms={cuda_ms(plain, 5):.4f}")
         check_sites(report, {n: tools.PER_FORWARD_BF16[n] for n in BF16_NAMES}, "bf16")
         check_bit_equal("geglu", max(s for n, s in sites_bf16 if n == "geglu"), gen, "2")
+
+        # ---- phase 2p: the timing probes (tools only) -----------------------
+        report.update(check_probes(gen, launches))
 
         # ---- phase 3: the full-width UNet forward, kernels vs plain --------
         out_bf16, _, err, kern_ms, plain_ms = check_forward(unet, x, tsteps, ctx, kv, "bf16", kernels.NAMES)
@@ -877,6 +1022,15 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         rep = report[name]
         by_path = {path: counts[name] for path, counts in launches.items()}
+        if name in PROBE_NAMES:  # tools only: launched on the probes' path, on no main path
+            entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                            "launches": by_path["probes"], "launches_by_path": by_path,
+                            "max_abs_err": rep["max_abs_err"], "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+                            "bound_ms": rep["bound_ms"],
+                            "bound_by": "operations" if 2 * rep["bound_ops_ms"] > rep["bound_ms"] else "bytes",
+                            "library_ms": rep["library_ms"], "ms_where_library": rep["ms_where_library"],
+                            "ms_unit": "device", "sites": rep["sites"]})
+            continue
         tag = {"flash_fwd": " (K1, K11)", "flash_bwd_dq": " (K12, K14)", "flash_bwd_dkv": " (K13)"}.get(name, "")
         entry = {"name": name + tag, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,

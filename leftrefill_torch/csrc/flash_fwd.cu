@@ -28,6 +28,20 @@
 // product of tile t - 1.  A last tile that reaches past Nk is zero-filled by
 // TMA and its p set to 0 there; o is staged in shared memory and written by
 // a TMA store, which clips a ragged last query tile.
+//
+// Variants (timing probes, off the main path).  flash_fwd_kernel is a
+// template on a Variant: the exp (fp32 __expf as built, bf16x2 on the SFU, or
+// the identity), the clamp at 75, the lse store, and the query rows a block
+// (128 as built, or 256: four consumer warpgroups that take turns in two
+// pairs).  They replace the K1 variants of scripts/tpu_r3_attnprobe2.py
+// (make_kernel: no lse, clamp optional, exp on bf16(s) with an fp32 row sum),
+// scripts/tpu_r5_headpack.py (_kernel: use_exp=False makes p = min(s, 75), wrong
+// math on purpose, to time the exp's share) and scripts/tpu_r5_attn_ab.py
+// (_kernel, _kernel_nolse).  lr_flash_fwd runs AsBuilt, K1 itself;
+// lr_flash_fwd_variant runs the few combinations those scripts time and
+// refuses any other.  The scripts' 512-row
+// block has no counterpart: eight 64-row consumer warpgroups and a producer
+// would be 1056 threads, past the block limit of 1024.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -38,13 +52,26 @@ namespace {
 
 using namespace sm90;
 
-constexpr int BQ = 128;         // query rows per block
-constexpr int CONSUMERS = 256;  // two warpgroups of 64 rows
-constexpr int NTHREADS = CONSUMERS + 32;
 constexpr int STAGES = 3;
 constexpr float CLAMP = 75.0f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+// how a variant takes p from a score x = min(s * scale, 75)
+enum ExpMode : int { EXP_F32 = 0, EXP_BF16 = 1, EXP_IDENTITY = 2 };
+
+template <int Exp, bool Clamp, bool Lse, int Rows>
+struct Variant {
+  static constexpr int exp = Exp;
+  static constexpr bool clamp = Clamp;
+  static constexpr bool lse = Lse;
+  static constexpr int rows = Rows;                   // query rows per block: 128 or 256
+  static constexpr int warpgroups = Rows / 64;        // consumer warpgroups of 64 rows
+  static constexpr int consumers = 128 * warpgroups;  // their threads
+  static constexpr int threads = consumers + 32;      // and the producer warp
+};
+using AsBuilt = Variant<EXP_F32, true, true, 128>;
+
+template <int D, int BQ = 128>
 struct Flash {
   static constexpr int BK = D == 64 ? 128 : 64;  // keys per K/V tile
   static constexpr int CH = D / 64;              // 128-byte column boxes per row
@@ -56,7 +83,7 @@ struct Flash {
 
 // S = Q K^T for one tile: Q [64 rows of this warpgroup] and K [BK keys], both
 // K-major, D / 16 steps of 16 head-dim values (a 128-byte column box holds 4).
-template <int D, int BK>
+template <int D, int BK, int BQ>
 __device__ __forceinline__ void issue_s(float (&s)[BK / 2], const unsigned char* Qw, const unsigned char* K) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
@@ -73,40 +100,111 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[
   for (int kk = 0; kk < BK / 16; ++kk) Wgmma<D>::rs(o, p[kk], desc_sw128(V + kk * 2048, BK * 128, 1024));
 }
 
+// 2^x for two bf16 values in one SFU operation, flushed to zero below FLT_MIN.
+__device__ __forceinline__ uint32_t ex2_bf16x2(uint32_t x) {
+  uint32_t y;
+  asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
 // p = exp(min(s * scale, 75)) in place (Masked: 0 for keys at or past
 // `valid`, the last tile's tail); the row sums of rows g (l0) and g + 8 (l1)
-// take p in fp32.
-template <int BK, bool Masked>
+// take p in fp32.  The variants: no clamp; the identity, p = min(s * scale,
+// 75); or bf16: each pair of neighbouring scores, 2^(x log2 e) rounded to
+// bf16 and exponentiated by one ex2.bf16x2, the word kept in s[i] of the
+// pair's first (the P V fragment as it is) and the sums taking float(p).
+template <class V, int BK, bool Masked>
 __device__ __forceinline__ void exp_tile(float (&s)[BK / 2], float scale, int valid, float& l0, float& l1) {
   const int lane = threadIdx.x % 32;
+  if constexpr (V::exp == EXP_BF16) {
 #pragma unroll
-  for (int i = 0; i < BK / 2; ++i) {
-    const int col = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
-    s[i] = __expf(fminf(s[i] * scale, CLAMP));
-    if (Masked && col >= valid) s[i] = 0.0f;
-    if ((i / 2) % 2)
-      l1 += s[i];
-    else
-      l0 += s[i];
+    for (int i = 0; i < BK / 2; i += 2) {
+      const int col = 8 * (i / 4) + 2 * (lane % 4);
+      float x0 = s[i] * scale, x1 = s[i + 1] * scale;
+      if constexpr (V::clamp) {
+        x0 = fminf(x0, CLAMP);
+        x1 = fminf(x1, CLAMP);
+      }
+      uint32_t p = ex2_bf16x2(pack_bf16(x0 * LOG2E, x1 * LOG2E));
+      if (Masked) p &= (col < valid ? 0x0000ffffu : 0u) | (col + 1 < valid ? 0xffff0000u : 0u);
+      const float sum = __uint_as_float(p << 16) + __uint_as_float(p & 0xffff0000u);
+      if ((i / 2) % 2)
+        l1 += sum;
+      else
+        l0 += sum;
+      s[i] = __uint_as_float(p);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int col = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+      if constexpr (V::exp == EXP_F32 && V::clamp)
+        s[i] = __expf(fminf(s[i] * scale, CLAMP));
+      else if constexpr (V::exp == EXP_F32)
+        s[i] = __expf(s[i] * scale);
+      else if constexpr (V::clamp)
+        s[i] = fminf(s[i] * scale, CLAMP);
+      else
+        s[i] = s[i] * scale;
+      if (Masked && col >= valid) s[i] = 0.0f;
+      if ((i / 2) % 2)
+        l1 += s[i];
+      else
+        l0 += s[i];
+    }
   }
 }
 
 // p of a tile with `valid` keys inside Nk: only a last tile that reaches
 // past Nk pays for the mask.
-template <int BK>
+template <class V, int BK>
 __device__ __forceinline__ void exp_p(float (&s)[BK / 2], float scale, int valid, float& l0, float& l1) {
   if (valid < BK)
-    exp_tile<BK, true>(s, scale, valid, l0, l1);
+    exp_tile<V, BK, true>(s, scale, valid, l0, l1);
   else
-    exp_tile<BK, false>(s, scale, BK, l0, l1);
+    exp_tile<V, BK, false>(s, scale, BK, l0, l1);
 }
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS, 1)
+// bf16(p) as the A fragments of the P V product (the bf16 variant's words are
+// packed already).
+template <class V, int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&f)[BK / 16][4], const float (&s)[BK / 2]) {
+  if constexpr (V::exp == EXP_BF16) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) f[kk][j] = __float_as_uint(s[8 * kk + 2 * j]);
+  } else {
+    pack_frags<BK>(f, s);
+  }
+}
+
+// The turn protocol's named barriers (see the consumers): warpgroups 2p and
+// 2p + 1 form pair p and take turns on barriers 1 + 2p (the first's turn,
+// which the second opens) and 2 + 2p; the epilogue's barrier of warpgroup w
+// is 1 + warpgroups + w.
+struct Turns {
+  int mine, next, open;
+  bool first, second;
+};
+
+template <class V>
+__device__ __forceinline__ Turns turns(int wg) {
+  if constexpr (V::warpgroups == 2) {
+    return {1 + wg, 2 - wg, 1, wg == 0, wg == 1};
+  } else {
+    const int pair = wg / 2, second = wg % 2;
+    return {1 + 2 * pair + second, 2 + 2 * pair - second, 1 + 2 * pair, second == 0, second == 1};
+  }
+}
+
+template <int D, class V>
+__global__ void __launch_bounds__(V::threads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
                      float* __restrict__ lse, int heads, int nq, int nk, float scale) {
-  using F = Flash<D>;
+  constexpr int BQ = V::rows, CONSUMERS = V::consumers;
+  using F = Flash<D, BQ>;
   constexpr int BK = F::BK, CH = F::CH;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* Qs = align1024(smem_raw);  // CH boxes of [BQ rows][64]
@@ -149,6 +247,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
   // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 ----------
   const int wg = warp / 4;
+  const Turns turn = turns<V>(wg);
+  const int my_turn = turn.mine, next_turn = turn.next;
   const unsigned char* Qw = Qs + wg * 64 * 128;
   float s[BK / 2];       // scores, then p, of one tile
   uint32_t p[BK / 16][4];  // bf16(p) as the A fragments of the P V product
@@ -158,42 +258,42 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   float l0 = 0.0f, l1 = 0.0f;  // this thread's share of the row sums (rows g and g + 8)
 
   auto stage = [&](int t) { return ring + (t % STAGES) * F::STAGE_BYTES; };
-  // the turn protocol: warpgroup w issues its products after bar_sync(1 + w)
-  // and hands the turn over with bar_arrive(2 - w); warpgroup 1 opens, and
-  // skips its last hand-over, so both barriers end complete
-  const int my_turn = 1 + wg, next_turn = 2 - wg;
-  if (wg == 1) bar_arrive(1, CONSUMERS);
+  // the turn protocol: in each pair of warpgroups (the only pair at 128 rows)
+  // the first issues its products after bar_sync(my_turn) and hands the turn
+  // over with bar_arrive(next_turn), and so does the second; the second
+  // opens, and skips its last hand-over, so both barriers end complete
+  if (turn.second) bar_arrive(turn.open, 256);
 
   mbar_wait(qbar, 0);
   mbar_wait(&full[0], 0);
-  bar_sync(my_turn, CONSUMERS);
+  bar_sync(my_turn, 256);
   wgmma_fence();
-  issue_s<D, BK>(s, Qw, stage(0));
+  issue_s<D, BK, BQ>(s, Qw, stage(0));
   wgmma_commit();
-  if (wg == 0 || ntiles > 1) bar_arrive(next_turn, CONSUMERS);
+  if (turn.first || ntiles > 1) bar_arrive(next_turn, 256);
   wgmma_wait<0>();
   fence_regs(s);
-  exp_p<BK>(s, scale, nk, l0, l1);
-  pack_frags<BK>(p, s);
+  exp_p<V, BK>(s, scale, nk, l0, l1);
+  pack_p<V, BK>(p, s);
 
   for (int t = 1; t < ntiles; ++t) {
     mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
-    bar_sync(my_turn, CONSUMERS);
+    bar_sync(my_turn, 256);
     wgmma_fence();
-    issue_s<D, BK>(s, Qw, stage(t));
+    issue_s<D, BK, BQ>(s, Qw, stage(t));
     wgmma_commit();
     issue_pv<D, BK>(o, p, stage(t - 1) + F::KV_BYTES);
     wgmma_commit();
-    if (wg == 0 || t < ntiles - 1) bar_arrive(next_turn, CONSUMERS);
+    if (turn.first || t < ntiles - 1) bar_arrive(next_turn, 256);
     wgmma_wait<1>();  // S of tile t is in; P V of tile t - 1 runs on
     fence_regs(s);
-    exp_p<BK>(s, scale, nk - t * BK, l0, l1);
+    exp_p<V, BK>(s, scale, nk - t * BK, l0, l1);
     wgmma_wait<0>();
     fence_regs(o);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) fence_regs(p[kk]);  // the product has read them
     if (lane == 0) mbar_arrive(&empty[(t - 1) % STAGES]);
-    pack_frags<BK>(p, s);
+    pack_p<V, BK>(p, s);
   }
   wgmma_fence();
   issue_pv<D, BK>(o, p, stage(ntiles - 1) + F::KV_BYTES);
@@ -223,32 +323,32 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     }
   }
   fence_proxy_async();
-  bar_sync(3 + wg, 128);
+  bar_sync(1 + V::warpgroups + wg, 128);
   if (warp % 4 == 0 && lane == 0) {
     for (int c = 0; c < CH; ++c) tma_store_4d(&omap, Ow + c * BQ * 128, 64 * c, h, q0 + wg * 64, b);
     tma_store_wait();
   }
-  if (lane % 4 == 0) {
+  if (V::lse && lane % 4 == 0) {
     const int row = q0 + wg * 64 + r0;
     if (row < nq) lse[size_t(bh) * nq + row] = logf(l0);
     if (row + 8 < nq) lse[size_t(bh) * nq + row + 8] = logf(l1);
   }
 }
 
-template <int D>
+template <int D, class V = AsBuilt>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int heads, int nq, int nk,
            float scale, cudaStream_t stream) {
-  using F = Flash<D>;
+  using F = Flash<D, V::rows>;
   CUtensorMap qm, km, vm, om;
-  cudaError_t e = packed_map(&qm, q, D, batch, heads, nq, BQ);
+  cudaError_t e = packed_map(&qm, q, D, batch, heads, nq, V::rows);
   if (e == cudaSuccess) e = packed_map(&km, k, D, batch, heads, nk, F::BK);
   if (e == cudaSuccess) e = packed_map(&vm, v, D, batch, heads, nk, F::BK);
   if (e == cudaSuccess) e = packed_map(&om, o, D, batch, heads, nq, 64);
-  if (e == cudaSuccess) e = allow_smem(flash_fwd_kernel<D>, F::SMEM);
+  if (e == cudaSuccess) e = allow_smem(flash_fwd_kernel<D, V>, F::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((nq + BQ - 1) / BQ, batch * heads);
-  flash_fwd_kernel<D><<<grid, NTHREADS, F::SMEM, stream>>>(qm, km, vm, om, static_cast<float*>(lse), heads, nq,
-                                                              nk, scale);
+  dim3 grid((nq + V::rows - 1) / V::rows, batch * heads);
+  flash_fwd_kernel<D, V><<<grid, V::threads, F::SMEM, stream>>>(qm, km, vm, om, static_cast<float*>(lse), heads,
+                                                                  nq, nk, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -269,9 +369,46 @@ extern "C" int lr_flash_fwd(const void* q, const void* k, const void* v, void* o
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// A variant of the kernel (timing probes), on the arguments of lr_flash_fwd at
+// d = 64.  flags: bits 0-1 the exp (0 fp32, 1 bf16, 2 identity), bit 2 the
+// clamp, bit 3 the lse store (lse may be null without it); rows: query rows a
+// block, 128 or 256.  Only the combinations below are built; any other
+// returns cudaErrorNotSupported.
+extern "C" int lr_flash_fwd_variant(const void* q, const void* k, const void* v, void* o, void* lse,
+                                    int batch, int heads, int nq, int nk, int d, float scale, int flags,
+                                    int rows, void* stream) {
+  using namespace lr;
+  if (nq <= 0 || nk <= 0 || nq % 64 || nk % 64 || batch <= 0 || heads <= 0 || batch * heads > 65535 || d != 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int CLAMPED = 4, LSE = 8;
+  switch (flags | rows << 4) {
+#define LR_VARIANT(exp, clamp, lse_, r)                                                                       \
+  case (exp) | ((clamp) ? CLAMPED : 0) | ((lse_) ? LSE : 0) | (r) << 4:                                        \
+    return launch<64, Variant<exp, clamp, lse_, r>>(q, k, v, o, lse, batch, heads, nq, nk, scale, s);
+    LR_VARIANT(EXP_F32, true, true, 128)   // as built: tpu_r5_attn_ab.py's probe at blk_q 128
+    LR_VARIANT(EXP_F32, true, true, 256)   // tpu_r5_attn_ab.py's probe, tpu_r5_headpack.py's full
+    LR_VARIANT(EXP_F32, true, false, 128)  // tpu_r3_attnprobe2.py's baseline; the no-lse probe at 128
+    LR_VARIANT(EXP_F32, true, false, 256)  // tpu_r5_attn_ab.py's probe-nolse; attnprobe2's fp32 blk256
+    LR_VARIANT(EXP_F32, false, false, 128)       // attnprobe2's no-clamp
+    LR_VARIANT(EXP_BF16, true, false, 128)       // attnprobe2's bf16 exp
+    LR_VARIANT(EXP_BF16, true, false, 256)       // attnprobe2's bf16 exp at blk256
+    LR_VARIANT(EXP_IDENTITY, true, true, 256)    // tpu_r5_headpack.py's noexp
+#undef LR_VARIANT
+    default:
+      return static_cast<int>(cudaErrorNotSupported);
+  }
+}
+
 // The dynamic shared memory of one block at head dim d (64 or 128), bytes; -1 otherwise.
 extern "C" int lr_flash_fwd_smem(int d) {
   return d == 64 ? int(lr::Flash<64>::SMEM) : d == 128 ? int(lr::Flash<128>::SMEM) : -1;
+}
+
+// The dynamic shared memory of one variant block of `rows` query rows (128
+// or 256) at d = 64, bytes; -1 otherwise.
+extern "C" int lr_flash_fwd_variant_smem(int rows) {
+  return rows == 128 ? int(lr::Flash<64, 128>::SMEM) : rows == 256 ? int(lr::Flash<64, 256>::SMEM) : -1;
 }
 
 extern "C" const char* lr_error_string(int code) {

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the kernels that run on wgmma and TMA
 // (csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/conv3x3.cu, csrc/geglu.cu,
-// csrc/geglu_int8.cu): mbarriers, TMA tile loads and stores on tensor maps,
+// csrc/geglu_int8.cu, csrc/flash_int8.cu): mbarriers, TMA tile loads and stores on tensor maps,
 // bulk copies, warpgroup matrix products (bf16, and int8 with int32 sums)
 // with shared-memory descriptors, named barriers, and the host-side encoding
 // of a tensor map.
@@ -184,6 +184,15 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* tile, uint32_t lbo_by
   const uint32_t addr = smem_u32(tile);
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// The same for a 64-byte-swizzled tile (rows of 64 bytes, 8-row atoms of 512
+// bytes in which the 16-byte chunk j of row r sits at chunk j ^ ((r / 2) % 4)):
+// a K-major tile of 64-byte rows (int8 rows of 64 values) has SBO 512 bytes.
+__device__ __forceinline__ uint64_t desc_sw64(const void* tile, uint32_t lbo_bytes, uint32_t sbo_bytes) {
+  const uint32_t addr = smem_u32(tile);
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -391,6 +400,25 @@ struct WgmmaS8<64> {
         "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
   }
+  // A from registers: four 32-bit registers of four int8 values each, in the
+  // bf16 A fragment's byte positions (row g: a[0] the k bytes 4 (l % 4) ..
+  // + 3, a[2] those + 16; row g + 8: a[1], a[3]); B K-major in shared memory.
+  static __device__ __forceinline__ void rs(int32_t (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
 };
 
 template <>
@@ -456,13 +484,15 @@ struct WgmmaS8<160> {
 // ---- host: tensor maps -------------------------------------------------------
 
 // A tensor map (bf16 unless `type` says otherwise; int8 data as UINT8) with
-// 128-byte swizzling and zero fill out of bounds: dims innermost first,
+// 128-byte swizzling (unless `swizzle` says otherwise) and zero fill out of
+// bounds: dims innermost first,
 // strides in bytes of dims 1.., box in elements.  cuTensorMapEncodeTiled is
 // looked up through the runtime's entry-point query, so nothing links against
 // libcuda.
 inline cudaError_t encode_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                               const uint64_t* strides, const uint32_t* box,
-                              CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+                              CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                               const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                               CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
@@ -479,7 +509,7 @@ inline cudaError_t encode_map(CUtensorMap* map, const void* base, int rank, cons
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   CUresult r = encode(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base),
-                      dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -487,10 +517,11 @@ inline cudaError_t encode_map(CUtensorMap* map, const void* base, int rank, cons
 // A row-major [rows, cols] matrix (cols contiguous, `elem` bytes a value) as
 // a 2-D tensor map with boxes of box_cols x box_rows.
 inline cudaError_t matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int elem, int box_cols,
-                              int box_rows, CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+                              int box_rows, CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const uint64_t dims[2] = {uint64_t(cols), uint64_t(rows)}, strides[1] = {uint64_t(cols) * elem};
   const uint32_t box[2] = {uint32_t(box_cols), uint32_t(box_rows)};
-  return encode_map(map, base, 2, dims, strides, box, type);
+  return encode_map(map, base, 2, dims, strides, box, type, swizzle);
 }
 
 // The attention kernels' packed [B, N, H*d] bf16 layout (no head transpose

@@ -15,10 +15,14 @@ share with ``chip_smoke.py``.
 - ``python -m leftrefill_torch.tools.geglu_variants [--int8]``: the GEGLU
   kernels' up and down device time, and that of timing-only variants;
   ``python -m leftrefill_torch.tools.conv_int8_variants``: KI1's.
+- ``python -m leftrefill_torch.tools.probes.<name>``: the JAX package's
+  probe scripts on the port's probe kernels (``ops/probes.py``), one JSON
+  row a cell (``tools/probes/__init__.py``).
 """
 
 from __future__ import annotations
 
+import math
 import subprocess
 from collections import Counter
 
@@ -27,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from leftrefill_torch import kernels
-from leftrefill_torch.ops import conv, flash_attention, mlp, quant
+from leftrefill_torch.ops import conv, flash_attention, mlp, probes, quant
 
 # kernel name -> (wrapper, plain version), both taking the arguments of site_args
 KERNEL_FNS = {
@@ -43,13 +47,21 @@ KERNEL_FNS = {
     "affine_silu_quant": (quant.affine_silu_quant_op, quant.affine_silu_quant_plain),
     "ln_quant": (quant.ln_quant_op, quant.ln_quant_plain),
     "gn_quant": (quant.gn_quant_op, quant.gn_quant_plain),
+    # the timing probes, off the main path (tools/probes)
+    "flash_int8": (probes.flash_int8, probes.flash_int8_plain),
+    "flash_variant": (lambda q, k, v, scale, exp, clamp, lse, rows:
+                      probes.flash_variant(q, k, v, scale, exp=exp, clamp=clamp, lse=lse, rows=rows),
+                      lambda q, k, v, scale, exp, clamp, lse, rows:
+                      probes.flash_variant_plain(q, k, v, scale, exp=exp, clamp=clamp, lse=lse, rows=rows)),
+    "noop": (probes.noop, probes.noop_plain),
 }
 LAUNCH_COUNTERS = {"flash_fwd": flash_attention.flash_forward, "flash_bwd_dq": flash_attention.flash_bwd_dq,
                    "flash_bwd_dkv": flash_attention.flash_bwd_dkv, "conv3x3": conv.conv3x3_op,
                    "geglu": mlp.geglu_fused, "conv3x3_int8": quant.conv3x3_int8_op,
                    "dense_int8_res": quant.dense_int8_res_op, "geglu_int8": mlp.geglu_int8_fused,
                    "affine_silu_quant": quant.affine_silu_quant_op, "ln_quant": quant.ln_quant_op,
-                   "gn_quant": quant.gn_quant_op}
+                   "gn_quant": quant.gn_quant_op, "flash_int8": probes.flash_int8,
+                   "flash_variant": probes.flash_variant, "noop": probes.noop}
 # kernel launches per CFG-doubled UNet forward at full width (the K/V cache
 # on; cfg_dup on in 1-reference requests): the JAX package's Pallas counts on
 # a TPU (tests/test_torch_tools.py holds them to the port's dispatch on meta)
@@ -131,6 +143,15 @@ def site_args(name: str, shape: tuple, generator: torch.Generator) -> tuple:
         return randn(b, nq, h * d), randn(b, nk, h * d), randn(b, nk, h * d), h, d**-0.5
     if name in ("flash_bwd_dq", "flash_bwd_dkv"):
         return flash_backward_args(shape, generator)
+    # the probes: the scripts' [B, H, N, D] layout, normal draws
+    if name == "flash_int8":
+        b, h, nq, nk, d, pv_int8 = shape
+        return randn(b, h, nq, d), randn(b, h, nk, d), randn(b, h, nk, d), d**-0.5, pv_int8
+    if name == "flash_variant":
+        b, h, nq, nk, d = shape[:5]
+        return (randn(b, h, nq, d), randn(b, h, nk, d), randn(b, h, nk, d), d**-0.5, *shape[5:])
+    if name == "noop":
+        return (randn(*shape),)
     if name == "conv3x3":
         b, h, w, ci, co = shape
         return (randn(b, h, w, ci), randn(co, 3, 3, ci, scale=(9 * ci) ** -0.5),
@@ -265,6 +286,18 @@ def site_cost(name: str, shape: tuple) -> tuple[float, float]:
     if name == "flash_fwd":
         b, h, nq, nk, d = shape
         return 2 * b * h * d * (2 * nq + 2 * nk) + 4 * b * h * nq, 4 * b * h * nq * nk * d
+    if name == "flash_variant":  # shape: b, h, nq, nk, d, exp, clamp, lse, rows
+        b, h, nq, nk, d, _, _, lse, _ = shape
+        return 2 * b * h * d * (2 * nq + 2 * nk) + 4 * b * h * nq * lse, 4 * b * h * nq * nk * d
+    if name == "flash_int8":
+        # int8 q, k with fp32 row scales and v (bf16, or int8 Vq^T) in, bf16 o
+        # out; Q K^T (twice with pv_int8: the kernel's two passes) and P V
+        b, h, nq, nk, d, pv_int8 = shape
+        bh = b * h
+        nbytes = bh * d * (nq + nk) + 4 * bh * (nq + nk) + (1 if pv_int8 else 2) * bh * nk * d + 2 * bh * nq * d
+        return nbytes, (3 if pv_int8 else 2) * 2 * bh * nq * nk * d
+    if name == "noop":
+        return 4 * math.prod(shape), 0
     if name in ("flash_bwd_dq", "flash_bwd_dkv"):
         # q, dO, k, v bf16 and lse, D fp32 in; dq (or dk and dv) bf16 out; the
         # products S and dP, then dQ (or dV and dK), each 2 B H Nq Nk D
@@ -302,14 +335,18 @@ def bound_ms(name: str, shape: tuple) -> tuple[float, str]:
     nbytes, ops = site_cost(name, shape)
     peak = PEAK_INT8 if name in ("conv3x3_int8", "dense_int8_res", "geglu_int8") else PEAK_BF16
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    if name == "flash_int8":  # the Q K^T products at the int8 peak, P V at its type's
+        pv = ops / (3 if shape[5] else 2)
+        t_ops = ((ops - pv) / PEAK_INT8 + pv / (PEAK_INT8 if shape[5] else PEAK_BF16)) * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def library_fn(name: str, args: tuple):
     """One PyTorch call computing a kernel's function on the same inputs,
     where there is one (timed for reference only, never on the port's path):
-    ``scaled_dot_product_attention`` for the flash forward (exact softmax: the
-    clamp at 75 is not reached by these inputs) and its backward through
+    ``scaled_dot_product_attention`` for the flash forward and its fp32-exp
+    clamped probe variants (exact softmax: the clamp at 75 is not reached by
+    these inputs) and its backward through
     ``torch.autograd.grad`` on a kept graph for the backward kernels (exact
     softmax too: the same work, not the same values), cuDNN's ``conv2d`` for
     the bf16 3x3 conv; for the GEGLUs (no single call computes one; see
@@ -323,13 +360,19 @@ def library_fn(name: str, args: tuple):
     the same M x 9 Ci x Co on an int8 im2col built beforehand (its tensor
     work alone: the gather and the epilogue are left out); None for the
     others (no single call computes a GEMM with its residual epilogue or a
-    fused normalize-and-quantize)."""
+    fused normalize-and-quantize, nor an int8 or bf16-exp attention); ``x + 1``
+    for the no-op probe."""
     if name == "flash_fwd":
         q, k, v, h, scale = args
         b, nq, inner = q.shape
         heads = lambda a: a.view(b, a.shape[1], h, inner // h).transpose(1, 2)
         qh, kh, vh = heads(q), heads(k), heads(v)
         return lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale).transpose(1, 2).reshape(b, nq, inner)
+    if name == "flash_variant":  # the fp32-exp clamped variants (any lse, any block) only
+        q, k, v, scale, exp, clamp = args[:6]
+        return (lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)) if exp == "f32" and clamp else None
+    if name == "noop":
+        return lambda: args[0] + 1.0
     if name == "conv3x3":
         x, w, bias = args
         xc, wc, bb = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2), bias.to(x.dtype)

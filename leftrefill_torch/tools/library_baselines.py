@@ -98,10 +98,11 @@ def warm_up(fn, seconds: float = 2.0) -> None:
         torch.cuda.synchronize()
 
 
-def device_ms(fn, calls: int = 50, tries: int = 3) -> float:
+def device_ms(fn, calls: int = 50, tries: int = 3, kernel: str | None = None) -> float:
     """Device ms per call of ``fn``: the durations of the kernels (and
     copies) that ``calls`` calls launch, summed by ``torch.profiler`` after a
-    warm-up call, with no host gap between launches counted.  The profiler
+    warm-up call, with no host gap between launches counted (only the
+    kernels whose name holds ``kernel``, where it is given).  The profiler
     can lose events (one of 50 in a window, or all of them), so each kernel
     counts as its mean duration over the events recorded times its launches
     a call (the recorded count over ``calls``, rounded, at least one); a
@@ -115,7 +116,8 @@ def device_ms(fn, calls: int = 50, tries: int = 3) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and e.count
+                  and (kernel is None or kernel in e.key)]
         if events:
             return sum(_device_us(e) / e.count * max(1, round(e.count / calls)) for e in events) / 1e3
     raise SystemExit(f"library_baselines: the profiler recorded no device time in {tries} windows")

@@ -67,6 +67,8 @@ GROUPS = (
     ("K4 affine_silu_quant", r"affine_silu_quant_kernel"),
     ("K7 ln_quant", r"ln_quant_kernel"),
     ("K8 gn_quant", r"gn_quant_kernel"),
+    ("P1 flash_int8 (probe)", r"flash_int8_kernel"),  # the timing probes: on no request's path
+    ("P5 noop (probe)", r"noop_kernel"),
     ("cuDNN conv", r"fprop|dgrad|wgrad|conv|cudnn"),
     ("cuBLAS GEMM", r"gemm|nvjet|cublas|cutlass|splitK"),
 )
