@@ -71,6 +71,11 @@ struct Variant {
 };
 using AsBuilt = Variant<EXP_F32, true, true, 128>;
 
+// one number for a variant's fields (the probes' entry points switch on it)
+constexpr int variant_key(int exp, bool clamp, bool lse, int rows) {
+  return exp < 0 || exp > 2 ? -1 : exp | (clamp ? 4 : 0) | (lse ? 8 : 0) | rows << 4;
+}
+
 template <int D, int BQ = 128>
 struct Flash {
   static constexpr int BK = D == 64 ? 128 : 64;  // keys per K/V tile
@@ -369,34 +374,51 @@ extern "C" int lr_flash_fwd(const void* q, const void* k, const void* v, void* o
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The variants built for the timing probes (exp, clamp, lse store, query
+// rows a block), the one list of them: lr_flash_fwd_variant launches these
+// and lr_flash_fwd_variant_built reports them.
+#define LR_VARIANTS(X)                                                           \
+  X(EXP_F32, true, true, 128)   /* as built: tpu_r5_attn_ab.py's probe at 128 */ \
+  X(EXP_F32, true, true, 256)   /* attn_ab's probe, tpu_r5_headpack.py's full */ \
+  X(EXP_F32, true, false, 128)  /* tpu_r3_attnprobe2.py's baseline; no-lse */    \
+  X(EXP_F32, true, false, 256)  /* attn_ab's probe-nolse; attnprobe2's blk256 */ \
+  X(EXP_F32, false, false, 128) /* attnprobe2's no-clamp */                      \
+  X(EXP_BF16, true, false, 128) /* attnprobe2's bf16 exp */                      \
+  X(EXP_BF16, true, false, 256) /* attnprobe2's bf16 exp at blk256 */            \
+  X(EXP_IDENTITY, true, true, 256) /* headpack's noexp */
+
 // A variant of the kernel (timing probes), on the arguments of lr_flash_fwd at
-// d = 64.  flags: bits 0-1 the exp (0 fp32, 1 bf16, 2 identity), bit 2 the
-// clamp, bit 3 the lse store (lse may be null without it); rows: query rows a
-// block, 128 or 256.  Only the combinations below are built; any other
-// returns cudaErrorNotSupported.
+// d = 64: exp 0 fp32, 1 bf16, 2 identity; clamp and lse_store 0 or 1 (lse may
+// be null without the store); rows, query rows a block, 128 or 256.  Only
+// LR_VARIANTS are built; any other combination returns cudaErrorNotSupported.
 extern "C" int lr_flash_fwd_variant(const void* q, const void* k, const void* v, void* o, void* lse,
-                                    int batch, int heads, int nq, int nk, int d, float scale, int flags,
-                                    int rows, void* stream) {
+                                    int batch, int heads, int nq, int nk, int d, float scale, int exp,
+                                    int clamp, int lse_store, int rows, void* stream) {
   using namespace lr;
   if (nq <= 0 || nk <= 0 || nq % 64 || nk % 64 || batch <= 0 || heads <= 0 || batch * heads > 65535 || d != 64)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int CLAMPED = 4, LSE = 8;
-  switch (flags | rows << 4) {
-#define LR_VARIANT(exp, clamp, lse_, r)                                                                       \
-  case (exp) | ((clamp) ? CLAMPED : 0) | ((lse_) ? LSE : 0) | (r) << 4:                                        \
-    return launch<64, Variant<exp, clamp, lse_, r>>(q, k, v, o, lse, batch, heads, nq, nk, scale, s);
-    LR_VARIANT(EXP_F32, true, true, 128)   // as built: tpu_r5_attn_ab.py's probe at blk_q 128
-    LR_VARIANT(EXP_F32, true, true, 256)   // tpu_r5_attn_ab.py's probe, tpu_r5_headpack.py's full
-    LR_VARIANT(EXP_F32, true, false, 128)  // tpu_r3_attnprobe2.py's baseline; the no-lse probe at 128
-    LR_VARIANT(EXP_F32, true, false, 256)  // tpu_r5_attn_ab.py's probe-nolse; attnprobe2's fp32 blk256
-    LR_VARIANT(EXP_F32, false, false, 128)       // attnprobe2's no-clamp
-    LR_VARIANT(EXP_BF16, true, false, 128)       // attnprobe2's bf16 exp
-    LR_VARIANT(EXP_BF16, true, false, 256)       // attnprobe2's bf16 exp at blk256
-    LR_VARIANT(EXP_IDENTITY, true, true, 256)    // tpu_r5_headpack.py's noexp
-#undef LR_VARIANT
+  switch (variant_key(exp, clamp != 0, lse_store != 0, rows)) {
+#define LR_CASE(e, c, l, r)     \
+  case variant_key(e, c, l, r): \
+    return launch<64, Variant<e, c, l, r>>(q, k, v, o, lse, batch, heads, nq, nk, scale, s);
+    LR_VARIANTS(LR_CASE)
+#undef LR_CASE
     default:
       return static_cast<int>(cudaErrorNotSupported);
+  }
+}
+
+// 1 if lr_flash_fwd_variant is built for (exp, clamp, lse_store, rows), else 0.
+extern "C" int lr_flash_fwd_variant_built(int exp, int clamp, int lse_store, int rows) {
+  using namespace lr;
+  switch (variant_key(exp, clamp != 0, lse_store != 0, rows)) {
+#define LR_CASE(e, c, l, r) case variant_key(e, c, l, r):
+    LR_VARIANTS(LR_CASE)
+#undef LR_CASE
+    return 1;
+    default:
+      return 0;
   }
 }
 

@@ -74,8 +74,10 @@ _SIGNATURES = {
     # x, a, bb, xn, xq, scale, batch, hw, c, stream
     "lr_gn_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # the timing probes (ops/probes.py):
-    # q, k, v, o, lse, batch, heads, nq, nk, d, scale, flags, rows, stream
-    "lr_flash_fwd_variant": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, o, lse, batch, heads, nq, nk, d, scale, exp, clamp, lse_store, rows, stream
+    "lr_flash_fwd_variant": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+    # exp, clamp, lse_store, rows -> 1 if that variant is built
+    "lr_flash_fwd_variant_built": [_I, _I, _I, _I],
     # q, sq, k, sk, v, o, bh, nq, nk, scale, pv_int8, stream
     "lr_flash_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     # x, o, n, stream
@@ -202,11 +204,10 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None 
 # ---------------------------------------------------------------------------
 # routing of the dispatchers (flash attention and its backward, the bf16 and
 # int8 3x3 convs, the int8 proj_out GEMM, the bf16 and int8 GEGLUs, the fused
-# int8 prologues; the timing probes of ``ops/probes.py`` are named too, but
-# no dispatcher calls them)
+# int8 prologues)
 
 NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "conv3x3", "geglu", "conv3x3_int8", "dense_int8_res",
-         "geglu_int8", "affine_silu_quant", "ln_quant", "gn_quant", "flash_int8", "flash_variant", "noop")
+         "geglu_int8", "affine_silu_quant", "ln_quant", "gn_quant")
 _plain: frozenset = frozenset()
 
 

@@ -46,15 +46,13 @@ def group_norm32(
     bias: torch.Tensor,
     num_groups: int = 32,
     eps: float = 1e-5,
-    fast_affine: bool = True,
 ) -> torch.Tensor:
     """GroupNorm over the last (channel) axis with fp32 statistics.
 
     (mean, rstd, gamma, beta) fold into a per-(batch, channel) affine A, B in
     fp32.  In fp32 the output is x*A + B in fp32; in bf16 it is one bf16
-    multiply-add with A and B rounded to bf16 (``fast_affine``, the JAX
-    package's default), or with ``fast_affine=False`` x*A + B in fp32 rounded
-    to bf16 once."""
+    multiply-add with A and B rounded to bf16 (the JAX package's default fast
+    affine)."""
     dtype = x.dtype
     b, c = x.shape[0], x.shape[-1]
     g = adjust_groups(num_groups, c)
@@ -66,9 +64,9 @@ def group_norm32(
     one = (1,) * (x.ndim - 2)
     a = (rstd * gamma).reshape(b, *one, c)
     bb = (beta - mean * rstd * gamma).reshape(b, *one, c)
-    if fast_affine and dtype != torch.float32:
+    if dtype != torch.float32:
         return x * a.to(dtype) + bb.to(dtype)
-    return (x.to(torch.float32) * a + bb).to(dtype)
+    return x * a + bb
 
 
 class GroupNorm32(nn.Module):

@@ -37,12 +37,7 @@ CLAMP = 75.0
 TINY = torch.finfo(torch.float32).tiny
 SCORE_CHUNK_BYTES = 1 << 30  # the plain versions' fp64 (P1) or fp32 scores held at once
 
-EXP_MODES = {"f32": 0, "bf16": 1, "identity": 2}
-_CLAMPED, _LSE = 4, 8
-# the (exp, clamp, lse, rows) combinations lr_flash_fwd_variant is built for
-VARIANTS = (("f32", True, True, 128), ("f32", True, True, 256), ("f32", True, False, 128),
-            ("f32", True, False, 256), ("f32", False, False, 128), ("bf16", True, False, 128),
-            ("bf16", True, False, 256), ("identity", True, True, 256))
+EXP_MODES = {"f32": 0, "bf16": 1, "identity": 2}  # csrc/flash_fwd.cu's ExpMode
 
 
 def _chunk(bh: int, nk: int, item: int) -> int:
@@ -95,6 +90,16 @@ def _int8_out(o: torch.Tensor, sv, pv_int8: bool, shape) -> torch.Tensor:
     return o.reshape(shape)
 
 
+def int8_probs(qi, sq, kt, sk, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """P1's p = exp(min(f32(s32) * (sq * sk) * scale, 75)) and l = max(sum
+    p, FLT_MIN) [..., 1] for int8 query rows qi [BH, n, D] with scales sq
+    [BH, n] against kt (the int8 keys as fp32, [BH, D, Nk]) with scales sk
+    [BH, Nk]: the int32 Q K^T is exact in fp32 (64 * 127^2 < 2^24)."""
+    s = torch.matmul(qi.to(torch.float32), kt) * (sq[..., None] * sk[:, None, :]) * scale
+    p = torch.exp(torch.clamp(s, max=CLAMP))
+    return p, torch.clamp(p.sum(-1, keepdim=True), min=TINY)
+
+
 def flash_int8_plain(q, k, v, scale: float, pv_int8: bool = False) -> torch.Tensor:
     """P1 at the script's precision on q, k, v [B, H, N, D]: exact int32
     Q K^T (fp32 sums of int8 products stay below 2^24), s = f32(s32) *
@@ -109,11 +114,7 @@ def flash_int8_plain(q, k, v, scale: float, pv_int8: bool = False) -> torch.Tens
     outs, chunk = [], _chunk(bh, ki.shape[1], 8)
     for q0 in range(0, nq, chunk):
         rows = slice(q0, q0 + chunk)
-        s32 = torch.matmul(qi[:, rows].to(torch.float32), kt)
-        s = s32 * (sq[:, rows, None] * sk[:, None, :]) * scale
-        p = torch.exp(torch.clamp(s, max=CLAMP))
-        l = torch.clamp(p.sum(-1, keepdim=True), min=TINY)
-        del s32, s
+        p, l = int8_probs(qi[:, rows], sq[:, rows], kt, sk, scale)
         if pv_int8:
             pq = torch.clamp(torch.round(p / l * 127.0), 0, 127)
             outs.append((torch.matmul(pq.to(torch.float64), vd).to(torch.float32) * (1.0 / 127.0)).to(q.dtype))
@@ -160,7 +161,9 @@ def flash_variant_plain(q, k, v, scale: float, *, exp: str = "f32", clamp: bool 
                         rows: int = 128):
     """K1's variant at the scripts' precision on q, k, v [..., N, D]: s =
     (f32(q) * scale) . f32(k), min(s, 75) with ``clamp``; p = exp(s) in fp32,
-    or exp(bf16(s)) in bf16 with an fp32 row sum, or s itself ("identity");
+    or exp(bf16(s)) in bf16 with an fp32 row sum, or s itself ("identity")
+    (the kernel's bf16 exp takes 2^(bf16(s log2 e)), two scores an SFU
+    operation: the same precision, a bf16 rounding of another argument);
     l = max(sum p, FLT_MIN), o = (p in v's dtype . v) / l in q's dtype, and
     with ``lse`` also log l [..., Nq].  ``rows`` (the kernel's block) does not
     change the function."""
@@ -192,7 +195,8 @@ def flash_variant(q, k, v, scale: float, *, exp: str = "f32", clamp: bool = True
     """K1's variant on q, k, v [..., N, D] (bf16, D = 64, N a multiple of
     64): o, and with ``lse`` (o, lse [..., Nq]).  A CPU tensor runs the plain
     version; a CUDA tensor launches ``lr_flash_fwd_variant`` or raises (a
-    combination outside ``VARIANTS`` is refused by the kernel's entry)."""
+    combination outside :func:`built_variants` is refused by the kernel's
+    entry)."""
     if not q.is_cuda:
         return flash_variant_plain(q, k, v, scale, exp=exp, clamp=clamp, lse=lse, rows=rows)
     if exp not in EXP_MODES:
@@ -204,17 +208,25 @@ def flash_variant(q, k, v, scale: float, *, exp: str = "f32", clamp: bool = True
     kernels.require(v, "v", torch.bfloat16, (*q.shape[:-2], nk, d))
     o = torch.empty_like(q)
     lse_out = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device) if lse else None
-    flags = EXP_MODES[exp] | (_CLAMPED if clamp else 0) | (_LSE if lse else 0)
     with torch.cuda.device(q.device):
         code = kernels.library().lr_flash_fwd_variant(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 0 if lse_out is None else lse_out.data_ptr(),
-            bh, 1, nq, nk, d, float(scale), flags, rows, kernels.stream_of(q))
+            bh, 1, nq, nk, d, float(scale), EXP_MODES[exp], int(clamp), int(lse), rows, kernels.stream_of(q))
     kernels.check(code, f"flash_variant(exp={exp}, clamp={clamp}, lse={lse}, rows={rows})")
     flash_variant.launches += 1
     return (o, lse_out) if lse else o
 
 
 flash_variant.launches = 0
+
+
+def built_variants() -> list[tuple[str, bool, bool, int]]:
+    """The (exp, clamp, lse, rows) combinations ``lr_flash_fwd_variant`` is
+    built for, as the kernel library reports them (``LR_VARIANTS`` in
+    ``csrc/flash_fwd.cu``, the one list of them)."""
+    lib = kernels.library()
+    return [(e, c, l, r) for e in EXP_MODES for c in (True, False) for l in (True, False) for r in (128, 256)
+            if lib.lr_flash_fwd_variant_built(EXP_MODES[e], int(c), int(l), r)]
 
 
 # ---------------------------------------------------------------------------

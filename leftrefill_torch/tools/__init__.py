@@ -62,6 +62,9 @@ LAUNCH_COUNTERS = {"flash_fwd": flash_attention.flash_forward, "flash_bwd_dq": f
                    "affine_silu_quant": quant.affine_silu_quant_op, "ln_quant": quant.ln_quant_op,
                    "gn_quant": quant.gn_quant_op, "flash_int8": probes.flash_int8,
                    "flash_variant": probes.flash_variant, "noop": probes.noop}
+# the timing probes' kernels: launched by tools/probes and chip_smoke.py
+# phase 2p, routed by no dispatcher (not in kernels.NAMES)
+PROBES = ("flash_int8", "flash_variant", "noop")
 # kernel launches per CFG-doubled UNet forward at full width (the K/V cache
 # on; cfg_dup on in 1-reference requests): the JAX package's Pallas counts on
 # a TPU (tests/test_torch_tools.py holds them to the port's dispatch on meta)
@@ -291,11 +294,12 @@ def site_cost(name: str, shape: tuple) -> tuple[float, float]:
         return 2 * b * h * d * (2 * nq + 2 * nk) + 4 * b * h * nq * lse, 4 * b * h * nq * nk * d
     if name == "flash_int8":
         # int8 q, k with fp32 row scales and v (bf16, or int8 Vq^T) in, bf16 o
-        # out; Q K^T (twice with pv_int8: the kernel's two passes) and P V
+        # out; Q K^T and P V once each (the function's work: the second Q K^T
+        # of the kernel's two passes with pv_int8 is not counted)
         b, h, nq, nk, d, pv_int8 = shape
         bh = b * h
         nbytes = bh * d * (nq + nk) + 4 * bh * (nq + nk) + (1 if pv_int8 else 2) * bh * nk * d + 2 * bh * nq * d
-        return nbytes, (3 if pv_int8 else 2) * 2 * bh * nq * nk * d
+        return nbytes, 2 * 2 * bh * nq * nk * d
     if name == "noop":
         return 4 * math.prod(shape), 0
     if name in ("flash_bwd_dq", "flash_bwd_dkv"):
@@ -335,9 +339,8 @@ def bound_ms(name: str, shape: tuple) -> tuple[float, str]:
     nbytes, ops = site_cost(name, shape)
     peak = PEAK_INT8 if name in ("conv3x3_int8", "dense_int8_res", "geglu_int8") else PEAK_BF16
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
-    if name == "flash_int8":  # the Q K^T products at the int8 peak, P V at its type's
-        pv = ops / (3 if shape[5] else 2)
-        t_ops = ((ops - pv) / PEAK_INT8 + pv / (PEAK_INT8 if shape[5] else PEAK_BF16)) * 1e3
+    if name == "flash_int8":  # Q K^T at the int8 peak, P V at its type's
+        t_ops = (ops / 2 / PEAK_INT8 + ops / 2 / (PEAK_INT8 if shape[5] else PEAK_BF16)) * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
