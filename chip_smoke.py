@@ -7,8 +7,9 @@ Phases, one line each (the kernel phases one line per kernel shape):
 1. set-up: the card's name and power limit, versions, the kernel build (its
    time, and ptxas's registers, spills and barriers with the dynamic shared
    memory of each instantiation of the flash forward, the bf16 and int8
-   convs, the two flash backward kernels and the GEGLUs' up and down
-   kernels, bf16 and int8, and the registers of K7's and K8's);
+   convs, the int8 proj_out GEMM, the two flash backward kernels and the
+   GEGLUs' up and down kernels, bf16 and int8, and the registers of K4's,
+   K7's and K8's);
 2. each bf16 kernel (K1 flash forward, K2 3x3 conv, K3 fused GEGLU) at every
    shape one full-width bf16 UNet forward gives it, against its plain
    PyTorch version (relative L2 <= 1e-2), timed with CUDA events beside its
@@ -53,12 +54,15 @@ Phases, one line each (the kernel phases one line per kernel shape):
    quantized): each int8 kernel (KI1 3x3 conv, KI2 proj_out GEMM + residual,
    KI3 GEGLU) at every shape one full-width int8 forward gives it, against
    its plain version, each within 1 bf16 ulp per element, timed, and two
-   launches of KI3 at its largest site bit-equal, KI1's launch plan at each
-   site (``quant.conv3x3_int8_plan``: tile, K split over a thread cluster,
-   patch, shared memory) equal to the launcher's; then off the main path:
-   KI1's fp32 output arm equal to its plain version, and KI3 at a 1280-wide
-   requant chunk (a cluster of 10 blocks, past the portable 8) and din = 320
-   within 1 ulp;
+   launches of KI3 at its largest site bit-equal, KI1's and KI2's launch
+   plans at each site (``quant.conv3x3_int8_plan``: tile, K split over a
+   thread cluster, patch, shared memory; ``quant.dense_int8_res_plan``:
+   tile, K split, shared memory) equal to the launchers'; then off the main
+   path: KI1's fp32 output arm equal to its plain version, KI2 at 1000 rows
+   (a ragged row tile) and K = 320 (a 64-byte K tail) and at 200 rows (K
+   split over a 2-block cluster) within 1 ulp, and KI3
+   at a 1280-wide requant chunk (a cluster of 10 blocks, past the portable
+   8) and din = 320 within 1 ulp;
 3i. that full-width int8 forward through the kernels against the same
    forward with KI1-KI3 through their plain versions (relative L2 <= 3e-2;
    K1 stays on its kernel in both), and, for information, against the
@@ -67,13 +71,14 @@ Phases, one line each (the kernel phases one line per kernel shape):
    CFG 2.5, batch 1) after a warm-up request, checked as in phase 4, with 47
    KI1, 11 KI2, 16 KI3 and 15 K1 launches per UNet forward;
 2f. JAX's default int8 configuration (the fused prologues, the same int8
-   weights): K4 (GN affine + SiLU + quantize), K7 (LayerNorm + per-row
-   quantize) and K8 (GN affine + per-pixel quantize) at every shape one
-   full-width fused int8 forward gives them, against their plain versions
-   (int8 values at most one step apart on at most 1e-3 of the elements,
-   scales within 8 fp32 ulps, a bf16 output within one bf16 ulp of its
-   largest value), timed;
-   then K7 and K8 with their bf16 output, off the main path;
+   weights): K4 (GN affine + SiLU + per-tensor quantize, with its scale, in
+   one launch), K7 (LayerNorm + per-row quantize) and K8 (GN affine +
+   per-pixel quantize) at every shape one full-width fused int8 forward
+   gives them, against their plain versions (int8 values at most one step
+   apart on at most 1e-3 of the elements, scales within 8 fp32 ulps, a bf16
+   output within one bf16 ulp of its largest value), timed; K4 at its
+   largest site captured in a CUDA graph and replayed, bit-equal to its
+   eager launch; then K7 and K8 with their bf16 output, off the main path;
 3f. that fused forward with K4, K7 and K8 against the same forward with the
    three routed to their plain versions (KI1-KI3 and K1 on their kernels in
    both), block by block with each block fed the kernels' input to it:
@@ -83,7 +88,8 @@ Phases, one line each (the kernel phases one line per kernel shape):
    unfused forward;
 5f. fused int8 serving: two 512x1024 DPM-Solver++(2M)-15 requests after a
    warm-up, checked as in phase 5, with 44 K4, 47 KI1, 48 K7, 16 K8, 11
-   KI2, 16 KI3 and 15 K1 launches per UNet forward;
+   KI2, 16 KI3 and 15 K1 launches per UNet forward, and no per-tensor scale
+   computed outside K4 (``quant.silu_scale`` refused while they run);
 2m. the flash kernel at the multi-view joint self-attention shapes (64x64
    views, CFG 2 scene rows): V=4, 16384 tokens (the JAX package's
    streaming-K/V kernel K11 takes it) and V=2, 8192 tokens, against the
@@ -222,6 +228,10 @@ def p1_tie(nk: int) -> float:
 # off the main path, held to the plain versions in phase 2
 OFF_PATH = (("flash_fwd", (2, 5, 1024, 1024, 128)), ("flash_fwd", (2, 5, 1088, 1088, 64)),
             ("conv3x3", (2, 32, 64, 72, 64)))
+# KI2 off the main path, held to the plain version in phase 2i: 1000 rows (a
+# ragged row tile) and K = 320 (a 64-byte K tail); 200 rows, whose few tiles
+# split K over a 2-block cluster (no UNet site does)
+OFF_PATH_DENSE = ((1000, 320, 640), (200, 1280, 640))
 # the backward kernels off the main path, held to the plain versions in phase
 # 2t: head dim 128, a 64-row tail past a multiple of 128, Nq != Nk with tails
 OFF_PATH_BWD = ((2, 5, 1024, 1024, 128), (2, 5, 1088, 1088, 64), (2, 5, 576, 1216, 64))
@@ -284,6 +294,46 @@ def check_conv_int8_plan(shape: tuple) -> str:
             f"smem={plan['smem']}")
 
 
+def check_dense_int8_plan(shape: tuple) -> str:
+    """KI2's launch plan as ``quant.dense_int8_res_plan`` mirrors it, held
+    to the launcher's own (``lr_dense_int8_res_plan``); returns its reading."""
+    import ctypes
+
+    import torch
+
+    from leftrefill_torch import kernels
+    from leftrefill_torch.ops import quant
+
+    got = (ctypes.c_int * 4)()
+    kernels.check(kernels.library().lr_dense_int8_res_plan(*shape, ctypes.addressof(got)), "dense_int8_res plan")
+    plan = quant.dense_int8_res_plan(*shape, torch.cuda.get_device_properties(0).multi_processor_count)
+    if tuple(got) != (*plan["tile"], plan["splits"], plan["smem"]):
+        raise SystemExit(f"dense_int8_res {shape}: the plan mirror {plan} differs from the launcher's {tuple(got)}")
+    return f"tile={plan['tile']} grid={plan['grid']} cluster={plan['cluster']} smem={plan['smem']}"
+
+
+def check_graph_replay(name: str, shape: tuple, gen, label: str) -> None:
+    """One launch of a kernel captured in a CUDA graph and replayed gives the
+    bits of an eager launch on the same inputs."""
+    import torch
+
+    from leftrefill_torch import tools
+
+    site = tools.site_args(name, shape, gen)
+    run = tools.KERNEL_FNS[name][0]
+    eager = run(*site)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run(*site)
+    graph.replay()
+    torch.cuda.synchronize()
+    pairs = list(zip(eager, captured)) if isinstance(eager, tuple) else [(eager, captured)]
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise SystemExit(f"phase {label} {name} {shape}: the CUDA-graph replay differs from the eager launch")
+    print(f"phase {label} {name} shape={shape}: captured in a CUDA graph, replayed bit-equal to the eager launch")
+
+
 def check_bit_equal(name: str, shape: tuple, gen, label: str) -> None:
     """Two launches of one kernel on the same inputs give the same bits."""
     import torch
@@ -304,8 +354,9 @@ def compare(name: str, got, ref) -> tuple[str, float]:
 
     from leftrefill_torch.tools import bf16_ulps, rel_l2
 
-    if name in PROLOGUES:
-        (gn, gq, gs), (rn, rq, rs) = (o if isinstance(o, tuple) else (None, o, None) for o in (got, ref))
+    if name in PROLOGUES:  # xq; (xq, scale); or (xn, xq, scales)
+        (gn, gq, gs), (rn, rq, rs) = ((None, o, None) if not isinstance(o, tuple) else o if len(o) == 3
+                                      else (None, *o) for o in (got, ref))
         steps = (gq.to(torch.int32) - rq.to(torch.int32)).abs()
         share = float((steps > 0).float().mean())
         if int(steps.max()) > 1 or share > STEP_SHARE:
@@ -416,6 +467,8 @@ def check_site(name: str, shape: tuple, gen, n_sites: int, report: dict, label: 
         reading += f" channels_per_block={kernels.library().lr_conv3x3_tile(*shape[:3], shape[4])}"
     if name == "conv3x3_int8":
         reading += " " + check_conv_int8_plan(shape)
+    elif name == "dense_int8_res":
+        reading += " " + check_dense_int8_plan(shape)
     elif composed:
         reading += " " + check_plan(name, shape)
     print(f"phase {label} {name} shape={shape} sites={n_sites} {reading} max_abs_err={mae:.3e} "
@@ -825,13 +878,18 @@ def main() -> int:
                             ("geglu_int8_up_kernel", lambda n: lib.lr_geglu_int8_smem(0, 0)),
                             ("geglu_int8_down_kernel", lambda n: lib.lr_geglu_int8_smem(1, n)),
                             ("conv3x3_int8_kernel", quant.conv3x3_int8_smem),
+                            ("dense_int8_res_kernel", None), ("affine_silu_quant_kernel", lambda n: 0),
                             ("ln_quant_kernel", lambda n: "8 C (gamma, beta)"), ("gn_quant_kernel", lambda n: 0),
                             ("flash_int8_kernel", lib.lr_flash_int8_smem), ("noop_kernel", lambda n: 0)):
         for line in ptxas_report(log, kernel):
             n = re.search(r"<(\d*)", line).group(1)
             rows = re.search(r",(\d+)>", line)  # a flash forward's query rows a block, its last argument
-            smem = (lib.lr_flash_fwd_variant_smem(int(rows.group(1))) if kernel == "flash_fwd_kernel" and n == "64"
-                    else smem_of(int(n or 0)))
+            if kernel == "dense_int8_res_kernel":  # <rows, columns> of the tile
+                smem = quant.dense_int8_res_smem(*map(int, re.search(r"<(\d+),(\d+)>", line).groups()))
+            elif kernel == "flash_fwd_kernel" and n == "64":
+                smem = lib.lr_flash_fwd_variant_smem(int(rows.group(1)))
+            else:
+                smem = smem_of(int(n or 0))
             print(f"phase 1 ptxas {line}; dynamic shared memory {smem} bytes")
 
     from leftrefill_torch.pipeline import build_sd2_inpaint_bundle
@@ -885,6 +943,13 @@ def main() -> int:
         check_kernels(sites_int8, gen, report, "2i", INT8_NAMES)
         check_sites(report, {n: tools.PER_FORWARD_INT8_UNFUSED[n] for n in INT8_NAMES}, "int8")
         check_bit_equal("geglu_int8", max(s for n, s in sites_int8 if n == "geglu_int8"), gen, "2i")
+        # KI2 off the main path: ragged row tiles, a K tail, a cluster split of K
+        for shape in OFF_PATH_DENSE:
+            site = tools.site_args("dense_int8_res", shape, gen)
+            run, plain = (functools.partial(fn, *site) for fn in tools.KERNEL_FNS["dense_int8_res"])
+            reading, _ = compare("dense_int8_res", run(), plain())
+            print(f"phase 2i dense_int8_res shape={shape} (off the main path) {reading} "
+                  f"{check_dense_int8_plan(shape)} kernel_ms={cuda_ms(run, 20):.4f} plain_ms={cuda_ms(plain, 5):.4f}")
         # KI3 off the main path: a 1280-wide requant chunk (the up kernel's
         # cluster of 10 blocks) over a din of 320 (a 64-byte K tail)
         shape = (128, 320, 1280, 320, 1280)
@@ -925,8 +990,12 @@ def main() -> int:
 
     # ---- phase 2f: the fused prologues at the fused forward's shapes -------
     with torch.inference_mode():
-        check_kernels(tools.unet_sites(qunet, x, tsteps, ctx, qkv, True), gen, report, "2f", PROLOGUES)
+        sites_fused = tools.unet_sites(qunet, x, tsteps, ctx, qkv, True)
+        check_kernels(sites_fused, gen, report, "2f", PROLOGUES)
         check_sites(report, {n: tools.PER_FORWARD_INT8[n] for n in PROLOGUES}, "int8 fused")
+        # K4's cooperative launch (a grid barrier) inside a CUDA graph
+        check_graph_replay("affine_silu_quant", max((s for n, s in sites_fused if n == "affine_silu_quant"),
+                                                    key=math.prod), gen, "2f")
         # K7 and K8 writing their bf16 output too, off the main path
         for name, shape in (("ln_quant", (16384, 320, True)), ("gn_quant", (2, 64, 128, 320, True))):
             site = tools.site_args(name, shape, gen)
@@ -954,8 +1023,16 @@ def main() -> int:
         del out_fused, out_unfused, out_bf16, qkv
 
     # ---- phase 5f: serving two 512x1024 fused int8 requests ----------------
-    launches["int8_fused_dpm15"] = serve(qmodel, "dpm++2m", 15, tools.PER_FORWARD_INT8,
-                                         "phase 5f serving 512x1024 int8 fused dpm++2m15 cfg2.5 b1")
+    # K4 computes its own scale: the eager one (K4's plain version's) must not run
+    def refused(*args):
+        raise SystemExit("phase 5f: quant.silu_scale ran on the main path")
+
+    silu_scale, quant.silu_scale = quant.silu_scale, refused
+    try:
+        launches["int8_fused_dpm15"] = serve(qmodel, "dpm++2m", 15, tools.PER_FORWARD_INT8,
+                                             "phase 5f serving 512x1024 int8 fused dpm++2m15 cfg2.5 b1")
+    finally:
+        quant.silu_scale = silu_scale
     del qmodel, qunet
 
     # ---- phase 2m: the flash kernel at the multi-view joint shapes ---------

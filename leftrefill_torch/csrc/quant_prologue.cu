@@ -2,9 +2,13 @@
 // default int8 configuration), bf16 in, int8 out.
 //
 // K4 replaces leftrefill_tpu/ops/quant.py:_affine_silu_quant_kernel
-// (affine_silu_quant): q = clip(rint(silu(x * a + bb) * inv_scale), -127, 127)
-// with the per-(batch, channel) GroupNorm affine (a, bb) and the per-tensor
-// 1 / scale computed outside, in plain PyTorch, as JAX computes them in XLA.
+// (affine_silu_quant) together with the per-tensor scale that
+// gn_silu_conv3x3_int8 computes in front of it as one fused XLA reduce
+// (quant.py:921-926): with y = x * a + bb, the per-(batch, channel)
+// GroupNorm affine (a, bb) folded outside, scale = max(max|silu(y)|, 1e-8)
+// / 127 and q = clip(rint(silu(y) * (1 / scale)), -127, 127), both in one
+// launch (the Pallas kernel takes 1 / scale as an input: it cannot reduce
+// across its grid and read the result back in one call).
 // K7 replaces _ln_quant_kernel (ln_quant_rowwise): an fp32 LayerNorm of each
 // row (mean, then the two-pass variance), y = (x - m) * rsqrt(v + eps) * g + b,
 // then the row's int8 quantization: scale = max(max|y|, 1e-8) / 127,
@@ -14,28 +18,47 @@
 // quantization as K7.
 //
 // Every multiply, add and divide is rounded on its own (__fmul_rn, __fadd_rn,
-// __fdiv_rn: no contraction into an FMA) in JAX's order, sigmoid is spelled
-// 1 / (1 + expf(-y)) and the rounding is half to even (rintf; K7 and K8 get
-// it from the fp32 adder, quant_div), so the plain versions in ops/quant.py
-// repeat the same fp32 operations.  K4 and K8 then
-// agree with them bit for bit; K7's row sums add in another order than
-// PyTorch's reductions.
+// __fdiv_rn, __frcp_rn: no contraction into an FMA) in JAX's order, sigmoid
+// is spelled 1 / (1 + expf(-y)) and the rounding is half to even (from the
+// fp32 adder: quant_rne, quant_div), so the plain versions in ops/quant.py
+// repeat the same fp32 operations.  K4 and K8 then agree with them bit for
+// bit, K4's scale included (a maximum is exact in any order); K7's row sums
+// add in another order than PyTorch's reductions.
 //
 // Bound on the H100: all three read each bf16 element once and write one int8
 // (plus a bf16 y where asked), a few fp32 operations per element: device
-// memory bounds them on paper, but a pass that rounds with rintf and converts
-// with a float-to-int instruction issues those at a quarter of the fp32 rate
-// and takes ~3x its bytes' time at the UNet's sizes.  K4 gives each thread 8 channels of a pixel (one 16-byte
-// load, one 8-byte store); K7 and K8 give each row (token or pixel, C <= 2048)
-// to a group of lanes sized to it, which keeps the row in registers between
-// its passes and reduces with shuffles (row_quant below).
+// memory bounds them on paper, as long as no per-element work issues on the
+// quarter-rate pipe (rintf, truncf, the float-to-int conversion and an IEEE
+// division's slow path do: they bounded the first K7/K8 at ~3x their bytes'
+// time).  K4 cannot leave that pipe: silu's exp and reciprocal are one
+// MUFU operation each, both needed for the plain version's bits.
+// K4 (affine_silu_quant_kernel) is one persistent cooperative launch: pass
+// 1 reads x (16 bytes, 8 channels a thread) and reduces max|silu(y)| to one
+// slot a block, a grid barrier, every block reduces the slots (from L2) to
+// the scale, pass 2 writes int8 in 8-byte stores.  Where a thread's pixels
+// number at most 4 (sites up to ~4 M elements), their silu values stay in
+// registers between the passes; a larger site streams: pass 2 reads x again
+// (from L2) and recomputes silu, and pass 1 computes silu only where an
+// element's bound could raise the warp's running maximum.  At the small
+// sites the fixed chain (launch, a DRAM read, the barrier, the slots' read)
+// sets the pace.  The glue it replaces (the scale in eager PyTorch: ~16
+// launches and ~78 bytes an element of fp32 temporaries) cost far more.
+// K7 and K8 give each row (token or pixel, C <= 2048) to a group of lanes
+// sized to it, which keeps the row in registers between its passes and
+// reduces with shuffles (row_quant below).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace lr {
 namespace {
 
-__device__ __forceinline__ signed char quant_step(float v) {
-  return static_cast<signed char>(fminf(fmaxf(rintf(v), -127.0f), 127.0f));
+// clip(rint(v), -127, 127) as int8 for |v| <= 2^22, without rintf or a
+// conversion instruction: adding 1.5 * 2^23 rounds v to an integer (to
+// nearest, ties to even, as rintf) held in the low bits of the sum.
+__device__ __forceinline__ signed char quant_rne(float v) {
+  const int q = __float_as_int(__fadd_rn(v, 12582912.0f)) - 0x4B400000;
+  return static_cast<signed char>(min(max(q, -127), 127));
 }
 
 // K7's and K8's clip(rint(h / sh), -127, 127) as int8, with the division's
@@ -55,8 +78,8 @@ __device__ __forceinline__ signed char quant_div(float h, float sh, float inv) {
   return static_cast<signed char>(min(max(q, -127), 127));
 }
 
-__device__ __forceinline__ void load8(const bf16* p, float* f) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
+// 8 bf16 values of a 16-byte chunk as fp32.
+__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -65,6 +88,8 @@ __device__ __forceinline__ void load8(const bf16* p, float* f) {
     f[2 * i + 1] = t.y;
   }
 }
+
+__device__ __forceinline__ void load8(const bf16* p, float* f) { unpack8(*reinterpret_cast<const uint4*>(p), f); }
 
 __device__ __forceinline__ void load8f(const float* p, float* f) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -89,31 +114,229 @@ __device__ __forceinline__ void store8_bf16(bf16* p, const float* v) {
   *reinterpret_cast<uint4*>(p) = u;
 }
 
-// K4: one thread per 8 channels of a pixel, a grid-stride loop over all chunks
-__global__ void __launch_bounds__(256)
-    affine_silu_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
-                             const float* __restrict__ bb, const float* __restrict__ inv_scale,
-                             signed char* __restrict__ out, long long hw, int c, long long chunks) {
-  const float inv = *inv_scale;
-  const int per_pixel = c / 8;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < chunks;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long pixel = i / per_pixel;
-    const int c0 = static_cast<int>(i - pixel * per_pixel) * 8;
-    const size_t ab = static_cast<size_t>(pixel / hw) * c + c0;
-    float v[8], av[8], bv[8];
-    load8(x + i * 8, v);
-    load8f(a + ab, av);
-    load8f(bb + ab, bv);
-    signed char q[8];
+// ---- K4 ---------------------------------------------------------------------
+
+constexpr int SQ_THREADS = 256;
+constexpr int SQ_MAX_CACHED = 4;  // chunks a thread keeps in registers between the passes, at most
+constexpr int SQ_UNROLL = 4;      // chunks a thread loads at once when it streams
+// above max |silu(y)| over y < 0 (0.2784645 at y = -1.2785), with the
+// computed value's few roundings (relative 5 * 2^-24) included
+constexpr float SILU_NEG_MAX = 0.27847f;
+
+// y = x * a + b and silu(y) in K4's fp32 operations (1 / (1 + e) as
+// __frcp_rn: the same correctly rounded value as __fdiv_rn(1, 1 + e),
+// without the division)
+__device__ __forceinline__ float affine(float x, float a, float b) { return __fadd_rn(__fmul_rn(x, a), b); }
+
+__device__ __forceinline__ float silu_of(float y) { return __fmul_rn(y, __frcp_rn(__fadd_rn(1.0f, expf(-y)))); }
+
+// An upper bound of |silu_of(y)| from y alone: silu_of(y) <= y for y >= 0
+// (the reciprocal of 1 + e >= 1 is at most 1, and rounding is monotone);
+// for y < 0, |silu_of(y)| <= |y| and <= SILU_NEG_MAX.
+__device__ __forceinline__ float silu_bound(float y) { return y >= 0.0f ? y : fminf(-y, SILU_NEG_MAX); }
+
+// The block's maximum of v, in every thread (red: a float a warp).
+__device__ __forceinline__ float block_max(float v, float* red) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float y = __fadd_rn(__fmul_rn(v[k], av[k]), bv[k]);
-      const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-y)));
-      q[k] = quant_step(__fmul_rn(__fmul_rn(y, sig), inv));
-    }
-    store8_int8(out + i * 8, q);
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  v = red[0];
+#pragma unroll
+  for (int w = 1; w < SQ_THREADS / 32; ++w) v = fmaxf(v, red[w]);
+  __syncthreads();  // red may be written again
+  return v;
+}
+
+// K4: one persistent cooperative launch (see the top).  The grid's threads
+// split evenly over the batch; in its batch, thread t takes chunk g (8
+// channels: one 16-byte load) of pixels p0, p0 + ps, p0 + 2 ps, ... (ps the
+// pixels of one sweep of the batch's threads; the last threads of a batch
+// that make no whole sweep sit out), so its a and bb stay in registers.
+// NC > 0: a thread's pixels number at most NC (the grid is sized so) and
+// their silu values stay in registers from pass 1 to pass 2.  NC == 0: the
+// pixels are streamed in rounds of SQ_UNROLL (their loads in flight
+// together), pass 2 reads x again and recomputes silu, and pass 1 computes
+// silu only in the rounds where some element's bound passes the warp's
+// running maximum (the maximum stays exact: a skipped element cannot raise
+// it).  slots: one float a block, each written before the grid barrier and
+// read after it.
+template <int NC>
+__global__ void __launch_bounds__(SQ_THREADS)
+    affine_silu_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
+                             const float* __restrict__ bb, signed char* __restrict__ xq,
+                             float* __restrict__ scale, float* __restrict__ slots, int batch, int hw, int c) {
+  __shared__ float red[SQ_THREADS / 32];
+  const int per_pixel = c / 8, t = blockIdx.x * SQ_THREADS + threadIdx.x;
+  const int ps = gridDim.x * SQ_THREADS / (batch * per_pixel), tb = ps * per_pixel;
+  const int b = t / tb, g = t % tb % per_pixel, p0 = t % tb / per_pixel;
+  const bool on = b < batch;
+  const size_t base = (static_cast<size_t>(on ? b : 0) * hw + p0) * c + 8 * g;  // pixel p0's chunk
+  const size_t step = static_cast<size_t>(ps) * c;                              // one pixel stride
+  float av[8], bv[8];
+  if (on) {
+    load8f(a + static_cast<size_t>(b) * c + 8 * g, av);
+    load8f(bb + static_cast<size_t>(b) * c + 8 * g, bv);
   }
+  float m = 0.0f;
+  float sv[NC > 0 ? NC : 1][8];
+  if constexpr (NC > 0) {
+    uint4 raw[NC];
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+      if (on && p0 + j * ps < hw) raw[j] = __ldg(reinterpret_cast<const uint4*>(x + base + j * step));
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+      if (on && p0 + j * ps < hw) {
+        float v[8];
+        unpack8(raw[j], v);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          sv[j][k] = silu_of(affine(v[k], av[k], bv[k]));
+          m = fmaxf(m, fabsf(sv[j][k]));
+        }
+      }
+  } else {
+    // warp-uniform rounds, as many as the warp's first pixel needs: every
+    // lane takes part in each shuffle, with or without pixels of its own
+    const int pmin = __reduce_min_sync(0xffffffffu, on ? p0 : hw);
+    const int rounds = (hw - pmin + SQ_UNROLL * ps - 1) / (SQ_UNROLL * ps);
+    float mw = 0.0f;  // the warp's largest |silu| so far: a lower bound of the tensor's
+    for (int k = 0; k < rounds; ++k) {
+      uint4 raw[SQ_UNROLL];
+#pragma unroll
+      for (int u = 0; u < SQ_UNROLL; ++u)
+        if (on && p0 + (k * SQ_UNROLL + u) * ps < hw)
+          raw[u] = __ldg(reinterpret_cast<const uint4*>(x + base + (k * SQ_UNROLL + u) * step));
+      // silu of each lane's element of the largest bound first, then of the
+      // elements whose bound passes the warp's maximum (few: a skipped
+      // element's |silu| is at most its bound, so the maximum stays exact)
+      float best = -1.0f, ybest = 0.0f;
+#pragma unroll
+      for (int u = 0; u < SQ_UNROLL; ++u)
+        if (on && p0 + (k * SQ_UNROLL + u) * ps < hw) {
+          float v[8];
+          unpack8(raw[u], v);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float y = affine(v[e], av[e], bv[e]), bnd = silu_bound(y);
+            if (bnd > best) {
+              best = bnd;
+              ybest = y;
+            }
+          }
+        }
+      if (best >= 0.0f) m = fmaxf(m, fabsf(silu_of(ybest)));
+      mw = m;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, o));
+#pragma unroll
+      for (int u = 0; u < SQ_UNROLL; ++u)
+        if (on && p0 + (k * SQ_UNROLL + u) * ps < hw) {
+          float v[8];
+          unpack8(raw[u], v);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float y = affine(v[e], av[e], bv[e]);
+            if (silu_bound(y) > mw) m = fmaxf(m, fabsf(silu_of(y)));
+          }
+        }
+    }
+  }
+  m = block_max(m, red);
+  if (threadIdx.x == 0) slots[blockIdx.x] = m;
+  cooperative_groups::this_grid().sync();
+  float amax = 0.0f;
+  for (int i = threadIdx.x; i < gridDim.x; i += SQ_THREADS) amax = fmaxf(amax, __ldcg(slots + i));
+  amax = block_max(amax, red);
+  // JAX's max(amax, 1e-8) / 127 and its reciprocal, IEEE divisions once a block
+  const float sc = __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f), inv = __fdiv_rn(1.0f, sc);
+  if (blockIdx.x == 0 && threadIdx.x == 0) *scale = sc;
+  if constexpr (NC > 0) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+      if (on && p0 + j * ps < hw) {
+        signed char q[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) q[k] = quant_rne(__fmul_rn(sv[j][k], inv));
+        store8_int8(xq + base + j * step, q);
+      }
+  } else {
+    for (int p = p0, k = 0; on && p < hw; p += SQ_UNROLL * ps, ++k) {
+      uint4 raw[SQ_UNROLL];
+#pragma unroll
+      for (int u = 0; u < SQ_UNROLL; ++u)
+        if (p + u * ps < hw) raw[u] = __ldg(reinterpret_cast<const uint4*>(x + base + (k * SQ_UNROLL + u) * step));
+#pragma unroll
+      for (int u = 0; u < SQ_UNROLL; ++u)
+        if (p + u * ps < hw) {
+          float v[8];
+          unpack8(raw[u], v);
+          signed char q[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) q[e] = quant_rne(__fmul_rn(silu_of(affine(v[e], av[e], bv[e])), inv));
+          store8_int8(xq + base + (k * SQ_UNROLL + u) * step, q);
+        }
+    }
+  }
+}
+
+template <int NC>
+cudaError_t silu_quant_fit(int dev, int& fit) {
+  static int cached[8] = {};
+  if (cached[dev % 8] == 0) {
+    const cudaError_t e =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cached[dev % 8], affine_silu_quant_kernel<NC>, SQ_THREADS, 0);
+    if (e != cudaSuccess) return e;
+  }
+  fit = cached[dev % 8];
+  return cudaSuccess;
+}
+
+// The launch: the fewest pixels a thread (1, 2 or 4, kept in registers) that
+// the card holds at once (a cooperative launch is refused past it, instead
+// of hanging at the grid barrier), within n_slots blocks, or else streamed
+// on as many blocks as it holds.
+cudaError_t silu_quant_launch(const bf16* x, const float* a, const float* bb, signed char* xq, float* scale,
+                              float* slots, int n_slots, int batch, int hw, int c, cudaStream_t stream) {
+  static int sms[8] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && sms[dev % 8] == 0) e = cudaDeviceGetAttribute(&sms[dev % 8], cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long per_pixel = c / 8;
+  void (*kernel)(const bf16*, const float*, const float*, signed char*, float*, float*, int, int, int) = nullptr;
+  long long blocks = 0;
+  int fit = 0;
+  for (int nc = 1; nc <= SQ_MAX_CACHED && kernel == nullptr; nc *= 2) {
+    e = nc == 1 ? silu_quant_fit<1>(dev, fit) : nc == 2 ? silu_quant_fit<2>(dev, fit) : silu_quant_fit<4>(dev, fit);
+    if (e != cudaSuccess) return e;
+    // each batch's pixels within nc a thread: ps = blocks * SQ_THREADS / (batch * per_pixel) >= ceil(hw / nc)
+    const long long want = (batch * per_pixel * ((hw + nc - 1) / nc) + SQ_THREADS - 1) / SQ_THREADS;
+    if (want <= static_cast<long long>(fit) * sms[dev % 8] && want <= n_slots) {
+      blocks = want;
+      kernel = nc == 1 ? &affine_silu_quant_kernel<1> : nc == 2 ? &affine_silu_quant_kernel<2>
+                       : &affine_silu_quant_kernel<4>;
+    }
+  }
+  if (kernel == nullptr) {
+    if ((e = silu_quant_fit<0>(dev, fit)) != cudaSuccess) return e;
+    blocks = static_cast<long long>(fit) * sms[dev % 8];
+    blocks = blocks < n_slots ? blocks : n_slots;
+    kernel = &affine_silu_quant_kernel<0>;
+  }
+  if (blocks * SQ_THREADS < batch * per_pixel) return cudaErrorInvalidValue;  // a sweep of each batch's chunks
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(SQ_THREADS);
+  cfg.stream = stream;
+  cudaLaunchAttribute coop[1];
+  coop[0].id = cudaLaunchAttributeCooperative;
+  coop[0].val.cooperative = 1;
+  cfg.attrs = coop;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, x, a, bb, xq, scale, slots, batch, hw, c);
+  return e == cudaSuccess ? cudaGetLastError() : e;
 }
 
 // K7 (LN = true) and K8 (LN = false).  A row of c channels (c / 8 16-byte
@@ -318,18 +541,19 @@ cudaError_t row_quant_launch(const bf16* x, const float* p0, const float* p1, bf
 }  // namespace
 }  // namespace lr
 
-// x: [batch, hw, c] bf16, a/bb: [batch, c] fp32, inv_scale: one fp32 on the
-// device, out: [batch, hw, c] int8.  c % 8 == 0.
-extern "C" int lr_affine_silu_quant(const void* x, const void* a, const void* bb, const void* inv_scale,
-                                    void* out, int batch, int hw, int c, void* stream) {
-  if (batch <= 0 || hw <= 0 || c <= 0 || c % 8) return static_cast<int>(cudaErrorInvalidValue);
-  const long long chunks = static_cast<long long>(batch) * hw * (c / 8);
-  const long long want = (chunks + 255) / 256;
-  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  lr::affine_silu_quant_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+// x: [batch, hw, c] bf16, a/bb: [batch, c] fp32; xq: [batch, hw, c] int8;
+// scale: one fp32 on the device; slots: n_slots fp32 of scratch (nothing
+// needs zeroing).  All contiguous, x and xq 16-byte aligned, c % 8 == 0,
+// batch * hw * c < 2^31.
+extern "C" int lr_silu_quant(const void* x, const void* a, const void* bb, void* xq, void* scale, void* slots,
+                             int n_slots, int batch, int hw, int c, void* stream) {
+  if (batch <= 0 || hw <= 0 || c <= 0 || c % 8 || n_slots <= 0 ||
+      static_cast<long long>(batch) * hw * c > (1LL << 31) - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(lr::silu_quant_launch(
       static_cast<const lr::bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(bb),
-      static_cast<const float*>(inv_scale), static_cast<signed char*>(out), hw, c, chunks);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<signed char*>(xq), static_cast<float*>(scale), static_cast<float*>(slots), n_slots, batch, hw,
+      c, static_cast<cudaStream_t>(stream)));
 }
 
 // x: [rows, c] bf16, gamma/beta: [c] fp32; xn: [rows, c] bf16 or null, xq:

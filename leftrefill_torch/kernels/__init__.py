@@ -61,14 +61,14 @@ _SIGNATURES = {
     "lr_conv3x3_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # b, h, w, ci, co, int[5] out -> the launch plan (tile, split, patch, shared memory)
     "lr_conv3x3_int8_plan": [_I, _I, _I, _I, _I, _P],
-    # x, sx, w, sw, bias, res, out, partial, r, k, n, splits, stream
-    "lr_dense_int8_res": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # r, k, n -> split count of K
-    "lr_dense_int8_res_splits": [_I, _I, _I],
+    # x, sx, w, sw, bias, res, out, r, k, n, stream
+    "lr_dense_int8_res": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # r, k, n, int[4] out -> the launch plan (tile rows and columns, split, shared memory)
+    "lr_dense_int8_res_plan": [_I, _I, _I, _P],
     # xq, sx, w1, s1, b1, w2, s2, b2, hq, sh, out, r, din, inner, dout, cw, stream
     "lr_geglu_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, a, bb, inv_scale, out, batch, hw, c, stream
-    "lr_affine_silu_quant": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, a, bb, xq, scale, slots, n_slots, batch, hw, c, stream
+    "lr_silu_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, gamma, beta, xn, xq, scale, rows, c, eps, stream
     "lr_ln_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     # x, a, bb, xn, xq, scale, batch, hw, c, stream
@@ -173,13 +173,6 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = library().lr_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
-
-
-def splits(n: int, name: str) -> int:
-    """A split count from a ``lr_*_splits`` query, which returns a failed
-    query's CUDA error negated."""
-    check(max(-n, 0), name)
-    return n
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -28,7 +28,13 @@ Source notes.
   bf16 (or an fp32 store, for an fp32 model).  :func:`conv3x3_int8_plan`
   mirrors the launch plan (``lr_conv3x3_int8_plan``).
 - KI2 (``csrc/dense_int8_res.cu``) replaces ``_dense_int8_res_mom_kernel``
-  (K9) without its [B, 4, N] moments output, which nothing reads.
+  (K9) without its [B, 4, N] moments output, which nothing reads: the same
+  frame as KI1 on a plain GEMM (int8 wgmma on TMA tiles, the K split over
+  a thread-block cluster where the tiles are too few), its epilogue's
+  residual loaded into registers before the products and its output
+  written in 16-byte stores; one launch a site, no scratch in device
+  memory.  :func:`dense_int8_res_plan` mirrors the launch plan
+  (``lr_dense_int8_res_plan``).
 - ``dense_int8`` is an XLA dot in JAX, outside any Pallas kernel: here it is
   ``torch._int_mm`` (int32 accumulation) on both devices.
 - K4, K7 and K8 (``csrc/quant_prologue.cu``) replace
@@ -36,6 +42,10 @@ Source notes.
   ``_gn_affine_quant_kernel``: elementwise and row passes bound by device
   memory, each rounding spelled out so the plain versions repeat them (K4
   multiplies by 1 / scale, K7 and K8 divide by the scale, as JAX does).
+  K4 also computes the per-tensor scale that JAX reduces in XLA in front
+  of its kernel (quant.py:921-926), in the same launch
+  (:func:`silu_quant_op`: a grid barrier between the reduce and the
+  quantize).
 """
 
 from __future__ import annotations
@@ -336,6 +346,48 @@ def conv3x3_int8_apply(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, 
 # ---------------------------------------------------------------------------
 # KI2: int8 proj_out GEMM + bias + residual
 
+# the kernel's frame (csrc/dense_int8_res.cu): K steps of 128 bytes through a
+# 4-stage ring, K split over a thread cluster of at most 2 blocks, each
+# split at least 2 steps
+DENSE_STAGES, DENSE_MAX_SPLITS, DENSE_MIN_SPLIT_STEPS = 4, 2, 2
+
+
+def dense_int8_res_plan(r: int, k: int, n: int, sms: int) -> dict:
+    """KI2's launch plan at this shape, as ``lr_dense_int8_res_plan``
+    computes it: for each tile of 128 or 64 rows by 160 or 128 columns
+    (where they divide N) or 64, the K split over a cluster doubles from 1
+    while the split grid stays within one wave over the SMs (up to 2, each
+    split at least 2 steps of 128); the tile with the least (waves over the
+    SMs) x rows x columns / split wins, on a tie the one with fewer splits,
+    then the first; with the grid
+    (row tiles, column tiles, splits), the cluster and the dynamic shared
+    memory."""
+    nsteps = -(-k // 128)
+    best = None
+    for bm in (128, 64):
+        for bn in (160, 128, 64):
+            if n % bn and bn != 64:
+                continue
+            blocks = -(-r // bm) * -(-n // bn)
+            s = 1
+            while (2 * s <= DENSE_MAX_SPLITS and blocks * 2 * s <= sms
+                   and nsteps >= DENSE_MIN_SPLIT_STEPS * 2 * s):
+                s *= 2
+            cost = -(-blocks * s // sms) * bm * bn * (DENSE_MAX_SPLITS // s)
+            if best is None or (cost, s) < best[:2]:
+                best = (cost, s, bm, bn)
+    _, splits, bm, bn = best
+    return {"tile": (bm, bn), "splits": splits, "grid": (-(-r // bm), -(-n // bn), splits),
+            "cluster": (1, 1, splits), "smem": dense_int8_res_smem(bm, bn)}
+
+
+def dense_int8_res_smem(bm: int, bn: int) -> int:
+    """KI2's dynamic shared memory a block of a ``bm`` x ``bn`` tile, bytes:
+    the 1024-byte alignment slack, the ring of bm- and bn-row tiles 128
+    bytes wide, a full and an empty barrier a stage, and the block's bm row
+    scales in fp32."""
+    return 1024 + DENSE_STAGES * (bm + bn) * 128 + 16 * DENSE_STAGES + 4 * bm
+
 
 def dense_int8_res_plain(xq, sx, wq, w_scale, bias, res) -> torch.Tensor:
     """The kernel's plain version: ((acc * sx) * sw + bias) + res in fp32,
@@ -358,17 +410,13 @@ def dense_int8_res_op(xq, sx, wq, w_scale, bias, res) -> torch.Tensor:
     kernels.require(w_scale, "w_scale", F32, (n,))
     kernels.require(bias, "bias", F32, (n,))
     kernels.require(res, "res", torch.bfloat16, (r, n))
-    if k % 16:
-        raise ValueError(f"int8 dense kernel needs K % 16 == 0, got {k}")
-    lib = kernels.library()
+    if k % 16 or n % 8:
+        raise ValueError(f"int8 dense kernel needs K % 16 == 0 and N % 8 == 0, got {k}, {n}")
     out = torch.empty((r, n), dtype=torch.bfloat16, device=xq.device)
     with torch.cuda.device(xq.device):
-        splits = kernels.splits(lib.lr_dense_int8_res_splits(r, k, n), "dense_int8_res")
-        partial = torch.empty((splits, r, n), dtype=torch.int32, device=xq.device) if splits > 1 else None
-        code = lib.lr_dense_int8_res(
+        code = kernels.library().lr_dense_int8_res(
             xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
-            res.data_ptr(), out.data_ptr(), None if partial is None else partial.data_ptr(),
-            r, k, n, splits, kernels.stream_of(xq),
+            res.data_ptr(), out.data_ptr(), r, k, n, kernels.stream_of(xq),
         )
     kernels.check(code, "dense_int8_res")
     dense_int8_res_op.launches += 1
@@ -381,12 +429,13 @@ dense_int8_res_op.launches = 0
 # ---------------------------------------------------------------------------
 # the fused int8 prologues of JAX's default configuration (LEFTREFILL_FUSED_RES
 # and LEFTREFILL_FUSED_LNQ on): K4, K7 and K8, and the functions around them.
-# The statistics and the per-tensor amax stay plain PyTorch, as they are XLA
-# outside the Pallas kernels in JAX.
+# The GroupNorm and LayerNorm statistics stay plain PyTorch, as they are XLA
+# outside the Pallas kernels in JAX; K4's per-tensor amax is K4's own.
 
 
 def sigmoid(y: torch.Tensor) -> torch.Tensor:
-    """1 / (1 + exp(-y)), spelled as K4 computes it (an IEEE divide)."""
+    """1 / (1 + exp(-y)), spelled as K4 computes it (a correctly rounded
+    reciprocal: an IEEE divide here, ``__frcp_rn`` in the kernel)."""
     one = torch.ones((), dtype=y.dtype, device=y.device)
     return one / (1.0 + torch.exp(-y))
 
@@ -430,41 +479,19 @@ def _round_int8(v: torch.Tensor) -> torch.Tensor:
     return torch.round(v).clamp(-127, 127).to(torch.int8)
 
 
-# ---- K4: GN affine + SiLU + per-tensor quantize -----------------------------
+# ---- K4: GN affine + SiLU + per-tensor quantize, with its scale ---------------
+
+# the most blocks a K4 launch may have, one fp32 scratch slot each (its grid
+# is what the card holds at once: at most 8 blocks of 256 threads an SM)
+SILU_SLOTS = 2048
 
 
 def affine_silu_quant_plain(x, a, bb, inv_scale) -> torch.Tensor:
-    """K4's plain version, the kernel's fp32 operations in its order:
-    int8(clip(round(silu(x * a + bb) * inv_scale))).  x [B, H, W, C] bf16,
-    a/bb [B, C] fp32, inv_scale a 0-dim fp32 tensor."""
+    """The quantize of K4's plain version, the kernel's fp32 operations in
+    its order: int8(clip(round(silu(x * a + bb) * inv_scale))).
+    x [B, H, W, C] bf16, a/bb [B, C] fp32, inv_scale a 0-dim fp32 tensor."""
     y = _affine(x, a, bb)
     return _round_int8(y * sigmoid(y) * inv_scale)
-
-
-def affine_silu_quant_op(x, a, bb, inv_scale) -> torch.Tensor:
-    """K4 (JAX ``affine_silu_quant``, quant.py:631; kernel :603) -> [B, H, W, C]
-    int8.  A CPU tensor runs the plain version; a CUDA tensor launches K4 or
-    raises."""
-    if not x.is_cuda:
-        return affine_silu_quant_plain(x, a, bb, inv_scale)
-    b, h, w, c = x.shape
-    kernels.require(x, "x", torch.bfloat16)
-    kernels.require(a, "a", F32, (b, c))
-    kernels.require(bb, "bb", F32, (b, c))
-    kernels.require(inv_scale, "inv_scale", F32, ())
-    if c % 8:
-        raise ValueError(f"K4 needs C % 8 == 0, got {c}")
-    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    with torch.cuda.device(x.device):
-        code = kernels.library().lr_affine_silu_quant(
-            x.data_ptr(), a.data_ptr(), bb.data_ptr(), inv_scale.data_ptr(), out.data_ptr(),
-            b, h * w, c, kernels.stream_of(x))
-    kernels.check(code, "affine_silu_quant")
-    affine_silu_quant_op.launches += 1
-    return out
-
-
-affine_silu_quant_op.launches = 0
 
 
 def silu_scale(x: torch.Tensor, a: torch.Tensor, bb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -476,13 +503,48 @@ def silu_scale(x: torch.Tensor, a: torch.Tensor, bb: torch.Tensor) -> tuple[torc
     return scale, torch.ones_like(scale) / scale
 
 
+def silu_quant_plain(x, a, bb) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's plain version: :func:`silu_scale`, then
+    :func:`affine_silu_quant_plain` on 1 / scale -> (xq int8, scale 0-dim
+    fp32)."""
+    scale, inv_scale = silu_scale(x, a, bb)
+    return affine_silu_quant_plain(x, a, bb, inv_scale), scale
+
+
+def silu_quant_op(x, a, bb) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4 (JAX ``affine_silu_quant``, quant.py:631, kernel :603, with the
+    scale JAX computes in front of it, quant.py:921-926) on the arguments of
+    :func:`silu_quant_plain`: one launch computes the scale and the
+    quantize.  A CPU tensor runs the plain version; a CUDA tensor launches
+    K4 or raises."""
+    if not x.is_cuda:
+        return silu_quant_plain(x, a, bb)
+    b, h, w, c = x.shape
+    kernels.require(x, "x", torch.bfloat16)
+    kernels.require(a, "a", F32, (b, c))
+    kernels.require(bb, "bb", F32, (b, c))
+    if c % 8:
+        raise ValueError(f"K4 needs C % 8 == 0, got {c}")
+    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    buf = torch.empty(1 + SILU_SLOTS, dtype=F32, device=x.device)  # the scale, then the blocks' slots
+    with torch.cuda.device(x.device):
+        code = kernels.library().lr_silu_quant(
+            x.data_ptr(), a.data_ptr(), bb.data_ptr(), xq.data_ptr(), buf.data_ptr(), buf.data_ptr() + 4,
+            SILU_SLOTS, b, h * w, c, kernels.stream_of(x))
+    kernels.check(code, "silu_quant")
+    silu_quant_op.launches += 1
+    return xq, buf[0]
+
+
+silu_quant_op.launches = 0
+
+
 def silu_quant(x: torch.Tensor, a: torch.Tensor, bb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(xq, scale): the per-tensor int8 quantization of silu(x * a + bb),
-    :func:`silu_scale`, then K4 on 1 / scale."""
-    scale, inv_scale = silu_scale(x, a, bb)
+    K4 (or its plain version, where the dispatcher is routed to it)."""
     kernels.note_site("affine_silu_quant", tuple(x.shape))
-    fn = affine_silu_quant_plain if kernels.plain_kernels_active("affine_silu_quant") else affine_silu_quant_op
-    return fn(x.contiguous(), a, bb, inv_scale), scale
+    fn = silu_quant_plain if kernels.plain_kernels_active("affine_silu_quant") else silu_quant_op
+    return fn(x.contiguous(), a, bb)
 
 
 def gn_silu_conv3x3_int8_qualifies(h: int, w: int, ci: int, co: int, num_groups: int = 32) -> bool:
@@ -494,7 +556,8 @@ def gn_silu_conv3x3_int8(x, gamma, beta, w, w_scale, bias, *, num_groups: int = 
                          emb=None, scale_shift=None) -> torch.Tensor:
     """GroupNorm (+ emb-add | scale-shift) + SiLU + int8 quantize + 3x3 int8
     conv (JAX ``gn_silu_conv3x3_int8``, quant.py:887-929): the moments and
-    the fold plain, K4, then KI1 on the pre-quantized input.  x [B, H, W, C]
+    the fold plain, K4 (the scale and the quantize), then KI1 on the
+    pre-quantized input.  x [B, H, W, C]
     bf16 (the pre-GN activation), w OHWI int8, w_scale/bias [Co] fp32 (the
     bias is not rounded to bf16 here, as in JAX), emb [B, C] added before the
     GN, scale_shift (s, t) [B, C] applied after it.  Output in x's dtype."""

@@ -14,7 +14,9 @@ share with ``chip_smoke.py``.
   are timed for reference only; none is on the port's path.
 - ``python -m leftrefill_torch.tools.geglu_variants [--int8]``: the GEGLU
   kernels' up and down device time, and that of timing-only variants;
-  ``python -m leftrefill_torch.tools.conv_int8_variants``: KI1's.
+  ``python -m leftrefill_torch.tools.conv_int8_variants``: KI1's;
+  ``python -m leftrefill_torch.tools.int8_epilogue_variants``: KI2's and
+  K4's.
 - ``python -m leftrefill_torch.tools.probes.<name>``: the JAX package's
   probe scripts on the port's probe kernels (``ops/probes.py``), one JSON
   row a cell (``tools/probes/__init__.py``).
@@ -44,7 +46,7 @@ KERNEL_FNS = {
     "conv3x3_int8": (quant.conv3x3_int8_op, quant.conv3x3_int8_plain),
     "dense_int8_res": (quant.dense_int8_res_op, quant.dense_int8_res_plain),
     "geglu_int8": (mlp.geglu_int8_fused, mlp.geglu_int8_plain),
-    "affine_silu_quant": (quant.affine_silu_quant_op, quant.affine_silu_quant_plain),
+    "affine_silu_quant": (quant.silu_quant_op, quant.silu_quant_plain),
     "ln_quant": (quant.ln_quant_op, quant.ln_quant_plain),
     "gn_quant": (quant.gn_quant_op, quant.gn_quant_plain),
     # the timing probes, off the main path (tools/probes)
@@ -59,7 +61,7 @@ LAUNCH_COUNTERS = {"flash_fwd": flash_attention.flash_forward, "flash_bwd_dq": f
                    "flash_bwd_dkv": flash_attention.flash_bwd_dkv, "conv3x3": conv.conv3x3_op,
                    "geglu": mlp.geglu_fused, "conv3x3_int8": quant.conv3x3_int8_op,
                    "dense_int8_res": quant.dense_int8_res_op, "geglu_int8": mlp.geglu_int8_fused,
-                   "affine_silu_quant": quant.affine_silu_quant_op, "ln_quant": quant.ln_quant_op,
+                   "affine_silu_quant": quant.silu_quant_op, "ln_quant": quant.ln_quant_op,
                    "gn_quant": quant.gn_quant_op, "flash_int8": probes.flash_int8,
                    "flash_variant": probes.flash_variant, "noop": probes.noop}
 # the timing probes' kernels: launched by tools/probes and chip_smoke.py
@@ -188,9 +190,7 @@ def site_args(name: str, shape: tuple, generator: torch.Generator) -> tuple:
         return randn(r, c, scale=2.0), 1 + randn(c, scale=0.1, dtype=f32), randn(c, scale=0.1, dtype=f32), 1e-5, norm_out
     b, h, w, c = shape[:4]
     x, a, bb = randn(b, h, w, c), 1 + randn(b, c, scale=0.3, dtype=f32), randn(b, c, scale=0.5, dtype=f32)
-    if name == "gn_quant":
-        return x, a, bb, shape[4]
-    return x, a, bb, quant.silu_scale(x, a, bb)[1]
+    return (x, a, bb, shape[4]) if name == "gn_quant" else (x, a, bb)
 
 
 def flash_backward_args(shape: tuple, generator: torch.Generator) -> tuple:
@@ -361,10 +361,12 @@ def library_fn(name: str, args: tuple):
     its tensor work; the requant between them is left out); for the int8
     3x3 conv (no call computes one on CUDA) the ``torch._int_mm`` product of
     the same M x 9 Ci x Co on an int8 im2col built beforehand (its tensor
-    work alone: the gather and the epilogue are left out); None for the
-    others (no single call computes a GEMM with its residual epilogue or a
-    fused normalize-and-quantize, nor an int8 or bf16-exp attention); ``x + 1``
-    for the no-op probe."""
+    work alone: the gather and the epilogue are left out); for the int8
+    proj_out (no call computes a GEMM with its residual epilogue) the
+    ``torch._int_mm`` product [R, K] x [K, N] alone (a floor for its tensor
+    work: the dequant, bias and residual are left out); None for the others
+    (no single call computes a fused normalize-and-quantize, nor an int8 or
+    bf16-exp attention); ``x + 1`` for the no-op probe."""
     if name == "flash_fwd":
         q, k, v, h, scale = args
         b, nq, inner = q.shape
@@ -400,6 +402,9 @@ def library_fn(name: str, args: tuple):
     if name == "conv3x3_int8":
         cols, wmat = conv3x3_int8_operands(args[0], args[2])
         return lambda: torch._int_mm(cols, wmat.t())
+    if name == "dense_int8_res":
+        xq, wq = args[0], args[2]
+        return lambda: torch._int_mm(xq, wq.t())
     return None
 
 
@@ -416,7 +421,7 @@ def conv3x3_int8_operands(xq: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tens
 # kernels whose ``library_fn`` is a composition of calls (or, int8, its
 # products alone), not one call computing the kernel's function: a yardstick
 # the kernel is measured against, never its library time
-COMPOSED = ("geglu", "geglu_int8", "conv3x3_int8")
+COMPOSED = ("geglu", "geglu_int8", "conv3x3_int8", "dense_int8_res")
 
 
 def unet_inputs(generator: torch.Generator, rows: int = 2, hw: tuple = (64, 128)):

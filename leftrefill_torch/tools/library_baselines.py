@@ -40,11 +40,15 @@ conv), KI2 (int8 proj_out + residual), K4 (GN affine + SiLU + quantize), K7
 (LayerNorm + row quantize) and K8 (GN affine + pixel quantize) site of one
 fused int8 forward (``INT8_SITES``; with ``--unfused`` the unfused forward's
 KI1 and KI2 sites), each in device ms, CUDA-event ms and host µs a call,
-with its bound and bound share, KI1 beside its yardstick (the
-``torch._int_mm`` product of the same M x 9 Ci x Co on a pre-built int8
-im2col: the tensor work alone), and a total per kernel a forward.  Below
-~0.1 ms a launch the CUDA-event ms are partly the host's; the device ms
-are the card's.
+with its bound and bound share, KI1 and KI2 beside their yardsticks (the
+``torch._int_mm`` product of the same M x K x N, KI1's on a pre-built int8
+im2col: the tensor work alone), and a total per kernel a forward.  A K4
+site is timed as the site function ``quant.silu_quant(x, a, bb)`` (the
+per-tensor scale and the quantize: one launch of K4, or in an earlier tree
+the scale's eager PyTorch glue and K4 on 1 / scale), in device ms with its
+device launches a call counted by the profiler, and K4's kernel alone
+beside it.  Below ~0.1 ms a launch the CUDA-event ms are partly the
+host's; the device ms are the card's.
 They are timed for reference only (CUDA events, after warm-up, kernel and
 library in turn within one process); none of them is on the port's path.
 Each line also gives the relative L2 between the two outputs, the site's
@@ -55,8 +59,8 @@ what each costs a request whose host, not its card, sets the pace).
 The script uses only helpers that the port has had since its training
 slice (``--train``'s ``TRAIN_SITES``, ``site_args``, backward
 ``library_fn`` and ``profile_request._device_us`` among them), and keeps its
-own copy of the GEGLU yardsticks for a tree whose ``library_fn`` lacks them,
-so it can time an earlier tree's kernels too:
+own copy of the GEGLU, KI1 and KI2 yardsticks for a tree whose
+``library_fn`` lacks them, so it can time an earlier tree's kernels too:
 ``PYTHONPATH=<that tree> python leftrefill_torch/tools/library_baselines.py``.
 """
 
@@ -121,6 +125,24 @@ def device_ms(fn, calls: int = 50, tries: int = 3, kernel: str | None = None) ->
         if events:
             return sum(_device_us(e) / e.count * max(1, round(e.count / calls)) for e in events) / 1e3
     raise SystemExit(f"library_baselines: the profiler recorded no device time in {tries} windows")
+
+
+def device_launches(fn, calls: int = 20, tries: int = 3) -> float:
+    """Device launches (kernels and copies) per call of ``fn``, counted by
+    ``torch.profiler`` over ``calls`` calls after a warm-up call; the most
+    of ``tries`` windows (the profiler can lose events, never add them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    most = 0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        most = max(most, sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA))
+    return most / calls
 
 
 # the GEGLU sites of each path, (R, din, inner, dout[, chunk]) -> launches
@@ -260,37 +282,65 @@ def conv_int8_yardstick(site: tuple):
     return lambda: torch._int_mm(cols, wmat.t())
 
 
+def dense_int8_yardstick(site: tuple):
+    """``tools.library_fn`` for KI2, or this script's own copy of it where
+    the tree's ``library_fn`` has none (a tree from before KI2's yardstick):
+    the ``torch._int_mm`` product [R, K] x [K, N] alone."""
+    fn = tools.library_fn("dense_int8_res", site)
+    if fn is not None:
+        return fn
+    xq, wq = site[0], site[2]
+    return lambda: torch._int_mm(xq, wq.t())
+
+
+YARDSTICKS = {"conv3x3_int8": conv_int8_yardstick, "dense_int8_res": dense_int8_yardstick}
+
+
 def int8_rows(unfused: bool, gen) -> list:
     """Each int8 kernel at every site of the forward in device ms, event ms
-    and host µs, with its bound (KI1 beside its yardstick), and each
-    kernel's total a forward."""
+    and host µs, with its bound (KI1 and KI2 beside their yardsticks, K4 as
+    its site function with its device launches), and each kernel's total a
+    forward."""
+    from leftrefill_torch.ops import quant
+
     rows, totals = [], {}
     sites = int8_sites(unfused)
     (name, shape), _ = max(sites, key=lambda s: tools.bound_ms(*s[0])[0])
     warm_up(functools.partial(tools.KERNEL_FNS[name][0], *tools.site_args(name, shape, gen)))
     for (name, shape), n_sites in sites:
         site = tools.site_args(name, shape, gen)
-        kernel = functools.partial(tools.KERNEL_FNS[name][0], *site)
-        row = {"kernel": name, "shape": list(shape), "sites": n_sites, "kernel_ms": tools.cuda_ms(kernel, 20),
-               "kernel_device_ms": device_ms(kernel)}
+        row = {"kernel": name, "shape": list(shape), "sites": n_sites}
+        if name == "affine_silu_quant":  # the site: the scale and the quantize (x, a, bb in any tree)
+            kernel = functools.partial(quant.silu_quant, *site[:3])
+            row["kernel_ms"] = tools.cuda_ms(kernel, 20)
+            row["kernel_device_ms"] = device_ms(kernel, kernel="affine_silu_quant_kernel")
+            row["site_device_ms"], row["site_launches"] = device_ms(kernel), device_launches(kernel)
+        else:
+            kernel = functools.partial(tools.KERNEL_FNS[name][0], *site)
+            row["kernel_ms"], row["kernel_device_ms"] = tools.cuda_ms(kernel, 20), device_ms(kernel)
         row["bound_ms"], row["bound_by"] = tools.bound_ms(name, shape)
         row["bound_share"] = row["bound_ms"] / row["kernel_device_ms"]
+        if "site_device_ms" in row:
+            row["site_bound_share"] = row["bound_ms"] / row["site_device_ms"]
         row["host_us"] = host_us(kernel)
-        if name == "conv3x3_int8":
-            yardstick = conv_int8_yardstick(site)
+        if name in YARDSTICKS:
+            yardstick = YARDSTICKS[name](site)
             row["yardstick_ms"], row["yardstick_device_ms"] = tools.cuda_ms(yardstick, 20), device_ms(yardstick)
             row["kernel_over_yardstick"] = row["kernel_device_ms"] / row["yardstick_device_ms"]
             del yardstick
         rows.append(row)
         print(json.dumps(row))
         total = totals.setdefault(name, {"kernel": name, "shape": "total", "sites": 0})
-        for key in ("kernel_ms", "kernel_device_ms", "bound_ms", "yardstick_ms", "yardstick_device_ms"):
+        for key in ("kernel_ms", "kernel_device_ms", "bound_ms", "yardstick_ms", "yardstick_device_ms",
+                    "site_device_ms", "site_launches"):
             if key in row:
                 total[key] = total.get(key, 0.0) + n_sites * row[key]
         total["sites"] += n_sites
         del site, kernel
     for total in totals.values():
         total["bound_share"] = total["bound_ms"] / total["kernel_device_ms"]
+        if "site_device_ms" in total:
+            total["site_bound_share"] = total["bound_ms"] / total["site_device_ms"]
         if "yardstick_device_ms" in total:
             total["kernel_over_yardstick"] = total["kernel_device_ms"] / total["yardstick_device_ms"]
         rows.append(total)

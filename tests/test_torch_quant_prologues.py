@@ -15,10 +15,12 @@ the card), and it sums a row in another order than PyTorch, so the fp32
 values quantized may differ by an ulp or two: scales within 4 fp32 ulps, a
 bf16 normalized output within 2 bf16 ulps; with the port's own GroupNorm
 statistics (``gn_quant_rowwise`` end to end), whose sums over the image run
-in another order too, scales within 16 ulps.  Measured: K4 equal to the
-Pallas kernel; K7 no step moved, scales 3 ulps, output 1 ulp; K8 on JAX's
+in another order too, scales within 16 ulps.  Measured: K4's quantize equal to
+the Pallas kernel; K7 no step moved, scales 3 ulps, output 1 ulp; K8 on JAX's
 fold no step moved, scales 2 ulps, output 2 ulps; K8 end to end one step on
-4.9e-5 of the elements, scales 11 ulps; the fold within 4 fp32 ulps of
+4.9e-5 of the elements, scales 11 ulps; K4 with its own scale
+(``silu_quant_op``) equal to JAX's scale and Pallas kernel (8 ulps allowed,
+as ``chip_smoke.py`` allows K7/K8's scales); the fold within 4 fp32 ulps of
 max|a| (``gn_affine_ab``); the fused ResBlock conv within 3e-3 rel L2 of
 JAX's."""
 
@@ -42,7 +44,7 @@ def _bf16_pair(a: np.ndarray):
 
 
 def _launches():
-    return tq.affine_silu_quant_op.launches, tq.ln_quant_op.launches, tq.gn_quant_op.launches
+    return tq.silu_quant_op.launches, tq.ln_quant_op.launches, tq.gn_quant_op.launches
 
 
 def _steps_ok(got, ref) -> bool:
@@ -65,25 +67,62 @@ def _fold(rng, b, c):
     return a, bb
 
 
+def _jax_silu_scale(xj, a, bb):
+    """JAX's per-tensor scale in front of K4 (``gn_silu_conv3x3_int8``,
+    quant.py:921-926): max(max|y * sigmoid(y)|, 1e-8) / 127, y = x * a + bb."""
+    y = xj.astype(jnp.float32) * a[:, None, None] + bb[:, None, None]
+    return jnp.maximum(jnp.max(jnp.abs(y * jax.nn.sigmoid(y))), 1e-8) / 127.0
+
+
 @pytest.mark.parametrize("shape", [(2, 16, 32, 128), (1, 8, 16, 320), (2, 8, 8, 64)])
 def test_affine_silu_quant_plain_matches_pallas(shape):
-    """K4's plain version against ``_affine_silu_quant_kernel`` on the same
-    fold and the same 1 / scale (JAX's amax of silu(y), as
+    """The quantize of K4's plain version against ``_affine_silu_quant_kernel``
+    on the same fold and the same 1 / scale (JAX's amax of silu(y), as
     ``gn_silu_conv3x3_int8`` computes it)."""
     rng = np.random.RandomState(sum(shape))
     xt, xj = _bf16_pair(rng.standard_normal(shape))
     a, bb = _fold(rng, shape[0], shape[-1])
-    y = xj.astype(jnp.float32) * a[:, None, None] + bb[:, None, None]
-    inv_scale = 1.0 / (jnp.maximum(jnp.max(jnp.abs(y * jax.nn.sigmoid(y))), 1e-8) / 127.0)
+    inv_scale = 1.0 / _jax_silu_scale(xj, a, bb)
     with pltpu.force_tpu_interpret_mode():
         ref = jq.affine_silu_quant(xj, jnp.asarray(a), jnp.asarray(bb), inv_scale)
     before = _launches()
-    out = tq.affine_silu_quant_op(xt, torch.from_numpy(a), torch.from_numpy(bb),
-                                  torch.tensor(float(inv_scale), dtype=torch.float32))
+    out = tq.affine_silu_quant_plain(xt, torch.from_numpy(a), torch.from_numpy(bb),
+                                     torch.tensor(float(inv_scale), dtype=torch.float32))
     assert out.dtype == torch.int8 and out.shape == shape
     assert _steps_ok(out.numpy(), ref)
     assert (np.abs(out.numpy()) == 127).any()  # the tensor's amax reached the end of the grid
     assert _launches() == before
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 16, 320), (1, 16, 16, 640), (2, 4, 8, 1280)])
+def test_silu_quant_op_matches_jax(shape):
+    """K4 with its scale (``silu_quant_op``; on the CPU its plain version,
+    ``silu_scale`` then the quantize) against JAX's scale and
+    ``_affine_silu_quant_kernel`` in interpret mode on 1 / that scale: xq by
+    the step rule, the scale within 8 fp32 ulps (XLA's CPU sigmoid and the
+    port's 1 / (1 + exp(-y)) may differ in the last bits, which can move
+    the amax by an ulp of its own); no launch is counted on the CPU."""
+    rng = np.random.RandomState(sum(shape) + 1)
+    xt, xj = _bf16_pair(1.5 * rng.standard_normal(shape))
+    a, bb = _fold(rng, shape[0], shape[-1])
+    scale_j = _jax_silu_scale(xj, a, bb)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jq.affine_silu_quant(xj, jnp.asarray(a), jnp.asarray(bb), 1.0 / scale_j)
+    before = _launches()
+    xq, scale = tq.silu_quant_op(xt, torch.from_numpy(a), torch.from_numpy(bb))
+    assert _launches() == before
+    assert xq.dtype == torch.int8 and xq.shape == shape
+    assert scale.dtype == torch.float32 and scale.shape == ()
+    assert _ulps_f32(scale.numpy(), scale_j) <= 8
+    assert _steps_ok(xq.numpy(), ref)
+    assert (np.abs(xq.numpy()) == 127).any()
+    # the site function routes to the same op, and to the plain version under plain_kernels
+    from leftrefill_torch import kernels
+
+    for ctx in (kernels.plain_kernels([]), kernels.plain_kernels(["affine_silu_quant"])):
+        with ctx:
+            xq2, scale2 = tq.silu_quant(xt, torch.from_numpy(a), torch.from_numpy(bb))
+        assert torch.equal(xq2, xq) and torch.equal(scale2, scale)
 
 
 @pytest.mark.parametrize("r,c,norm_out", [(256, 128, True), (256, 128, False), (512, 320, True), (256, 640, False)])

@@ -246,13 +246,13 @@ def test_geglu_yardsticks():
             torch.randn(2 * inner, generator=gen) * 0.1,
             (torch.randn(dout, inner, generator=gen) * inner**-0.5).to(torch.bfloat16),
             torch.randn(dout, generator=gen) * 0.1)
-    assert set(tools.COMPOSED) == {"geglu", "geglu_int8", "conv3x3_int8"}
+    assert set(tools.COMPOSED) == {"geglu", "geglu_int8", "conv3x3_int8", "dense_int8_res"}
     ref = mlp.geglu_plain(*args)
     for fn in (tools.library_fn("geglu", args), library_baselines.geglu_yardstick("geglu", args)):
         out = fn()
         assert out.dtype == torch.bfloat16 and out.shape == (r, dout)
         assert tools.rel_l2(out, ref) < 1e-2
-    assert tools.library_fn("dense_int8_res", args) is None
+    assert tools.library_fn("ln_quant", args) is None  # no call computes a fused normalize-and-quantize
 
 
 def test_conv_int8_yardstick_has_the_kernels_product():
@@ -276,6 +276,63 @@ def test_conv_int8_yardstick_has_the_kernels_product():
         out = fn()
         assert out.dtype == torch.int32 and out.shape == (b * h * w, co)
         assert torch.equal(out.float(), acc)
+
+
+def test_dense_int8_yardstick_has_the_kernels_product():
+    """KI2's yardstick (``tools.library_fn``, and ``library_baselines``'s
+    own copy of it for an earlier tree) is the ``torch._int_mm`` product
+    [R, K] x [K, N] of the kernel's operands: the plain version's int32
+    accumulators (the dequant, bias and residual left out)."""
+    from leftrefill_torch.ops import quant
+    from leftrefill_torch.tools import library_baselines
+
+    gen = torch.Generator().manual_seed(0)
+    r, k, n = 48, 64, 40
+    xq = torch.randint(-127, 128, (r, k), generator=gen, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8)
+    site = (xq, torch.ones(r, 1), wq, torch.ones(n), torch.zeros(n), torch.zeros(r, n, dtype=torch.bfloat16))
+    acc = quant.int_mm(xq, wq)
+    for fn in (tools.library_fn("dense_int8_res", site), library_baselines.dense_int8_yardstick(site)):
+        out = fn()
+        assert out.dtype == torch.int32 and out.shape == (r, n)
+        assert torch.equal(out, acc)
+
+
+# off-path KI2 shapes: rows not a multiple of any tile, with a 64-byte K
+# tail, or with K split over a 2-block cluster
+DENSE_RAGGED, DENSE_SPLIT = (1000, 320, 640), (200, 1280, 640)
+
+
+def test_dense_int8_plan_mirror_at_every_site():
+    """``quant.dense_int8_res_plan``, the Python mirror of KI2's launcher,
+    at the 11 KI2 sites of a fused int8 forward and a ragged shape on 132
+    SMs: tiles x splits within one wave, a cluster of 1 or 2 blocks that
+    is the grid's K split with at least 2 K steps a split, 128- or 64-row
+    tiles whose columns divide N, a grid that covers the output, shared
+    memory within an H100 block's; no UNet site splits K (64-row tiles at
+    1024 and 256 rows), a shape with fewer tiles does (one launch: no
+    partials)."""
+    from leftrefill_torch.ops import mlp, quant
+    from leftrefill_torch.tools.library_baselines import int8_sites
+
+    shapes = [shape for (name, shape), _ in int8_sites(False) if name == "dense_int8_res"]
+    assert sorted(shapes) == [(256, 1280, 1280), (1024, 1280, 1280), (4096, 640, 640)]
+    plans = {}
+    for r, k, n in [*shapes, DENSE_RAGGED, DENSE_SPLIT]:
+        plan = quant.dense_int8_res_plan(r, k, n, 132)
+        (bm, bn), s = plan["tile"], plan["splits"]
+        assert bm in (128, 64) and bn in (160, 128, 64) and n % bn == 0
+        assert s in (1, 2) and plan["cluster"] == (1, 1, s) and plan["grid"] == (-(-r // bm), n // bn, s)
+        assert -(-k // 128) >= 2 * s or s == 1
+        assert plan["grid"][0] * plan["grid"][1] * s <= 132
+        assert plan["smem"] == quant.dense_int8_res_smem(bm, bn) <= mlp.SMEM_LIMIT
+        plans[(r, k, n)] = (bm, bn, s)
+    assert plans[(4096, 640, 640)] == (128, 160, 1)
+    assert plans[(1024, 1280, 1280)] == (64, 160, 1)
+    assert plans[(256, 1280, 1280)] == (64, 64, 1)
+    assert DENSE_RAGGED[0] % plans[DENSE_RAGGED][0]
+    # the 2-block split where the tiles are fewer still: 4 row tiles of 64 x 64 by 10 column tiles
+    assert plans[DENSE_SPLIT] == (64, 64, 2) and DENSE_SPLIT[0] % 64
 
 
 def _int8_dispatch(unfused: bool) -> Counter:
@@ -451,3 +508,21 @@ def test_conv_int8_variants_apply_to_the_sources():
     shapes = [shape for (name, shape), _ in int8_sites(False) if name == "conv3x3_int8"]
     assert {s[1:3] for s in shapes if cv._slab_sites(s)} == {(64, 128), (32, 64)}
     assert {s[1:3] for s in shapes if cv._split_sites(s)} == {(16, 32), (8, 16)}
+
+
+def test_int8_epilogue_variants_apply_to_the_sources():
+    """``tools/int8_epilogue_variants.py`` builds KI2's and K4's timing-only
+    variants by text replacements in ``csrc/``: each replaced text occurs
+    exactly once in the sources as they stand, and each variant changes the
+    file of the kernel it names (KI2 ``dense_int8_res.cu``, K4
+    ``quant_prologue.cu``) and no other."""
+    from leftrefill_torch.tools import int8_epilogue_variants as ev
+    from leftrefill_torch.tools.geglu_variants import variant_source
+
+    as_built = variant_source("as built", [])
+    files = {"dense_int8_res": "dense_int8_res.cu", "affine_silu_quant": "quant_prologue.cu"}
+    assert ev.VARIANTS["as built"] == (None, [])
+    for name, (kernel, edits) in ev.VARIANTS.items():
+        src = variant_source(name, edits)
+        changed = {f for f in src if src[f] != as_built[f]}
+        assert changed == (set() if kernel is None else {files[kernel]}), name
