@@ -131,6 +131,32 @@ Phases, one line each (the kernel phases one line per kernel shape):
 8. V=4 multi-view prompt-tuning training: one scene of four 512x512 views a
    step, the view-0 loss, a warm-up step and two timed steps with their
    launches checked; the loss finite and the table moved.
+2n. novel-view synthesis (``build_sd2_nvs_bundle``, refinement branch on):
+   K1, K2 and K3 at every shape one full-width NVS forward gives them (CFG
+   batch 2 of 32x64 latents, cfg_dup, the K/V cache, c_input), held and
+   timed as in phase 2, the shapes four poses in one request add (CFG batch
+   8) and the K2 shapes the separator columns add (use_sep: the 65- and
+   33-wide levels), with K1's and K3's refusal of the use_sep sequences (no
+   multiples of 128) printed;
+3n. that NVS forward through the kernels against the plain versions
+   (relative L2 <= 3e-2), with use_sep off and on, its launches per
+   forward pinned (``tools.PER_FORWARD_NVS``, ``PER_FORWARD_NVS_SEP``);
+9. NVS serving through ``NVSTask.log_images`` (DDIM-50, eta 1, CFG 2.5)
+   after a warm-up: two 256x512 requests at batch 1 with their own seeds and
+   one at batch 4 (four target poses of one reference, from
+   ``get_relative_pose`` of seeded cameras, one noise draw shared by the
+   rows): finite output in [-1, 1], different seeds and different poses
+   give different views, the launches per forward of phase 3n (at batch 4
+   K3 also takes the middle block's 256 rows); seconds per request;
+9s. ``structure_ddim_sample``, 10 steps, Tm 3 (batch 3 in the guided phase,
+   no cfg_dup): finite, launches counted;
+9l. a LoRA adapter (default targets, rank 16, scale 1, seeded non-zero ups)
+   swapped into the NVS UNet by ``LoraAdapterStore``: a 10-step request
+   that differs from the base's, then the base restored and the same request
+   bit-equal to the first; then the fused int8 1-reference bundle with an
+   adapter merged into its fp32 master and requantized (the master checked
+   to requantize to the bundle's weights): one UNet forward with the pinned
+   int8 launch counts.
 The line before the last is a JSON summary of the fourteen kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
@@ -680,15 +706,16 @@ def check_sites(report: dict, per_forward: dict, label: str) -> None:
             raise SystemExit(f"{label} {name}: {got} sites per forward, expected {n}")
 
 
-def check_forward(unet, x, tsteps, ctx, kv, label: str, names, cfg_dup: bool = True):
+def check_forward(unet, x, tsteps, ctx, kv, label: str, names, cfg_dup: bool = True, **kwargs):
     """One full-width forward through the kernels against the same forward
-    with the kernels ``names`` routed to their plain versions."""
+    with the kernels ``names`` routed to their plain versions (``kwargs``:
+    the NVS UNet's c_input)."""
     import torch
 
     from leftrefill_torch import kernels
     from leftrefill_torch.tools import cuda_ms, rel_l2
 
-    fwd = lambda: unet(x, tsteps, ctx, cross_kv=kv, cfg_dup=cfg_dup)
+    fwd = lambda: unet(x, tsteps, ctx, cross_kv=kv, cfg_dup=cfg_dup, **kwargs)
     out_k = fwd()
     with kernels.plain_kernels(names):
         out_p = fwd()
@@ -840,6 +867,226 @@ def train_steps(step, state, batch, steps: int, per_step: dict, sites: dict, lab
     if not all(math.isfinite(v) for v in losses):
         raise SystemExit(f"{label}: non-finite loss {losses}")
     return state, losses, secs, launches
+
+
+def nvs_phases(gen, launches: dict) -> tuple[dict, dict]:
+    """Phases 2n, 3n, 9, 9s and 9l (the novel-view-synthesis slice): the
+    launch counts of its paths go into ``launches``; returns the per-kernel
+    reports of the NVS forward's sites, of the sites the separator columns
+    add and of those four poses in one request add."""
+    import torch
+
+    from leftrefill_torch import kernels, tools
+    from leftrefill_torch.diffusion.core import Conditioning
+    from leftrefill_torch.diffusion.structure_ddim import structure_ddim_sample
+    from leftrefill_torch.models.lora import default_target, init_lora
+    from leftrefill_torch.models.nvs import NVSUnetModel
+    from leftrefill_torch.ops import attention, mlp
+    from leftrefill_torch.ops.quant import quantize_params_like
+    from leftrefill_torch.pipeline import build_sd2_inpaint_bundle, build_sd2_nvs_bundle, fill_random_
+    from leftrefill_torch.runtime import LoraAdapterStore
+    from leftrefill_torch.tasks import NVSTask
+
+    t0 = time.perf_counter()
+    bundle = build_sd2_nvs_bundle("cuda", torch.bfloat16, torch.Generator("cuda").manual_seed(0), refinement=True)
+    with torch.device("meta"):
+        sep_unet = NVSUnetModel(dtype=torch.bfloat16, use_sep=True)
+    sep_unet = sep_unet.to_empty(device="cuda").eval()
+    fill_random_(sep_unet, torch.Generator("cuda").manual_seed(0))
+    model, unet = bundle.model, bundle.model.unet
+    task = NVSTask(bundle)
+    req = tools.nvs_request(bundle.tokenizer, 1)
+    torch.cuda.synchronize()
+    print(f"phase 2n set-up: NVS bundle (73 prompt tokens, hybrid-refine, refinement branch on, refinement_alpha="
+          f"{float(model.refinement_alpha.detach()):.4f}) and the use_sep UNet (separator widths "
+          f"{sep_unet._sep_channel_set()}) in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 2n: K1, K2, K3 at the NVS forward's shapes ------------------
+    report, sep_report, b4_report = {}, {}, {}
+    with torch.inference_mode():
+        cond = task.build_cond(req)
+        uc = model.cond_stage_model(torch.as_tensor(task.uncond_tokens(1), device="cuda").long())
+        z = torch.randn((1, 32, 64, 4), generator=gen, device="cuda")
+        x = torch.cat([z, cond.c_concat], dim=-1).to(torch.bfloat16).repeat(2, 1, 1, 1)  # the CFG halves equal
+        ts = torch.full((2,), 981, dtype=torch.long, device="cuda")
+        ctx, c_input = torch.cat([uc, cond.c_crossattn]), cond.c_input.repeat(2, 1, 1, 1)
+        kv, sep_kv = unet.cross_kv(ctx), sep_unet.cross_kv(ctx)
+        sites = tools.unet_sites(unet, x, ts, ctx, kv, True, c_input=c_input)
+        check_kernels(sites, gen, report, "2n", BF16_NAMES)
+        check_sites(report, {n: tools.PER_FORWARD_NVS[n] for n in BF16_NAMES}, "nvs")
+        sep_sites = tools.unet_sites(sep_unet, x, ts, ctx, sep_kv, True, c_input=c_input)
+        per_forward = {n: sum(c for (name, _), c in sep_sites.items() if name == n) for n in tools.LAUNCH_COUNTERS}
+        if per_forward != tools.PER_FORWARD_NVS_SEP:
+            raise SystemExit(f"phase 2n use_sep: sites per forward {per_forward}")
+        # the shapes four poses in one request add (CFG batch 8)
+        sites4 = tools.unet_sites(unet, x.repeat(4, 1, 1, 1), ts.repeat(4), ctx.repeat(4, 1, 1), unet.cross_kv(
+            ctx.repeat(4, 1, 1)), True, c_input=c_input.repeat(4, 1, 1, 1))
+        check_kernels({k: c for k, c in sites4.items() if k not in sites}, gen, b4_report, "2n batch 4", BF16_NAMES)
+        # the shapes the separator columns add (K2 at the 65- and 33-wide levels)
+        check_kernels({k: c for k, c in sep_sites.items() if k not in sites}, gen, sep_report, "2n use_sep",
+                      BF16_NAMES)
+        probe = lambda *shape: torch.empty(shape, dtype=torch.bfloat16, device="cuda")  # noqa: E731
+        refused = [n for n in (2080, 528) if not attention.flash_qualifies(probe(2, n, 320), probe(2, n, 320), 5)]
+        refused_rows = [r for r, d in ((4160, 320), (1056, 640), (272, 1280))
+                        if not mlp.geglu_fused_qualifies(probe(r, d), d, 4 * d, d)]
+        if refused != [2080, 528] or refused_rows != [4160, 1056, 272]:
+            raise SystemExit(f"phase 2n use_sep: K1 refuses {refused} tokens, K3 {refused_rows} rows")
+        print(f"phase 2n use_sep: K1 refuses the {refused}-token sequences and K3 the {refused_rows}-row sites "
+              f"(no multiples of 128: the exact softmax and the plain GEGLU run there, as in JAX); "
+              f"sites per forward { {k: v for k, v in per_forward.items() if v} }")
+        for r, d in ((4160, 320), (1056, 640), (272, 1280)):  # the plan mirror where K3 is refused
+            print(f"phase 2n use_sep geglu plan at {(r, d, 4 * d, d)} (not launched): "
+                  f"{check_plan('geglu', (r, d, 4 * d, d))}")
+
+        # ---- phase 3n: the full-width NVS forward, kernels vs plain --------
+        for label, u, kv_, want in (("use_sep=False", unet, kv, tools.PER_FORWARD_NVS),
+                                    ("use_sep=True", sep_unet, sep_kv, tools.PER_FORWARD_NVS_SEP)):
+            _, _, err, kern_ms, plain_ms = check_forward(u, x, ts, ctx, kv_, f"nvs {label}", kernels.NAMES,
+                                                         c_input=c_input)
+            tools.reset_launches()
+            u(x, ts, ctx, cross_kv=kv_, cfg_dup=True, c_input=c_input)
+            torch.cuda.synchronize()
+            got = tools.launches()
+            if got != want:
+                raise SystemExit(f"phase 3n {label}: launches per forward {got}, expected {want}")
+            print(f"phase 3n unet forward [2,32,64,9] bf16 NVS {label} cfg_dup cross_kv c_input: rel_l2={err:.3e} "
+                  f"kernels_ms={kern_ms:.2f} plain_versions_ms={plain_ms:.2f} "
+                  f"launches={ {k: v for k, v in got.items() if v} }")
+        del sep_unet, sep_kv
+
+    # ---- phase 9: NVS serving at 256x512 -----------------------------------
+    label = "phase 9 serving NVS 256x512 bf16 ddim50 eta1 cfg2.5"
+    serve_kw = dict(ddim_steps=50, ddim_eta=1.0, unconditional_guidance_scale=2.5)
+    task.log_images(req, **{**serve_kw, "ddim_steps": 2}, generator=torch.Generator("cuda").manual_seed(99))
+    torch.cuda.synchronize()
+    tools.reset_launches()
+    outs, secs = [], []
+    for seed in (1, 2):
+        t0 = time.perf_counter()
+        outs.append(task.log_images(req, **serve_kw, generator=torch.Generator("cuda").manual_seed(seed))["pred"])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches["nvs_ddim50"] = tools.launches()
+    check_launches(launches["nvs_ddim50"], tools.PER_FORWARD_NVS, 100, label)
+    # four target poses of one reference in one call; one x_T and one noise
+    # draw shared by the four rows, so the rows differ by their pose alone
+    req4 = tools.nvs_request(bundle.tokenizer, 4)
+    g4 = torch.Generator("cuda").manual_seed(3)
+    x4 = torch.randn((1, 32, 64, 4), generator=g4, device="cuda").repeat(4, 1, 1, 1)
+    noise4 = lambda i, shape: torch.randn((1, *shape[1:]), generator=g4, device="cuda").repeat(shape[0], 1, 1, 1)  # noqa: E731
+    tools.reset_launches()
+    t0 = time.perf_counter()
+    out4 = task.log_images(req4, **serve_kw, x_T=x4, noise_fn=noise4)["pred"]
+    torch.cuda.synchronize()
+    secs.append(time.perf_counter() - t0)
+    launches["nvs_ddim50_4poses"] = tools.launches()
+    check_launches(launches["nvs_ddim50_4poses"], tools.PER_FORWARD_NVS_B4, 50, label)
+    for o, b in ((outs[0], 1), (outs[1], 1), (out4, 4)):
+        if o.shape != (b, 256, 512, 3) or not torch.isfinite(o).all() or float(o.abs().max()) > 1.0:
+            raise SystemExit(f"{label}: output {tuple(o.shape)} not finite or outside [-1, 1]")
+    if torch.equal(outs[0], outs[1]):
+        raise SystemExit(f"{label}: two seeds gave the same view")
+    pose_gaps = [float((out4[i] - out4[j]).abs().max()) for i in range(4) for j in range(i + 1, 4)]
+    if min(pose_gaps) == 0:
+        raise SystemExit(f"{label}: two poses gave the same view")
+    print(f"{label}: seconds_per_request={[round(x, 3) for x in secs[:2]]} (batch 1) {secs[2]:.3f} (batch 4, four "
+          f"poses) min_pose_gap={min(pose_gaps):.3e} launches={launches['nvs_ddim50']} (100 forwards), "
+          f"{launches['nvs_ddim50_4poses']} (50 forwards, CFG batch 8: K3 also at the middle block's 256 rows)")
+
+    # ---- phase 9s: the structure sampler, 10 steps, Tm 3 -------------------
+    with torch.inference_mode():
+        cond = task.build_cond(req)
+        tokens = torch.as_tensor(req["tokens"], device="cuda").long()
+        simple = Conditioning(cond.c_concat, model.cond_stage_model(tokens), cond.c_input)  # the prompt without the pose
+        uncond = Conditioning(cond.c_concat, uc, cond.c_input)
+        kv3 = model.cross_attention_kv(torch.cat([uncond.c_crossattn, cond.c_crossattn, simple.c_crossattn]))
+        kv1 = model.cross_attention_kv(simple.c_crossattn)
+        apply_fn = lambda x_, t_, c_: model.apply_model(x_, t_, c_, cross_kv=kv3 if x_.shape[0] == 3 else kv1)  # noqa: E731
+        tools.reset_launches()
+        t0 = time.perf_counter()
+        zs = structure_ddim_sample(apply_fn, model.schedule, model.schedule.ddim_tables(10, eta=1.0), cond, simple,
+                                   (1, 32, 64, 4), uncond=uncond, guidance_scale=2.5, cond_weight=0.5, Tm=3,
+                                   generator=torch.Generator("cuda").manual_seed(4), device="cuda")
+        pred = model.decode_first_stage(zs).float()
+        torch.cuda.synchronize()
+        launches["nvs_structure_ddim10"] = tools.launches()
+        if not torch.isfinite(pred).all():
+            raise SystemExit("phase 9s: non-finite output")
+        check_launches(launches["nvs_structure_ddim10"], tools.PER_FORWARD_NVS, 10, "phase 9s")
+        print(f"phase 9s structure_ddim 10 steps Tm=3 (7 guided steps at batch 3, 3 at batch 1, no cfg_dup): "
+              f"seconds={time.perf_counter() - t0:.3f} launches={launches['nvs_structure_ddim10']}")
+        del kv3, kv1
+
+    # ---- phase 9l: a LoRA adapter swapped in and out -----------------------
+    label = "phase 9l NVS LoRA ddim10"
+    g = torch.Generator("cuda").manual_seed(5)
+    lora = init_lora(unet, rank=16, target=default_target, generator=g)
+    for pack in lora.values():  # init's ups are zero: a trained adapter's are not
+        pack["up"] = 0.01 * torch.randn(pack["up"].shape, generator=g, device="cuda")
+    store = LoraAdapterStore(unet, keep=2)
+    store.add("style", lora)
+    short = dict(serve_kw, ddim_steps=10)
+    request = lambda: task.log_images(req, **short, generator=torch.Generator("cuda").manual_seed(3))["pred"]  # noqa: E731
+    tools.reset_launches()
+    base = request()
+    t0 = time.perf_counter()
+    store.use("style")
+    torch.cuda.synchronize()
+    swap_s = time.perf_counter() - t0
+    adapted = request()
+    t0 = time.perf_counter()
+    store.use(None)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    again = request()
+    launches["nvs_lora_ddim10"] = tools.launches()
+    check_launches(launches["nvs_lora_ddim10"], tools.PER_FORWARD_NVS, 30, label)
+    if torch.equal(adapted, base) or not torch.isfinite(adapted).all():
+        raise SystemExit(f"{label}: the adapter's request equals the base's or is not finite")
+    if not (torch.equal(again, base) and all(torch.equal(v, store.base[k]) for k, v in unet.state_dict().items())):
+        raise SystemExit(f"{label}: the base request after the swap back differs from the first "
+                         f"(max abs {float((again - base).abs().max()):.3e})")
+    print(f"{label}: {len(lora)} sites rank 16 scale 1, merge+swap {swap_s:.3f} s, swap back {restore_s:.3f} s; "
+          f"adapter vs base max_abs={float((adapted - base).abs().max()):.3e}; base again bit-equal; "
+          f"launches={launches['nvs_lora_ddim10']}")
+    del store, lora, task, bundle, model, unet
+
+    # the fused int8 1-reference bundle: merge into its fp master, requantize
+    t0 = time.perf_counter()
+    qmodel = build_sd2_inpaint_bundle("cuda", torch.bfloat16, torch.Generator("cuda").manual_seed(0), quant=True)
+    master = build_sd2_inpaint_bundle("cuda", torch.float32, torch.Generator("cuda").manual_seed(0)).unet.state_dict()
+    qunet = qmodel.unet
+    store = LoraAdapterStore(qunet, master_unet=master)
+    qlora = init_lora(qunet, rank=16, target=default_target, generator=g)
+    for pack in qlora.values():
+        pack["up"] = 0.01 * torch.randn(pack["up"].shape, generator=g, device="cuda")
+    store.add("style", qlora)
+    # the master is the one the int8 weights came from: requantized, it gives them back
+    requant = quantize_params_like(qunet, master)
+    if not all(torch.equal(requant[k], v) for k, v in store.base.items() if v.dtype == torch.int8 or
+               k.endswith("weight_scale")):
+        raise SystemExit("phase 9l int8: the fp32 master does not requantize to the bundle's int8 weights")
+    x, tsteps, ctx = tools.unet_inputs(gen)
+    with torch.inference_mode():
+        qkv = qunet.cross_kv(ctx)
+        out_base = qunet(x, tsteps, ctx, cross_kv=qkv, cfg_dup=True)
+        store.use("style")
+        qkv = qunet.cross_kv(ctx)
+        tools.reset_launches()
+        out_lora = qunet(x, tsteps, ctx, cross_kv=qkv, cfg_dup=True)
+        torch.cuda.synchronize()
+        launches["int8_lora_forward"] = tools.launches()
+    if launches["int8_lora_forward"] != tools.PER_FORWARD_INT8:
+        raise SystemExit(f"phase 9l int8: launches {launches['int8_lora_forward']}, expected {tools.PER_FORWARD_INT8}")
+    if not torch.isfinite(out_lora).all() or torch.equal(out_lora, out_base):
+        raise SystemExit("phase 9l int8: the adapted forward is not finite or equals the base's")
+    n_int8 = sum(v.dtype == torch.int8 for v in qunet.state_dict().values())
+    print(f"phase 9l int8 fused 1-reference UNet: adapter merged into the fp32 master and requantized "
+          f"({n_int8} int8 weights), bundles and merge in {time.perf_counter() - t0:.1f} s; one forward "
+          f"[2,64,128,9] launches={ {k: v for k, v in launches['int8_lora_forward'].items() if v} } "
+          f"rel_l2_vs_base={tools.rel_l2(out_lora, out_base):.3e}")
+    del store, qlora, master, requant, qmodel, qunet, qkv
+    return report, sep_report, b4_report
 
 
 def main() -> int:
@@ -1186,6 +1433,9 @@ def main() -> int:
           f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.1f}")
     del model, state, tx, table
 
+    # ---- phases 2n, 3n, 9, 9s, 9l: novel-view synthesis --------------------
+    nvs_forward, nvs_sep, nvs_b4 = nvs_phases(gen, launches)
+
     entries = []
     for name, (source, replaces) in KERNELS.items():
         rep = report[name]
@@ -1223,6 +1473,12 @@ def main() -> int:
                                              ("sites", "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err",
                                               "composition_ms") if k in mv_forward[name]}
             entry["max_abs_err"] = max(entry["max_abs_err"], mv_forward[name]["max_abs_err"])
+        for key, rep_n in (("nvs_forward", nvs_forward), ("nvs_use_sep_forward_added_sites", nvs_sep),
+                           ("nvs_4poses_forward_added_sites", nvs_b4)):
+            if name in rep_n:  # the NVS forward's sites (and those use_sep adds), phase 2n
+                entry[key] = {k: rep_n[name][k] for k in ("sites", "ms", "plain_ms", "bound_ms", "library_ms",
+                                                          "max_abs_err", "composition_ms") if k in rep_n[name]}
+                entry["max_abs_err"] = max(entry["max_abs_err"], rep_n[name]["max_abs_err"])
         if name == "flash_fwd":
             entry["multiview_joint_attention"] = multiview
         entries.append(entry)

@@ -1,11 +1,14 @@
 """The JAX package's parameter tree -> the port's ``state_dict``.
 
-``state_dict_from_flax({"unet": ..., "vae": ..., "cond": ...})`` is the exact
-inverse of ``leftrefill_tpu/convert/torch_to_flax.py:convert_state_dict``:
+``state_dict_from_flax({"unet": ..., "vae": ..., "cond": ..., "refine": ...})``
+is the exact inverse of ``leftrefill_tpu/convert/torch_to_flax.py:convert_state_dict``:
 flax module names unfold back into the checkpoint's dotted keys
 (``input_blocks_1_0/in_layers_2`` -> ``input_blocks.1.0.in_layers.2``), and
 the layout swaps are undone (HWIO -> OIHW for convs, [in, out] -> [out, in]
 for linears, ``scale`` -> ``weight`` for norms; embeddings stay as they are).
+The novel-view trees carry across too: the UNet's ``sep_token_<width>``
+(``sep_token.<width>``), the embedder's ``rel_pos_model`` and the ``refine``
+root (``refinement_model.<index>.*`` and ``refinement_alpha``, no prefix).
 An int8 tree (``quantize_params_like``) carries across as it is: int8
 kernels stay int8 through the swaps and ``kernel_scale`` becomes
 ``weight_scale`` (fp32); every other leaf becomes fp32.
@@ -19,7 +22,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-_PREFIX = {"unet": "model.diffusion_model.", "vae": "first_stage_model.", "cond": "cond_stage_model."}
+_PREFIX = {"unet": "model.diffusion_model.", "vae": "first_stage_model.", "cond": "cond_stage_model.",
+           "refine": ""}
 
 
 def _unet_module(name: str) -> str:
@@ -41,7 +45,16 @@ def _vae_module(name: str) -> str:
     return name
 
 
+def _refine_key(path: list[str]) -> str:
+    # conv_5/kernel -> refinement_model.5.weight ; refinement_alpha stays
+    if path == ["refinement_alpha"]:
+        return "refinement_alpha"
+    return "refinement_model.{}.{}".format(path[0].split("_")[1], path[1])
+
+
 def _cond_key(path: list[str]) -> str:
+    if path[0] == "rel_pos_model":  # rel_pos_model/mlp1_0/weight -> rel_pos_model.mlp1.0.weight
+        return "rel_pos_model.{}.{}".format(path[1].replace("_", "."), path[2])
     if path == ["token_embedding"]:
         return "model.token_embedding.weight"
     if path == ["special_embeddings"]:
@@ -90,15 +103,36 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     for root, tree in params.items():
         for path, arr in _flatten(tree):
             arr = np.asarray(arr)
-            if root == "cond":
+            if root in ("cond", "refine"):
                 if path[-1] in ("kernel", "scale"):
                     leaf, arr = _leaf(path[-1], arr)
                     path = path[:-1] + [leaf]
-                key = _cond_key(path)
+                key = _cond_key(path) if root == "cond" else _refine_key(path)
+            elif root == "unet" and len(path) == 1 and path[0].startswith("sep_token_"):
+                key = "sep_token." + path[0][len("sep_token_"):]
             else:
                 fold = _unet_module if root == "unet" else _vae_module
                 leaf, arr = _leaf(path[-1], arr)
                 key = ".".join([fold(m) for m in path[:-1]] + [leaf])
             dtype = np.int8 if arr.dtype == np.int8 else np.float32
             out[_PREFIX[root] + key] = torch.from_numpy(np.array(arr, dtype=dtype, order="C"))
+    return out
+
+
+def lora_from_flax(lora: Mapping[str, Mapping[str, Any]]) -> dict[str, dict[str, torch.Tensor]]:
+    """The JAX package's LoRA factors (``models/lora.py``: {"a/b/kernel":
+    {"down", "up"}} on the UNet tree) -> the port's ({"a.b.weight": {"down",
+    "up"}} on the UNet's state_dict keys, ``leftrefill_torch.models.lora``):
+    a linear's down [in, r] -> [r, in] and up [r, out] -> [out, r]; a conv's
+    down [kh, kw, in, r] -> [r, in, kh, kw] and up [r, out] -> [out, r, 1, 1]."""
+    out = {}
+    for path, pack in lora.items():
+        mods = path.split("/")[:-1]
+        down, up = np.asarray(pack["down"], np.float32), np.asarray(pack["up"], np.float32)
+        if down.ndim == 2:
+            down_t, up_t = down.T, up.T
+        else:
+            down_t, up_t = down.transpose(3, 2, 0, 1), up.T[:, :, None, None]
+        out[".".join(_unet_module(m) for m in mods) + ".weight"] = {
+            "down": torch.from_numpy(np.ascontiguousarray(down_t)), "up": torch.from_numpy(np.ascontiguousarray(up_t))}
     return out

@@ -28,19 +28,26 @@ VAE_NOISE_SEED = 42  # the reference re-seeds its RNG to 42 before every VAE sam
 
 @dataclasses.dataclass(frozen=True)
 class Conditioning:
-    """The hybrid conditioning: c_concat [B, h, w, 5] (mask and masked-image
-    latent) and c_crossattn [B, L, C] (text context)."""
+    """The conditioning bundle: c_concat [B, h, w, 5] (mask and masked-image
+    latent), c_crossattn [B, L, C] (text context) and c_input, the novel-view
+    refinement residual of ``hybrid-refine`` [B, h, w, model_channels] (or
+    over the right half of the width)."""
 
     c_concat: Optional[torch.Tensor] = None
     c_crossattn: Optional[torch.Tensor] = None
+    c_input: Optional[torch.Tensor] = None
 
     def concat_batch(self, other: "Conditioning") -> "Conditioning":
-        """[other; self] along the batch: the CFG layout, uncond first."""
+        """[other; self] along the batch: the CFG layout, uncond first.  A
+        field is None only where both sides have none."""
 
         def cat(a, b):
-            return None if a is None else torch.cat([a, b], dim=0)
+            if a is None and b is None:
+                return None
+            return torch.cat([a, b], dim=0)
 
-        return Conditioning(cat(other.c_concat, self.c_concat), cat(other.c_crossattn, self.c_crossattn))
+        return Conditioning(cat(other.c_concat, self.c_concat), cat(other.c_crossattn, self.c_crossattn),
+                            cat(other.c_input, self.c_input))
 
 
 class DiffusionWrapper(nn.Module):
@@ -49,7 +56,18 @@ class DiffusionWrapper(nn.Module):
         self.diffusion_model = unet
 
 
+CONDITIONING_KEYS = ("concat", "crossattn", "hybrid", "hybrid-refine")
+
+
 class LeftRefillModel(nn.Module):
+    """``conditioning_key`` (JAX: core.py:137-165) says how ``apply_model``
+    hands the conditioning to the UNet: ``concat`` channel-concatenates
+    c_concat, ``crossattn`` cross-attends c_crossattn, ``hybrid`` does both
+    and ``hybrid-refine`` adds c_input after the UNet's first block
+    (``models.nvs.NVSUnetModel``).  ``refinement`` (novel-view synthesis,
+    ``models.nvs.RefinementCNN``) is held as ``refinement_model`` beside its
+    learned scale ``refinement_alpha``, the checkpoint's keys."""
+
     def __init__(
         self,
         unet: UNetModel,
@@ -57,13 +75,21 @@ class LeftRefillModel(nn.Module):
         cond_model: PromptCLIPEmbedder,
         schedule: DiffusionSchedule,
         scale_factor: float = 0.18215,
+        conditioning_key: str = "hybrid",
+        refinement: Optional[nn.Module] = None,
     ):
         super().__init__()
+        if conditioning_key not in CONDITIONING_KEYS:
+            raise NotImplementedError(conditioning_key)
         self.model = DiffusionWrapper(unet)
         self.first_stage_model = vae
         self.cond_stage_model = cond_model
         self.schedule = schedule
         self.scale_factor = scale_factor
+        self.conditioning_key = conditioning_key
+        self.refinement_model = refinement
+        if refinement is not None:
+            self.refinement_alpha = nn.Parameter(torch.zeros(()))
 
     @property
     def unet(self) -> UNetModel:
@@ -102,16 +128,35 @@ class LeftRefillModel(nn.Module):
         c_cat = torch.cat([mask_lat, z.to(torch.float32)], dim=-1)
         return Conditioning(c_concat=c_cat, c_crossattn=self.get_learned_conditioning(tokens))
 
-    def cross_attention_kv(self, context: torch.Tensor) -> list:
-        """Every cross-attention layer's (k, v) for a fixed context."""
+    def refine(self, masked_image: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The refinement residual c_input: the refinement CNN on [image, mask]
+        at 1/8 resolution, times ``refinement_alpha``."""
+        x = self.refinement_model(masked_image, mask)
+        return x * self.refinement_alpha.to(x.dtype)
+
+    def cross_attention_kv(self, context: torch.Tensor) -> Optional[list]:
+        """Every cross-attention layer's (k, v) for a fixed context; None
+        for ``concat`` conditioning, which has no context."""
+        if self.conditioning_key == "concat":
+            return None
         return self.unet.cross_kv(context)
 
     # ---------- model application -----------------------------------------
 
     def apply_model(self, x_noisy: torch.Tensor, t: torch.Tensor, cond: Conditioning, **kwargs) -> torch.Tensor:
-        """Hybrid conditioning: channel-concat c_concat, cross-attend c_crossattn."""
+        """The UNet on x_noisy under ``conditioning_key``.  ``hybrid-refine``
+        with no c_input is ``hybrid`` exactly."""
+        key = self.conditioning_key
+        if key == "crossattn":
+            return self.unet(x_noisy, t, cond.c_crossattn, **kwargs)
         xc = torch.cat([x_noisy, cond.c_concat.to(x_noisy.dtype)], dim=-1)
-        return self.unet(xc, t, cond.c_crossattn, **kwargs)
+        if key == "concat":
+            return self.unet(xc, t, None, **kwargs)
+        if key == "hybrid-refine" and cond.c_input is not None:
+            kwargs["c_input"] = cond.c_input
+        if key in ("hybrid", "hybrid-refine"):
+            return self.unet(xc, t, cond.c_crossattn, **kwargs)
+        raise NotImplementedError(key)
 
     # ---------- forward process / parameterizations ------------------------
 

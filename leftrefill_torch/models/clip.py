@@ -83,7 +83,7 @@ class PromptCLIPEmbedder(nn.Module):
     def __init__(self, vocab_size=49408, width=1024, heads=16, layers=24, context_length=77,
                  num_special_tokens=50, dtype=torch.float32):
         super().__init__()
-        self.vocab_size, self.dtype = vocab_size, dtype
+        self.vocab_size, self.dtype, self.num_special_tokens = vocab_size, dtype, num_special_tokens
         self.model = CLIPTextTransformer(width, heads, layers, context_length, vocab_size, dtype)
         self.special_embeddings = nn.Embedding(num_special_tokens, width)
 

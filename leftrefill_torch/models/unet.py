@@ -458,6 +458,7 @@ class UNetModel(nn.Module):
         super().__init__()
         self.remat = remat
         self.model_channels, self.out_channels = model_channels, out_channels
+        self.num_res_blocks, self.channel_mult = num_res_blocks, tuple(channel_mult)
         self.in_channels, self.context_dim, self.dtype = in_channels, context_dim, dtype
         emb_dim = 4 * model_channels
         self.time_embed = nn.ModuleList(

@@ -5,7 +5,8 @@ UNet (cross-attention K/V computed once per canvas, the CFG prefix shared at
 half batch), decode, clip and composite into the hole.  The multi-view
 request (``MultiViewInpaintPipeline``) runs the same steps over the views of
 a scene, one row each.  Both run on the card unless the caller passes
-``device="cpu"``; without a card they raise."""
+``device="cpu"``; without a card they raise.  ``build_sd2_nvs_bundle``
+builds the novel-view-synthesis bundle that ``tasks.NVSTask`` serves."""
 
 from __future__ import annotations
 
@@ -20,14 +21,15 @@ from leftrefill_torch.diffusion.ddim import NoiseFn, ddim_sample
 from leftrefill_torch.diffusion.samplers_extra import dpm_solver_pp_2m_sample
 from leftrefill_torch.diffusion.schedules import DiffusionSchedule
 from leftrefill_torch.models.autoencoder import AutoencoderKL, DDConfig
-from leftrefill_torch.models.clip import PromptCLIPEmbedder
+from leftrefill_torch.models.clip import PromptCLIPEmbedder, build_prompt_tokenizer, init_prompt_table
 from leftrefill_torch.models.multiview import MultiViewUnetModel
+from leftrefill_torch.models.nvs import NVSCLIPEmbedder, NVSUnetModel, RefinementCNN
 from leftrefill_torch.models.tokenizer import SimpleTokenizer, multiview_prompts
 from leftrefill_torch.models.unet import UNetModel
 from leftrefill_torch.ops.quant import quantize_params_like
 
 
-def _device(device) -> torch.device:
+def request_device(device) -> torch.device:
     """The request's device; the card unless the caller asked for the CPU,
     and an error, not the CPU, where there is no card."""
     dev = torch.device(device)
@@ -75,7 +77,7 @@ class RefInpaintPipeline:
     ) -> torch.Tensor:
         """image [B, H, 2W, 3] in [-1, 1] (stitched, NHWC), mask [B, H, 2W, 1]
         with 1 = hole.  Returns the composited canvas [B, H, 2W, 3] fp32."""
-        dev = _device(self.device)
+        dev = request_device(self.device)
         image = torch.as_tensor(image, dtype=torch.float32, device=dev)
         mask = torch.as_tensor(mask, dtype=torch.float32, device=dev)
         b = image.shape[0]
@@ -180,7 +182,7 @@ class MultiViewInpaintPipeline:
         """images [B, V, H, W, 3] in [-1, 1] (NHWC), masks [B, V, H, W, 1]
         with 1 = hole.  Returns the composited views [B, V, H, W, 3] fp32;
         ``x_T``, ``noise_fn`` and ``vae_noise`` are over the B·V flat rows."""
-        dev = _device(self.device)
+        dev = request_device(self.device)
         image = torch.as_tensor(images, dtype=torch.float32, device=dev)
         mask = torch.as_tensor(masks, dtype=torch.float32, device=dev)
         b, v = image.shape[:2]
@@ -219,6 +221,8 @@ def fill_random_(model: torch.nn.Module, generator: torch.Generator) -> None:
                 p.copy_(0.02 * n)
             elif p.ndim >= 2:
                 p.copy_(n / np.sqrt(p[0].numel()))
+            elif "sep_token" in name:  # JAX draws the separator columns from N(0, 1)
+                p.copy_(n)
             elif name.endswith("weight"):
                 p.copy_(1.0 + 0.1 * n)
             else:
@@ -277,3 +281,52 @@ def build_sd2_inpaint_bundle(
     del fp
     model.load_state_dict(state, strict=True)
     return model.eval()
+
+
+# configs/novel_view_synthesis.yaml: the embedder's prompt table and its init text
+NVS_SPECIAL_TOKENS = ["repeat_73_<special-token>"]
+NVS_INIT_TEXT = ["Left is the reference image, while the right one is the target image with different "
+                 "viewpoint. The relative pose:"]
+NVS_CFG_RATE = 0.15
+
+
+@dataclasses.dataclass
+class NVSBundle:
+    """What ``tasks.NVSTask`` serves: the model, its tokenizer, the prompt
+    tokens and the refinement settings (JAX: the ``ModelBundle`` of
+    ``configs/novel_view_synthesis.yaml``)."""
+
+    model: LeftRefillModel
+    tokenizer: SimpleTokenizer
+    special_tokens: Sequence[str]
+    refinement_config: dict
+
+
+def build_sd2_nvs_bundle(
+    device="cuda", dtype: torch.dtype = torch.bfloat16, generator: Optional[torch.Generator] = None,
+    use_sep: bool = False, refinement: bool = False,
+) -> NVSBundle:
+    """The full-width novel-view-synthesis bundle of
+    ``configs/novel_view_synthesis.yaml`` computing in ``dtype``: the 865M
+    ``NVSUnetModel`` (``use_sep``: the separator columns), the f8 VAE, the
+    ViT-H ``NVSCLIPEmbedder`` with 73 prompt tokens (initialised from the
+    config's init text), CFG dropout 0.15 and no ``pos_strengthen``,
+    ``conditioning_key="hybrid-refine"``, and with ``refinement`` the
+    refinement branch (fp32, as JAX's); every parameter drawn from
+    ``generator``.  On the card unless ``device="cpu"``; without a card it
+    raises."""
+    dev = request_device(device)
+    tok, sp, init = build_prompt_tokenizer(NVS_SPECIAL_TOKENS, NVS_INIT_TEXT)
+    with torch.device("meta"):
+        model = LeftRefillModel(
+            unet=NVSUnetModel(dtype=dtype, use_sep=use_sep),
+            vae=AutoencoderKL(DDConfig(), embed_dim=4, dtype=dtype),
+            cond_model=NVSCLIPEmbedder(dtype=dtype, num_special_tokens=len(sp), cfg_rate=NVS_CFG_RATE),
+            schedule=sd2_schedule(),
+            conditioning_key="hybrid-refine",
+            refinement=RefinementCNN(320) if refinement else None,
+        )
+    model = model.to_empty(device=dev)
+    fill_random_(model, generator)
+    init_prompt_table(model.cond_stage_model, tok, sp, init)
+    return NVSBundle(model.eval(), tok, sp, {"use_input_refinement": refinement, "only_masked_refine": False})

@@ -77,6 +77,17 @@ PER_FORWARD_INT8 = {**PER_FORWARD_INT8_UNFUSED, "affine_silu_quant": 44, "ln_qua
 # the V=4 multi-view bf16 forward: 8 rows of 64x64 views, no cfg_dup; five of
 # the 16 flash launches are the 16384-token joint attentions (K11's sites)
 PER_FORWARD_MV4 = {**_NONE, "flash_fwd": 16, "conv3x3": 33, "geglu": 16}
+# the novel-view-synthesis bf16 forward at the 256x512 canvas (CFG batch 2 of
+# 32x64 latents, cfg_dup, the K/V cache, c_input): K1 at 2048 and 512 tokens
+# (128 and 32 are below its 256), K2 at the 32x64 and 16x32 levels, K3 at
+# 4096, 1024 and 256 rows (the middle block's 64 are below its 128).  With
+# the separator columns (use_sep) only the two output blocks that end in an
+# Upsample keep multiples of 128 for K1 and K3; K2 takes the 65- and
+# 33-wide levels
+PER_FORWARD_NVS = {**_NONE, "flash_fwd": 10, "conv3x3": 22, "geglu": 15}
+PER_FORWARD_NVS_SEP = {**_NONE, "flash_fwd": 1, "conv3x3": 22, "geglu": 2}
+# four poses in one request (CFG batch 8): the middle block's 256 rows take K3 too
+PER_FORWARD_NVS_B4 = {**PER_FORWARD_NVS, "geglu": 16}
 # kernel launches per prompt-tuning train step at full width, remat on (the
 # UNet's ResBlocks and SpatialTransformers run their forward again in the
 # backward): 1-reference batch 8 and the V=4 scene.  The prompt reaches the
@@ -435,11 +446,11 @@ def unet_inputs(generator: torch.Generator, rows: int = 2, hw: tuple = (64, 128)
     return x, t, ctx
 
 
-def unet_sites(unet, x, t, ctx, kv, cfg_dup: bool = True) -> Counter:
+def unet_sites(unet, x, t, ctx, kv, cfg_dup: bool = True, **kwargs) -> Counter:
     """(kernel, shape) -> number of sites in one forward with the
-    cross-attention K/V cache on."""
+    cross-attention K/V cache on (``kwargs``: the NVS UNet's c_input)."""
     with kernels.record_sites() as sites:
-        unet(x, t, ctx, cross_kv=kv, cfg_dup=cfg_dup)
+        unet(x, t, ctx, cross_kv=kv, cfg_dup=cfg_dup, **kwargs)
     torch.cuda.synchronize()
     return Counter(sites)
 
@@ -466,6 +477,39 @@ def multiview_scene(view_num: int, seed: int = 0):
     masks = np.zeros((1, view_num, 512, 512, 1), np.float32)
     masks[0, 0, 128:384, 64:448] = 1.0
     return images, masks
+
+
+def nvs_cameras(n: int, seed: int = 0) -> list:
+    """``n`` seeded [3, 4] world-to-camera matrices whose centres lie on a
+    sphere of radius 1.5 around the object (random orientations)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        theta, phi = rng.uniform(0.3, 1.4), rng.uniform(0, 2 * np.pi)
+        centre = 1.5 * np.array([np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi), np.cos(theta)])
+        rot = np.linalg.qr(rng.standard_normal((3, 3)))[0]
+        out.append(np.concatenate([rot, (-rot @ centre)[:, None]], axis=1))
+    return out
+
+
+def nvs_request(tokenizer, poses: int = 1, seed: int = 0) -> dict:
+    """A novel-view request at 256x512: ``poses`` rows of one seeded
+    reference view beside a fully masked 256x256 target view, each row with
+    the relative pose of its own target camera to the reference camera
+    (``data.datasets.get_relative_pose`` of seeded cameras), the 73-token
+    prompt of ``configs/novel_view_synthesis.yaml`` (numpy)."""
+    from leftrefill_torch.data.datasets import build_prompt, get_relative_pose
+
+    rng = np.random.RandomState(seed)
+    ref = rng.uniform(-1, 1, (1, 256, 256, 3)).astype(np.float32)
+    image = np.concatenate([ref, rng.uniform(-1, 1, (1, 256, 256, 3)).astype(np.float32)], axis=2)
+    image = np.repeat(image, poses, axis=0)
+    mask = np.zeros((poses, 256, 512, 1), np.float32)
+    mask[:, :, 256:] = 1.0
+    cond, *targets = nvs_cameras(poses + 1, seed)
+    return {"image": image, "mask": mask, "masked_image": image * (mask < 0.5),
+            "tokens": tokenizer.tokenize([build_prompt(73, "<special-token>")] * poses),
+            "rel_pose": np.stack([get_relative_pose(t, cond) for t in targets])}
 
 
 def prompt_tokenizer():

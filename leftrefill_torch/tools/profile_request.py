@@ -3,6 +3,7 @@ CUDA GPU.
 
     python -m leftrefill_torch.tools.profile_request [--int8 [--unfused] | --multiview V] [--json PATH]
     python -m leftrefill_torch.tools.profile_request --train [--multiview V] [--json PATH]
+    python -m leftrefill_torch.tools.profile_request --nvs [--json PATH]
 
 The bundle is the full-width SD2-inpainting one (``build_sd2_inpaint_bundle``,
 random weights from seed 0), bf16, CFG 2.5, batch 1; ``--int8`` takes its
@@ -36,6 +37,11 @@ then one under ``torch.profiler`` as for a request, the device time grouped
 into the forward kernels (K1-K3, forward and remat recompute), the backward
 kernels (dq: K12 + K14, dk/dv: K13), the library backward (cuDNN's conv
 gradients, cuBLAS GEMMs) and the plain ops, with the idle share.
+
+``--nvs`` profiles novel-view synthesis serving instead
+(``build_sd2_nvs_bundle`` with the refinement branch, ``NVSTask.log_images``,
+DDIM-50, eta 1, CFG 2.5): a 256x512 request at batch 1 and one of four
+target poses at batch 4, each timed and profiled as a request above.
 """
 
 from __future__ import annotations
@@ -233,20 +239,58 @@ def profile_training(view_num) -> dict:
     return out
 
 
+def profile_nvs() -> dict:
+    """The NVS requests of the module docstring, profiled."""
+    from leftrefill_torch.pipeline import build_sd2_nvs_bundle
+    from leftrefill_torch.tasks import NVSTask
+
+    bundle = build_sd2_nvs_bundle("cuda", torch.bfloat16, torch.Generator("cuda").manual_seed(0), refinement=True)
+    task = NVSTask(bundle)
+    out = {}
+    for poses in (1, 4):
+        req = tools.nvs_request(bundle.tokenizer, poses)
+
+        def run() -> float:
+            t0 = time.perf_counter()
+            pred = task.log_images(req, ddim_steps=50, ddim_eta=1.0, unconditional_guidance_scale=2.5,
+                                   generator=torch.Generator("cuda").manual_seed(5))["pred"]
+            torch.cuda.synchronize()
+            if not torch.isfinite(pred).all():
+                raise SystemExit("profile_request --nvs: non-finite output")
+            return time.perf_counter() - t0
+
+        run()  # warm-up request
+        out[f"poses_{poses}"] = profiled(run, 50, "kernel_launches_per_unet_call")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--int8", action="store_true", help="profile the W8A8 int8 bundle (fused prologues)")
     ap.add_argument("--unfused", action="store_true", help="with --int8: JAX's unfused int8 configuration")
     ap.add_argument("--multiview", type=int, metavar="V", help="profile the V-view multi-view bundle (bf16)")
     ap.add_argument("--train", action="store_true", help="profile one prompt-tuning train step (bf16)")
+    ap.add_argument("--nvs", action="store_true", help="profile novel-view synthesis requests (bf16)")
     ap.add_argument("--json", help="also write the result to this file")
     args = ap.parse_args()
     if args.unfused and not args.int8 or args.multiview and args.int8 or args.train and args.int8:
         ap.error("--unfused goes with --int8, --multiview and --train with neither")
+    if args.nvs and (args.int8 or args.multiview or args.train):
+        ap.error("--nvs goes alone")
     if not torch.cuda.is_available():
         raise SystemExit("profile_request: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.nvs:
+        result = {"card": tools.card_line(), "torch": torch.__version__, "cuda": torch.version.cuda,
+                  "bundle": "nvs_refinement"}
+        print(result["card"])
+        result["ddim50_profiled"] = profile_nvs()
+        print("ddim50_profiled", json.dumps(result["ddim50_profiled"]))
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(result, f, indent=1)
+        return 0
     if args.train:
         result = {"card": tools.card_line(), "torch": torch.__version__, "cuda": torch.version.cuda,
                   "bundle": f"train_multiview_v{args.multiview}" if args.multiview else "train_1ref_b8"}

@@ -1,5 +1,6 @@
 """The port stands alone: its copies of the JAX package's numpy-only schedule
-tables and tokenizer equal the originals on the same inputs, no module of
+tables, tokenizer, prompt text and relative camera pose equal the
+originals on the same inputs, no module of
 the port (nor ``chip_smoke.py``) brings in the JAX package or jax, and its
 entry points run on the card unless the caller asks for the CPU."""
 
@@ -68,6 +69,36 @@ def test_tokenizer_copy_matches_jax():
     assert ours.tokenize(texts).shape == (len(texts), 77)
 
 
+def test_prompt_and_pose_copies_match_jax():
+    """``build_prompt`` (the repeated-token prompt, its deep-prompt variants,
+    the templates with a token map in both modes, the same random picks) and
+    ``cartesian_to_spherical`` / ``get_relative_pose`` on seeded cameras."""
+    import random
+
+    from leftrefill_tpu.data import datasets as jd
+
+    from leftrefill_torch.data import datasets as td
+
+    assert td.PROMPT_TEMPLATES == jd.PROMPT_TEMPLATES
+    tmap = {"left_token": "<l>", "right_token": "<r>", "task_token": "<t>", "real_token": "<s>"}
+    cases = [dict(repeat_sp_token=73, sp_token="<special-token>"),
+             dict(repeat_sp_token=3, sp_token="<x>", deep_prompt=True, cross_attn_layers=4),
+             dict(repeat_sp_token=0, sp_token=None, token_map=tmap, mode="test"),
+             dict(repeat_sp_token=0, sp_token="<x>", mode="test")]
+    for kw in cases:
+        assert td.build_prompt(**kw) == jd.build_prompt(**kw)
+    picks = [td.build_prompt(0, None, tmap, rng=random.Random(s)) for s in range(20)]
+    assert picks == [jd.build_prompt(0, None, tmap, rng=random.Random(s)) for s in range(20)] and len(set(picks)) > 3
+    rng = np.random.RandomState(0)
+    for _ in range(10):
+        xyz = rng.standard_normal((5, 3))
+        assert np.array_equal(td.cartesian_to_spherical(xyz), jd.cartesian_to_spherical(xyz))
+        a, b = (np.concatenate([np.linalg.qr(rng.standard_normal((3, 3)))[0], rng.standard_normal((3, 1))], 1)
+                for _ in range(2))
+        pose = td.get_relative_pose(a, b)
+        assert pose.dtype == np.float32 and np.array_equal(pose, jd.get_relative_pose(a, b))
+
+
 def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
     """A fresh interpreter imports every module of the port and
     ``chip_smoke`` (without running it), builds the tiny bundle on the CPU
@@ -128,3 +159,25 @@ def test_entry_points_default_to_the_card():
             pipes[0](image[:, 0], image[:, 0, ..., :1])
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             pipes[1](image, image[..., :1])
+
+
+def test_nvs_entry_points_default_to_the_card():
+    """``build_sd2_nvs_bundle``, ``NVSTask`` and ``LoraAdapterStore`` default
+    to "cuda"; without a card they raise rather than run on the CPU."""
+    import inspect
+
+    from leftrefill_torch.pipeline import build_sd2_nvs_bundle
+    from leftrefill_torch.runtime import LoraAdapterStore
+    from leftrefill_torch.tasks import NVSTask
+
+    for fn in (build_sd2_nvs_bundle, NVSTask, LoraAdapterStore):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build_sd2_nvs_bundle()
+        task = NVSTask(type("B", (), dict(model=None, tokenizer=None, special_tokens=[], refinement_config={}))())
+        batch = {k: np.zeros((1, 16, 32, 3), np.float32) for k in ("image", "mask", "masked_image")}
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            task.log_images({**batch, "tokens": np.zeros((1, 77), np.int64), "rel_pose": np.zeros((1, 4), np.float32)})
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            LoraAdapterStore(torch.nn.Linear(2, 2))
