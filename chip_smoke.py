@@ -157,6 +157,32 @@ Phases, one line each (the kernel phases one line per kernel shape):
    adapter merged into its fp32 master and requantized (the master checked
    to requantize to the bundle's weights): one UNet forward with the pinned
    int8 launch counts.
+10. novel-view-synthesis training through the port's training CLI
+   (``leftrefill_torch.cli.train.main``, in-process) at full width: the
+   shipped model YAML with LoRA (rank 16, default targets), the refinement
+   branch and the pruned save on, the shipped training YAML (batch 16,
+   AdamW 1e-4, weight decay 0.01) pointed at seeded synthetic renders the
+   phase writes (64 objects of 12 RGBA 256x256 views and their cameras, 4
+   validation objects with mask files), ``--max_steps 4 --no_restore`` with
+   one validation batch (DDIM-10) and the step-0 image log (DDIM-10): the
+   run ends with 0, every step's loss is finite and its kernel launches
+   are ``tools.PER_TRAIN_STEP_NVS`` (the first step's backward sites
+   ``tools.TRAIN_SITES_NVS``), every trainable group (prompt table,
+   relative-pose MLP, LoRA down and up, refinement branch) moved and every
+   other parameter is bit-unchanged, ``ckpts/last.pt`` holds exactly the
+   NVS-filtered keys with the LoRA factors; then ``--restore --max_steps 6``
+   starts from those weights at step 4 and takes two steps; seconds per
+   step (the median after the first), peak memory, validation PSNR/SSIM;
+2tn. the kernels at every site that train step recorded: K1 (o within
+   relative L2 1e-2, and the lse the backward reads within 1e-3 absolute),
+   K12 and K13 held as in phase 2t beside SDPA's backward, K2 and K3 held
+   and timed as in phase 2, and K3's gradient (dx, dW1 through
+   ``geglu_vjp_math``) within relative L2 1e-2 of autograd through
+   ``geglu_plain``;
+10g. at batch 2 (two validation items, one row's prompt dropped by the CFG
+   draws), one step's gradient of each trainable group of the trained
+   model through the kernels against the same step with every kernel routed
+   to its plain version (relative L2 <= 5e-2 each).
 The line before the last is a JSON summary of the fourteen kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
@@ -164,6 +190,7 @@ before them.
 
 from __future__ import annotations
 
+import collections
 import functools
 import json
 import math
@@ -194,6 +221,11 @@ UNET_REL_L2 = 3e-2  # 16 transformer blocks and 22 res blocks of rounding
 # the backward's, through every layer after the first cross-attention
 PROMPT_GRAD_REL_L2 = 5e-2
 BWD_NAMES = ("flash_bwd_dq", "flash_bwd_dkv")
+# K1's lse at the train step's shapes: fp32 sums over up to 2048 keys in
+# another order than the plain version's, at |lse| up to ~83 (an fp32 ulp
+# there is 7.6e-6)
+LSE_TRAIN_ABS = 1e-3
+NVS_TRAIN_BATCH, NVS_OBJECTS, NVS_VAL_OBJECTS = 16, 64, 4
 BLOCK_MAX_REL, TRANSFORMERS_L2 = 2e-2, 3e-3  # teacher-forced blocks (tests/test_torch_quant_unet_fused.py)
 VIEWS = 4
 KERNELS = {
@@ -1089,6 +1121,215 @@ def nvs_phases(gen, launches: dict) -> tuple[dict, dict]:
     return report, sep_report, b4_report
 
 
+def _edit(text: str, old: str, new: str) -> str:
+    """``text`` with its one occurrence of ``old`` replaced (fails otherwise)."""
+    if text.count(old) != 1:
+        raise SystemExit(f"phase 10: {old!r} occurs {text.count(old)} times in a shipped YAML")
+    return text.replace(old, new)
+
+
+def nvs_training_phases(gen, launches: dict) -> dict:
+    """Phases 10, 2tn and 10g (novel-view-synthesis training): the train
+    steps' launches go into ``launches``; returns the per-kernel reports of
+    the train step's sites."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+
+    from leftrefill_torch import kernels, tools
+    from leftrefill_torch.cli import train as cli
+    from leftrefill_torch.data.datasets import NVS_OBJDataset
+    from leftrefill_torch.data.loader import collate
+    from leftrefill_torch.ops import flash_attention, mlp
+    from leftrefill_torch.train import compute_loss, trainer
+    from leftrefill_torch.train.checkpoints import nvs_prompt_filter
+    from leftrefill_torch.tools import cuda_ms, rel_l2
+
+    root = tempfile.mkdtemp(prefix="nvs_train_")
+    try:
+        t0 = time.perf_counter()
+        paths = tools.write_nvs_renders(root, NVS_OBJECTS, views=12, size=256, seed=0, val_masks=NVS_VAL_OBJECTS)
+        model_yaml = (ROOT / "configs" / "novel_view_synthesis.yaml").read_text()
+        for old, new in (("do_lora: False", "do_lora: true"), ("use_input_refinement: False", "use_input_refinement: true"),
+                         ("save_prompt_only: False", "save_prompt_only: true"),
+                         ('mask_file_path: "./data/obj_test_masks"', f"mask_file_path: '{paths['mask_file_path']}'")):
+            model_yaml = _edit(model_yaml, old, new)
+        Path(root, "model.yaml").write_text(model_yaml)
+        train_yaml = (ROOT / "configs" / "nvs_training_config.yaml").read_text()
+        for old, new in (("model_config: './configs/novel_view_synthesis.yaml'", f"model_config: '{root}/model.yaml'"),
+                         ("datapath: './data/objaverse/views_release'", f"datapath: '{paths['datapath']}'"),
+                         ("train_list: 'dataloaders/lists/obj_train.txt'", f"train_list: '{paths['train_list']}'"),
+                         ("val_list: 'dataloaders/lists/obj_test.txt'", f"val_list: '{paths['val_list']}'"),
+                         ("batch_size: 16", f"batch_size: {NVS_TRAIN_BATCH}")):
+            train_yaml = _edit(train_yaml, old, new)
+        train_yaml += "val_batches: 1\nval_ddim_steps: 10\nlog_ddim_steps: 10\n"
+        Path(root, "train.yaml").write_text(train_yaml)
+        print(f"phase 10 set-up: {NVS_OBJECTS} objects x 12 RGBA 256x256 renders and {NVS_VAL_OBJECTS} validation "
+              f"masks written in {time.perf_counter() - t0:.1f} s; model YAML with do_lora, use_input_refinement "
+              f"and save_prompt_only on; training YAML batch {NVS_TRAIN_BATCH}", flush=True)
+
+        # every step through a recording wrapper: its launches, time, loss;
+        # the first step's kernel sites; the model before its first step
+        runs = []
+        make_train_step = trainer.make_train_step
+
+        def recording(model, tx, **kw):
+            step = make_train_step(model, tx, **kw)
+            run = {"model": model, "cond_builder": kw["cond_builder"], "steps": []}
+            runs.append(run)
+
+            def wrapped(state, batch, generator):
+                if not run["steps"]:
+                    run["before"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+                torch.cuda.synchronize()
+                tools.reset_launches()
+                t1 = time.perf_counter()
+                with kernels.record_sites() as sites:
+                    state, metrics = step(state, batch, generator)
+                loss = float(metrics["loss"])
+                torch.cuda.synchronize()
+                run["steps"].append({"s": time.perf_counter() - t1, "loss": loss, "launches": tools.launches(),
+                                     "sites": list(sites)})
+                return state, metrics
+
+            return wrapped
+
+        exp = Path(root, "ck", "nvs")
+        base_args = ["--config_file", str(Path(root, "train.yaml")), "--exp_name", "nvs", "--save_path",
+                     str(Path(root, "ck"))]
+        trainer.make_train_step = recording
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rc = cli.main(base_args + ["--no_restore", "--max_steps", "4"])
+            first_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            saved = torch.load(exp / "ckpts" / "last.pt", map_location="cuda", weights_only=True)
+            t0 = time.perf_counter()
+            rc2 = cli.main(base_args + ["--restore", "--max_steps", "6"])
+            second_s = time.perf_counter() - t0
+        finally:
+            trainer.make_train_step = make_train_step
+        if rc or rc2 or len(runs) != 2:
+            raise SystemExit(f"phase 10: the CLI returned {rc} and {rc2} after {len(runs)} runs")
+        first, second = runs
+        steps = first["steps"] + second["steps"]
+        losses = [st["loss"] for st in steps]
+        if len(first["steps"]) != 4 or len(second["steps"]) != 2 or not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"phase 10: steps {len(first['steps'])} and {len(second['steps'])}, losses {losses}")
+        launches["nvs_train_b16"] = {n: sum(st["launches"][n] for st in steps) for n in tools.LAUNCH_COUNTERS}
+        for i, st in enumerate(steps):
+            if st["launches"] != tools.PER_TRAIN_STEP_NVS:
+                raise SystemExit(f"phase 10: step {i} launches {st['launches']}, expected {tools.PER_TRAIN_STEP_NVS}")
+        sites = collections.Counter(first["steps"][0]["sites"])
+        for name in BWD_NAMES:
+            got = {shape: c for (n, shape), c in sites.items() if n == name}
+            if got != tools.TRAIN_SITES_NVS:
+                raise SystemExit(f"phase 10: {name} sites {got}, expected {tools.TRAIN_SITES_NVS}")
+        # what moved: each trainable group, and nothing else
+        model = first["model"]
+        after = model.state_dict()
+        trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+        groups = {"prompt table": "special_embeddings", "relative-pose MLP": "rel_pos_model", "LoRA down": "lora.down",
+                  "LoRA up": "lora.up", "refinement branch": "refine"}
+        moved = {g: [n for n in trainable if key in n and not torch.equal(first["before"][n], after[n])]
+                 for g, key in groups.items()}
+        members = {g: [n for n in trainable if key in n] for g, key in groups.items()}
+        changed_frozen = [n for n in after if n not in trainable and not torch.equal(first["before"][n], after[n])]
+        if any(not members[g] or not moved[g] for g in groups) or changed_frozen or \
+                set().union(*members.values()) != trainable:
+            raise SystemExit(f"phase 10: groups moved {({g: len(v) for g, v in moved.items()})} of "
+                             f"{({g: len(v) for g, v in members.items()})}; frozen changed {changed_frozen[:5]}")
+        want = {k for k in after if nvs_prompt_filter(tuple(k.split(".")))}
+        if set(saved) != want or not any(k.startswith("lora.") for k in saved):
+            raise SystemExit(f"phase 10: ckpts/last.pt holds {len(saved)} keys, the NVS filter {len(want)}")
+        restored = second["before"]
+        if not all(torch.equal(restored[k], v) for k, v in saved.items()):
+            raise SystemExit("phase 10: the resumed run did not start from the saved weights")
+        manifest = json.loads((exp / "ckpts" / "manifest.json").read_text())
+        records = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
+        val = [r for r in records if "val/psnr" in r]
+        if manifest["last"]["step"] != 6 or len(val) != 2 or not all(math.isfinite(r["val/psnr"]) for r in val):
+            raise SystemExit(f"phase 10: manifest {manifest}, validation records {val}")
+        secs = [st["s"] for st in steps]
+        print(f"phase 10 training NVS b{NVS_TRAIN_BATCH} 256x512 LoRA r16 + refinement, AdamW(1e-4, wd 0.01) "
+              f"through leftrefill_torch.cli.train: seconds_per_step={[round(x, 3) for x in secs]} "
+              f"median_after_first={statistics.median(secs[1:4]):.3f} losses={[round(x, 5) for x in losses]} "
+              f"launches_per_step={({n: c for n, c in steps[0]['launches'].items() if c})} "
+              f"peak_mem_gib={peak:.1f} cli_seconds={first_s:.1f}+{second_s:.1f} "
+              f"trainable={sum(after[n].numel() for n in trainable)} groups_moved="
+              f"{({g: f'{len(moved[g])}/{len(members[g])}' for g in groups})} frozen_unchanged={len(after) - len(trainable)} "
+              f"ckpt_keys={len(saved)} resumed_at_step=4 val={[(r['step'], round(r['val/psnr'], 3), round(r['val/ssim'], 4)) for r in val]}",
+              flush=True)
+
+        # ---- phase 2tn: the kernels at every site of that train step -----
+        report = {}
+        for (name, shape), n_sites in sorted(sites.items()):
+            if name in ("flash_fwd", "conv3x3", "geglu"):
+                with torch.inference_mode():
+                    check_site(name, shape, gen, n_sites, report, "2tn")
+            else:
+                check_site(name, shape, gen, n_sites, report, "2tn")
+            if name == "flash_fwd":
+                site = tools.site_args(name, shape, gen)
+                err = float((flash_attention.flash_forward(*site)[1] - flash_attention.flash_forward_plain(*site)[1])
+                            .abs().max())
+                if err > LSE_TRAIN_ABS:
+                    raise SystemExit(f"phase 2tn flash_fwd {shape}: lse {err:.3e} from the plain version's")
+                print(f"phase 2tn flash_fwd shape={shape}: lse_max_abs={err:.3e} (limit {LSE_TRAIN_ABS})")
+            if name == "geglu":
+                x, w1, b1, w2, b2 = tools.site_args(name, shape, gen)
+                g_out = torch.randn((x.shape[0], w2.shape[0]), generator=gen, device="cuda").to(x.dtype)
+                grads = []
+                for fn in (mlp._GEGLU.apply, mlp.geglu_plain):
+                    xi, wi = x.detach().requires_grad_(True), w1.detach().requires_grad_(True)
+                    grads.append(torch.autograd.grad(fn(xi, wi, b1, w2, b2), (xi, wi), g_out))
+                errs = [rel_l2(a, b) for a, b in zip(*grads)]
+                if max(errs) > REL_L2["geglu"] or not all(torch.isfinite(a).all() for a in grads[0]):
+                    raise SystemExit(f"phase 2tn geglu {shape}: dx, dW1 rel L2 {errs} > {REL_L2['geglu']}")
+                print(f"phase 2tn geglu shape={shape}: VJP dx_rel_l2={errs[0]:.3e} dw1_rel_l2={errs[1]:.3e} "
+                      f"(geglu_vjp_math after K3 against autograd through geglu_plain, limit {REL_L2['geglu']})")
+        for name, n in tools.PER_TRAIN_STEP_NVS.items():
+            if report.get(name, {}).get("sites", 0) != n:
+                raise SystemExit(f"phase 2tn {name}: {report.get(name, {}).get('sites', 0)} sites, expected {n}")
+
+        # ---- phase 10g: each group's gradient, kernels against plain -----
+        task = first["cond_builder"].__self__
+        ds = NVS_OBJDataset(paths["datapath"], paths["val_list"], mode="val", img_size=256,
+                            mask_file_path=paths["mask_file_path"], repeat_sp_token=73, sp_token="<special-token>")
+        small = {k: v for k, v in collate([ds[0], ds[1]], task.tokenizer).items() if k != "txt"}
+        g2 = torch.Generator("cuda").manual_seed(11)
+        t_fix = torch.randint(0, 1000, (2,), generator=g2, device="cuda")
+        noise = torch.randn((2, 32, 64, 4), generator=g2, device="cuda").to(torch.bfloat16)
+        draws = torch.tensor([0.5, 0.05], device="cuda")  # the second row's prompt is dropped (rate 0.15)
+
+        def group_grads():
+            model.zero_grad(set_to_none=True)
+            compute_loss(model, small, t_fix, noise, cond_builder=task.cond_builder, cfg_draws=draws)[0].backward()
+            torch.cuda.synchronize()
+            return {g: torch.cat([model.get_parameter(n).grad.float().flatten() for n in sorted(members[g])])
+                    for g in groups}
+
+        grad_k = group_grads()
+        with kernels.plain_kernels():
+            grad_p = group_grads()
+        model.zero_grad(set_to_none=True)
+        errs = {g: rel_l2(grad_k[g], grad_p[g]) for g in groups}
+        if any(not (torch.isfinite(grad_k[g]).all() and grad_k[g].abs().max() > 0 and errs[g] <= PROMPT_GRAD_REL_L2)
+               for g in groups):
+            raise SystemExit(f"phase 10g: gradients through the kernels against the plain versions {errs} "
+                             f"(limit {PROMPT_GRAD_REL_L2}) or zero / non-finite")
+        print(f"phase 10g gradients b2 t={t_fix.tolist()} cfg_draws={draws.tolist()}: kernels vs plain versions "
+              + " ".join(f"{g.replace(' ', '_')}_rel_l2={e:.3e}" for g, e in errs.items())
+              + f" (limit {PROMPT_GRAD_REL_L2})", flush=True)
+        del model, first, second, runs, grad_k, grad_p
+        return report
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not (ROOT / "leftrefill_torch" / "csrc").is_dir():
         print("chip_smoke.py: the leftrefill_torch package is not beside this script", file=sys.stderr)
@@ -1436,6 +1677,9 @@ def main() -> int:
     # ---- phases 2n, 3n, 9, 9s, 9l: novel-view synthesis --------------------
     nvs_forward, nvs_sep, nvs_b4 = nvs_phases(gen, launches)
 
+    # ---- phases 10, 2tn, 10g: novel-view-synthesis training ----------------
+    nvs_train = nvs_training_phases(gen, launches)
+
     entries = []
     for name, (source, replaces) in KERNELS.items():
         rep = report[name]
@@ -1474,7 +1718,7 @@ def main() -> int:
                                               "composition_ms") if k in mv_forward[name]}
             entry["max_abs_err"] = max(entry["max_abs_err"], mv_forward[name]["max_abs_err"])
         for key, rep_n in (("nvs_forward", nvs_forward), ("nvs_use_sep_forward_added_sites", nvs_sep),
-                           ("nvs_4poses_forward_added_sites", nvs_b4)):
+                           ("nvs_4poses_forward_added_sites", nvs_b4), ("nvs_train_step_b16", nvs_train)):
             if name in rep_n:  # the NVS forward's sites (and those use_sep adds), phase 2n
                 entry[key] = {k: rep_n[name][k] for k in ("sites", "ms", "plain_ms", "bound_ms", "library_ms",
                                                           "max_abs_err", "composition_ms") if k in rep_n[name]}

@@ -97,12 +97,12 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
             yield list(prefix + (k,)), v
 
 
-def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """{"unet", "vae", "cond"} trees of arrays -> full-checkpoint-key state_dict."""
-    out: dict[str, torch.Tensor] = {}
+def torch_entries(params: Mapping[str, Any]):
+    """(full-checkpoint key, array in torch layout) for every leaf of the
+    {"unet", "vae", "cond", "refine"} trees, the layout swaps as views (the
+    leaves may be shape-only stand-ins)."""
     for root, tree in params.items():
         for path, arr in _flatten(tree):
-            arr = np.asarray(arr)
             if root in ("cond", "refine"):
                 if path[-1] in ("kernel", "scale"):
                     leaf, arr = _leaf(path[-1], arr)
@@ -114,8 +114,16 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                 fold = _unet_module if root == "unet" else _vae_module
                 leaf, arr = _leaf(path[-1], arr)
                 key = ".".join([fold(m) for m in path[:-1]] + [leaf])
-            dtype = np.int8 if arr.dtype == np.int8 else np.float32
-            out[_PREFIX[root] + key] = torch.from_numpy(np.array(arr, dtype=dtype, order="C"))
+            yield _PREFIX[root] + key, arr
+
+
+def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """{"unet", "vae", "cond", "refine"} trees of arrays -> full-checkpoint-key state_dict."""
+    out: dict[str, torch.Tensor] = {}
+    for key, arr in torch_entries(params):
+        arr = np.asarray(arr)
+        dtype = np.int8 if arr.dtype == np.int8 else np.float32
+        out[key] = torch.from_numpy(np.array(arr, dtype=dtype, order="C"))
     return out
 
 

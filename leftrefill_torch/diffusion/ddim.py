@@ -58,8 +58,8 @@ def _step_tables(tables: DDIMTables, schedule: DiffusionSchedule, device):
     alphas_cumprod[t])) where its model predicts v, else None."""
     t = tables.timesteps[::-1].astype("int64")
 
-    def col(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
+    def col(a):  # a copy: a one-step table's reversed view keeps its negative stride through ascontiguousarray
+        return torch.as_tensor(np.array(a), dtype=torch.float32, device=device)
 
     v = (col(schedule.sqrt_alphas_cumprod[t]), col(schedule.sqrt_one_minus_alphas_cumprod[t])
          ) if schedule.predicts_v() else None

@@ -60,14 +60,22 @@ def init_lora(
 def merge_lora(state: Mapping[str, torch.Tensor], lora: Mapping[str, Mapping[str, torch.Tensor]],
                scale: float = 1.0) -> dict[str, torch.Tensor]:
     """``state`` with every LoRA site's weight replaced by W + scale * up .
-    down, summed in fp32 on the weight's device and rounded once to its
-    dtype; every other entry is the same tensor as in ``state``."""
+    down in JAX's order of operations (``leftrefill_tpu/models/lora.py``:
+    ``leaf + scale * delta.astype(leaf.dtype)``): the delta summed in fp32,
+    rounded to the weight's dtype, multiplied by the scale rounded to that
+    dtype (JAX's Python scalar is weakly typed) and added in that dtype, so a
+    bf16 merge rounds the product and the sum each in bf16, bit-equal to
+    JAX's.  A channels-last conv weight stays channels-last.  Every other
+    entry is the same tensor as in ``state``.  Differentiable in the
+    factors."""
     out = dict(state)
     for key, pack in lora.items():
         w = state[key]
         down, up = (pack[f].to(w.device, torch.float32) for f in ("down", "up"))
-        delta = (up.reshape(up.shape[0], -1) @ down.reshape(down.shape[0], -1)).reshape(w.shape)
-        out[key] = (w.to(torch.float32) + scale * delta).to(w.dtype)
+        delta = (up.reshape(up.shape[0], -1) @ down.reshape(down.shape[0], -1)).reshape(w.shape).to(w.dtype)
+        if w.ndim == 4 and w.is_contiguous(memory_format=torch.channels_last):
+            delta = delta.contiguous(memory_format=torch.channels_last)
+        out[key] = w + torch.tensor(scale, dtype=w.dtype, device=w.device) * delta
     return out
 
 

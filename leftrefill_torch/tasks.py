@@ -1,6 +1,12 @@
-"""Task objects (counterpart of ``leftrefill_tpu/tasks.py``): novel-view
-synthesis serving, ``NVSTask``.  The task runs on the card unless its
-``device`` is "cpu"; without a card it raises."""
+"""Task objects (counterpart of ``leftrefill_tpu/tasks.py``): 1-reference
+inpainting (``RefInpaintTask``), its multi-view variant
+(``MultiViewRefInpaintTask``) and novel-view synthesis (``NVSTask``), each
+around a bundle (``config.ModelBundle``, or ``pipeline.NVSBundle`` for
+serving): initialization of its parameters, sampling for the image log,
+validation metrics and, for novel-view synthesis, the training
+conditioning.  ``build_task`` picks the task of a model YAML's target.  The
+tasks run on the card unless their ``device`` is "cpu"; without a card they
+raise."""
 
 from __future__ import annotations
 
@@ -11,25 +17,47 @@ import torch
 
 from leftrefill_torch.diffusion.core import Conditioning
 from leftrefill_torch.diffusion.ddim import NoiseFn, ddim_sample
+from leftrefill_torch.eval.metrics import composite_metrics
 from leftrefill_torch.ops.layers import nearest_resize
-from leftrefill_torch.pipeline import NVSBundle, request_device
+from leftrefill_torch.pipeline import fill_random_, request_device
 
 DEFAULT_SEED = 42  # JAX's log_images draws from PRNGKey(42) unless given a key
 
 
-class NVSTask:
-    """Novel view synthesis (JAX: ``NVSTask``, tasks.py:375-515): a canvas
-    [reference view | target view], the target masked, conditioned on the
-    relative camera pose through the prompt embedder (``hybrid-refine``:
-    the masked canvas's latent concatenated, the pose-conditioned prompt
-    cross-attended, and the refinement residual c_input where the bundle
-    has the refinement branch)."""
+class RefInpaintTask:
+    """Reference-guided inpainting with one reference (JAX: tasks.py:36-305)."""
 
-    def __init__(self, bundle: NVSBundle, device="cuda"):
+    def __init__(self, bundle, device="cuda"):
+        self.bundle = bundle
         self.model, self.tokenizer = bundle.model, bundle.tokenizer
-        self.refinement_config = dict(bundle.refinement_config)
         self.device = device
-        self.mask_steps = 0  # the mask-rate warm-up curriculum's step
+
+    # ---------- parameters -------------------------------------------------
+
+    def init_params(self, generator: torch.Generator, sd_state_dict: Optional[dict] = None) -> dict:
+        """Random values for every parameter (``pipeline.fill_random_``), then
+        a checkpoint's where given (``convert.checkpoint.load_over_base``,
+        the report printed as JAX prints it), then the prompt table from its
+        init text.  Returns the load report (empty without a checkpoint)."""
+        from leftrefill_torch.convert.checkpoint import load_over_base
+        from leftrefill_torch.models.clip import init_prompt_table
+
+        fill_random_(self.model, generator)
+        self._init_extra()
+        report = {}
+        if sd_state_dict is not None:
+            report = load_over_base(self.model, sd_state_dict)
+            if report["missing"]:
+                print(f"[init] {len(report['missing'])} params missing from checkpoint")
+            if report["unexpected"]:
+                print(f"[init] {len(report['unexpected'])} unexpected checkpoint keys")
+        cb = self.bundle.cond_bundle
+        init_prompt_table(self.model.cond_stage_model, cb.tokenizer, cb.special_tokens, cb.init_text,
+                          cb.tokenwise_init)
+        return report
+
+    def _init_extra(self) -> None:
+        """Task-specific initial values (the refinement scale's)."""
 
     # ---------- tokens ------------------------------------------------------
 
@@ -41,21 +69,139 @@ class NVSTask:
         """The empty prompt, n times: [n, 77]."""
         return np.repeat(np.asarray(self.tokenizer.tokenize("")), n, axis=0)
 
-    # ---------- conditioning ----------------------------------------------
-
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=request_device(self.device))
+
+    # ---------- sampling ----------------------------------------------------
+
+    def _rows(self, batch: dict, n: int, keys) -> dict:
+        return {k: batch[k][:n] for k in keys if k in batch}
+
+    @torch.inference_mode()
+    def log_images(self, batch: dict, N: Optional[int] = None, ddim_steps: int = 50, ddim_eta: float = 0.0,
+                   unconditional_guidance_scale: float = 9.0, generator: Optional[torch.Generator] = None,
+                   x_T: Optional[torch.Tensor] = None, noise_fn: Optional[NoiseFn] = None,
+                   vae_noise: Optional[torch.Tensor] = None) -> dict:
+        """DDIM over the inpainting canvas (JAX: tasks.py:142-164): CFG with
+        the empty prompt for a guidance scale above 1, the unconditional
+        branch alone at 0, the conditional one otherwise; decoded and clipped
+        to [-1, 1].  Returns {"pred", "origin_image", "masked_image",
+        "mask"} for the first N rows (the diagnostic rows are not ported);
+        ``x_T``, ``noise_fn`` and ``vae_noise`` as the pipeline's."""
+        dev = request_device(self.device)
+        n = N or batch["image"].shape[0]
+        rows = self._rows(batch, n, ("image", "mask", "masked_image", "tokens"))
+        generator = generator or torch.Generator(dev).manual_seed(DEFAULT_SEED)
+        m = self.model
+        cond = m.build_inpaint_cond(self._tensor(rows["tokens"], torch.long), self._tensor(rows["mask"]),
+                                    self._tensor(rows["masked_image"]), vae_noise)
+        b, h, w, _ = cond.c_concat.shape
+        g = unconditional_guidance_scale
+        uncond = None
+        if g > 1.0 or g == 0.0:
+            uncond = Conditioning(cond.c_concat, m.get_learned_conditioning(self._tensor(self.uncond_tokens(b),
+                                                                                         torch.long)))
+        if g == 0.0:
+            cond, uncond = uncond, None
+        z = ddim_sample(lambda x, t, c: m.apply_model(x, t, c), m.schedule,
+                        m.schedule.ddim_tables(ddim_steps, eta=ddim_eta), cond, (b, h, w, m.unet.out_channels),
+                        uncond=uncond, guidance_scale=g if uncond is not None else 1.0, x_T=x_T, generator=generator,
+                        noise_fn=noise_fn, device=dev)
+        pred = m.decode_first_stage(z).to(torch.float32).clamp(-1.0, 1.0)
+        return {"pred": pred, "origin_image": self._tensor(rows["image"]),
+                "masked_image": self._tensor(rows["masked_image"]), "mask": self._tensor(rows["mask"])}
+
+    # ---------- validation --------------------------------------------------
+
+    def validation_metrics(self, batch: dict, cfg_scale: float, lpips_fn=None, ddim_steps: int = 50,
+                           generator: Optional[torch.Generator] = None, **sampling) -> dict:
+        """PSNR and SSIM of the sampled canvas composited into the hole, on
+        its right half (JAX: tasks.py:277-304); ``sampling``: ``log_images``'
+        x_T, noise_fn, vae_noise.  LPIPS is not ported: the training CLI
+        passes no ``lpips_fn``, as JAX's does."""
+        if lpips_fn is not None:
+            raise NotImplementedError("LPIPS is not ported")
+        log = self.log_images(batch, ddim_steps=ddim_steps, unconditional_guidance_scale=cfg_scale,
+                              generator=generator, **sampling)
+        m = composite_metrics(log["pred"], log["origin_image"], log["mask"])
+        return {"val/psnr": float(m["psnr"].mean()), "val/ssim": float(m["ssim"].mean())}
+
+    # ---------- the loss's view options ------------------------------------
+
+    @property
+    def view_reduced(self) -> bool:
+        return False
+
+    @property
+    def view_num(self) -> int:
+        return 1
+
+
+class MultiViewRefInpaintTask(RefInpaintTask):
+    """Multi-view inpainting (JAX: tasks.py:307-372): 5-D batches flattened to
+    (B*V) rows, the view-0 loss, the log split per view."""
+
+    @property
+    def view_reduced(self) -> bool:
+        return self.bundle.reduced_loss
+
+    @property
+    def view_num(self) -> int:
+        return self.bundle.view_num
+
+    def flatten_batch(self, batch: dict) -> dict:
+        from leftrefill_torch.data.loader import flatten_views
+
+        return flatten_views(batch)
+
+    def log_images(self, batch: dict, N: Optional[int] = None, **kw) -> dict:
+        """N counts scenes (each V flat rows); every entry split to
+        [B, V, ...], plus "reference" (views 1..V-1) without concat_target."""
+        flat = self.flatten_batch(batch) if batch["image"].ndim == 5 else batch
+        v = self.view_num if not self.bundle.concat_target else self.view_num - 1
+        n_rows = None if N is None else min(N, flat["image"].shape[0] // v) * v
+        log = super().log_images(flat, N=n_rows, **kw)
+        out = {k: val.reshape(val.shape[0] // v, v, *val.shape[1:]) for k, val in log.items()}
+        if not self.bundle.concat_target and out["origin_image"].shape[1] > 1:
+            out["reference"] = out["origin_image"][:, 1:]
+        return out
+
+
+class NVSTask(RefInpaintTask):
+    """Novel view synthesis (JAX: ``NVSTask``, tasks.py:375-515): a canvas
+    [reference view | target view], the target masked, conditioned on the
+    relative camera pose through the prompt embedder (``hybrid-refine``:
+    the masked canvas's latent concatenated, the pose-conditioned prompt
+    cross-attended, and the refinement residual c_input where the bundle
+    has the refinement branch)."""
+
+    def __init__(self, bundle, device="cuda"):
+        super().__init__(bundle, device)
+        self.refinement_config = dict(bundle.refinement_config)
+        self.mask_steps = 0  # the mask-rate warm-up curriculum's step
+
+    def _init_extra(self) -> None:
+        """The refinement branch's scale starts at 0 (JAX's initializer), so
+        the branch adds nothing before training."""
+        if self.model.refinement_model is not None:
+            with torch.no_grad():
+                self.model.refinement_alpha.zero_()
+
+    # ---------- conditioning ----------------------------------------------
 
     def build_cond(self, batch: dict, train: bool = False, generator: Optional[torch.Generator] = None,
                    cfg_draws: Optional[torch.Tensor] = None, vae_noise: Optional[torch.Tensor] = None
                    ) -> Conditioning:
         """The inpainting c_concat (the mask at latent size, the masked
-        canvas's latent), the pose-conditioned context and, with the
-        refinement branch, c_input (JAX: tasks.py:403-442).  ``train`` with
-        ``generator`` or ``cfg_draws``: the embedder's CFG prompt dropout."""
+        canvas's latent, encoded without a graph), the pose-conditioned
+        context and, with the refinement branch, c_input (JAX:
+        tasks.py:403-442).  ``train`` with ``generator`` or ``cfg_draws``:
+        the embedder's CFG prompt dropout (a dropped row takes the null
+        prompt's embedding, pose slot included, as JAX's)."""
         m = self.model
         masked, mask = self._tensor(batch["masked_image"]), self._tensor(batch["mask"])
-        z = m.encode_first_stage(masked, vae_noise)
+        with torch.no_grad():
+            z = m.encode_first_stage(masked, vae_noise)
         mask_lat = nearest_resize(mask, tuple(z.shape[1:3]))
         c_cat = torch.cat([mask_lat, z.to(torch.float32)], dim=-1)
         kwargs = {}
@@ -72,6 +218,12 @@ class NVSTask:
             c_input = m.refine(self._tensor(batch.get(img_key, batch["masked_image"])),
                                self._tensor(batch.get(mask_key, batch["mask"])))
         return Conditioning(c_concat=c_cat, c_crossattn=c_cross, c_input=c_input)
+
+    def cond_builder(self, batch: dict, cfg_draws: Optional[torch.Tensor] = None,
+                     vae_noise: Optional[torch.Tensor] = None) -> Conditioning:
+        """The training conditioning (``train.compute_loss``'s
+        ``cond_builder``): :meth:`build_cond` with the CFG dropout's draws."""
+        return self.build_cond(batch, train=True, cfg_draws=cfg_draws, vae_noise=vae_noise)
 
     # ---------- sampling ----------------------------------------------------
 
@@ -98,10 +250,8 @@ class NVSTask:
         pipeline's, the rest drawn from ``generator`` (seed 42 by default)."""
         dev = request_device(self.device)
         n = N or batch["image"].shape[0]
-        rows = {k: batch[k][:n] for k in ("image", "mask", "masked_image", "tokens", "rel_pose")}
-        for k in ("clean_masked_image", "clean_mask", "subpixel_mask"):
-            if k in batch:
-                rows[k] = batch[k][:n]
+        rows = self._rows(batch, n, ("image", "mask", "masked_image", "tokens", "rel_pose", "clean_masked_image",
+                                     "clean_mask", "subpixel_mask"))
         generator = generator or torch.Generator(dev).manual_seed(DEFAULT_SEED)
         m = self.model
         cond = self.build_cond(rows, vae_noise=vae_noise)
@@ -133,3 +283,16 @@ class NVSTask:
         if warmup and step < warmup:
             dataset.complete_mask_rate = min(1.0, step / warmup)
         self.mask_steps = step
+
+
+def build_task(bundle, device="cuda"):
+    """The task of a ``config.ModelBundle``'s target (the reference's class
+    names)."""
+    t = bundle.task_target
+    if t == "inpainting_ldm.ref_inpainting_ldm.RefInpaintLDM":
+        return RefInpaintTask(bundle, device)
+    if t == "inpainting_ldm.multiview_ref_inpainting_ldm.RefInpaintLDM":
+        return MultiViewRefInpaintTask(bundle, device)
+    if t == "inpainting_ldm.NVS_ldm.NVSLDM":
+        return NVSTask(bundle, device)
+    raise KeyError(t)

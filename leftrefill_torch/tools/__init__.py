@@ -25,6 +25,7 @@ share with ``chip_smoke.py``.
 from __future__ import annotations
 
 import math
+import os
 import subprocess
 from collections import Counter
 
@@ -99,12 +100,24 @@ PER_FORWARD_NVS_B4 = {**PER_FORWARD_NVS, "geglu": 16}
 # The multi-view UNet adds its mid-block joint attention (256 tokens)
 PER_TRAIN_STEP = {**_NONE, "flash_fwd": 30, "flash_bwd_dq": 14, "flash_bwd_dkv": 14, "conv3x3": 61, "geglu": 32}
 PER_TRAIN_STEP_MV4 = {**PER_TRAIN_STEP, "flash_fwd": 32, "flash_bwd_dq": 15, "flash_bwd_dkv": 15}
+# kernel launches per novel-view-synthesis train step at full width, batch 16
+# of 256x512 canvases (32x64 latents), no remat (JAX drops use_checkpoint),
+# LoRA on the attention projections and the GEGLU input, the refinement
+# branch's c_input after the first block: every self-attention needs its
+# backward (flash: 10 forward, 10 backward at the 2048- and 512-token levels;
+# the 128- and 32-token levels and the 77-key cross-attentions take the exact
+# softmax), K2 at the 32x64 and 16x32 levels (its backward is the plain
+# convolution's), K3 at every transformer (its VJP is plain math)
+PER_TRAIN_STEP_NVS = {**_NONE, "flash_fwd": 10, "flash_bwd_dq": 10, "flash_bwd_dkv": 10, "conv3x3": 22,
+                      "geglu": 16}
 # each backward kernel's sites per train step, (b, heads, nq, nk, d) -> launches:
 # batch 8 of 64x128 latents; one V=4 scene of 64x64 views (joint sequences of
 # 4 x 4096 / 1024 / 256 / 64 tokens, the mid block's 256 among them)
 TRAIN_SITES = {(8, 5, 8192, 8192, 64): 4, (8, 10, 2048, 2048, 64): 5, (8, 20, 512, 512, 64): 5}
 TRAIN_SITES_MV4 = {(1, 5, 16384, 16384, 64): 4, (1, 10, 4096, 4096, 64): 5, (1, 20, 1024, 1024, 64): 5,
                    (1, 20, 256, 256, 64): 1}
+
+TRAIN_SITES_NVS = {(16, 5, 2048, 2048, 64): 5, (16, 10, 512, 512, 64): 5}
 
 # the H100 SXM's published dense peaks and memory rate (NVIDIA's data sheet)
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
@@ -510,6 +523,49 @@ def nvs_request(tokenizer, poses: int = 1, seed: int = 0) -> dict:
     return {"image": image, "mask": mask, "masked_image": image * (mask < 0.5),
             "tokens": tokenizer.tokenize([build_prompt(73, "<special-token>")] * poses),
             "rel_pose": np.stack([get_relative_pose(t, cond) for t in targets])}
+
+
+def write_nvs_renders(root: str, objects: int, views: int = 12, size: int = 256, seed: int = 0,
+                      val_masks: int = 0, img_size: int | None = None) -> dict:
+    """Seeded synthetic Objaverse renders in the layout ``NVS_OBJDataset``
+    reads: ``root/objs/obj<i>/%03d.png`` (RGBA, an elliptic opaque blob of
+    smooth random colour on a transparent background, a different blob per
+    view) and ``%03d.npy`` (the view's [3, 4] world-to-camera matrix, from
+    :func:`nvs_cameras`); the list files ``train.txt`` (every object) and
+    ``val.txt`` (the first ``val_masks`` objects, each with an evaluation
+    mask ``root/masks/obj<i>/000.png`` at the dataset's ``img_size``
+    (default ``size``): the lower half of the view).
+    Returns the paths {"datapath", "train_list", "val_list", "mask_file_path"}."""
+    from leftrefill_torch.data.image_io import write_png
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:size, :size] / size
+    names = []
+    for i in range(objects):
+        name = f"obj{i}"
+        names.append(name)
+        obj = f"{root}/objs/{name}"
+        os.makedirs(obj, exist_ok=True)
+        for v, cam in enumerate(nvs_cameras(views, seed=seed * 1000 + i)):
+            cy, cx, ry, rx = rng.uniform(0.35, 0.65), rng.uniform(0.35, 0.65), rng.uniform(0.15, 0.3), rng.uniform(0.15, 0.3)
+            blob = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+            colour = rng.uniform(0, 255, 3) * (0.6 + 0.4 * np.stack([yy, xx, 1 - yy], -1))
+            img = np.zeros((size, size, 4), np.uint8)
+            img[..., :3] = np.where(blob[..., None], colour, 0).astype(np.uint8)
+            img[..., 3] = np.where(blob, 255, 0)
+            write_png(f"{obj}/{v:03d}.png", img, level=1)
+            np.save(f"{obj}/{v:03d}.npy", cam)
+    for i in range(val_masks):
+        os.makedirs(f"{root}/masks/obj{i}", exist_ok=True)
+        m = np.zeros((img_size or size, img_size or size), np.uint8)
+        m[(img_size or size) // 2:] = 255
+        write_png(f"{root}/masks/obj{i}/000.png", m)
+    with open(f"{root}/train.txt", "w") as f:
+        f.write("\n".join(names))
+    with open(f"{root}/val.txt", "w") as f:
+        f.write("\n".join(names[:val_masks]))
+    return {"datapath": f"{root}/objs", "train_list": f"{root}/train.txt", "val_list": f"{root}/val.txt",
+            "mask_file_path": f"{root}/masks"}
 
 
 def prompt_tokenizer():

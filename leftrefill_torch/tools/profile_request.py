@@ -2,7 +2,7 @@
 CUDA GPU.
 
     python -m leftrefill_torch.tools.profile_request [--int8 [--unfused] | --multiview V] [--json PATH]
-    python -m leftrefill_torch.tools.profile_request --train [--multiview V] [--json PATH]
+    python -m leftrefill_torch.tools.profile_request --train [--multiview V | --nvs] [--json PATH]
     python -m leftrefill_torch.tools.profile_request --nvs [--json PATH]
 
 The bundle is the full-width SD2-inpainting one (``build_sd2_inpaint_bundle``,
@@ -37,6 +37,14 @@ then one under ``torch.profiler`` as for a request, the device time grouped
 into the forward kernels (K1-K3, forward and remat recompute), the backward
 kernels (dq: K12 + K14, dk/dv: K13), the library backward (cuDNN's conv
 gradients, cuBLAS GEMMs) and the plain ops, with the idle share.
+
+``--train --nvs`` profiles the novel-view-synthesis train step of the
+training CLI (``configs/novel_view_synthesis.yaml`` with LoRA rank 16 and
+the refinement branch, random weights, AdamW 1e-4, weight decay 0.01, no
+remat): a batch of 16 256x512 canvases from seeded synthetic renders
+(``tools.write_nvs_renders``) through ``NVS_OBJDataset`` and the loader,
+profiled as above, with the peak memory, and the host's data path: seconds
+per item on one thread and per batch of 16 from the 8-thread loader.
 
 ``--nvs`` profiles novel-view synthesis serving instead
 (``build_sd2_nvs_bundle`` with the refinement branch, ``NVSTask.log_images``,
@@ -239,6 +247,74 @@ def profile_training(view_num) -> dict:
     return out
 
 
+def profile_nvs_training() -> dict:
+    """The NVS train step of the module docstring, profiled."""
+    import os
+    import shutil
+    import tempfile
+
+    from leftrefill_torch.config import build_model_from_config, load_yaml
+    from leftrefill_torch.data.datasets import NVS_OBJDataset
+    from leftrefill_torch.data.loader import DataLoader
+    from leftrefill_torch.models.lora import default_target, init_lora
+    from leftrefill_torch.tasks import build_task
+    from leftrefill_torch.train import (OptimizerConfig, create_train_state, lora_predicate, make_train_step,
+                                        wrap_lora_params)
+    from leftrefill_torch.train.checkpoints import nvs_prompt_filter
+
+    root = tempfile.mkdtemp(prefix="nvs_profile_")
+    try:
+        paths = tools.write_nvs_renders(root, 32, views=12, size=256, seed=0)
+        cfg = load_yaml(os.path.join(os.path.dirname(__file__), "..", "..", "configs", "novel_view_synthesis.yaml"))
+        cfg["model"]["params"]["lora"]["do_lora"] = True
+        cfg["model"]["params"]["refinement_config"]["use_input_refinement"] = True
+        bundle = build_model_from_config(cfg, torch.bfloat16, "cuda")
+        task = build_task(bundle, "cuda")
+        gen = torch.Generator("cuda").manual_seed(0)
+        task.init_params(gen)
+        model = wrap_lora_params(bundle.model, init_lora(bundle.model.unet, rank=16, target=default_target,
+                                                         generator=gen))
+        state, tx = create_train_state(model, OptimizerConfig(lr=1e-4, weight_decay=0.01),
+                                       lora_predicate(nvs_prompt_filter))
+        step = make_train_step(model, tx, cond_builder=task.cond_builder)
+        dc = {k: v for k, v in bundle.data_config.items() if k not in ("cfg", "mask_file_path")}
+        ds = NVS_OBJDataset(paths["datapath"], paths["train_list"], mode="train", **dc)
+        t0 = time.perf_counter()
+        for i in range(16):
+            ds[i]
+        item_s = (time.perf_counter() - t0) / 16
+        loader = iter(DataLoader(ds, 16, tokenizer=bundle.tokenizer, shuffle=True))
+        t0 = time.perf_counter()
+        batches = [next(loader) for _ in range(2)]
+        batch_s = (time.perf_counter() - t0) / 2
+        del loader
+        batch = {k: v for k, v in batches[0].items() if k != "txt"}
+
+        def run() -> float:
+            nonlocal state
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, torch.Generator("cuda").manual_seed(7))
+            if not np.isfinite(float(metrics["loss"])):
+                raise SystemExit("profile_request --train --nvs: non-finite loss")
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        for _ in range(2):  # warm-up steps
+            run()
+        torch.cuda.reset_peak_memory_stats()
+        out = profiled(run, 1, "kernel_launches_per_step")
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        kinds = defaultdict(float)
+        for group, ms in out["device_ms_by_group"].items():
+            kinds[TRAIN_KINDS.get(group, "plain ops")] += ms
+        out["device_ms_by_kind"] = dict(kinds)
+        out["host_data"] = {"seconds_per_item_one_thread": item_s, "seconds_per_batch16_loader": batch_s,
+                            "host_cpus": os.cpu_count()}
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def profile_nvs() -> dict:
     """The NVS requests of the module docstring, profiled."""
     from leftrefill_torch.pipeline import build_sd2_nvs_bundle
@@ -269,18 +345,29 @@ def main() -> int:
     ap.add_argument("--int8", action="store_true", help="profile the W8A8 int8 bundle (fused prologues)")
     ap.add_argument("--unfused", action="store_true", help="with --int8: JAX's unfused int8 configuration")
     ap.add_argument("--multiview", type=int, metavar="V", help="profile the V-view multi-view bundle (bf16)")
-    ap.add_argument("--train", action="store_true", help="profile one prompt-tuning train step (bf16)")
-    ap.add_argument("--nvs", action="store_true", help="profile novel-view synthesis requests (bf16)")
+    ap.add_argument("--train", action="store_true", help="profile one train step (bf16)")
+    ap.add_argument("--nvs", action="store_true", help="profile novel-view synthesis requests or, with --train, "
+                    "its train step (bf16)")
     ap.add_argument("--json", help="also write the result to this file")
     args = ap.parse_args()
     if args.unfused and not args.int8 or args.multiview and args.int8 or args.train and args.int8:
         ap.error("--unfused goes with --int8, --multiview and --train with neither")
-    if args.nvs and (args.int8 or args.multiview or args.train):
-        ap.error("--nvs goes alone")
+    if args.nvs and (args.int8 or args.multiview):
+        ap.error("--nvs goes alone or with --train")
     if not torch.cuda.is_available():
         raise SystemExit("profile_request: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.nvs and args.train:
+        result = {"card": tools.card_line(), "torch": torch.__version__, "cuda": torch.version.cuda,
+                  "bundle": "train_nvs_b16_lora16_refinement"}
+        print(result["card"])
+        result["train_step_profiled"] = profile_nvs_training()
+        print("train_step_profiled", json.dumps(result["train_step_profiled"]))
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(result, f, indent=1)
+        return 0
     if args.nvs:
         result = {"card": tools.card_line(), "torch": torch.__version__, "cuda": torch.version.cuda,
                   "bundle": "nvs_refinement"}

@@ -1,7 +1,8 @@
 """Training observability (counterpart of ``leftrefill_tpu/train/logger.py``):
-a JSONL metric stream, the prompt tokens' drift from their first values, and
-per-step wall times with a ``torch.profiler`` trace window.  The image grids
-(``ImageLogger``) come with the training CLI."""
+a JSONL metric stream, sample grids written as PNG files (``ImageLogger``,
+through ``data.image_io``: JAX's writes JPEG files with PIL), the prompt
+tokens' drift from their first values, and per-step wall times with a
+``torch.profiler`` trace window."""
 
 from __future__ import annotations
 
@@ -12,6 +13,40 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from leftrefill_torch.data.image_io import write_png
+
+
+def to_uint8(img) -> np.ndarray:
+    """[-1, 1] float -> uint8."""
+    return np.clip((np.asarray(_numpy(img), np.float32) + 1.0) * 127.5, 0, 255).astype(np.uint8)
+
+
+def make_grid(images: dict, max_images: int = 4) -> np.ndarray:
+    """One row per sample (at most ``max_images``), the entries side by side
+    in the dict's order (1-channel ones as grey RGB); each value [B, H, W, C]."""
+    images = {k: np.asarray(_numpy(v)) for k, v in images.items()}
+    n = min(max_images, next(iter(images.values())).shape[0])
+    rows = [np.concatenate([to_uint8(np.broadcast_to(v[i], v[i].shape[:2] + (3,)) if v[i].shape[-1] == 1 else v[i])
+                            for v in images.values()], axis=1) for i in range(n)]
+    return np.concatenate(rows, axis=0)
+
+
+class ImageLogger:
+    """A sample grid every ``batch_frequency`` steps, as a PNG file
+    ``gs-<step>_e-<epoch>_<split>.png`` in ``save_dir``."""
+
+    def __init__(self, save_dir: str, batch_frequency: int = 200, max_images: int = 4):
+        self.save_dir, self.batch_frequency, self.max_images = save_dir, batch_frequency, max_images
+        os.makedirs(save_dir, exist_ok=True)
+
+    def should_log(self, step: int) -> bool:
+        return step % self.batch_frequency == 0
+
+    def log(self, step: int, epoch: int, images: dict, split: str = "train") -> str:
+        path = os.path.join(self.save_dir, f"gs-{step:06}_e-{epoch:06}_{split}.png")
+        write_png(path, make_grid(images, self.max_images))
+        return path
 
 
 class MetricLogger:

@@ -1,6 +1,8 @@
-"""Prompt-tuning training (counterpart of ``leftrefill_tpu/train/trainer.py``):
-only the prompt table (``cond_stage_model.special_embeddings.weight``, ~50 x
-1024, fp32) trains, through the frozen UNet, text tower and VAE.
+"""Training (counterpart of ``leftrefill_tpu/train/trainer.py``): prompt
+tuning, where only the prompt table (``cond_stage_model.special_embeddings.weight``,
+~50 x 1024, fp32) trains through the frozen UNet, text tower and VAE, and
+novel-view-synthesis training, where the prompt, the relative-pose MLP, the
+separator columns, the refinement branch and LoRA factors train.
 
     from leftrefill_torch.pipeline import build_sd2_inpaint_bundle
     from leftrefill_torch.train import create_train_state, make_train_step
@@ -23,6 +25,17 @@ leaves), with optax's ``cosine_decay_schedule`` and ``MultiSteps`` gradient
 accumulation written out.  JAX draws t and the noise from ``split(key, 3)``;
 torch cannot reproduce that stream, so :func:`compute_loss` takes them
 injected and the step draws them from a ``torch.Generator``.
+
+LoRA (JAX's ``wrap_lora_params``): ``wrap_lora_params(model, lora)`` holds
+the factors as parameters beside the model (``LoraModel``: ``model.*`` and
+``lora.{down,up}.*``); the loss runs the model through
+``torch.func.functional_call`` on the UNet weights merged with them
+(``models.lora.merge_lora``), so the gradient reaches the factors and the
+base weights stay frozen.  ``lora_predicate`` selects the factors and
+whatever its base predicate selects in the model.  A ``cond_builder``
+(``tasks.NVSTask.build_cond``) builds the conditioning in place of the
+inpainting one: the pose token, the CFG prompt dropout (its draws taken from
+the step's generator after t and the noise, or injected) and c_input.
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ import torch
 from torch import nn
 
 from leftrefill_torch.diffusion.core import LeftRefillModel
+from leftrefill_torch.models.lora import merge_lora
 
 Predicate = Callable[[tuple], bool]
 
@@ -148,12 +162,83 @@ def create_train_state(
     return TrainState(model), PromptOptimizer(config, params)
 
 
+class LoraPack(nn.Module):
+    """LoRA factors ({key: {"down", "up"}}, ``models.lora.init_lora``'s
+    pack over the UNet's state_dict keys) as fp32 parameters: ``down`` and
+    ``up`` ParameterDicts keyed by the weight's key with '/' for '.'."""
+
+    def __init__(self, lora: dict):
+        super().__init__()
+        self.down = nn.ParameterDict({k.replace(".", "/"): nn.Parameter(v["down"].detach().to(torch.float32).clone())
+                                      for k, v in lora.items()})
+        self.up = nn.ParameterDict({k.replace(".", "/"): nn.Parameter(v["up"].detach().to(torch.float32).clone())
+                                    for k, v in lora.items()})
+
+    def factors(self) -> dict:
+        """{UNet state_dict key: {"down", "up"}} of the parameters themselves."""
+        return {k.replace("/", "."): {"down": self.down[k], "up": self.up[k]} for k in self.down}
+
+
+class LoraModel(nn.Module):
+    """JAX's {"model": params, "lora": factors} pack: ``model`` (the
+    ``LeftRefillModel``) and ``lora`` (a ``LoraPack``), applied at ``scale``
+    through :func:`with_lora`.  ``forward(fn, *args)`` calls ``fn`` (it
+    exists for ``functional_call``)."""
+
+    def __init__(self, model: nn.Module, lora: dict, scale: float = 1.0):
+        super().__init__()
+        self.model, self.lora, self.scale = model, LoraPack(lora), scale
+
+    def merged_weights(self) -> dict[str, torch.Tensor]:
+        """The LoRA sites' UNet weights merged with the factors, keyed by
+        this module's parameter names (differentiable in the factors)."""
+        unet = dict(self.model.model.diffusion_model.named_parameters())
+        factors = self.lora.factors()
+        merged = merge_lora({k: unet[k] for k in factors}, factors, self.scale)
+        return {f"model.model.diffusion_model.{k}": merged[k] for k in factors}
+
+    def forward(self, fn, *args, **kwargs):
+        return fn(*args, **kwargs)
+
+
+def wrap_lora_params(model: nn.Module, lora: dict, scale: float = 1.0) -> LoraModel:
+    """The model with LoRA factors beside it (JAX's ``wrap_lora_params``)."""
+    return LoraModel(model, lora, scale)
+
+
+def lora_predicate(base_predicate: Predicate) -> Predicate:
+    """Trainable: every LoRA factor and what ``base_predicate`` selects in
+    the model (JAX's ``lora_predicate``: the NVS optimizer groups)."""
+
+    def pred(keys: tuple) -> bool:
+        if keys and keys[0] == "lora":
+            return True
+        return base_predicate(keys[1:] if keys and keys[0] == "model" else keys)
+
+    return pred
+
+
+def base_model(model: nn.Module) -> nn.Module:
+    """The ``LeftRefillModel`` of a LoRA pack, or the model itself."""
+    return model.model if isinstance(model, LoraModel) else model
+
+
+def with_lora(model: nn.Module, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with a LoRA pack's merged weights in place of
+    the UNet's (``torch.func.functional_call``; the UNet's own parameters
+    are untouched), or as it is for a plain model (JAX's
+    ``_effective_params``)."""
+    if isinstance(model, LoraModel):
+        return torch.func.functional_call(model, model.merged_weights(), (fn, *args), kwargs)
+    return fn(*args, **kwargs)
+
+
 def _device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
 def compute_loss(
-    model: LeftRefillModel,
+    model: nn.Module,
     batch: dict,
     t: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
@@ -161,26 +246,44 @@ def compute_loss(
     vae_noise: Optional[torch.Tensor] = None,
     view_reduced: bool = False,
     view_num: int = 1,
+    cond_builder=None,
+    cfg_draws: Optional[torch.Tensor] = None,
 ):
-    """One forward loss: encode the image, build the inpainting conditioning
-    through the prompt text tower, then ``p_losses`` at timesteps ``t`` with
-    ``noise`` (drawn from ``generator`` where not given: t first, then the
-    noise).  ``vae_noise``: the VAE posterior sample's noise (default: the
-    fixed draw).  ``view_reduced``: the multi-view loss, each scene's V
-    consecutive rows, only view 0 (the target) kept.  Returns (loss,
-    metrics)."""
+    """One forward loss: encode the image (no graph: the VAE is frozen),
+    build the conditioning (the inpainting one through the prompt text
+    tower, or ``cond_builder(batch, cfg_draws=, vae_noise=)``'s), then
+    ``p_losses`` at timesteps ``t`` with ``noise``.  Where not given, t, the
+    noise and (with a ``cond_builder``) the CFG draws [B] come from
+    ``generator`` in that order.  ``model`` may be a LoRA pack
+    (:func:`wrap_lora_params`): its merged weights are used.  ``vae_noise``:
+    the VAE posterior sample's noise (default: the fixed draw).
+    ``view_reduced``: the multi-view loss, each scene's V consecutive rows,
+    only view 0 (the target) kept.  Returns (loss, metrics)."""
+    return with_lora(model, _loss, base_model(model), batch, t, noise, generator, vae_noise, view_reduced, view_num,
+                     cond_builder, cfg_draws)
+
+
+def _loss(model: LeftRefillModel, batch, t, noise, generator, vae_noise, view_reduced, view_num, cond_builder,
+          cfg_draws):
     dev = _device(model)
-    image, mask, masked_image = (torch.as_tensor(batch[k], device=dev, dtype=torch.float32)
-                                 for k in ("image", "mask", "masked_image"))
-    tokens = torch.as_tensor(batch["tokens"], device=dev, dtype=torch.long)
-    z = model.encode_first_stage(image, vae_noise)
-    cond = model.build_inpaint_cond(tokens, mask, masked_image, vae_noise)
+    image = torch.as_tensor(batch["image"], device=dev, dtype=torch.float32)
+    with torch.no_grad():
+        z = model.encode_first_stage(image, vae_noise)
     b = z.shape[0]
     if t is None:
         t = torch.randint(0, model.schedule.num_timesteps, (b,), generator=generator, device=dev)
     if noise is None:
         noise = torch.randn(z.shape, generator=generator, device=dev, dtype=torch.float32).to(z.dtype)
     t, noise = torch.as_tensor(t, device=dev, dtype=torch.long), torch.as_tensor(noise, device=dev, dtype=z.dtype)
+    if cond_builder is not None:
+        if cfg_draws is None:
+            cfg_draws = torch.rand((b,), generator=generator, device=dev)
+        cond = cond_builder(batch, cfg_draws=cfg_draws, vae_noise=vae_noise)
+    else:
+        mask, masked_image = (torch.as_tensor(batch[k], device=dev, dtype=torch.float32)
+                              for k in ("mask", "masked_image"))
+        tokens = torch.as_tensor(batch["tokens"], device=dev, dtype=torch.long)
+        cond = model.build_inpaint_cond(tokens, mask, masked_image, vae_noise)
     if not view_reduced:
         return model.p_losses(z, cond, t, noise)
     err = model.p_losses(z, cond, t, noise, per_element=True)
@@ -196,20 +299,22 @@ def view_options(model: LeftRefillModel) -> tuple[bool, int]:
     bundle its whole loss."""
     from leftrefill_torch.models.multiview import MultiViewBasicTransformerBlock
 
-    block = next(model.unet.spatial_transformers()).transformer_blocks[0]
+    block = next(base_model(model).unet.spatial_transformers()).transformer_blocks[0]
     if isinstance(block, MultiViewBasicTransformerBlock):
         return True, block.view_num
     return False, 1
 
 
-def make_train_step(model: LeftRefillModel, tx: PromptOptimizer, view_reduced: bool = False, view_num: int = 1):
+def make_train_step(model: nn.Module, tx: PromptOptimizer, view_reduced: bool = False, view_num: int = 1,
+                    cond_builder=None):
     """The train step: ``step(state, batch, generator) -> (state, metrics)``
-    draws t and the noise from ``generator`` on the model's device, runs the
-    loss and its backward, and hands the gradients to ``tx``."""
+    draws t, the noise and (with a ``cond_builder``) the CFG draws from
+    ``generator`` on the model's device, runs the loss and its backward, and
+    hands the gradients to ``tx``.  ``model`` may be a LoRA pack."""
 
     def step(state: TrainState, batch: dict, generator: torch.Generator):
         loss, metrics = compute_loss(model, batch, generator=generator, view_reduced=view_reduced,
-                                     view_num=view_num)
+                                     view_num=view_num, cond_builder=cond_builder)
         loss.backward()
         tx.step()
         state.step += 1

@@ -1,13 +1,15 @@
 """The port stands alone: its copies of the JAX package's numpy-only schedule
-tables, tokenizer, prompt text and relative camera pose equal the
-originals on the same inputs, no module of
-the port (nor ``chip_smoke.py``) brings in the JAX package or jax, and its
-entry points run on the card unless the caller asks for the CPU."""
+tables, tokenizer, prompt text, relative camera pose, loader and sampler
+equal the originals on the same inputs, no module of the port (nor
+``chip_smoke.py``) brings in the JAX package or jax, its training CLI runs
+without the JAX package, jax, OpenCV, PIL or PyYAML, and its entry points
+run on the card unless the caller asks for the CPU."""
 
 import subprocess
 import sys
 import warnings
 from pathlib import Path
+
 
 import numpy as np
 import pytest
@@ -181,3 +183,98 @@ def test_nvs_entry_points_default_to_the_card():
             task.log_images({**batch, "tokens": np.zeros((1, 77), np.int64), "rel_pose": np.zeros((1, 4), np.float32)})
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             LoraAdapterStore(torch.nn.Linear(2, 2))
+
+
+def test_loader_and_sampler_copies_match_jax():
+    """The loader's numpy copies (``tokenize_txt``, ``collate``,
+    ``flatten_views``), ``BalancedRandomSampler`` and the logger's
+    ``make_grid`` / ``to_uint8`` equal the JAX package's on the same
+    inputs."""
+    from leftrefill_tpu.data import datasets as jd, loader as jl
+
+    from leftrefill_torch.data import datasets as td, loader as tl
+    from leftrefill_torch.models.tokenizer import SimpleTokenizer
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tok = SimpleTokenizer(special_tokens=["<a0>", "<a1>"])
+    for txt in ("<a0> <a1> a photo", ["<a0> x", "<a1> y", ""]):
+        assert np.array_equal(tl.tokenize_txt(tok, txt), jl.tokenize_txt(tok, txt))
+    rng = np.random.RandomState(0)
+    items = [{"image": rng.rand(4, 8, 3).astype(np.float32), "rel_pose": rng.rand(4).astype(np.float32),
+              "txt": f"<a0> item {i}", "index": i, "meta": {"i": i}} for i in range(3)]
+    for t in (None, tok):
+        a, b = tl.collate(items, t), jl.collate(items, t)
+        assert a.keys() == b.keys()
+        assert all(np.array_equal(a[k], b[k]) if isinstance(b[k], np.ndarray) else a[k] == b[k] for k in b)
+    scene = {"image": rng.rand(2, 3, 4, 4, 3), "tokens": rng.randint(0, 9, (2, 3, 77)), "txt": ["a", "b"]}
+    a, b = tl.flatten_views(scene), jl.flatten_views(scene)
+    assert all(np.array_equal(a[k], b[k]) for k in ("image", "tokens")) and a["txt"] == b["txt"]
+    from leftrefill_tpu.train import logger as jlog
+
+    from leftrefill_torch.train import logger as tlog
+
+    grid = {"pred": rng.uniform(-1.2, 1.2, (3, 8, 8, 3)).astype(np.float32),
+            "mask": (rng.rand(3, 8, 8, 1) > 0.5).astype(np.float32)}
+    assert np.array_equal(tlog.make_grid(grid, 2), jlog.make_grid(grid, 2))
+    assert np.array_equal(tlog.to_uint8(grid["pred"]), jlog.to_uint8(grid["pred"]))
+    image_dict = {i: f"/d/s{i % 4}/imgs/{i}.jpg" for i in range(24)}
+    pairs = [{"source": i, "target": (i + 1) % 24} for i in range(24)]
+    for epoch in range(3):
+        a = td.BalancedRandomSampler(image_dict, pairs, n_sample_per_scene=5, rank=1, num_replicas=2)
+        b = jd.BalancedRandomSampler(image_dict, pairs, n_sample_per_scene=5, rank=1, num_replicas=2)
+        a.set_epoch(epoch)
+        b.set_epoch(epoch)
+        assert list(a) == list(b) and len(a) == len(b)
+
+
+def test_training_cli_loads_no_jax_opencv_pil_or_yaml(tmp_path):
+    """A fresh interpreter runs the training CLI on the CPU (the tiny NVS
+    bundle, LoRA and the refinement branch on, one step, one validation
+    batch over synthetic renders) and reads a dataset item: no module of
+    the JAX package, jax, OpenCV, PIL or PyYAML gets loaded."""
+    import textwrap
+
+    import yaml
+
+    from test_cli_variants import NVS_MODEL_YAML
+
+    from leftrefill_torch import tools
+
+    root = str(tmp_path)
+    paths = tools.write_nvs_renders(root, objects=4, views=3, size=32, seed=0, val_masks=4)
+    cfg = yaml.safe_load(NVS_MODEL_YAML)
+    p = cfg["model"]["params"]
+    p["first_stage_config"]["params"]["ddconfig"]["ch_mult"] = [1, 1, 2, 2]
+    p["refinement_config"]["use_input_refinement"] = True
+    p["data_config"].update(mask_file_path=paths["mask_file_path"], nviews=3)
+    (tmp_path / "model.yaml").write_text(yaml.safe_dump(cfg))
+    (tmp_path / "train.yaml").write_text(textwrap.dedent(f"""
+        model_config: '{root}/model.yaml'
+        resume_path: null
+        datapath: '{paths["datapath"]}'
+        train_list: '{paths["train_list"]}'
+        val_list: '{paths["val_list"]}'
+        batch_size: 2
+        logger_freq: 1
+        max_epochs: 1
+        max_steps: 1
+        log_ddim_steps: 1
+        val_ddim_steps: 1
+        val_batches: 1
+        optim_cfg: {{learning_rate: 1.0e-3, weight_decay: 0.01, lr_scheduler: none}}
+        """))
+    code = f"""
+import sys, warnings
+warnings.simplefilter("ignore")
+from leftrefill_torch.cli.train import main
+from leftrefill_torch.data.datasets import NVS_OBJDataset
+assert main(["--config_file", "{root}/train.yaml", "--exp_name", "x", "--save_path", "{root}/ck", "--no_restore",
+             "--device", "cpu"]) == 0
+item = NVS_OBJDataset("{paths['datapath']}", "{paths['train_list']}", img_size=32, nviews=3, seed=0)[0]
+assert item["image"].shape == (32, 64, 3)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("leftrefill_tpu", "jax", "jaxlib", "flax", "cv2", "PIL",
+                                                           "yaml"))
+assert not bad, bad
+"""
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=300)

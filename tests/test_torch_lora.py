@@ -4,9 +4,9 @@ fp32, at the tiny UNet of tests/test_nvs.py: the merge at Dense and conv
 sites under the default and extended targets, the extraction, the
 initial factors' statistics, the store's LRU and base restore, and its int8
 requantization equal to JAX's ``quantize_params_like`` on the merged tree;
-and the number of LoRA sites at full width, on shapes only.  Tolerance: the
-merged weights within 1e-6 relative to max|ref| (the same fp32 products,
-summed in another order)."""
+the number of LoRA sites at full width, on shapes only; and the bf16 merge
+bit-equal to JAX's.  Tolerance: the fp32 merged weights within 1e-6
+relative to max|ref| (the same fp32 products, summed in another order)."""
 
 import jax
 import jax.numpy as jnp
@@ -217,3 +217,43 @@ def test_full_width_lora_site_count_matches_jax(target):
         ours = {k for k, v in NVSUnetModel().state_dict().items() if tt(k) and v.ndim in (2, 4)}
     assert ours == ref
     assert len(ours) == {"default": 16 * 9, "extended": 16 * 9 + 22 * 2 + 14}[target]
+
+
+@pytest.mark.parametrize("target", ["default", "extended"])
+def test_bf16_merge_bit_equal_to_jax(tiny_params, target):
+    """On a bf16 tree at scale 0.7, the merge rounds as JAX's ``leaf + scale *
+    delta.astype(leaf.dtype)`` does (the delta to bf16, the weakly typed
+    scale to bf16, the product and the sum in bf16): bit-equal at every
+    site, on the bf16 UNet's own state_dict, whose channels-last conv
+    weights stay channels-last.  A sum in fp32 rounded once differs by one
+    bf16 step on a few per cent of the elements."""
+    from leftrefill_tpu.models import lora as jl
+
+    from leftrefill_torch.models import lora as tl
+    from leftrefill_torch.models.unet import UNetModel
+
+    jt, tt = {"default": (jl.default_target, tl.default_target),
+              "extended": (jl.extended_target, tl.extended_target)}[target]
+    lora = _jax_lora(tiny_params, jt)
+    jbf = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16), tiny_params)
+    merged_ref = jl.merge_lora(jbf, {k: {f: jnp.asarray(a) for f, a in v.items()} for k, v in lora.items()}, scale=0.7)
+    ref = _port_state(jax.tree_util.tree_map(lambda a: np.asarray(a.astype(jnp.float32)), merged_ref))
+    unet = UNetModel(**TINY_UNET, dtype=torch.bfloat16)
+    unet.load_state_dict(_port_state(tiny_params), strict=True)
+    state = unet.state_dict()
+    ours = lora_from_flax(lora)
+    merged = tl.merge_lora(state, ours, scale=0.7)
+    once = {}
+    for k, v in ours.items():
+        w = state[k]
+        assert w.dtype == torch.bfloat16 and merged[k].dtype == torch.bfloat16
+        assert torch.equal(merged[k].float(), ref[k]), k
+        if w.ndim == 4:
+            assert merged[k].is_contiguous(memory_format=torch.channels_last) == w.is_contiguous(
+                memory_format=torch.channels_last), k
+        delta = (v["up"].reshape(v["up"].shape[0], -1) @ v["down"].reshape(v["down"].shape[0], -1)).reshape(w.shape)
+        once[k] = (w.float() + 0.7 * delta).to(torch.bfloat16)
+    assert any(w.ndim == 4 and w.is_contiguous(memory_format=torch.channels_last) for k, w in state.items() if k in ours) \
+        == (target == "extended")
+    # the rule this replaced (an fp32 sum rounded once) is not bit-equal: the test tells them apart
+    assert sum(int((once[k] != merged[k]).sum()) for k in ours) > 0

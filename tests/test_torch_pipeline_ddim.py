@@ -18,3 +18,11 @@ def test_ddim_canvas_matches_jax(parameterization):
     assert np.array_equal(out[:, :, :32], image[:, :, :32])
     assert np.abs(out[:, :, 32:] - ref[:, :, 32:]).max() < CANVAS_ABS
     assert not np.allclose(out[:, :, 32:], image[:, :, 32:])
+
+
+def test_one_step_ddim_matches_jax():
+    """A single DDIM step (the tables' reversed one-element views once kept
+    their negative stride and were refused by torch)."""
+    out, ref, image = run_both_pipelines("ddim", steps=1)
+    assert np.abs(out[:, :, 32:] - ref[:, :, 32:]).max() < CANVAS_ABS
+    assert np.array_equal(out[:, :, :32], image[:, :, :32])

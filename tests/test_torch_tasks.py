@@ -1,0 +1,128 @@
+"""The port's task objects against the JAX package's on the CPU in fp32, each
+bundle built on both sides from the tiny YAMLs of ``tests/test_cli.py`` and
+``tests/test_cli_variants.py`` through the two config systems and loaded
+with the same seeded flax tree: ``build_task``'s dispatch, the 1-reference
+``log_images`` at each guidance branch (CFG above 1, the unconditional
+branch alone at 0, the conditional one at 1) and ``validation_metrics``,
+and the multi-view task's per-view split, on the same x_T, per-step noise
+and VAE noise as JAX's.  Tolerance: the tiny canvas 1e-4 absolute, the
+metrics 1e-4 relative (see test_torch_parity_utils)."""
+
+import copy
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from test_cli import MODEL_YAML
+from test_cli_variants import MV_MODEL_YAML
+from test_torch_parity_utils import CANVAS_ABS, fill_tree, t
+
+from leftrefill_torch.convert.from_jax import state_dict_from_flax
+
+STEPS = 4  # DDIM step counts divide the 1000 timesteps (the upstream quirk)
+
+
+def _bundles(src: str):
+    """(JAX task, its params, the port's task) of a tiny model YAML."""
+    from leftrefill_tpu.config import build_model_from_config as jbuild
+    from leftrefill_tpu.tasks import build_task as jtask
+
+    from leftrefill_torch.config import build_model_from_config
+    from leftrefill_torch.tasks import build_task
+
+    cfg = yaml.safe_load(src)
+    jb = jbuild(copy.deepcopy(cfg), dtype=jnp.float32)
+    m, key, v = jb.model, jax.random.PRNGKey(0), jb.view_num
+    struct = {
+        "unet": jax.eval_shape(m.unet.init, key, jnp.zeros((v, 8, 16, 9)), jnp.zeros((v,), jnp.int32),
+                               jnp.zeros((v, 77, m.unet.context_dim)))["params"],
+        "vae": jax.eval_shape(m.vae.init, key, jnp.zeros((1, 32, 64, 3)))["params"],
+        "cond": jax.eval_shape(m.cond_model.init, key, jnp.zeros((1, 77), jnp.int32))["params"],
+    }
+    params = {k: fill_tree(s, seed + 5) for seed, (k, s) in enumerate(struct.items())}
+    bundle = build_model_from_config(copy.deepcopy(cfg), dtype=torch.float32, device="cpu")
+    bundle.model.load_state_dict(state_dict_from_flax(params), strict=True)
+    return jtask(jb), jax.tree_util.tree_map(jnp.asarray, params), build_task(bundle, "cpu")
+
+
+def _draws(rows: int, key):
+    """JAX's x_T, per-step noise and the VAE's fixed noise for a tiny canvas."""
+    from leftrefill_tpu.models.autoencoder import DiagonalGaussian
+
+    shape = (rows, 16, 32, 4)  # the tiny VAE downsamples by 2
+    step_key, init_key = jax.random.split(key)  # ddim_sample's own split
+    noise = [jax.random.normal(jax.random.fold_in(jax.random.fold_in(step_key, 2), i), shape) for i in range(STEPS)]
+    return dict(x_T=t(jax.random.normal(init_key, shape)), noise_fn=lambda i, s: t(noise[i]),
+                vae_noise=t(jax.random.normal(jax.random.PRNGKey(DiagonalGaussian.FIXED_SEED), shape)))
+
+
+def _batch(task, rows: int, seed: int = 2):
+    rng = np.random.RandomState(seed)
+    image = rng.uniform(-1, 1, (rows, 32, 64, 3)).astype(np.float32)
+    mask = np.zeros((rows, 32, 64, 1), np.float32)
+    mask[:, 6:26, 36:60] = 1.0
+    return {"image": image, "mask": mask, "masked_image": image * (mask < 0.5),
+            "tokens": task.prompt_tokens([" ".join(task.bundle.special_tokens)] * rows)}
+
+
+@pytest.fixture(scope="module")
+def one_ref():
+    return _bundles(MODEL_YAML)
+
+
+@pytest.mark.parametrize("guidance", [2.5, 0.0, 1.0])
+def test_ref_task_log_images_matches_jax(one_ref, guidance):
+    from leftrefill_torch.tasks import RefInpaintTask
+
+    jt, params, task = one_ref
+    assert type(task) is RefInpaintTask and type(jt).__name__ == "RefInpaintTask"
+    batch, key = _batch(task, 2), jax.random.PRNGKey(4)
+    ref = jt.log_images(params, batch, ddim_steps=STEPS, ddim_eta=1.0, unconditional_guidance_scale=guidance, key=key)
+    out = task.log_images(batch, ddim_steps=STEPS, ddim_eta=1.0, unconditional_guidance_scale=guidance,
+                          **_draws(2, key))
+    assert out.keys() == {"pred", "origin_image", "masked_image", "mask"} <= ref.keys()
+    assert out["pred"].shape == (2, 32, 64, 3) and float(out["pred"].abs().max()) <= 1.0
+    assert np.abs(out["pred"].numpy() - np.asarray(ref["pred"])).max() < CANVAS_ABS
+
+
+def test_ref_task_validation_metrics_match_jax(one_ref):
+    """PSNR and SSIM of the composited right half, as JAX's validation step
+    computes them (its sample at the same draws)."""
+    jt, params, task = one_ref
+    batch, key = _batch(task, 2, seed=3), jax.random.PRNGKey(6)
+    ref = jt.validation_metrics(params, batch, cfg_scale=2.5, ddim_steps=STEPS, key=key)
+    got = task.validation_metrics(batch, cfg_scale=2.5, ddim_steps=STEPS, **_draws(2, key))
+    assert got.keys() == ref.keys() == {"val/psnr", "val/ssim"}
+    for k in ref:
+        assert abs(got[k] - ref[k]) <= 1e-4 * abs(ref[k]), k
+    with pytest.raises(NotImplementedError, match="LPIPS"):
+        task.validation_metrics(batch, cfg_scale=2.5, lpips_fn=lambda a, b: a)
+
+
+def test_multiview_task_splits_views_as_jax():
+    """A 5-D batch of two V=2 scenes: flattened, sampled and split back per
+    view, "reference" holding the source views; the view-0 loss options."""
+    from leftrefill_torch.tasks import MultiViewRefInpaintTask
+
+    jt, params, task = _bundles(MV_MODEL_YAML)
+    assert type(task) is MultiViewRefInpaintTask and (task.view_reduced, task.view_num) == (True, 2)
+    rng = np.random.RandomState(5)
+    images = rng.uniform(-1, 1, (2, 2, 32, 64, 3)).astype(np.float32)
+    masks = np.zeros((2, 2, 32, 64, 1), np.float32)
+    masks[:, 0, 6:26, 36:60] = 1.0
+    toks = task.prompt_tokens([" ".join(task.bundle.special_tokens[:2]), " ".join(task.bundle.special_tokens[2:4])])
+    batch = {"image": images, "mask": masks, "masked_image": images * (masks < 0.5),
+             "tokens": np.stack([toks, toks])}
+    key = jax.random.PRNGKey(8)
+    ref = jt.log_images(params, batch, N=2, ddim_steps=STEPS, ddim_eta=1.0, unconditional_guidance_scale=2.5, key=key)
+    out = task.log_images(batch, N=2, ddim_steps=STEPS, ddim_eta=1.0, unconditional_guidance_scale=2.5,
+                          **_draws(4, key))
+    assert out.keys() == ref.keys()
+    for k in ref:
+        assert tuple(out[k].shape) == np.shape(ref[k]), k
+    assert np.abs(out["pred"].numpy() - np.asarray(ref["pred"])).max() < CANVAS_ABS
+    assert torch.equal(out["reference"], t(images[:, 1:]))

@@ -5,6 +5,7 @@ is the larger of its bytes over the memory rate and its operations over the
 tensor-core peak."""
 
 from collections import Counter
+from pathlib import Path
 
 import pytest
 import torch
@@ -59,6 +60,43 @@ def test_per_train_step_counts_match_the_dispatch(monkeypatch, path):
     assert Counter(name for name, _ in sites) == Counter({k: v for k, v in per_step.items() if v})
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert Counter(shape for n, shape in sites if n == name) == Counter(by_shape)
+
+
+def test_per_train_step_nvs_counts_match_the_dispatch(monkeypatch):
+    """The novel-view-synthesis train step at full width on ``meta``, as
+    the training CLI runs it (``configs/novel_view_synthesis.yaml`` with
+    LoRA rank 16 and the refinement branch, batch 16 of 256x512 canvases,
+    the LoRA pack through ``compute_loss`` with the task's conditioning):
+    its kernel sites, forward and backward, are ``tools.PER_TRAIN_STEP_NVS``
+    and the backward kernels' by shape ``tools.TRAIN_SITES_NVS``; every
+    trainable parameter gets a gradient."""
+    from leftrefill_torch.config import build_model_from_config, load_yaml
+    from leftrefill_torch.models.lora import default_target, init_lora
+    from leftrefill_torch.tasks import build_task
+    from leftrefill_torch.train import compute_loss, create_train_state, lora_predicate, wrap_lora_params
+    from leftrefill_torch.train.checkpoints import nvs_prompt_filter
+
+    monkeypatch.setattr(kernels, "uses_kernel", lambda t: t.device.type in ("cuda", "meta"))
+    cfg = load_yaml(str(Path(__file__).resolve().parent.parent / "configs" / "novel_view_synthesis.yaml"))
+    cfg["model"]["params"]["lora"]["do_lora"] = True
+    cfg["model"]["params"]["refinement_config"]["use_input_refinement"] = True
+    bundle = build_model_from_config(cfg, device="meta")
+    task = build_task(bundle, "meta")
+    with torch.device("meta"):
+        model = wrap_lora_params(bundle.model, init_lora(bundle.model.unet, rank=16, target=default_target))
+        b = 16
+        batch = {"image": torch.empty(b, 256, 512, 3), "mask": torch.empty(b, 256, 512, 1),
+                 "masked_image": torch.empty(b, 256, 512, 3), "tokens": torch.zeros(b, 77, dtype=torch.long),
+                 "rel_pose": torch.empty(b, 4)}
+        draws = dict(t=torch.zeros(b, dtype=torch.long), noise=torch.empty(b, 32, 64, 4, dtype=torch.bfloat16),
+                     vae_noise=torch.empty(b, 32, 64, 4), cfg_draws=torch.empty(b))
+    create_train_state(model, predicate=lora_predicate(nvs_prompt_filter))
+    with kernels.record_sites() as sites:
+        compute_loss(model, batch, cond_builder=task.cond_builder, **draws)[0].backward()
+    assert Counter(name for name, _ in sites) == Counter({k: v for k, v in tools.PER_TRAIN_STEP_NVS.items() if v})
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert Counter(shape for n, shape in sites if n == name) == Counter(tools.TRAIN_SITES_NVS)
+    assert all(p.grad is not None for p in model.parameters() if p.requires_grad)
 
 
 def test_bounds():
