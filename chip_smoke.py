@@ -183,6 +183,29 @@ Phases, one line each (the kernel phases one line per kernel shape):
    draws), one step's gradient of each trainable group of the trained
    model through the kernels against the same step with every kernel routed
    to its plain version (relative L2 <= 5e-2 each).
+11. the serving and evaluation entry points of 1-reference inpainting:
+   (11a) the JPEG fixtures of ``tests/fixtures/jpeg`` read by
+   ``data.image_io.imread`` (no OpenCV on the card's machine) equal to OpenCV's
+   decodes stored beside them (PNGs; the 1600x1200 4:2:0 photo by its
+   SHA-256), with the seconds to decode that photo; (11b) an experiment
+   directory (``configs/ref_inpainting.yaml``, a seeded prompt checkpoint
+   saved through ``CheckpointManager``) served by
+   ``serving.gradio_app.initialize_model`` (random weights, no SD file):
+   ``predict`` twice at 512 (DDIM-50, eta 1, CFG 2.5) on the JPEG fixtures
+   and a 1-bit palette-PNG mask, the second timed, its launches
+   ``tools.PER_FORWARD_BF16`` x 50, its output bit-equal to
+   ``inpaint_right_half`` called on ``predict``'s canvas with the same
+   seed, and within one level of the target outside the hole; (11c) the same
+   with ``quantized=True`` and DPM++(2M) at 15 steps, launches
+   ``tools.PER_FORWARD_INT8`` x 15; (11d) ``cli.sample.main`` in process
+   writes a 512x512 PNG; (11e) ``cli.test.main`` on two pair directories
+   the phase writes (test_size 512, DDIM-10, ``--limit 2``, LPIPS from a
+   file of seeded weights), then ``--multiview`` on one V=4 scene of
+   ``configs/multiview_ref_inpainting.yaml`` (view_num 4), launches
+   ``tools.PER_FORWARD_MV4`` x 10: finite PSNR, SSIM and LPIPS in the
+   metrics files, PSNR below 60 dB (only the views with a hole scored: a
+   reference view would read 120 dB), the grids and reference strips
+   written.
 The line before the last is a JSON summary of the fourteen kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
@@ -1330,6 +1353,161 @@ def nvs_training_phases(gen, launches: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def serving_phases(launches: dict) -> None:
+    """Phases 11a-11e: the JPEG fixtures, ``predict`` bf16 and int8, and the
+    two CLIs in process; each path's launches go into ``launches``."""
+    import hashlib
+    import json
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from leftrefill_torch import tools
+    from leftrefill_torch.cli import sample as sample_cli, test as test_cli
+    from leftrefill_torch.data.image_io import IMREAD_COLOR, IMREAD_GRAYSCALE, imread, read_png, resize
+    from leftrefill_torch.eval.lpips import ALEX
+    from leftrefill_torch.serving import gradio_app
+    from leftrefill_torch.train.checkpoints import CheckpointManager
+
+    t_phase = time.perf_counter()
+    fixtures = ROOT / "tests" / "fixtures" / "jpeg"
+    # ---- 11a: the JPEG fixtures against OpenCV's stored decodes -------------
+    manifest = json.loads((fixtures / "manifest.json").read_text())
+    for name, entry in manifest.items():
+        t0 = time.perf_counter()
+        img = imread(str(fixtures / name), IMREAD_COLOR)
+        secs = time.perf_counter() - t0
+        if list(img.shape) != entry["shape"] or hashlib.sha256(img.tobytes()).hexdigest() != entry["sha256"]:
+            raise SystemExit(f"phase 11a {name}: the decode differs from OpenCV's (shape {img.shape})")
+        if "png" in entry and not np.array_equal(img, read_png(str(fixtures / entry["png"]))):
+            raise SystemExit(f"phase 11a {name}: the decode differs from {entry['png']}")
+        print(f"phase 11a {name} {tuple(img.shape)}: bit-equal to OpenCV's decode; decode_seconds={secs:.3f}",
+              flush=True)
+
+    root = tempfile.mkdtemp(prefix="serving_")
+    try:
+        exp = Path(root, "exp")
+        exp.mkdir()
+        shutil.copy(ROOT / "configs" / "ref_inpainting.yaml", exp / "model_config.yaml")
+        table = 0.02 * torch.randn((50, 1024), generator=torch.Generator().manual_seed(5))
+        CheckpointManager(str(exp / "ckpts")).save_last(100, {"cond_stage_model.special_embeddings.weight": table})
+        reference = imread(str(fixtures / "baseline_420.jpg"), IMREAD_COLOR)
+        source = imread(str(fixtures / "progressive_420.jpg"), IMREAD_COLOR)
+        mask = imread(str(fixtures / "mask_palette.png"), IMREAD_GRAYSCALE)
+
+        # ---- 11b / 11c: predict, bf16 DDIM-50 and fused int8 DPM++(2M)-15 ---
+        for label, key, kw, steps, per_forward in (
+                ("11b", "predict_bf16_ddim50", dict(), 50, tools.PER_FORWARD_BF16),
+                ("11c", "predict_int8_dpm15", dict(quantized=True, sampler="dpm++2m"), 15, tools.PER_FORWARD_INT8)):
+            t0 = time.perf_counter()
+            pipe = gradio_app.initialize_model(str(exp), **kw)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            if not torch.equal(pipe.model.cond_stage_model.special_embeddings.weight.float().cpu(),
+                               table.to(pipe.model.cond_stage_model.special_embeddings.weight.dtype).float()):
+                raise SystemExit(f"phase {label}: the prompt checkpoint was not restored")
+            request = dict(ddim_steps=steps, num_samples=1, scale=2.5, seed=7, img_size=512)
+            gradio_app.predict(pipe, reference, source, mask, **{**request, "seed": 6})  # the first request
+            torch.cuda.synchronize()
+            tools.reset_launches()
+            t0 = time.perf_counter()
+            out = gradio_app.predict(pipe, reference, source, mask, **request)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches[key] = tools.launches()
+            check_launches(launches[key], per_forward, steps, f"phase {label}")
+            image, full_mask = gradio_app.request_canvas(reference, source, mask, 1, 512)
+            variant = gradio_app.pipeline_variant(pipe, steps, 2.5)
+            g = torch.Generator("cuda").manual_seed(7)
+            x_T = torch.randn((1, 64, 128, 4), generator=g, device="cuda")
+            direct = variant.inpaint_right_half(image, full_mask, g, x_T=x_T)
+            direct = np.clip((direct[0, :512, :512] + 1) * 127.5, 0, 255).astype(np.uint8)
+            if out[0].shape != (512, 512, 3) or not np.array_equal(out[0], direct):
+                raise SystemExit(f"phase {label}: predict's output differs from inpaint_right_half's")
+            keep = full_mask[0, :, 512:, 0] == 0
+            target = resize(source, (512, 512), 3)
+            off = int(np.abs(out[0][keep].astype(int) - target[keep].astype(int)).max())
+            if off > 1 or keep.all() or not keep.any():
+                raise SystemExit(f"phase {label}: outside the hole the output is {off} levels from the target")
+            print(f"phase {label} predict 512 {kw.get('sampler', 'ddim')}{steps} "
+                  f"{'int8 fused' if kw.get('quantized') else 'bf16'} eta1 cfg2.5 (JPEG reference and target, "
+                  f"palette-PNG mask): initialize_model_seconds={init_s:.1f} request_seconds={secs:.3f} "
+                  f"launches={ {k: v for k, v in launches[key].items() if v} } unet_forwards={steps}; bit-equal to "
+                  f"inpaint_right_half; outside the hole within {off} level of the target", flush=True)
+            del pipe, variant
+            torch.cuda.empty_cache()
+
+        # ---- 11d: cli.sample ------------------------------------------------
+        t0 = time.perf_counter()
+        out_png = Path(root, "sample.png")
+        if sample_cli.main(["--model_path", str(exp), "--reference", str(fixtures / "baseline_420.jpg"),
+                            "--source", str(fixtures / "exif_orientation_6.jpg"), "--mask",
+                            str(fixtures / "mask_palette.png"), "--out", str(out_png), "--ddim_steps", "10"]) != 0:
+            raise SystemExit("phase 11d: cli.sample returned nonzero")
+        shape = read_png(str(out_png)).shape
+        if shape != (512, 512, 3):
+            raise SystemExit(f"phase 11d: cli.sample wrote {shape}")
+        print(f"phase 11d cli.sample DDIM-10: wrote a {shape} PNG in {time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+
+        # ---- 11e: cli.test, 1-reference with LPIPS, then V=4 multi-view -----
+        pairs = Path(root, "pairs")
+        for i, (src, tgt) in enumerate((("baseline_420.jpg", "progressive_420.jpg"),
+                                        ("baseline_444.jpg", "exif_orientation_6.jpg"))):
+            d = pairs / f"{i:04d}"
+            d.mkdir(parents=True)
+            shutil.copy(fixtures / src, d / "source.jpg")
+            shutil.copy(fixtures / tgt, d / "target.jpg")
+            for j, extra in enumerate(("grey.jpg", "baseline_444.jpg", "baseline_420.jpg")):
+                shutil.copy(fixtures / extra, d / f"source_{j + 1}.jpg")
+            shutil.copy(fixtures / "mask_palette.png", d / "mask.png")
+        g = torch.Generator().manual_seed(0)
+        torch.save({f"lin{i}.model.1.weight": torch.rand((1, ch, 1, 1), generator=g)
+                    for i, (ch, _, _, _) in enumerate(ALEX)}, Path(root, "lpips.pth"))
+        mv = Path(root, "mv")
+        mv.mkdir()
+        yaml = (ROOT / "configs" / "multiview_ref_inpainting.yaml").read_text()
+        if yaml.count("view_num: 2") != 4:
+            raise SystemExit("phase 11e: the multi-view YAML's view_num lines changed")
+        (mv / "model_config.yaml").write_text(yaml.replace("view_num: 2", f"view_num: {VIEWS}"))
+        common = ["--test_path", str(pairs), "--test_size", "512", "--ddim_steps", "10", "--limit", "2",
+                  "--output_path", str(Path(root, "out")), "--metric_output", str(Path(root, "metrics"))]
+        for label, args, key, per_forward, files in (
+                ("1-reference", ["--model_path", str(exp), "--exp_name", "ref", "--lpips_weights",
+                                 str(Path(root, "lpips.pth"))], "cli_test_1ref_ddim10", tools.PER_FORWARD_BF16,
+                 ["000000.png", "000001.png"]),
+                (f"--multiview V={VIEWS}", ["--model_path", str(mv), "--exp_name", "mv", "--multiview",
+                                            "--lpips_weights", str(Path(root, "lpips.pth"))],
+                 "cli_test_mv4_ddim10", tools.PER_FORWARD_MV4,
+                 ["000000.png", "000000_ref0.png", "000000_ref1.png", "000000_ref2.png",
+                  "000001.png", "000001_ref0.png", "000001_ref1.png", "000001_ref2.png"])):
+            t0 = time.perf_counter()
+            tools.reset_launches()
+            if test_cli.main(args + common) != 0:
+                raise SystemExit(f"phase 11e {label}: cli.test returned nonzero")
+            torch.cuda.synchronize()
+            launches[key] = tools.launches()
+            check_launches(launches[key], per_forward, 2 * 10, f"phase 11e {label}")  # 2 batches x 10 steps
+            name = args[args.index("--exp_name") + 1]
+            metrics = dict(line.strip().split(":") for line in Path(root, "metrics", f"{name}_512.txt").open())
+            written = sorted(p.name for p in Path(root, "out", f"{name}_512").iterdir())
+            if metrics.keys() != {"PSNR", "SSIM", "LPIPS"} or not all(math.isfinite(float(v)) for v in metrics.values()):
+                raise SystemExit(f"phase 11e {label}: metrics {metrics}")
+            if float(metrics["PSNR"]) >= 60:  # a reference view (no hole) reads 120 dB: V=4's mean would be >= 90
+                raise SystemExit(f"phase 11e {label}: PSNR {metrics['PSNR']} is not the target views' alone")
+            if written != files:
+                raise SystemExit(f"phase 11e {label}: wrote {written}")
+            print(f"phase 11e cli.test {label} test_size 512 DDIM-10 2 batches: {metrics} files={written} "
+                  f"launches={ {k: v for k, v in launches[key].items() if v} } seconds={time.perf_counter() - t0:.1f}",
+                  flush=True)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 11 total seconds={time.perf_counter() - t_phase:.1f}", flush=True)
+
+
 def main() -> int:
     if not (ROOT / "leftrefill_torch" / "csrc").is_dir():
         print("chip_smoke.py: the leftrefill_torch package is not beside this script", file=sys.stderr)
@@ -1679,6 +1857,9 @@ def main() -> int:
 
     # ---- phases 10, 2tn, 10g: novel-view-synthesis training ----------------
     nvs_train = nvs_training_phases(gen, launches)
+
+    # ---- phases 11a-11e: the serving and evaluation entry points -----------
+    serving_phases(launches)
 
     entries = []
     for name, (source, replaces) in KERNELS.items():

@@ -15,9 +15,10 @@ Novel-view synthesis trains completely: the prompt, the relative-pose MLP,
 the separator columns, the refinement branch and, with ``lora.do_lora``, the
 LoRA factors, from ``resume_path`` (an SD checkpoint, when the file exists
 and ``--no_restore`` is not given) or random weights.  The 1-reference and
-multi-view models read MegaDepth JPEG files, and the port has no JPEG reader
-yet: they raise.  ``--nchip`` takes 0 or 1 (one card; data-parallel
-training is not ported).
+multi-view models train on MegaDepth pairs with the training masks (the
+mask-file sampler and the match-based masks) and the MegaDepth datasets'
+training modes, which the port does not have yet: they raise.  ``--nchip``
+takes 0 or 1 (one card; data-parallel training is not ported).
 """
 
 from __future__ import annotations
@@ -83,9 +84,10 @@ def main(argv=None) -> int:
         shutil.copy(model_config_path, os.path.join(exp_dir, "model_config.yaml"))
     target = load_yaml(model_config_path)["model"]["target"]
     if target != NVS_TARGET:
-        raise NotImplementedError(f"{target}: the 1-reference and multi-view training data are MegaDepth JPEG "
-                                  "files, and the port has no JPEG reader yet; the port trains novel-view "
-                                  "synthesis (inpainting_ldm.NVS_ldm.NVSLDM)")
+        raise NotImplementedError(f"{target}: the 1-reference and multi-view training data need the training "
+                                  "masks (FileMaskSampler, match_based_mask) and the MegaDepth datasets' training "
+                                  "modes, which are not ported yet; the port trains novel-view synthesis "
+                                  "(inpainting_ldm.NVS_ldm.NVSLDM)")
 
     from leftrefill_torch.data.datasets import NVS_OBJDataset
     from leftrefill_torch.data.loader import DataLoader

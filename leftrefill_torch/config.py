@@ -319,9 +319,11 @@ def build_unet(image_size=32, in_channels=9, out_channels=4, model_channels=320,
                num_res_blocks=2, channel_mult=(1, 2, 4, 4), num_heads=-1, num_head_channels=64,
                use_spatial_transformer=True, use_linear_in_transformer=True, transformer_depth=1,
                context_dim=1024, use_checkpoint=True, legacy=False, dtype=None, use_sep=None,
-               **kwargs) -> UNetModel:
+               quant=False, **kwargs) -> UNetModel:
     """The SD2 UNet, or with ``use_sep`` given (the novel-view YAML) the
-    ``NVSUnetModel``; ``use_checkpoint`` is dropped, as JAX drops it."""
+    ``NVSUnetModel``; ``use_checkpoint`` is dropped, as JAX drops it.
+    ``quant`` (not a YAML key: the serving entry point passes it) gives
+    JAX's default W8A8 int8 UNet, its fused prologues included."""
     del image_size, use_checkpoint, legacy, kwargs
     if num_head_channels in (None, -1) or not use_spatial_transformer or not use_linear_in_transformer:
         _unsupported("a UNet without 64-channel heads in linear spatial transformers")
@@ -332,8 +334,10 @@ def build_unet(image_size=32, in_channels=9, out_channels=4, model_channels=320,
     if use_sep is not None:
         from leftrefill_torch.models.nvs import NVSUnetModel
 
+        if quant:
+            _unsupported("an int8 novel-view UNet")
         return NVSUnetModel(use_sep=bool(use_sep), **common)
-    return UNetModel(**common)
+    return UNetModel(quant=quant, **common)
 
 
 @register("ldm.modules.diffusionmodules.multiview_unet.MultiViewUnetModel")
@@ -346,7 +350,8 @@ def build_multiview_unet(view_num=2, concat_target=False, no_rearrange_selfattn=
         in_channels=base.in_channels, model_channels=base.model_channels, out_channels=base.out_channels,
         num_res_blocks=base.num_res_blocks, attention_resolutions=tuple(kwargs.get("attention_resolutions", (4, 2, 1))),
         channel_mult=base.channel_mult, num_head_channels=kwargs.get("num_head_channels", 64),
-        transformer_depth=kwargs.get("transformer_depth", 1), context_dim=base.context_dim, dtype=base.dtype)
+        transformer_depth=kwargs.get("transformer_depth", 1), context_dim=base.context_dim, dtype=base.dtype,
+        quant=kwargs.get("quant", False))
 
 
 @register("ldm.models.autoencoder.AutoencoderKL")

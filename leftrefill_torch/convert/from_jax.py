@@ -144,3 +144,17 @@ def lora_from_flax(lora: Mapping[str, Mapping[str, Any]]) -> dict[str, dict[str,
         out[".".join(_unet_module(m) for m in mods) + ".weight"] = {
             "down": torch.from_numpy(np.ascontiguousarray(down_t)), "up": torch.from_numpy(np.ascontiguousarray(up_t))}
     return out
+
+
+def lpips_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX's LPIPS tree (``{"net": {"conv{i}": {kernel, bias}}, "lin{i}":
+    {kernel}}``) -> the port's ``eval.lpips.LPIPS`` state_dict (HWIO -> OIHW)."""
+    out = {}
+    for name, leaves in params.items():
+        groups = leaves.items() if name == "net" else [(name, leaves)]
+        for module, leaf in groups:
+            key = f"net.{module}" if name == "net" else module
+            out[f"{key}.weight"] = torch.from_numpy(np.asarray(leaf["kernel"], np.float32).transpose(3, 2, 0, 1).copy())
+            if "bias" in leaf:
+                out[f"{key}.bias"] = torch.from_numpy(np.asarray(leaf["bias"], np.float32).copy())
+    return out

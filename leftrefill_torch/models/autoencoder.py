@@ -207,6 +207,7 @@ class DiagonalGaussian:
 class AutoencoderKL(nn.Module):
     def __init__(self, ddconfig: DDConfig = DDConfig(), embed_dim: int = 4, dtype=torch.float32):
         super().__init__()
+        self.ddconfig = ddconfig
         self.encoder = Encoder(ddconfig, dtype=dtype)
         self.decoder = Decoder(ddconfig, dtype=dtype)
         mult = 2 if ddconfig.double_z else 1

@@ -74,21 +74,29 @@ class RefInpaintPipeline:
         x_T: Optional[torch.Tensor] = None,
         noise_fn: Optional[NoiseFn] = None,
         vae_noise: Optional[torch.Tensor] = None,
+        tokens=None,
     ) -> torch.Tensor:
         """image [B, H, 2W, 3] in [-1, 1] (stitched, NHWC), mask [B, H, 2W, 1]
-        with 1 = hole.  Returns the composited canvas [B, H, 2W, 3] fp32."""
+        with 1 = hole; ``tokens`` [B, 77] replaces the prompt's (the special
+        tokens) where given.  Returns the composited canvas [B, H, 2W, 3] fp32."""
         dev = request_device(self.device)
         image = torch.as_tensor(image, dtype=torch.float32, device=dev)
         mask = torch.as_tensor(mask, dtype=torch.float32, device=dev)
         b = image.shape[0]
         return _generate(
             self.model, image, mask,
-            torch.as_tensor(self.prompt_tokens(b), dtype=torch.long, device=dev),
+            torch.as_tensor(self.prompt_tokens(b) if tokens is None else tokens, dtype=torch.long, device=dev),
             torch.as_tensor(self.uncond_tokens(b), dtype=torch.long, device=dev),
             ddim_steps=self.ddim_steps, eta=self.eta, guidance_scale=self.guidance_scale,
             sampler=self.sampler, generator=generator, x_T=x_T, noise_fn=noise_fn,
             vae_noise=vae_noise,
         )
+
+    def inpaint_right_half(self, image, mask, generator: Optional[torch.Generator] = None, **kw) -> np.ndarray:
+        """The serving return contract: the right half of the composited
+        canvas, [B, H, W, 3] fp32 in [-1, 1] (numpy); ``kw`` as ``__call__``'s."""
+        out = self(image, mask, generator, **kw)
+        return out[:, :, out.shape[2] // 2:].cpu().numpy()
 
 
 def _generate(

@@ -4,8 +4,8 @@ end on the CPU (``--device cpu``) at the tiny NVS bundle of
 synthetic renders: two steps, validation and a pruned checkpoint holding the
 NVS filter's keys with the LoRA factors; ``--restore`` resumes at the saved
 step from the saved weights; and what it refuses: a missing card, more than
-one card, and the MegaDepth configs, whose JPEG files the port cannot read
-yet."""
+one card, and the MegaDepth configs, whose training masks the port does
+not have yet."""
 
 import json
 import os
@@ -118,7 +118,7 @@ def test_cli_refuses_what_it_does_not_run(workdir):
 
     with pytest.raises(NotImplementedError, match="one card"):
         main(_args(workdir, "--no_restore", "--nchip", "2"))
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    with pytest.raises(NotImplementedError, match="training masks"):
         main(["--config_file", os.path.join(REPO, "configs", "ref_inpainting_training_config.yaml"),
               "--exp_name", "ref", "--save_path", os.path.join(workdir, "ck_ref"), "--device", "cpu"])
     if not torch.cuda.is_available():  # on the card by default: without one it raises, it does not fall back

@@ -101,10 +101,22 @@ def test_png_reads_every_scanline_filter(tmp_path, kind):
 
 
 def test_png_refuses_what_it_does_not_read(tmp_path):
+    """Interlaced files and bit depths no PNG has raise (16-bit files read,
+    as OpenCV reads them: tests/test_torch_jpeg.py)."""
     path = str(tmp_path / "g16.png")
     cv2.imwrite(path, np.zeros((4, 4), np.uint16))
-    with pytest.raises(ValueError, match="8-bit"):
-        io.read_png(path)
+    assert io.read_png(path).dtype == np.uint16
+    data = open(path, "rb").read()
+    # IHDR's bytes: 24 bit depth, 25 colour type, 28 interlace
+    for fields, match in (({28: 1}, "interlaced"), ({24: 4, 25: 2}, "bit depth")):
+        body = bytearray(data[12:29])
+        for field, value in fields.items():
+            body[field - 12] = value
+        chunk = bytes(body)
+        bad = data[:12] + chunk + struct.pack(">I", zlib.crc32(chunk) & 0xFFFFFFFF) + data[33:]
+        (tmp_path / "bad.png").write_bytes(bad)
+        with pytest.raises(ValueError, match=match):
+            io.read_png(str(tmp_path / "bad.png"))
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +125,7 @@ def test_png_refuses_what_it_does_not_read(tmp_path):
 def _resize_cases(seed: int, interp: int, n: int = 40):
     rng = np.random.RandomState(seed)
     cases = [((48, 48), (32, 32)), ((256, 256), (256, 256)), ((64, 64), (32, 32))]
-    cases += [] if interp == io.INTER_AREA else [((37, 53), (64, 29))]  # area enlarging is not ported
+    cases += [] if interp == io.INTER_AREA else [((37, 53), (64, 29))]  # area enlarging: test_torch_jpeg.py
     while len(cases) < n:
         h, w = (int(v) for v in rng.randint(2, 90, 2))
         dh, dw = (int(v) for v in rng.randint(1, 120, 2))

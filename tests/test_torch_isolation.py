@@ -278,3 +278,79 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in ("leftrefill_tpu", "ja
 assert not bad, bad
 """
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=300)
+
+
+def test_serving_and_eval_entry_points_load_no_jax_opencv_pil_yaml_or_gradio(tmp_path):
+    """A fresh interpreter runs ``cli.sample`` and ``cli.test`` (1-reference
+    and ``--multiview``, with LPIPS) with ``--device cpu`` at the tiny
+    configs on JPEG pair directories, reads them through every test-mode
+    dataset and serves a headless ``predict`` from ``initialize_model``: no
+    module of the JAX package, jax, OpenCV, PIL, PyYAML or gradio gets
+    loaded."""
+    import torch
+
+    from test_cli import MODEL_YAML
+    from test_cli_variants import MV_MODEL_YAML
+    from test_torch_cli_eval import write_pairs
+
+    from leftrefill_torch.eval.lpips import ALEX
+
+    root = str(tmp_path)
+    pairs = write_pairs(root)
+    for name, text in (("exp", MODEL_YAML), ("mv", MV_MODEL_YAML)):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "model_config.yaml").write_text(text)
+    g = torch.Generator().manual_seed(0)
+    torch.save({f"lin{i}.weight": torch.rand((1, ch, 1, 1), generator=g) for i, (ch, _, _, _) in enumerate(ALEX)},
+               tmp_path / "lp.pth")
+    code = f"""
+import sys, warnings
+warnings.simplefilter("ignore")
+import torch
+torch.set_num_threads(2)
+from leftrefill_torch.cli import sample, test
+from leftrefill_torch.data import datasets as td
+from leftrefill_torch.data.image_io import imread
+from leftrefill_torch.serving.gradio_app import initialize_model, predict
+common = ["--test_size", "64", "--ddim_steps", "2", "--device", "cpu", "--limit", "1",
+          "--output_path", "{root}/out", "--metric_output", "{root}/metrics"]
+assert test.main(["--model_path", "{root}/exp", "--test_path", "{pairs}", "--lpips_weights", "{root}/lp.pth"] + common) == 0
+assert test.main(["--model_path", "{root}/mv", "--test_path", "{pairs}", "--multiview"] + common) == 0
+assert sample.main(["--model_path", "{root}/exp", "--reference", "{pairs}/0000/source.jpg", "--source",
+                    "{pairs}/0002/target.jpg", "--mask", "{pairs}/0001/mask.png", "--img_size", "32",
+                    "--ddim_steps", "2", "--device", "cpu", "--out", "{root}/o.png"]) == 0
+for ds in (td.TestInpaintingDataset("{pairs}", 32),
+           td.InpaintingCrossViewDataset("{pairs}", None, None, mode="test", img_size=32),
+           td.InpaintingMultiViewDataset("{pairs}", None, None, mode="test", img_size=32)):
+    assert ds[0]["image"].shape[-3:] == (32, 64, 3) or ds[0]["image"].shape == (4, 32, 32, 3)
+pipe = initialize_model("{root}/exp", device="cpu")
+out = predict(pipe, imread("{pairs}/0000/source.jpg"), imread("{pairs}/0002/target.jpg"), imread("{pairs}/0001/mask.png", 0),
+              ddim_steps=2, img_size=32)
+assert out[0].shape == (32, 32, 3)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("leftrefill_tpu", "jax", "jaxlib", "flax", "cv2", "PIL",
+                                                           "yaml", "gradio"))
+assert not bad, bad
+"""
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=300)
+
+
+def test_serving_and_eval_entry_points_default_to_the_card(tmp_path):
+    """``initialize_model`` and the two CLIs default to "cuda"; without a
+    card they raise rather than run on the CPU."""
+    import inspect
+
+    from test_cli import MODEL_YAML
+
+    from leftrefill_torch.cli import sample, test
+    from leftrefill_torch.serving import gradio_app
+
+    assert inspect.signature(gradio_app.initialize_model).parameters["device"].default == "cuda"
+    assert test.parse_args(["--model_path", "x"]).device == "cuda"
+    (tmp_path / "model_config.yaml").write_text(MODEL_YAML)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            gradio_app.initialize_model(str(tmp_path))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            test.main(["--model_path", str(tmp_path)])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            sample.main(["--model_path", str(tmp_path), "--reference", "r.jpg", "--source", "s.jpg", "--mask", "m.png"])

@@ -35,6 +35,28 @@ def test_per_forward_counts_match_the_dispatch(monkeypatch, path):
     assert set(kernels.NAMES) == set(tools.LAUNCH_COUNTERS) - set(tools.PROBES)
 
 
+@pytest.mark.parametrize("path", ["bf16", "multiview_v4"])
+def test_task_sampling_forward_counts_match_the_pinned_counts(monkeypatch, path):
+    """The evaluation CLI samples through ``RefInpaintTask.log_images``,
+    whose UNet forward has neither the cross-attention K/V cache nor the
+    shared CFG prefix: its kernel sites per forward are still
+    ``tools.PER_FORWARD_BF16`` (``PER_FORWARD_MV4`` at V=4), the counts
+    ``chip_smoke.py`` phase 11e holds it to."""
+    from leftrefill_torch.models.multiview import MultiViewUnetModel
+    from leftrefill_torch.models.unet import UNetModel
+
+    monkeypatch.setattr(kernels, "uses_kernel", lambda t: t.device.type in ("cuda", "meta"))
+    mv = path == "multiview_v4"
+    rows, hw = (8, (64, 64)) if mv else (2, (64, 128))
+    with torch.device("meta"):
+        unet = MultiViewUnetModel(view_num=4, dtype=torch.bfloat16) if mv else UNetModel(dtype=torch.bfloat16)
+        x, ts, ctx = torch.empty(rows, *hw, 9), torch.empty(rows, dtype=torch.long), torch.empty(rows, 77, 1024)
+    with torch.no_grad(), kernels.record_sites() as sites:
+        unet(x, ts, ctx)
+    expected = tools.PER_FORWARD_MV4 if mv else tools.PER_FORWARD_BF16
+    assert Counter(name for name, _ in sites) == Counter({k: v for k, v in expected.items() if v})
+
+
 @pytest.mark.parametrize("path", ["1ref_b8", "multiview_v4"])
 def test_per_train_step_counts_match_the_dispatch(monkeypatch, path):
     """A full-width remat train step on ``meta`` (the frozen UNet, the
