@@ -206,6 +206,33 @@ Phases, one line each (the kernel phases one line per kernel shape):
    metrics files, PSNR below 60 dB (only the views with a hole scored: a
    reference view would read 120 dB), the grids and reference strips
    written.
+12. 1-reference prompt tuning through the training CLI on MegaDepth-format
+   data (``cli.train.main`` in process): the shipped
+   ``ref_inpainting_training_config.yaml`` (batch 8, AdamW 3e-5, weight
+   decay 0.01) and model YAML at full width (no remat, as JAX's CLI), their
+   copies edited only where listed (the data paths, pointed at a seeded
+   synthetic tree the phase writes with ``tools.write_megadepth_scenes``:
+   2 scenes of 14 1600x1200 JPEG photos, 155 pairs a scene inside the
+   overlap filter (the sampler's 150) and 12 outside, match pickles, mask
+   lists, 4 validation pair directories; ``val_batches: 1``,
+   ``val_ddim_steps: 10``, ``log_ddim_steps: 10``), ``--max_steps 4
+   --no_restore`` then ``--restore --max_steps 6``: the CLI returns 0, every
+   loss is finite, every step's launches are ``tools.PER_TRAIN_STEP_CLI``
+   and the first step's backward sites ``tools.TRAIN_SITES``, the prompt
+   table moved and every other parameter is bit-unchanged,
+   ``ckpts/last.pt`` holds exactly the ``prompt_only_filter`` keys, the
+   resumed run starts at step 4 from them; seconds per step (the median
+   after the first; the loader's decode threads run beside the steps),
+   the seconds between steps once the prefetched batches are used (the
+   data path's pace), peak memory, validation PSNR/SSIM;
+12g. a batch of 2 from that CLI's own loader (its dataset, sampler and
+   tokenizer): one step's prompt-table gradient through the kernels against
+   the same step with every kernel routed to its plain version (relative
+   L2 <= 5e-2);
+12m. the same as 12 for ``multiview_ref_inpainting_training_config.yaml``
+   at view_num 4 (one scene of four 512x512 views a step, the view-0 loss,
+   K1 and K14's dq at 16384 tokens): launches
+   ``tools.PER_TRAIN_STEP_CLI_MV4``, sites ``tools.TRAIN_SITES_MV4``.
 The line before the last is a JSON summary of the fourteen kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
@@ -1144,11 +1171,46 @@ def nvs_phases(gen, launches: dict) -> tuple[dict, dict]:
     return report, sep_report, b4_report
 
 
-def _edit(text: str, old: str, new: str) -> str:
-    """``text`` with its one occurrence of ``old`` replaced (fails otherwise)."""
-    if text.count(old) != 1:
-        raise SystemExit(f"phase 10: {old!r} occurs {text.count(old)} times in a shipped YAML")
+def _edit(text: str, old: str, new: str, count: int = 1, label: str = "phase 10") -> str:
+    """``text`` with its ``count`` occurrences of ``old`` replaced (fails otherwise)."""
+    if text.count(old) != count:
+        raise SystemExit(f"{label}: {old!r} occurs {text.count(old)} times in a shipped YAML, expected {count}")
     return text.replace(old, new)
+
+
+def recording_steps(make_train_step, runs: list):
+    """A stand-in for ``trainer.make_train_step`` that the training CLI
+    calls: each run appends {"model", "cond_builder", "before" (the state
+    before its first step), "steps"} to ``runs``, each step {"s" (its
+    seconds), "start" (its clock at the start), "loss", "launches" (its
+    kernel launches, the counts set to 0 just before it), "sites" (its
+    kernel sites)}."""
+    import torch
+
+    from leftrefill_torch import kernels, tools
+
+    def recording(model, tx, **kw):
+        step = make_train_step(model, tx, **kw)
+        run = {"model": model, "cond_builder": kw.get("cond_builder"), "steps": []}
+        runs.append(run)
+
+        def wrapped(state, batch, generator):
+            if not run["steps"]:
+                run["before"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            torch.cuda.synchronize()
+            tools.reset_launches()
+            t1 = time.perf_counter()
+            with kernels.record_sites() as sites:
+                state, metrics = step(state, batch, generator)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            run["steps"].append({"s": time.perf_counter() - t1, "start": t1, "loss": loss,
+                                 "launches": tools.launches(), "sites": list(sites)})
+            return state, metrics
+
+        return wrapped
+
+    return recording
 
 
 def nvs_training_phases(gen, launches: dict) -> dict:
@@ -1193,32 +1255,9 @@ def nvs_training_phases(gen, launches: dict) -> dict:
               f"masks written in {time.perf_counter() - t0:.1f} s; model YAML with do_lora, use_input_refinement "
               f"and save_prompt_only on; training YAML batch {NVS_TRAIN_BATCH}", flush=True)
 
-        # every step through a recording wrapper: its launches, time, loss;
-        # the first step's kernel sites; the model before its first step
         runs = []
         make_train_step = trainer.make_train_step
-
-        def recording(model, tx, **kw):
-            step = make_train_step(model, tx, **kw)
-            run = {"model": model, "cond_builder": kw["cond_builder"], "steps": []}
-            runs.append(run)
-
-            def wrapped(state, batch, generator):
-                if not run["steps"]:
-                    run["before"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
-                torch.cuda.synchronize()
-                tools.reset_launches()
-                t1 = time.perf_counter()
-                with kernels.record_sites() as sites:
-                    state, metrics = step(state, batch, generator)
-                loss = float(metrics["loss"])
-                torch.cuda.synchronize()
-                run["steps"].append({"s": time.perf_counter() - t1, "loss": loss, "launches": tools.launches(),
-                                     "sites": list(sites)})
-                return state, metrics
-
-            return wrapped
-
+        recording = recording_steps(make_train_step, runs)
         exp = Path(root, "ck", "nvs")
         base_args = ["--config_file", str(Path(root, "train.yaml")), "--exp_name", "nvs", "--save_path",
                      str(Path(root, "ck"))]
@@ -1506,6 +1545,208 @@ def serving_phases(launches: dict) -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"phase 11 total seconds={time.perf_counter() - t_phase:.1f}", flush=True)
+
+
+# phases 12 and 12m: the synthetic MegaDepth tree (every image the 1600x1200
+# photo), and the CLI runs' steps
+MD_SCENES, MD_IMAGES, MD_TRAIN_PAIRS, MD_OTHER_PAIRS = 2, 14, 155, 12
+MD_STEPS, MD_RESUMED_STEPS = 4, 2
+
+
+def megadepth_cli_run(root: str, paths: dict, name: str, label: str) -> dict:
+    """``cli.train.main`` in process on the shipped ``configs/<name>_training_config.yaml``
+    and model YAML (the multi-view one at VIEWS views) pointed at the tree:
+    ``--no_restore --max_steps MD_STEPS``, then ``--restore`` for
+    MD_RESUMED_STEPS more.  Returns the runs' records, the loaders the CLI
+    built, the peak memory and the experiment directory."""
+    import torch
+
+    from leftrefill_torch.cli import train as cli
+    from leftrefill_torch.data import loader
+    from leftrefill_torch.train import trainer
+
+    mv = name.startswith("multiview")
+    model_yaml = (ROOT / "configs" / f"{name}.yaml").read_text()
+    model_yaml = _edit(model_yaml, 'match_path: "./data/matching_results"', f"match_path: '{paths['match_path']}'",
+                       label=label)
+    if mv:
+        model_yaml = _edit(model_yaml, "view_num: 2", f"view_num: {VIEWS}", 4, label)
+    Path(root, f"{name}.yaml").write_text(model_yaml)
+    train_yaml = (ROOT / "configs" / f"{name}_training_config.yaml").read_text()
+    image_path, train_pair = (("'./data/4-extended_image_path_dict.pkl'", "'./data/4-extended_fixed_train_pair.pkl'")
+                              if mv else ("'data/megadepth_0.4_0.7/image_dict.pkl'",
+                                          "'data/megadepth_0.4_0.7/new_train_pairs.pkl'"))
+    for old, new in ((f"model_config: './configs/{name}.yaml'", f"model_config: '{root}/{name}.yaml'"),
+                     (f"image_path: {image_path}", f"image_path: '{paths['image_path']}'"),
+                     (f"train_pair: {train_pair}", f"train_pair: '{paths['mv_train_pair' if mv else 'train_pair']}'"),
+                     ("val_image_path: 'data/megadepth_0.4_0.7/match_test_image_pairs'",
+                      f"val_image_path: '{paths['val_image_path']}'"),
+                     ("'./data/irregular_mask/irregular_lama_mask_list.txt'", f"'{paths['train_mask_path'][0]}'"),
+                     ("'./data/coco_mask/coco_mask_list.txt'", f"'{paths['train_mask_path'][1]}'"),
+                     ("val_mask_path: './data/test_mask_100'", f"val_mask_path: '{paths['val_mask_path']}'")):
+        train_yaml = _edit(train_yaml, old, new, label=label)
+    train_yaml += "val_batches: 1\nval_ddim_steps: 10\nlog_ddim_steps: 10\n"
+    Path(root, f"{name}_train.yaml").write_text(train_yaml)
+
+    runs, loaders = [], []
+    make_train_step, data_loader = trainer.make_train_step, loader.DataLoader
+
+    class Recorded(data_loader):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            loaders.append(self)
+
+    args = ["--config_file", str(Path(root, f"{name}_train.yaml")), "--exp_name", name, "--save_path",
+            str(Path(root, "ck"))]
+    trainer.make_train_step, loader.DataLoader = recording_steps(make_train_step, runs), Recorded
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = cli.main(args + ["--no_restore", "--max_steps", str(MD_STEPS)])
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        exp = Path(root, "ck", name)
+        saved = torch.load(exp / "ckpts" / "last.pt", map_location="cuda", weights_only=True)
+        t0 = time.perf_counter()
+        rc2 = cli.main(args + ["--restore", "--max_steps", str(MD_STEPS + MD_RESUMED_STEPS)])
+        second_s = time.perf_counter() - t0
+    finally:
+        trainer.make_train_step, loader.DataLoader = make_train_step, data_loader
+    if rc or rc2 or len(runs) != 2:
+        raise SystemExit(f"{label}: the CLI returned {rc} and {rc2} after {len(runs)} runs")
+    return {"runs": runs, "loaders": loaders, "peak": peak, "exp": exp, "saved": saved,
+            "cli_s": (first_s, second_s)}
+
+
+def check_megadepth_run(out: dict, per_step: dict, sites_want: dict, label: str) -> dict:
+    """Phase 12's checks on one CLI pair of runs (its docstring); returns the
+    summed launches and prints the readings."""
+    import statistics
+
+    import torch
+
+    from leftrefill_torch import tools
+    from leftrefill_torch.train.checkpoints import prompt_only_filter
+
+    first, second = out["runs"]
+    steps = first["steps"] + second["steps"]
+    losses = [st["loss"] for st in steps]
+    if len(first["steps"]) != MD_STEPS or len(second["steps"]) != MD_RESUMED_STEPS or \
+            not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"{label}: steps {len(first['steps'])} and {len(second['steps'])}, losses {losses}")
+    for i, st in enumerate(steps):
+        if st["launches"] != per_step:
+            raise SystemExit(f"{label}: step {i} launches {st['launches']}, expected {per_step}")
+    sites = collections.Counter(first["steps"][0]["sites"])
+    for name in BWD_NAMES:
+        got = {shape: c for (n, shape), c in sites.items() if n == name}
+        if got != sites_want:
+            raise SystemExit(f"{label}: {name} sites {got}, expected {sites_want}")
+    model = first["model"]
+    after = model.state_dict()
+    changed = sorted(k for k in after if not torch.equal(first["before"][k], after[k]))
+    trainable = sorted(n for n, p in model.named_parameters() if p.requires_grad)
+    table = "cond_stage_model.special_embeddings.weight"
+    if changed != [table] or trainable != [table]:
+        raise SystemExit(f"{label}: changed {changed[:5]}, trainable {trainable[:5]} (only the prompt table may)")
+    want = {k for k in after if prompt_only_filter(tuple(k.split(".")))}
+    if set(out["saved"]) != want or want != {table}:
+        raise SystemExit(f"{label}: ckpts/last.pt holds {sorted(out['saved'])}, the prompt filter {sorted(want)}")
+    if not torch.equal(second["before"][table], out["saved"][table]):
+        raise SystemExit(f"{label}: the resumed run did not start from the saved prompt table")
+    exp = out["exp"]
+    manifest = json.loads((exp / "ckpts" / "manifest.json").read_text())
+    records = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
+    val = [r for r in records if "val/psnr" in r]
+    if manifest["last"]["step"] != MD_STEPS + MD_RESUMED_STEPS or len(val) != 2 or \
+            not all(math.isfinite(r["val/psnr"]) and math.isfinite(r["val/ssim"]) for r in val):
+        raise SystemExit(f"{label}: manifest {manifest}, validation records {val}")
+    if not (exp / "samples" / "gs-000000_e-000000_train.png").exists():
+        raise SystemExit(f"{label}: no step-0 image log")
+    secs = [st["s"] for st in steps]
+    # the data path: in the first run, from the third step on, the loader's
+    # batches come no faster than they are decoded (the two prefetched ones
+    # and the step-0 image log are behind it).  The steps themselves run
+    # beside the loader's decode threads, which hold the GIL
+    intervals = [b["start"] - a["start"] for a, b in zip(first["steps"][1:], first["steps"][2:])]
+    print(f"{label} through leftrefill_torch.cli.train: seconds_per_step={[round(x, 3) for x in secs]} "
+          f"median_after_first={statistics.median(secs[1:MD_STEPS]):.3f} "
+          f"seconds_between_steps={[round(x, 3) for x in intervals]} "
+          f"losses={[round(x, 5) for x in losses]} launches_per_step={({n: c for n, c in per_step.items() if c})} "
+          f"peak_mem_gib={out['peak']:.1f} cli_seconds={out['cli_s'][0]:.1f}+{out['cli_s'][1]:.1f} "
+          f"ckpt_keys={sorted(out['saved'])} resumed_at_step={MD_STEPS} "
+          f"val={[(r['step'], round(r['val/psnr'], 3), round(r['val/ssim'], 4)) for r in val]}", flush=True)
+    return {n: sum(st["launches"][n] for st in steps) for n in tools.LAUNCH_COUNTERS}
+
+
+def megadepth_training_phases(launches: dict) -> None:
+    """Phases 12, 12m and 12g: prompt tuning through the training CLI on
+    MegaDepth-format data; each run's step launches go into ``launches``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from leftrefill_torch import kernels, tools
+    from leftrefill_torch.data.loader import DataLoader
+    from leftrefill_torch.train import compute_loss
+    from leftrefill_torch.tools import rel_l2
+
+    root = tempfile.mkdtemp(prefix="megadepth_train_")
+    try:
+        t0 = time.perf_counter()
+        paths = tools.write_megadepth_scenes(root, MD_SCENES, MD_IMAGES, seed=0, train_pairs_per_scene=MD_TRAIN_PAIRS,
+                                             other_pairs_per_scene=MD_OTHER_PAIRS, images=tools.MEGADEPTH_IMAGES[:1],
+                                             mask_size=512)
+        print(f"phase 12 set-up: {MD_SCENES} scenes x {MD_IMAGES} 1600x1200 JPEG photos, {MD_TRAIN_PAIRS} pairs a "
+              f"scene with overlaps in [0.4, 0.7] and {MD_OTHER_PAIRS} outside, match pickles and mask lists, 4 "
+              f"validation pair directories, written in {time.perf_counter() - t0:.1f} s; the YAML copies' edits: "
+              "the data paths, val_batches 1, val_ddim_steps 10, log_ddim_steps 10 (multi-view: view_num "
+              f"{VIEWS})", flush=True)
+
+        # ---- phase 12: 1-reference prompt tuning through the CLI -------------
+        ref = megadepth_cli_run(root, paths, "ref_inpainting", "phase 12")
+        launches["cli_train_1ref_b8"] = check_megadepth_run(
+            ref, tools.PER_TRAIN_STEP_CLI, tools.TRAIN_SITES,
+            "phase 12 training 1-reference b8 512x1024 no remat AdamW(3e-5, wd 0.01)")
+
+        # ---- phase 12g: a CLI batch's prompt gradient, kernels vs plain ------
+        train_loader = ref["loaders"][0]
+        small_loader = DataLoader(train_loader.dataset, 2, sampler=train_loader.sampler,
+                                  tokenizer=train_loader.tokenizer)
+        small = {k: v for k, v in next(iter(small_loader)).items() if k != "txt"}
+        model = ref["runs"][0]["model"]
+        table = model.cond_stage_model.special_embeddings.weight
+
+        def prompt_grad():  # t and the noise drawn from the same seed each time
+            table.grad = None
+            compute_loss(model, small, generator=torch.Generator(table.device).manual_seed(11))[0].backward()
+            torch.cuda.synchronize()
+            return table.grad.clone()
+
+        grad_k = prompt_grad()
+        with kernels.plain_kernels():
+            grad_p = prompt_grad()
+        table.grad = None
+        err = rel_l2(grad_k, grad_p)
+        if not (torch.isfinite(grad_k).all() and grad_k.abs().max() > 0 and err <= PROMPT_GRAD_REL_L2):
+            raise SystemExit(f"phase 12g: prompt-table gradient through the kernels rel L2 {err:.3e} from the plain "
+                             f"versions' (limit {PROMPT_GRAD_REL_L2}) or zero / non-finite")
+        print(f"phase 12g prompt-table gradient on a batch of 2 from the CLI's loader (mask means "
+              f"{[round(float(m.mean()), 3) for m in small['mask']]}): kernels vs plain versions "
+              f"rel_l2={err:.3e} (limit {PROMPT_GRAD_REL_L2}) grad_norm={float(grad_k.norm()):.4e}", flush=True)
+        del ref, model, table, grad_k, grad_p, small_loader, train_loader
+        torch.cuda.empty_cache()
+
+        # ---- phase 12m: V=4 multi-view prompt tuning through the CLI ---------
+        mv = megadepth_cli_run(root, paths, "multiview_ref_inpainting", "phase 12m")
+        launches["cli_train_mv4"] = check_megadepth_run(
+            mv, tools.PER_TRAIN_STEP_CLI_MV4, tools.TRAIN_SITES_MV4,
+            f"phase 12m training V={VIEWS} 512x512 views, one scene a step, view-0 loss, no remat")
+        del mv
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -1860,6 +2101,9 @@ def main() -> int:
 
     # ---- phases 11a-11e: the serving and evaluation entry points -----------
     serving_phases(launches)
+
+    # ---- phases 12, 12g, 12m: prompt tuning through the CLI on MegaDepth ----
+    megadepth_training_phases(launches)
 
     entries = []
     for name, (source, replaces) in KERNELS.items():

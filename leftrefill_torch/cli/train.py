@@ -11,14 +11,25 @@ curriculum, metrics every 50 steps, sample grids every ``logger_freq``
 steps, validation each ``check_val_every_n_epoch`` epochs capped at
 ``val_batches`` batches, and a pruned checkpoint at each validation.
 
-Novel-view synthesis trains completely: the prompt, the relative-pose MLP,
-the separator columns, the refinement branch and, with ``lora.do_lora``, the
-LoRA factors, from ``resume_path`` (an SD checkpoint, when the file exists
-and ``--no_restore`` is not given) or random weights.  The 1-reference and
-multi-view models train on MegaDepth pairs with the training masks (the
-mask-file sampler and the match-based masks) and the MegaDepth datasets'
-training modes, which the port does not have yet: they raise.  ``--nchip``
-takes 0 or 1 (one card; data-parallel training is not ported).
+The model YAML's target picks the training:
+
+- 1-reference inpainting (``configs/ref_inpainting_training_config.yaml``)
+  and its multi-view variant (``configs/multiview_ref_inpainting_training_config.yaml``)
+  tune the prompt table alone, on MegaDepth pairs (the pickles of
+  ``data.preprocess``) through ``BalancedRandomSampler`` and the datasets'
+  training masks; multi-view batches are flattened to their views and the
+  loss keeps view 0; the checkpoints hold the prompt table alone;
+  ``cross_view_inpainting: false`` trains on single images
+  (``InpaintingDataset``);
+- novel-view synthesis trains the prompt, the relative-pose MLP, the
+  separator columns, the refinement branch and, with ``lora.do_lora``, the
+  LoRA factors.
+
+The frozen weights come from ``resume_path`` (an SD checkpoint, when the
+file exists and ``--no_restore`` is not given) or are random.  The UNet
+runs without recompute (the model YAML's ``use_checkpoint`` is dropped, as
+JAX's does).  ``--nchip`` takes 0 or 1 (one card; data-parallel training
+is not ported).
 """
 
 from __future__ import annotations
@@ -65,7 +76,7 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from leftrefill_torch.config import NVS_TARGET, build_model_from_config, load_yaml
+    from leftrefill_torch.config import build_model_from_config, load_yaml
     from leftrefill_torch.pipeline import request_device
 
     dev = request_device(args.device)
@@ -82,18 +93,23 @@ def main(argv=None) -> int:
         os.makedirs(exp_dir, exist_ok=True)
         shutil.copy(args.config_file, os.path.join(exp_dir, "training_config.yaml"))
         shutil.copy(model_config_path, os.path.join(exp_dir, "model_config.yaml"))
-    target = load_yaml(model_config_path)["model"]["target"]
-    if target != NVS_TARGET:
-        raise NotImplementedError(f"{target}: the 1-reference and multi-view training data need the training "
-                                  "masks (FileMaskSampler, match_based_mask) and the MegaDepth datasets' training "
-                                  "modes, which are not ported yet; the port trains novel-view synthesis "
-                                  "(inpainting_ldm.NVS_ldm.NVSLDM)")
-
-    from leftrefill_torch.data.datasets import NVS_OBJDataset
-    from leftrefill_torch.data.loader import DataLoader
+    from leftrefill_torch.data.datasets import (
+        BalancedRandomSampler,
+        InpaintingCrossViewDataset,
+        InpaintingDataset,
+        InpaintingMultiViewDataset,
+        NVS_OBJDataset,
+    )
+    from leftrefill_torch.data.loader import DataLoader, flatten_views
     from leftrefill_torch.models.lora import default_target, extended_target, init_lora
-    from leftrefill_torch.tasks import build_task
-    from leftrefill_torch.train.checkpoints import CheckpointManager, nvs_prompt_filter, restore_over_base, save_pruned
+    from leftrefill_torch.tasks import MultiViewRefInpaintTask, NVSTask, build_task
+    from leftrefill_torch.train.checkpoints import (
+        CheckpointManager,
+        nvs_prompt_filter,
+        prompt_only_filter,
+        restore_over_base,
+        save_pruned,
+    )
     from leftrefill_torch.train.logger import ImageLogger, MetricLogger, StepTimer, TokenDriftLogger
     from leftrefill_torch.train.trainer import (
         OptimizerConfig,
@@ -102,6 +118,7 @@ def main(argv=None) -> int:
         current_lr,
         lora_predicate,
         make_train_step,
+        prompt_only_predicate,
         with_lora,
         wrap_lora_params,
     )
@@ -109,6 +126,8 @@ def main(argv=None) -> int:
     bundle = build_model_from_config(model_config_path, dtype=torch.bfloat16 if args.bf16 else torch.float32,
                                      device=dev)
     task = build_task(bundle, dev)
+    is_mv = isinstance(task, MultiViewRefInpaintTask)
+    is_nvs = isinstance(task, NVSTask)
 
     # ------------------------------------------------------------------
     # parameters: random values (+ the SD checkpoint), LoRA, then a resume
@@ -122,12 +141,13 @@ def main(argv=None) -> int:
         sd_sd = load_torch_state_dict(resume_path)
     task.init_params(gen, sd_state_dict=sd_sd)
     model = bundle.model
-    if bundle.lora_config.get("do_lora"):
+    if is_nvs and bundle.lora_config.get("do_lora"):  # the NVS model's LoRA factors train alongside
         target_fn = extended_target if bundle.lora_config.get("lora_type") == "extended" else default_target
         lora = init_lora(model.unet, rank=bundle.lora_config.get("lora_rank", 16), target=target_fn, generator=gen)
         model = wrap_lora_params(model, lora, bundle.lora_config.get("lora_scale", 1.0))
         print(f"LoRA enabled over {len(lora)} weights")
 
+    ckpt_filter = nvs_prompt_filter if is_nvs else prompt_only_filter
     mgr = CheckpointManager(os.path.join(exp_dir, "ckpts"), monitor=f'val/{config.get("monitor", "lpips")}',
                             top_k=config.get("save_top_k", 2))
     start_step = 0
@@ -137,7 +157,9 @@ def main(argv=None) -> int:
         print(f"Restored the trained weights at step {start_step}")
 
     # ------------------------------------------------------------------
-    # optimizer: AdamW over the trainable groups; every group shares the
+    # optimizer: AdamW over the trainable groups (the prompt table; for
+    # novel-view synthesis also the pose MLP, the separator columns, the
+    # refinement branch and the LoRA factors); every group shares the
     # YAML's learning_rate and weight_decay (JAX reads neither lr_lora nor
     # wd_lora), and eta_min is the cosine schedule's alpha, as in JAX
     oc = config.get("optim_cfg", {})
@@ -149,20 +171,39 @@ def main(argv=None) -> int:
         cosine_alpha=oc.get("eta_min", 0.0),
         accumulate_grad_batches=config.get("accumulate_grad_batches") or 1,
     )
-    predicate = lora_predicate(nvs_prompt_filter) if model is not bundle.model else nvs_prompt_filter
+    predicate = nvs_prompt_filter if is_nvs else prompt_only_predicate
+    if model is not bundle.model:
+        predicate = lora_predicate(predicate)
     state, tx = create_train_state(model, opt_config, predicate)
     step_fn = make_train_step(model, tx, view_reduced=task.view_reduced, view_num=task.view_num,
-                              cond_builder=task.cond_builder)
+                              cond_builder=task.cond_builder if is_nvs else None)
 
     # ------------------------------------------------------------------
-    # data
+    # data: the Objaverse renders, the MegaDepth pairs (one reference or
+    # several views) through the scene-balanced sampler, or single images
     dc = dict(bundle.data_config)
     dc.pop("cfg", None)
     cfg_scale = bundle.data_config.get("cfg", 2.5)
-    train_ds = NVS_OBJDataset(datapath=config["datapath"], listfile=config["train_list"], mode="train", **dc)
-    val_ds = NVS_OBJDataset(datapath=config["datapath"], listfile=config["val_list"], mode="val", **dc)
+    if is_nvs or dc.pop("obj_dataset", False):
+        train_ds = NVS_OBJDataset(datapath=config["datapath"], listfile=config["train_list"], mode="train", **dc)
+        val_ds = NVS_OBJDataset(datapath=config["datapath"], listfile=config["val_list"], mode="val", **dc)
+        sampler = None
+    elif config.get("cross_view_inpainting", True):
+        ds_cls = InpaintingMultiViewDataset if is_mv else InpaintingCrossViewDataset
+        train_ds = ds_cls(image_path=config["image_path"], pair_path=config["train_pair"],
+                          mask_path=config["train_mask_path"], mode="train", **dc)
+        val_ds = ds_cls(image_path=config["val_image_path"], pair_path=None, mask_path=config["val_mask_path"],
+                        mode="val", **dc)
+        sampler = BalancedRandomSampler(train_ds.image_dict, train_ds.pairs,
+                                        n_sample_per_scene=config.get("n_sample_per_scene", 150))
+    else:
+        train_ds = InpaintingDataset(image_path=config["image_path"], mask_path=config["train_mask_path"],
+                                     mode="train", **dc)
+        val_ds = InpaintingDataset(image_path=config["val_image_path"], mask_path=None, mode="val", **dc)
+        sampler = None
     tok = bundle.tokenizer
-    train_loader = DataLoader(train_ds, config.get("batch_size", 8), tokenizer=tok, shuffle=True)
+    train_loader = DataLoader(train_ds, config.get("batch_size", 8), sampler=sampler, tokenizer=tok,
+                              shuffle=sampler is None)
     val_loader = DataLoader(val_ds, batch_size=4, tokenizer=tok, drop_last=True)
 
     # ------------------------------------------------------------------
@@ -178,8 +219,11 @@ def main(argv=None) -> int:
     step = start_step
     for epoch in range(max_epochs):
         train_loader.set_epoch(epoch)
-        task.update_mask_curriculum(train_ds, step)
+        if is_nvs:
+            task.update_mask_curriculum(train_ds, step)
         for batch in train_loader:
+            if is_mv and batch["image"].ndim == 5:
+                batch = flatten_views(batch)
             timer.start(step)
             step_gen = torch.Generator(dev).manual_seed((args.seed << 32) + step)  # JAX: fold_in(key, step)
             state, metrics = step_fn(state, {k: v for k, v in batch.items() if k != "txt"}, step_gen)
@@ -192,10 +236,12 @@ def main(argv=None) -> int:
                 mlog.log(step, m)
             if ilog.should_log(step):
                 with torch.no_grad():
-                    log = with_lora(model, task.log_images, batch, N=min(2, batch["image"].shape[0]),
+                    log = with_lora(model, task.log_images, batch, N=2 if is_mv else min(2, batch["image"].shape[0]),
                                     ddim_steps=config.get("log_ddim_steps", 50),
                                     unconditional_guidance_scale=cfg_scale)
-                ilog.log(step, epoch, log)
+                # the multi-view log's per-view [B, V, ...] entries as rows; its
+                # "reference" ([B, V - 1, ...]) has other rows and is left out, as in JAX
+                ilog.log(step, epoch, {k: v.reshape(-1, *v.shape[-3:]) for k, v in log.items() if k != "reference"})
             step += 1
             if step >= max_steps:
                 break
@@ -205,6 +251,8 @@ def main(argv=None) -> int:
             # val_batches: the CLI's cap (null in the YAML validates the whole loader)
             val_cap = config.get("val_batches", 8)
             for i, vb in enumerate(val_loader):
+                if is_mv and vb["image"].ndim == 5:
+                    vb = flatten_views(vb)
                 with torch.no_grad():
                     vals.append(with_lora(model, task.validation_metrics, vb, cfg_scale=cfg_scale,
                                           ddim_steps=config.get("val_ddim_steps", 50)))
@@ -214,7 +262,7 @@ def main(argv=None) -> int:
             mlog.log(step, vmean)
             print(f"Epoch {epoch}: {vmean}")
             save_pruned(mgr, step, model, save_prompt_only=bundle.save_prompt_only, metrics=vmean,
-                        filter_fn=nvs_prompt_filter)
+                        filter_fn=ckpt_filter)
         if step >= max_steps:
             break
 

@@ -1,33 +1,34 @@
 """The datasets of the port's data path (counterpart of
 ``leftrefill_tpu/data/datasets.py``): the prompt text and the relative
 camera pose of novel-view synthesis, the Objaverse novel-view dataset
-``NVS_OBJDataset``, the scene-balanced ``BalancedRandomSampler``, and the
-evaluation datasets of inpainting: ``TestInpaintingDataset`` (pair
-directories of source, target and mask), the MegaDepth
-``InpaintingCrossViewDataset`` and ``InpaintingMultiViewDataset`` and the
-single-image ``InpaintingDataset``, the last three in their test mode.  The
-numpy parts are copies, so the port imports nothing of the JAX package
-(``tests/test_torch_isolation.py`` holds them equal to the originals); the
-image files (JPEG and PNG) are read and resized through ``data.image_io``
-(no OpenCV), the masks drawn by ``data.masks``.  The training modes of the
-MegaDepth and single-image datasets need the training masks (the mask-file
-sampler and the match-based masks), which the port does not have yet: they
-raise."""
+``NVS_OBJDataset``, the scene-balanced ``BalancedRandomSampler``, the
+MegaDepth datasets of reference-guided inpainting
+(``InpaintingCrossViewDataset``, ``InpaintingMultiViewDataset``) and the
+single-image ``InpaintingDataset``, each in its training and its test mode,
+and ``TestInpaintingDataset`` (pair directories of source, target and
+mask).  The numpy parts are copies, so the port imports nothing of the JAX
+package (``tests/test_torch_isolation.py`` holds them equal to the
+originals); the image files (JPEG and PNG) are read and resized through
+``data.image_io`` (no OpenCV), the masks drawn by ``data.masks``.  The
+random draws come from the dataset's own streams, in JAX's order: a
+``random.Random``, and those JAX's code takes from the global ``random``
+module and numpy's global stream from a second ``random.Random`` and an
+``np.random.RandomState``, all three seeded by ``seed``."""
 
 from __future__ import annotations
 
 import collections
 import math
 import os
+import pickle
 import random
 from glob import glob
 from typing import Optional
 
 import numpy as np
 
-from leftrefill_torch.data.image_io import IMREAD_COLOR, IMREAD_GRAYSCALE, INTER_AREA, INTER_NEAREST, imread, \
-    read_png, resize
-from leftrefill_torch.data.masks import nvs_object_mask
+from leftrefill_torch.data.image_io import IMREAD_COLOR, INTER_AREA, INTER_NEAREST, imread, read_png, resize
+from leftrefill_torch.data.masks import FileMaskSampler, load_mask_file, match_based_mask, nvs_object_mask
 
 PROMPT_TEMPLATES = [
     "Both {left} and {right} images show the {real} with different {task}.",
@@ -247,25 +248,45 @@ def _sorted_dir(path: str) -> list[str]:
     return sorted(glob(path + "/*"), key=lambda x: x.split("/")[-1])
 
 
-def _training_masks(name: str):
-    raise NotImplementedError(f"{name} in training mode: the training masks (the mask-file sampler "
-                              "FileMaskSampler and match_based_mask) are not ported yet; test mode reads")
+def _load_pickle(path: str):
+    with open(path, "rb") as f:
+        return pickle.load(f)
 
 
-def _half_mask(mask_file: str, s: int) -> np.ndarray:
-    """A mask file read grey, resized to s x s (nearest), > 127 -> 1."""
-    half = resize(imread(mask_file, IMREAD_GRAYSCALE), (s, s), INTER_NEAREST)
-    return (half > 127).astype(np.float32)
+def _streams(seed: Optional[int]):
+    """(the dataset's ``random.Random``, the stream JAX's code takes from the
+    global ``random`` module, the ``RandomState`` that stands for numpy's
+    global stream).  Without a seed JAX's dataset draws from the global
+    module itself, so the first two are one stream."""
+    rng = random.Random(seed) if seed is not None else random.Random()
+    return rng, (random.Random(seed) if seed is not None else rng), np.random.RandomState(seed)
 
 
 class InpaintingCrossViewDataset:
-    """MegaDepth reference-guided inpainting pairs, test mode: each pair
-    directory (``image_path`` a directory of them, thinned to about
-    ``test_limit``, or a pair of list files read second then first up to
-    ``test_limit`` lines) holds ``source`` and ``target`` (.jpg, else .png),
-    resized to ``img_size`` (area), stitched [source | target], and
-    ``mask.png`` or the ``mask_path`` directory's file of that index, read
-    grey, > 127, on the right half."""
+    """MegaDepth reference-guided inpainting pairs.
+
+    Training (``mode="train"``): ``image_path`` and ``pair_path`` are the
+    pickles of ``data.preprocess.build_megadepth_pairs`` (image id -> file,
+    and the pairs {"source", "target"} of ids).  Each view is resized to
+    ``img_size`` (area), or, with chance 1/2, its short side resized to
+    ``img_size`` (area) and a random square cropped (``crop_info``); the
+    canvas is [source | target] (the sides swapped with chance 1/2 unless
+    ``constant_place``); the mask is the whole target view
+    (``only_mask_image``), or with chance 1 - ``view_mask_rate`` a training
+    mask (with chance ``match_mask_rate`` the match-based mask of
+    ``match_path/%08d.pkl`` where that file exists and gives one, else a
+    ``FileMaskSampler`` mask from the two lists of ``mask_path`` on a random
+    side), else a whole random side; ``flip`` mirrors each side with chance
+    1/2.  ``seed`` seeds the draws (a ``random.Random``, and an
+    ``np.random.RandomState`` for those JAX's code takes from numpy's
+    global stream).
+
+    Test mode: each pair directory (``image_path`` a directory of them,
+    thinned to about ``test_limit``, or a pair of list files read second
+    then first up to ``test_limit`` lines) holds ``source`` and ``target``
+    (.jpg, else .png), resized to ``img_size`` (area), stitched [source |
+    target], and ``mask.png`` or the ``mask_path`` directory's file of that
+    index, read grey, > 127, on the right half."""
 
     def __init__(
         self,
@@ -274,16 +295,23 @@ class InpaintingCrossViewDataset:
         mask_path,
         mode: str = "train",
         img_size: int = 256,
+        only_mask_image: bool = False,
         token_map: Optional[dict] = None,
+        view_mask_rate: float = 0.9,
         test_limit: int = 150,
+        flip: bool = False,
+        constant_place: bool = False,
+        seed: Optional[int] = None,
         **kwargs,
     ):
-        """``kwargs``: the data config's other keys (the training mode's
-        masks, crops, flips and side swaps; ``repeat_sp_token``,
-        ``sp_token`` and ``deep_prompt`` are read)."""
+        """``kwargs``: the data config's other keys (``repeat_sp_token``,
+        ``sp_token``, ``deep_prompt``, ``match_mask``, ``match_mask_rate``
+        and ``match_path`` are read)."""
+        self.rng, self.py_rng, self.np_rng = _streams(seed)
         if mode == "train":
-            _training_masks(type(self).__name__)
-        if isinstance(image_path, str) and os.path.isdir(image_path):  # JAX's isdir raises on the list form
+            self.image_dict = _load_pickle(image_path)
+            self.pairs = _load_pickle(pair_path)
+        elif isinstance(image_path, str) and os.path.isdir(image_path):  # JAX's isdir raises on the list form
             self.pairs = _sorted_dir(image_path)
             self.pairs = self.pairs[:: max(len(self.pairs) // test_limit, 1)]
         else:
@@ -295,20 +323,73 @@ class InpaintingCrossViewDataset:
             self.pairs = [p.strip() for p in files]
         self.mode = mode
         self.img_size = img_size
+        self.only_mask_image = only_mask_image
         self.token_map = token_map
+        self.view_mask_rate = view_mask_rate
         self.repeat_sp_token = kwargs.get("repeat_sp_token", 0)
         self.sp_token = kwargs.get("sp_token")
+        self.match_mask = kwargs.get("match_mask", False)
+        self.match_mask_rate = kwargs.get("match_mask_rate", 0.0)
+        self.match_path = kwargs.get("match_path")
         self.deep_prompt = kwargs.get("deep_prompt", False)
         self.cross_attn_layers = 16
-        # mask_path may be omitted when every pair directory holds a mask.png
-        self.mask_list = _sorted_dir(mask_path) if mask_path else None
+        self.flip = flip
+        self.constant_place = constant_place
+        if mode == "train":
+            self.mask_sampler = FileMaskSampler(_read_list(mask_path[0]), _read_list(mask_path[1]), img_size,
+                                                self.rng)
+            self.mask_list = None
+        else:
+            # mask_path may be omitted when every pair directory holds a mask.png
+            self.mask_list = _sorted_dir(mask_path) if mask_path else None
+            self.mask_sampler = None
 
     def __len__(self):
         return len(self.pairs)
 
     def resize_and_crop(self, image: np.ndarray):
-        """The test mode's resize to img_size x img_size (area); no crop."""
-        return resize(image, (self.img_size, self.img_size), INTER_AREA), None
+        """(the view at img_size x img_size, its crop_info or None): in
+        training with chance 1/2 the short side resized to img_size (area)
+        and a random square cropped, crop_info {"w_start", "h_start", "w",
+        "h"} (the crop's corner, the resized size); else a resize (area)."""
+        crop_info = None
+        s = self.img_size
+        if self.mode == "train" and self.rng.random() >= 0.5:
+            h, w, _ = image.shape
+            if h < w:
+                long_side = max(s, int(w * (s / h)))
+                image = resize(image, (long_side, s), INTER_AREA)
+            else:
+                long_side = max(s, int(h * (s / w)))
+                image = resize(image, (s, long_side), INTER_AREA)
+            rh, rw, _ = image.shape
+            w_start = self.rng.randint(0, image.shape[1] - s)
+            h_start = self.rng.randint(0, image.shape[0] - s)
+            image = image[h_start: h_start + s, w_start: w_start + s]
+            crop_info = {"w_start": w_start, "h_start": h_start, "w": rw, "h": rh}
+        else:
+            image = resize(image, (s, s), INTER_AREA)
+        return image, crop_info
+
+    def _match_result(self, idx: int) -> Optional[dict]:
+        """The matcher's output for pair ``idx`` when the match-mask draw
+        takes it and its file exists (a draw only with ``match_mask``)."""
+        if self.match_mask and self.rng.random() < self.match_mask_rate:
+            pkl_name = os.path.join(self.match_path or "", str(idx).zfill(8) + ".pkl")
+            if os.path.exists(pkl_name):
+                return _load_pickle(pkl_name)
+        return None
+
+    def load_mask(self, idx, gt_pos, target_crop_info, source_crop_info) -> np.ndarray:
+        """The training mask of pair ``idx`` on the canvas: the match-based
+        mask where drawn and possible, else the file sampler's."""
+        res = self._match_result(idx)
+        if res is not None:
+            mask = match_based_mask(res, self.img_size, gt_pos, self.constant_place, target_crop_info,
+                                    source_crop_info, self.rng, np_rng=self.np_rng)
+            if mask is not None:
+                return mask
+        return self.mask_sampler.sample_canvas()
 
     def _mask_file(self, pair: str, idx: int) -> str:
         mask_file = pair + "/mask.png"
@@ -318,24 +399,73 @@ class InpaintingCrossViewDataset:
 
     def __getitem__(self, idx: int) -> dict:
         pair = self.pairs[idx]
-        source, _ = self.resize_and_crop(_read_rgb(_find_image(pair + "/source")))
-        target, _ = self.resize_and_crop(_read_rgb(_find_image(pair + "/target")))
-        image = np.concatenate([source, target], axis=1)
-        half = _half_mask(self._mask_file(pair, idx), self.img_size)
-        mask = np.concatenate([np.zeros_like(half), half], axis=1)
+        train = self.mode == "train"
+        if train:
+            source_filename = self.image_dict[pair["source"]]
+            target_filename = self.image_dict[pair["target"]]
+        else:
+            source_filename = _find_image(pair + "/source")
+            target_filename = _find_image(pair + "/target")
+        source, source_crop_info = self.resize_and_crop(_read_rgb(source_filename))
+        target, target_crop_info = self.resize_and_crop(_read_rgb(target_filename))
+
+        # the side draw is taken in training even where constant_place ignores it
+        if train and self.rng.random() < 0.5 and not self.constant_place:
+            gt_pos = "left"
+            image = np.concatenate([target, source], axis=1)
+        else:
+            gt_pos = "right"
+            image = np.concatenate([source, target], axis=1)
+
+        s = self.img_size
+        if not train:
+            half = load_mask_file(self._mask_file(pair, idx), s)
+            mask = np.concatenate([np.zeros_like(half), half], axis=1)
+        elif self.only_mask_image:
+            mask = np.zeros((s, 2 * s), np.float32)
+            if gt_pos == "left":
+                mask[:, :s] = 1
+            else:
+                mask[:, s:] = 1
+        elif self.rng.random() < 1.0 - self.view_mask_rate:
+            mask = self.load_mask(idx, gt_pos, target_crop_info, source_crop_info)
+        else:
+            mask = np.zeros((s, 2 * s), np.float32)
+            if self.rng.random() < 0.5:
+                mask[:, :s] = 1
+            else:
+                mask[:, s:] = 1
+
+        if train and self.flip:
+            if self.rng.random() < 0.5:
+                image[:, :s] = image[:, :s][:, ::-1]
+                mask[:, :s] = mask[:, :s][:, ::-1]
+            if self.rng.random() < 0.5:
+                image[:, s:] = image[:, s:][:, ::-1]
+                mask[:, s:] = mask[:, s:][:, ::-1]
+
         image = (image.astype(np.float32) / 127.5) - 1.0
         mask = mask[:, :, None].astype(np.float32)
         prompt = build_prompt(self.repeat_sp_token, self.sp_token, self.token_map, self.mode,
-                              self.deep_prompt, self.cross_attn_layers)
+                              self.deep_prompt, self.cross_attn_layers, self.rng)
         return dict(image=image, txt=prompt, masked_image=image * (mask < 0.5), mask=mask)
 
 
 class InpaintingMultiViewDataset(InpaintingCrossViewDataset):
-    """Target + (view_num - 1) reference views, test mode: a pair directory's
-    ``target`` and ``source``, ``source_1`` .. ``source_3`` as a 5-D stack
-    (V, H, W, C) with only view 0 masked (``concat_target``: V - 1 canvases
-    [source j | target]), per-view prompts with ``<view_direct-j-l>``
-    suffixes, and ``idx`` the directory's number where its name is one."""
+    """Target + (view_num - 1) reference views as a 5-D stack (V, H, W, C)
+    with only view 0 masked (``concat_target``: V - 1 canvases [source j |
+    target]), per-view prompts with ``<view_direct-j-l>`` suffixes.
+
+    Training: the pairs of ``data.preprocess.extend_pairs_for_multiview``
+    ({"target": [id], "source": [ids], "idx"}), each view resized or
+    randomly cropped as the cross-view dataset's, the sources in a random
+    order with ``source_shuffle``; the mask of view 0 with chance 1 -
+    ``view_mask_rate`` the match-based mask of the pair's ``idx`` (the one
+    view's, not placed on a canvas) or a ``FileMaskSampler`` mask, else the
+    whole view.  A pair with fewer than view_num - 1 sources raises.
+
+    Test mode: a pair directory's ``target`` and ``source``, ``source_1`` ..
+    ``source_3``, and ``idx`` the directory's number where its name is one."""
 
     def __init__(self, *args, **kwargs):
         self.view_num = kwargs.pop("view_num", 4)
@@ -347,8 +477,9 @@ class InpaintingMultiViewDataset(InpaintingCrossViewDataset):
     def get_view_prompts(self) -> list[str]:
         """Per-view prompts with <view_direct-j-l> suffixes (the closing '>'
         is in the dataset's strings; the tokenizer's table lacks it, so the
-        dataset token matches the table's prefix)."""
-        base = build_prompt(self.repeat_sp_token, self.sp_token, self.token_map, self.mode)
+        dataset token matches the table's prefix).  A template prompt is
+        drawn from the stream of JAX's global ``random``."""
+        base = build_prompt(self.repeat_sp_token, self.sp_token, self.token_map, self.mode, rng=self.py_rng)
         n = self.view_num - 1 if self.concat_target else self.view_num
         prompts = []
         for j in range(n):
@@ -358,18 +489,41 @@ class InpaintingMultiViewDataset(InpaintingCrossViewDataset):
             prompts.append(t)
         return prompts
 
+    def _view_mask(self, pair_idx: int, target_crop_info) -> np.ndarray:
+        """The training mask of view 0 ([s, s])."""
+        s = self.img_size
+        if self.rng.random() >= 1.0 - self.view_mask_rate:
+            return np.ones((s, s), np.float32)
+        mask = None
+        res = self._match_result(pair_idx)
+        if res is not None:
+            mask = match_based_mask(res, s, "right", self.constant_place, target_crop_info, None, self.rng,
+                                    place_on_canvas=False, np_rng=self.np_rng)
+        return self.mask_sampler.sample_half() if mask is None else mask
+
     def __getitem__(self, idx: int) -> dict:
         pair = self.pairs[idx]
         s = self.img_size
-        source_filenames = [_find_image(pair + name) for name in ("/source", "/source_1", "/source_2", "/source_3")]
-        target, _ = self.resize_and_crop(_read_rgb(_find_image(pair + "/target")))
+        train = self.mode == "train"
+        if train:
+            if len(pair["source"]) < self.view_num - 1:
+                raise IndexError(f"pair {idx} {pair}: {len(pair['source'])} sources, view_num {self.view_num} "
+                                 f"needs {self.view_num - 1}")
+            target_filename = self.image_dict[pair["target"][0]]
+            source_filenames = [self.image_dict[i] for i in pair["source"]]
+            pair_idx = pair.get("idx", idx) if isinstance(pair, dict) else idx
+        else:
+            source_filenames = [_find_image(pair + name) for name in ("/source", "/source_1", "/source_2",
+                                                                      "/source_3")]
+            target_filename = _find_image(pair + "/target")
+        target, target_crop_info = self.resize_and_crop(_read_rgb(target_filename))
         if self.source_shuffle:
-            order = np.random.choice(self.view_num - 1, self.view_num - 1, replace=False)
+            order = self.np_rng.choice(self.view_num - 1, self.view_num - 1, replace=False)
         else:
             order = range(self.view_num - 1)
         sources = [self.resize_and_crop(_read_rgb(source_filenames[i]))[0] for i in order]
         image = np.array([target, *sources])
-        mask = _half_mask(self._mask_file(pair, idx), s)
+        mask = self._view_mask(pair_idx, target_crop_info) if train else load_mask_file(self._mask_file(pair, idx), s)
 
         image = (image.astype(np.float32) / 127.5) - 1.0
         mask = mask[:, :, None].astype(np.float32)
@@ -392,16 +546,20 @@ class InpaintingMultiViewDataset(InpaintingCrossViewDataset):
                 cmask[i, :, :s] = final_mask[i + 1]
             image, masked_image, final_mask = ci, cm, cmask
 
-        name = str(pair).split("/")[-1]
+        if not train:
+            name = str(pair).split("/")[-1]
+            pair_idx = int(name) if name.isdigit() else idx
         return dict(image=image, txt=self.get_view_prompts(), masked_image=masked_image, mask=final_mask,
-                    idx=int(name) if name.isdigit() else idx)
+                    idx=pair_idx)
 
 
 class InpaintingDataset:
-    """Plain single-image inpainting / outpainting, test mode: each image
-    (a directory's files, or a list file's lines, thinned to about
-    ``test_limit``) resized to ``img_size`` (area) with the right
-    ``right_strip_frac`` of it masked."""
+    """Plain single-image inpainting / outpainting: each image (a
+    directory's files, or a list file's lines; outside training thinned to
+    about ``test_limit``) resized to ``img_size`` (area).  Training masks
+    come from a ``FileMaskSampler`` over ``mask_path``'s lists (either or
+    both may be missing: ``random_stroke_mask`` without any); outside
+    training the right ``right_strip_frac`` of the image is masked."""
 
     def __init__(
         self,
@@ -412,16 +570,16 @@ class InpaintingDataset:
         token_map: Optional[dict] = None,
         test_limit: int = 150,
         right_strip_frac: float = 0.5,
+        seed: Optional[int] = None,
         **kwargs,
     ):
-        if mode == "train":
-            _training_masks(type(self).__name__)
+        self.rng, self.py_rng, _ = _streams(seed)
         if os.path.isdir(image_path):
             self.files = sorted(glob(image_path + "/*"))
         else:
             with open(image_path) as f:
                 self.files = [line.strip() for line in f.readlines()]
-        if len(self.files) > test_limit:
+        if mode != "train" and len(self.files) > test_limit:
             self.files = self.files[:: len(self.files) // test_limit]
         self.mode = mode
         self.img_size = img_size
@@ -429,6 +587,12 @@ class InpaintingDataset:
         self.repeat_sp_token = kwargs.get("repeat_sp_token", 0)
         self.sp_token = kwargs.get("sp_token")
         self.right_strip_frac = right_strip_frac
+        self.mask_sampler = None
+        if mode == "train":
+            self.mask_sampler = FileMaskSampler(
+                _read_list(mask_path[0]) if mask_path else None,
+                _read_list(mask_path[1]) if mask_path and len(mask_path) > 1 else None,
+                img_size, self.rng)
 
     def __len__(self):
         return len(self.files)
@@ -436,12 +600,15 @@ class InpaintingDataset:
     def __getitem__(self, idx: int) -> dict:
         s = self.img_size
         image = resize(_read_rgb(self.files[idx]), (s, s), INTER_AREA)
-        mask = np.zeros((s, s), np.float32)
-        mask[:, int(s * (1 - self.right_strip_frac)):] = 1
+        if self.mode == "train":
+            mask = self.mask_sampler.sample_half()
+        else:
+            mask = np.zeros((s, s), np.float32)
+            mask[:, int(s * (1 - self.right_strip_frac)):] = 1
         image = (image.astype(np.float32) / 127.5) - 1.0
         mask = mask[:, :, None].astype(np.float32)
-        return dict(image=image, txt=build_prompt(self.repeat_sp_token, self.sp_token, self.token_map, self.mode),
-                    masked_image=image * (mask < 0.5), mask=mask)
+        prompt = build_prompt(self.repeat_sp_token, self.sp_token, self.token_map, self.mode, rng=self.py_rng)
+        return dict(image=image, txt=prompt, masked_image=image * (mask < 0.5), mask=mask)
 
 
 class TestInpaintingDataset:

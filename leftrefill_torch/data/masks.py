@@ -1,8 +1,15 @@
-"""The novel-view-synthesis training mask (counterpart of the NVS parts of
-``leftrefill_tpu/data/masks.py``): the object's dilated alpha mask united
-with a thick random polyline inside its (enlarged) bounding box.  The JAX
-package draws the polyline with PIL's ``ImageDraw`` and dilates with
-OpenCV; the port rasterizes the same shapes itself (:func:`draw_polyline_mask`)
+"""The training masks (counterpart of ``leftrefill_tpu/data/masks.py``):
+mask files read grey and thresholded (``load_mask_file``), the mask-file
+sampler of the MegaDepth and single-image datasets (``FileMaskSampler``:
+irregular, segmentation or their union, placed on one side of the canvas;
+``random_stroke_mask`` without mask lists), the match-based mask of
+reference-guided inpainting (``match_based_mask``: a thick polyline through
+confident matcher keypoints), and the novel-view-synthesis mask
+(``nvs_object_mask``: the object's dilated alpha mask united with a thick
+random polyline inside its bounding box).  The JAX package reads and
+resizes with OpenCV, draws the polylines with PIL's ``ImageDraw`` and
+dilates with OpenCV; the port reads and resizes with ``data.image_io``,
+rasterizes the same shapes itself (:func:`draw_polyline_mask`, PIL's pixels)
 and dilates with ``image_io.dilate``.  Random draws come from a
 ``random.Random`` and an explicit ``np.random.RandomState`` (JAX's code
 draws the latter's values from numpy's global stream), in JAX's order."""
@@ -11,11 +18,11 @@ from __future__ import annotations
 
 import math
 import random
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
-from leftrefill_torch.data.image_io import dilate, ellipse_kernel
+from leftrefill_torch.data.image_io import IMREAD_GRAYSCALE, INTER_NEAREST, dilate, ellipse_kernel, imread, resize
 
 
 def _round_up(v: np.ndarray) -> np.ndarray:
@@ -29,32 +36,41 @@ def _round_down(v: np.ndarray) -> np.ndarray:
 
 
 def _fill_polygon(mask: np.ndarray, verts: np.ndarray) -> None:
-    """Fill a convex polygon (integer vertices, in order) as PIL's scanline
-    fill does for each row y: the row's crossings of the edges, from the
-    leftmost rounded up to the rightmost rounded down (PIL's corner
-    adjustments are left out)."""
+    """Fill a polygon (integer vertices, in order) as PIL's scanline fill
+    does: horizontal edges drawn as they are; for each row y, every other
+    edge that spans it gives a crossing x0 + (y - y0) * dx in float32 (dx
+    the edge's float32 slope, (x0, y0) its first vertex), an edge that
+    ends on y before the last row gives it twice; the row's
+    crossings sorted and filled pairwise, from the first of a pair rounded
+    up to the second rounded down (the halves of PIL's rounding added in
+    float32 too)."""
     h, w = mask.shape
-    x0, y0 = verts[:, 0].astype(np.float64), verts[:, 1].astype(np.float64)
+    x0, y0 = verts[:, 0].astype(np.int64), verts[:, 1].astype(np.int64)
     x1, y1 = np.roll(x0, -1), np.roll(y0, -1)
-    ys = np.arange(max(int(y0.min()), 0), min(int(y0.max()), h - 1) + 1)
-    if ys.size == 0:
-        return
-    flat = y0 == y1
-    for xa, xb, y in zip(x0[flat], x1[flat], y0[flat]):  # horizontal edges: drawn as they are
-        if 0 <= y < h:
-            mask[int(y), max(int(min(xa, xb)), 0):max(min(int(max(xa, xb)) + 1, w), 0)] = 1
-    ea, eb = ~flat, ~flat
-    yy = ys[:, None].astype(np.float64)
     lo, hi = np.minimum(y0, y1), np.maximum(y0, y1)
-    inside = (yy >= lo) & (yy <= hi) & ea & eb
-    with np.errstate(divide="ignore", invalid="ignore"):
-        xs = x0 + (yy - y0) * (x1 - x0) / (y1 - y0)
-    left = np.where(inside, xs, np.inf).min(axis=1)
-    right = np.where(inside, xs, -np.inf).max(axis=1)
-    ok = np.isfinite(left)
+    for xa, xb, y in zip(x0[y0 == y1], x1[y0 == y1], y0[y0 == y1]):
+        if 0 <= y < h:
+            mask[y, max(min(xa, xb), 0):max(min(max(xa, xb) + 1, w), 0)] = 1
+    ys = np.arange(max(int(lo.min()), 0), min(int(hi.max()), h) + 1)
+    sloped = y0 != y1
+    if ys.size == 0 or not sloped.any():
+        return
+    x0, y0, lo, hi = x0[sloped], y0[sloped], lo[sloped], hi[sloped]
+    dx = (x1[sloped] - x0).astype(np.float32) / (y1[sloped] - y0).astype(np.float32)
+    yy = ys[:, None]
+    xs = (yy - y0).astype(np.float32) * dx + x0.astype(np.float32)
+    inside = (yy >= lo) & (yy <= hi)
+    twice = inside & (yy == hi) & (yy < ys[-1])  # PIL's last row: the polygon's, clipped to the image
+    cross = np.sort(np.concatenate([np.where(inside, xs, np.inf), np.where(twice, xs, np.inf)], axis=1), axis=1)
+    count = inside.sum(1) + twice.sum(1)
     cols = np.arange(w)
-    start, end = _round_up(left[ok]), _round_down(right[ok])
-    mask[ys[ok]] |= ((cols >= start[:, None]) & (cols <= end[:, None])).astype(mask.dtype)
+    rows = ys < h
+    for i in range(1, cross.shape[1], 2):
+        ok = rows & (count > i)
+        if not ok.any():
+            break
+        start, end = _round_up(cross[ok, i - 1]), _round_down(cross[ok, i])
+        mask[ys[ok]] |= ((cols >= start[:, None]) & (cols <= end[:, None])).astype(mask.dtype)
 
 
 def _wide_segment(mask: np.ndarray, p0, p1, width: int) -> None:
@@ -122,11 +138,13 @@ def draw_polyline_mask(points: np.ndarray, size: int, width: int, canvas_size: i
     """A closed thick polyline through ``points`` [N, 2] (x, y) and a filled
     ellipse of the line's width at each vertex, as 1 on a float32
     [canvas, canvas] zero mask: what the JAX package paints with PIL's
-    ``ImageDraw.line(width=...)`` and ``ellipse``.  Each segment is PIL's
-    quadrilateral with its scanline rounding and each ellipse PIL's; the
-    scanline fill's corner adjustments are not reproduced, so a few pixels
-    at the stroke's edge may differ (``tests/test_torch_data.py`` bounds
-    them)."""
+    ``ImageDraw.line(width=...)`` and ``ellipse``, pixel for pixel.  As in
+    PIL, the coordinates are truncated to integers, each segment is PIL's
+    quadrilateral filled by its float32 scanline rule and each ellipse
+    PIL's.  Widths below 2 (PIL's one-pixel line, another algorithm) are
+    refused."""
+    if width < 2:
+        raise ValueError(f"width {width}: the polyline raster draws widths of 2 and more")
     canvas = canvas_size or size
     mask = np.zeros((canvas, canvas), np.uint8)
     pts = np.append(points, points[:1], axis=0).astype(np.float32)
@@ -136,6 +154,170 @@ def draw_polyline_mask(points: np.ndarray, size: int, width: int, canvas_size: i
     for x, y in pts:
         _ellipse(mask, (x - half, y - half, x + half, y + half))
     return mask.astype(np.float32)
+
+
+def load_mask_file(path: str, img_size: int) -> np.ndarray:
+    """A mask file read grey, resized to img_size x img_size (nearest),
+    > 127 -> 1: float32 {0, 1}."""
+    mask = resize(imread(path, IMREAD_GRAYSCALE), (img_size, img_size), INTER_NEAREST)
+    return (mask > 127).astype(np.float32)
+
+
+def random_stroke_mask(img_size: int, rng: Optional[random.Random] = None) -> np.ndarray:
+    """The stand-in without mask lists: a closed polyline of 6 to 16
+    random vertices, img_size / 12 to img_size / 5 wide."""
+    rng = rng or random.Random()
+    n_pts = rng.randint(6, 16)
+    pts = np.stack(
+        [
+            np.asarray([rng.randint(0, img_size - 1) for _ in range(n_pts)]),
+            np.asarray([rng.randint(0, img_size - 1) for _ in range(n_pts)]),
+        ],
+        axis=1,
+    )
+    width = rng.randint(img_size // 12, img_size // 5)
+    return np.clip(draw_polyline_mask(pts, img_size, width), 0, 1)
+
+
+class FileMaskSampler:
+    """Training masks from the irregular (LaMa) and segmentation (COCO)
+    mask lists: 40 % an irregular mask, 40 % a segmentation mask, 20 % the
+    union of one of each (a missing list's share goes to the other);
+    :func:`random_stroke_mask` when both lists are empty."""
+
+    def __init__(self, irregular_list: Optional[Sequence[str]], segment_list: Optional[Sequence[str]],
+                 img_size: int, rng: Optional[random.Random] = None):
+        self.irregular = list(irregular_list or [])
+        self.segment = list(segment_list or [])
+        self.img_size = img_size
+        self.rng = rng or random.Random()
+
+    def _pick(self, pool: list) -> np.ndarray:
+        return load_mask_file(pool[self.rng.randint(0, len(pool) - 1)], self.img_size)
+
+    def sample_half(self) -> np.ndarray:
+        """[img_size, img_size] mask of one view, {0, 1}."""
+        if not self.irregular and not self.segment:
+            return random_stroke_mask(self.img_size, self.rng)
+        rdv = self.rng.random()
+        if rdv < 0.4 and self.irregular:
+            return self._pick(self.irregular)
+        if rdv < 0.8 and self.segment:
+            return self._pick(self.segment)
+        if self.segment and self.irregular:
+            m1 = self._pick(self.segment)
+            m2 = self._pick(self.irregular)
+            return np.clip(m1 + m2, 0, 1)
+        return self._pick(self.segment or self.irregular)
+
+    def sample_canvas(self) -> np.ndarray:
+        """[img_size, 2 * img_size]: :meth:`sample_half` on a random side."""
+        mask = self.sample_half()
+        zero = np.zeros_like(mask)
+        if self.rng.random() < 0.5:
+            return np.concatenate([mask, zero], axis=1)
+        return np.concatenate([zero, mask], axis=1)
+
+
+def match_based_mask(
+    match_result: dict,
+    img_size: int,
+    target_pos: str = "left",
+    constant_place: bool = True,
+    target_crop_info: Optional[dict] = None,
+    source_crop_info: Optional[dict] = None,
+    rng: Optional[random.Random] = None,
+    place_on_canvas: bool = True,
+    np_rng: Optional[np.random.RandomState] = None,
+) -> Optional[np.ndarray]:
+    """The match-based mask: the keypoints of the matches scoring above 0.8
+    of the best (``match_result``: {"scores": [N], "mkpts0": [N, 2],
+    "mkpts1": [N, 2]}, at the matcher's 832-pixel size) on the masked side
+    (the target's unless ``constant_place`` is off and the draw picks the
+    other), mapped to the 256-pixel mask (through the side's random crop
+    where it has ``crop_info``, dropping points outside it), a random
+    rectangle of 20-50 % of the mask's area over them (where their box is
+    larger), then a closed polyline 35-70 pixels wide through up to 15-30 of
+    them in random order, resized (nearest) to ``img_size`` and placed on
+    its side of the canvas (``place_on_canvas``; else the one view's mask).
+    None where fewer than 10 points remain, or their box has no area.
+    ``rng`` and ``np_rng`` give the draws that JAX's code takes from
+    ``random`` and numpy's global stream, in the same order."""
+    rng = rng or random.Random()
+    np_rng = np_rng or np.random.mtrand._rand
+    min_width, max_width = 35, 70
+    min_area_rate, max_area_rate = 0.2, 0.5
+    num_vertex = rng.randint(15, 30)
+    min_num = 10
+    match_size, match_mask_size = 832, 256
+    threshold_prob = 0.8
+
+    scores = np.asarray(match_result["scores"])
+    if scores.size == 0:
+        return None
+    scores_max = scores.max()
+    rdv = 1.0 if constant_place else rng.random()
+    if rdv < 0.5:
+        mask_left = True
+        mkpt = "mkpts0" if target_pos == "left" else "mkpts1"
+        crop_info = target_crop_info if target_pos == "left" else source_crop_info
+    else:
+        mask_left = False
+        mkpt = "mkpts1" if target_pos == "left" else "mkpts0"
+        crop_info = source_crop_info if target_pos == "left" else target_crop_info
+
+    good_pts = np.asarray(match_result[mkpt])[scores > scores_max * threshold_prob]
+    if crop_info is None:
+        good_pts = good_pts / match_size * match_mask_size
+    else:
+        good_pts = good_pts / match_size
+        good_pts = good_pts.copy()
+        good_pts[:, 0] *= crop_info["w"]
+        good_pts[:, 1] *= crop_info["h"]
+        good_pts[:, 0] -= crop_info["w_start"]
+        good_pts[:, 1] -= crop_info["h_start"]
+        ms = min(crop_info["w"], crop_info["h"]) / match_mask_size
+        good_pts /= ms
+        keep = ((good_pts[:, 0] >= 0) & (good_pts[:, 1] >= 0) & (good_pts[:, 0] < match_mask_size)
+                & (good_pts[:, 1] < match_mask_size))
+        good_pts = good_pts[keep]
+
+    if len(good_pts) < min_num:
+        return None
+
+    x_min, x_max = good_pts[:, 0].min(), good_pts[:, 0].max()
+    y_min, y_max = good_pts[:, 1].min(), good_pts[:, 1].max()
+    good_w, good_h = x_max - x_min, y_max - y_min
+    good_area = good_w * good_h
+    if good_area == 0:
+        return None
+
+    rate = match_mask_size**2 * (min_area_rate + (max_area_rate - min_area_rate) * rng.random()) / good_area
+    if rate < 1:
+        a = good_w * math.sqrt(rate)
+        b = good_h * math.sqrt(rate)
+        x_start = x_min + np_rng.randint(0, int(good_w - a) + 1)
+        y_start = y_min + np_rng.randint(0, int(good_h - b) + 1)
+        sel = good_pts
+        sel = sel[(sel[:, 0] > x_start) & (sel[:, 0] < x_start + a)]
+        sel = sel[(sel[:, 1] > y_start) & (sel[:, 1] < y_start + b)]
+        picked = np_rng.permutation(sel)
+    else:
+        picked = np_rng.permutation(good_pts)
+
+    if picked.shape[0] < min_num:
+        return None
+    picked = picked[:num_vertex]
+    width = np_rng.randint(min_width, max_width)
+    mask = draw_polyline_mask(picked, match_mask_size, int(width))
+    if img_size != match_mask_size:
+        mask = resize(mask, (img_size, img_size), INTER_NEAREST)
+    if not place_on_canvas:
+        return mask
+    zero = np.zeros_like(mask)
+    if mask_left:
+        return np.concatenate([mask, zero], axis=1)
+    return np.concatenate([zero, mask], axis=1)
 
 
 def nvs_object_mask(

@@ -116,15 +116,25 @@ class RefInpaintTask:
     def validation_metrics(self, batch: dict, cfg_scale: float, lpips_fn=None, ddim_steps: int = 50,
                            generator: Optional[torch.Generator] = None, **sampling) -> dict:
         """PSNR and SSIM of the sampled canvas composited into the hole, on
-        its right half (JAX: tasks.py:277-304); ``sampling``: ``log_images``'
-        x_T, noise_fn, vae_noise.  LPIPS is not ported: the training CLI
-        passes no ``lpips_fn``, as JAX's does."""
-        if lpips_fn is not None:
-            raise NotImplementedError("LPIPS is not ported")
+        its right half (JAX: tasks.py:277-301), and with ``lpips_fn`` (an
+        ``eval.lpips.LPIPS``, or any f(x, y) -> [B] on [-1, 1] NHWC) LPIPS
+        of that composite against the origin's right half; ``sampling``:
+        ``log_images``' x_T, noise_fn, vae_noise.  The training CLI passes
+        no ``lpips_fn``, as JAX's does."""
         log = self.log_images(batch, ddim_steps=ddim_steps, unconditional_guidance_scale=cfg_scale,
                               generator=generator, **sampling)
-        m = composite_metrics(log["pred"], log["origin_image"], log["mask"])
-        return {"val/psnr": float(m["psnr"].mean()), "val/ssim": float(m["ssim"].mean())}
+        return self._scores(log["pred"], log["origin_image"], log["mask"], lpips_fn)
+
+    @staticmethod
+    def _scores(pred: torch.Tensor, origin: torch.Tensor, mask: torch.Tensor, lpips_fn) -> dict:
+        m = composite_metrics(pred, origin, mask)
+        out = {"val/psnr": float(m["psnr"].mean()), "val/ssim": float(m["ssim"].mean())}
+        if lpips_fn is not None:
+            h, w = origin.shape[1:3]
+            origin_r = origin[:, :, w // 2:] if w != h else origin  # cropped as composite_metrics crops
+            with torch.no_grad():
+                out["val/lpips"] = float(lpips_fn(m["composite"], origin_r).mean())
+        return out
 
     # ---------- the loss's view options ------------------------------------
 
@@ -165,6 +175,19 @@ class MultiViewRefInpaintTask(RefInpaintTask):
         if not self.bundle.concat_target and out["origin_image"].shape[1] > 1:
             out["reference"] = out["origin_image"][:, 1:]
         return out
+
+
+    def validation_metrics(self, batch: dict, cfg_scale: float, lpips_fn=None, ddim_steps: int = 50,
+                           generator: Optional[torch.Generator] = None, **sampling) -> dict:
+        """The 1-reference task's scores over the views with a hole (each
+        scene's target; the reference views have none and would composite
+        to themselves), on the sampled scenes' flat rows.  JAX's task hands
+        its per-view [B, V, ...] log to the 4-D metrics and raises."""
+        log = self.log_images(batch, ddim_steps=ddim_steps, unconditional_guidance_scale=cfg_scale,
+                              generator=generator, **sampling)
+        pred, origin, mask = (log[k].reshape(-1, *log[k].shape[2:]) for k in ("pred", "origin_image", "mask"))
+        holed = mask.reshape(mask.shape[0], -1).amax(dim=1) > 0
+        return self._scores(pred[holed], origin[holed], mask[holed], lpips_fn)
 
 
 class NVSTask(RefInpaintTask):

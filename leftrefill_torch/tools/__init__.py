@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import math
 import os
+import random
 import subprocess
 from collections import Counter
 
@@ -100,6 +101,12 @@ PER_FORWARD_NVS_B4 = {**PER_FORWARD_NVS, "geglu": 16}
 # The multi-view UNet adds its mid-block joint attention (256 tokens)
 PER_TRAIN_STEP = {**_NONE, "flash_fwd": 30, "flash_bwd_dq": 14, "flash_bwd_dkv": 14, "conv3x3": 61, "geglu": 32}
 PER_TRAIN_STEP_MV4 = {**PER_TRAIN_STEP, "flash_fwd": 32, "flash_bwd_dq": 15, "flash_bwd_dkv": 15}
+# the same steps as the training CLI runs them: without remat (JAX drops the
+# model YAML's use_checkpoint), so each forward site launches once and the
+# backward sites are those above (flash: 15 forward, 14 backward; conv 33;
+# GEGLU 16; V=4: 16 forward, 15 backward)
+PER_TRAIN_STEP_CLI = {**PER_TRAIN_STEP, "flash_fwd": 15, "conv3x3": 33, "geglu": 16}
+PER_TRAIN_STEP_CLI_MV4 = {**PER_TRAIN_STEP_MV4, "flash_fwd": 16, "conv3x3": 33, "geglu": 16}
 # kernel launches per novel-view-synthesis train step at full width, batch 16
 # of 256x512 canvases (32x64 latents), no remat (JAX drops use_checkpoint),
 # LoRA on the attention projections and the GEGLU input, the refinement
@@ -566,6 +573,136 @@ def write_nvs_renders(root: str, objects: int, views: int = 12, size: int = 256,
         f.write("\n".join(names[:val_masks]))
     return {"datapath": f"{root}/objs", "train_list": f"{root}/train.txt", "val_list": f"{root}/val.txt",
             "mask_file_path": f"{root}/masks"}
+
+
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+                             "tests", "fixtures", "jpeg")
+MEGADEPTH_IMAGES = ("photo_1600x1200_420.jpg", "baseline_420.jpg", "progressive_420.jpg", "baseline_444.jpg",
+                    "exif_orientation_6.jpg", "grey.jpg")
+
+
+def _match_result(rng: np.random.RandomState, kind: str) -> dict:
+    """A matcher output at the matcher's 832-pixel size: "good" (300
+    matches in a random box, about a fifth of them above 0.8 of the best
+    score), "weak" (30 matches, 5 above it: too few for a mask) or "empty"."""
+    n = {"good": 300, "weak": 30, "empty": 0}[kind]
+    lo = rng.uniform(0, 500, (2, 2))
+    size = rng.uniform(150, 330, (2, 2))
+    pts = [(lo[i] + rng.uniform(0, 1, (n, 2)) * size[i]).astype(np.float32) for i in range(2)]
+    scores = rng.uniform(0, 1, n).astype(np.float32)
+    if kind == "weak":
+        scores = np.where(np.arange(n) < 5, 0.95, 0.1).astype(np.float32)
+    return {"scores": scores, "mkpts0": pts[0], "mkpts1": pts[1]}
+
+
+def write_megadepth_scenes(root: str, scenes: int = 2, images_per_scene: int = 14, seed: int = 0,
+                           train_pairs_per_scene: int = 155, other_pairs_per_scene: int = 12,
+                           images: tuple = MEGADEPTH_IMAGES, mask_size: int = 256) -> dict:
+    """A seeded synthetic MegaDepth tree in the real layout, through the
+    port's preprocessors: ``root/<scene>/images/<name>.jpg`` (copies of the
+    JPEG fixtures ``images``, in turn: the 1600x1200 4:2:0 photo first, so
+    its decode is on the path), each scene's LoFTR-style scene info
+    ``root/scene_info/{train,test}/<scene>.npz`` (``image_paths`` and
+    ``pair_infos`` [((i0, i1), overlap, matches)]: per scene
+    ``train_pairs_per_scene`` distinct pairs with an overlap in [0.4, 0.7]
+    and ``other_pairs_per_scene`` outside it, every overlap at least 0.2),
+    the pickles of ``build_megadepth_pairs`` (``root/pairs``) and of
+    ``extend_pairs_for_multiview`` (three extra views a pair), the mask lists
+    ``root/masks/{irregular,segment}.txt`` of 6 seeded grey PNGs each
+    (``mask_size``, strokes and blocks), the matcher outputs
+    ``root/matching_results/%08d.pkl`` of the training pairs (of every
+    four: two good, one weak, one without a file; every eighth empty
+    instead of weak) and 4 test-mode pair directories (a validation batch)
+    ``root/val_pairs/%04d`` (target, source, source_1 .. source_3, mask.png).
+    Returns the paths the training YAML names: {"image_path",
+    "train_pair", "mv_train_pair", "val_image_path", "val_mask_path",
+    "train_mask_path": [irregular, segment], "match_path"}."""
+    import pickle
+    import shutil
+
+    from leftrefill_torch.data.image_io import write_png
+    from leftrefill_torch.data.masks import draw_polyline_mask
+    from leftrefill_torch.data.preprocess import build_megadepth_pairs, extend_pairs_for_multiview
+
+    if images_per_scene * (images_per_scene - 1) < train_pairs_per_scene + other_pairs_per_scene:
+        raise ValueError(f"{images_per_scene} images give fewer than {train_pairs_per_scene + other_pairs_per_scene} "
+                         "distinct pairs")
+    rng = np.random.RandomState(seed)
+    k = 0
+    for split in ("train", "test"):
+        os.makedirs(f"{root}/scene_info/{split}", exist_ok=True)
+    for sc in range(scenes):
+        scene = f"{sc:04d}"
+        os.makedirs(f"{root}/{scene}/images", exist_ok=True)
+        paths = []
+        for i in range(images_per_scene):
+            src = images[k % len(images)]
+            k += 1
+            paths.append(f"{scene}/images/{i:03d}_{os.path.splitext(src)[0]}.jpg")
+            shutil.copy(os.path.join(JPEG_FIXTURES, src), f"{root}/{paths[-1]}")
+        ordered = [(a, b) for a in range(images_per_scene) for b in range(images_per_scene) if a != b]
+        chosen = rng.permutation(len(ordered))[: train_pairs_per_scene + other_pairs_per_scene]
+        inside = rng.uniform(0.4, 0.7, train_pairs_per_scene)
+        outside = np.where(rng.uniform(size=other_pairs_per_scene) < 0.5, rng.uniform(0.2, 0.39, other_pairs_per_scene),
+                           rng.uniform(0.71, 0.95, other_pairs_per_scene))
+        overlaps = rng.permutation(np.concatenate([inside, outside]))
+        infos = np.empty(len(chosen), dtype=object)
+        for j, (c, ov) in enumerate(zip(chosen, overlaps)):
+            infos[j] = (ordered[c], float(ov), np.zeros((0, 2)))
+        np.savez(f"{root}/scene_info/train/{scene}.npz", image_paths=np.array(paths, dtype=object), pair_infos=infos)
+        test = np.empty(2, dtype=object)
+        test[0], test[1] = ((0, 1), 0.5, np.zeros((0, 2))), ((1, 2), 0.3, np.zeros((0, 2)))
+        np.savez(f"{root}/scene_info/test/{scene}.npz", image_paths=np.array(paths, dtype=object), pair_infos=test)
+    out = f"{root}/pairs"
+    build_megadepth_pairs(root, f"{root}/scene_info/train", f"{root}/scene_info/test", out,
+                          rng=random.Random(seed))
+    with open(f"{out}/image_dict.pkl", "rb") as f:
+        image_dict = pickle.load(f)
+    with open(f"{out}/train_pairs.pkl", "rb") as f:
+        train = pickle.load(f)
+    extend_pairs_for_multiview(f"{root}/scene_info/train", train, image_dict, f"{out}/4-extended_train_pairs.pkl")
+
+    lists = {}
+    for kind in ("irregular", "segment"):
+        os.makedirs(f"{root}/masks/{kind}", exist_ok=True)
+        names = []
+        for i in range(6):
+            m = np.zeros((mask_size, mask_size), np.uint8)
+            if kind == "irregular":
+                pts = rng.randint(0, mask_size, (int(rng.randint(4, 12)), 2))
+                m[draw_polyline_mask(pts, mask_size, int(rng.randint(mask_size // 16, mask_size // 6))) > 0] = 255
+            else:
+                y, x = rng.randint(0, mask_size * 3 // 4, 2)
+                h, w = rng.randint(mask_size // 8, mask_size // 2, 2)
+                m[y:y + h, x:x + w] = 255
+            names.append(f"{root}/masks/{kind}/{i:03d}.png")
+            write_png(names[-1], m)
+        lists[kind] = f"{root}/masks/{kind}.txt"
+        with open(lists[kind], "w") as f:
+            f.write("\n".join(names) + "\n")
+
+    os.makedirs(f"{root}/matching_results", exist_ok=True)
+    for idx in range(len(train)):
+        if idx % 4 == 3:
+            continue
+        kind = "good" if idx % 4 < 2 else ("empty" if idx % 8 == 6 else "weak")
+        with open(f"{root}/matching_results/{idx:08d}.pkl", "wb") as f:
+            pickle.dump(_match_result(rng, kind), f)
+
+    for i in range(4):
+        d = f"{root}/val_pairs/{i:04d}"
+        os.makedirs(d, exist_ok=True)
+        for j, name in enumerate(("target", "source", "source_1", "source_2", "source_3")):
+            shutil.copy(os.path.join(JPEG_FIXTURES, images[(i + j) % len(images)]), f"{d}/{name}.jpg")
+        m = np.zeros((mask_size, mask_size), np.uint8)
+        m[mask_size // 4: 3 * mask_size // 4, mask_size // 4 + i: 3 * mask_size // 4] = 255
+        write_png(f"{d}/mask.png", m)
+    os.makedirs(f"{root}/val_masks", exist_ok=True)
+    write_png(f"{root}/val_masks/000.png", np.full((mask_size, mask_size), 255, np.uint8))
+    return {"image_path": f"{out}/image_dict.pkl", "train_pair": f"{out}/train_pairs.pkl",
+            "mv_train_pair": f"{out}/4-extended_train_pairs.pkl", "val_image_path": f"{root}/val_pairs",
+            "val_mask_path": f"{root}/val_masks", "train_mask_path": [lists["irregular"], lists["segment"]],
+            "match_path": f"{root}/matching_results"}
 
 
 def prompt_tokenizer():

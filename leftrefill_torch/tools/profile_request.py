@@ -3,6 +3,7 @@ CUDA GPU.
 
     python -m leftrefill_torch.tools.profile_request [--int8 [--unfused] | --multiview V] [--json PATH]
     python -m leftrefill_torch.tools.profile_request --train [--multiview V | --nvs] [--json PATH]
+    python -m leftrefill_torch.tools.profile_request --train --megadepth [--multiview V] [--json PATH]
     python -m leftrefill_torch.tools.profile_request --nvs [--json PATH]
 
 The bundle is the full-width SD2-inpainting one (``build_sd2_inpaint_bundle``,
@@ -45,6 +46,17 @@ remat): a batch of 16 256x512 canvases from seeded synthetic renders
 (``tools.write_nvs_renders``) through ``NVS_OBJDataset`` and the loader,
 profiled as above, with the peak memory, and the host's data path: seconds
 per item on one thread and per batch of 16 from the 8-thread loader.
+
+``--train --megadepth`` profiles the prompt-tuning step of the training
+CLI (the shipped ``configs/ref_inpainting.yaml``, or with ``--multiview V``
+``configs/multiview_ref_inpainting.yaml`` at V views; random weights, the
+released AdamW, no remat): a batch of 8 512x1024 canvases, or one scene of
+V 512x512 views, from a seeded synthetic MegaDepth tree of 1600x1200 4:2:0
+JPEG photos (``tools.write_megadepth_scenes``: match masks, mask files)
+through the MegaDepth dataset, ``BalancedRandomSampler`` and the loader,
+profiled as above, with the peak memory, and the host's data path: seconds
+per item on one thread, per batch from the 8-thread loader, and that
+batch's seconds over the step's (``data_bound_factor``).
 
 ``--nvs`` profiles novel-view synthesis serving instead
 (``build_sd2_nvs_bundle`` with the refinement branch, ``NVSTask.log_images``,
@@ -288,28 +300,93 @@ def profile_nvs_training() -> dict:
         batches = [next(loader) for _ in range(2)]
         batch_s = (time.perf_counter() - t0) / 2
         del loader
-        batch = {k: v for k, v in batches[0].items() if k != "txt"}
-
-        def run() -> float:
-            nonlocal state
-            t0 = time.perf_counter()
-            state, metrics = step(state, batch, torch.Generator("cuda").manual_seed(7))
-            if not np.isfinite(float(metrics["loss"])):
-                raise SystemExit("profile_request --train --nvs: non-finite loss")
-            torch.cuda.synchronize()
-            return time.perf_counter() - t0
-
-        for _ in range(2):  # warm-up steps
-            run()
-        torch.cuda.reset_peak_memory_stats()
-        out = profiled(run, 1, "kernel_launches_per_step")
-        out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        kinds = defaultdict(float)
-        for group, ms in out["device_ms_by_group"].items():
-            kinds[TRAIN_KINDS.get(group, "plain ops")] += ms
-        out["device_ms_by_kind"] = dict(kinds)
+        out = profiled_step(step, state, {k: v for k, v in batches[0].items() if k != "txt"}, "--train --nvs")
         out["host_data"] = {"seconds_per_item_one_thread": item_s, "seconds_per_batch16_loader": batch_s,
                             "host_cpus": os.cpu_count()}
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def profiled_step(step, state, batch: dict, label: str) -> dict:
+    """Two warm-up steps on ``batch``, then one profiled as ``profiled``
+    does, with the peak memory and the device time by kind."""
+
+    def run() -> float:
+        nonlocal state
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, torch.Generator("cuda").manual_seed(7))
+        if not np.isfinite(float(metrics["loss"])):
+            raise SystemExit(f"profile_request {label}: non-finite loss")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for _ in range(2):  # warm-up steps
+        run()
+    torch.cuda.reset_peak_memory_stats()
+    out = profiled(run, 1, "kernel_launches_per_step")
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    kinds = defaultdict(float)
+    for group, ms in out["device_ms_by_group"].items():
+        kinds[TRAIN_KINDS.get(group, "plain ops")] += ms
+    out["device_ms_by_kind"] = dict(kinds)
+    return out
+
+
+def profile_megadepth_training(view_num) -> dict:
+    """The prompt-tuning step of the training CLI (module docstring),
+    profiled, with the host's data path on photo-size JPEGs."""
+    import os
+    import shutil
+    import tempfile
+
+    from leftrefill_torch.config import build_model_from_config, load_yaml
+    from leftrefill_torch.data.datasets import (BalancedRandomSampler, InpaintingCrossViewDataset,
+                                                InpaintingMultiViewDataset)
+    from leftrefill_torch.data.loader import DataLoader, flatten_views
+    from leftrefill_torch.tasks import build_task
+    from leftrefill_torch.train import OptimizerConfig, create_train_state, make_train_step, prompt_only_predicate
+
+    root = tempfile.mkdtemp(prefix="megadepth_profile_")
+    try:
+        paths = tools.write_megadepth_scenes(root, scenes=1, images_per_scene=6, seed=0, train_pairs_per_scene=24,
+                                             other_pairs_per_scene=4, images=tools.MEGADEPTH_IMAGES[:1],
+                                             mask_size=512)
+        name = "multiview_ref_inpainting" if view_num else "ref_inpainting"
+        cfg = load_yaml(os.path.join(os.path.dirname(__file__), "..", "..", "configs", f"{name}.yaml"))
+        if view_num:  # the multi-view YAML at view_num views
+            p = cfg["model"]["params"]
+            for section in (p, p["unet_config"]["params"], p["cond_stage_config"]["params"], p["data_config"]):
+                section["view_num"] = view_num
+        bundle = build_model_from_config(cfg, torch.bfloat16, "cuda")
+        task = build_task(bundle, "cuda")
+        task.init_params(torch.Generator("cuda").manual_seed(0))
+        state, tx = create_train_state(bundle.model, OptimizerConfig(), prompt_only_predicate)
+        step = make_train_step(bundle.model, tx, view_reduced=task.view_reduced, view_num=task.view_num)
+        dc = dict(bundle.data_config, match_path=paths["match_path"])
+        dc.pop("cfg")
+        cls, pairs = ((InpaintingMultiViewDataset, paths["mv_train_pair"]) if view_num else
+                      (InpaintingCrossViewDataset, paths["train_pair"]))
+        ds = cls(paths["image_path"], pairs, paths["train_mask_path"], mode="train", seed=0, **dc)
+        t0 = time.perf_counter()
+        for i in range(4):
+            ds[i]
+        item_s = (time.perf_counter() - t0) / 4
+        rows = 1 if view_num else 8
+        sampler = BalancedRandomSampler(ds.image_dict, ds.pairs, n_sample_per_scene=16)
+        loader = iter(DataLoader(ds, rows, sampler=sampler, tokenizer=bundle.tokenizer))
+        t0 = time.perf_counter()
+        batches = [next(loader) for _ in range(2)]
+        batch_s = (time.perf_counter() - t0) / 2
+        del loader
+        batch = {k: v for k, v in batches[0].items() if k != "txt"}
+        if view_num:
+            batch = flatten_views(batch)
+        out = profiled_step(step, state, batch, "--train --megadepth")
+        out["host_data"] = {"seconds_per_item_one_thread": item_s, f"seconds_per_batch{rows}_loader": batch_s,
+                            "jpeg_decodes_per_item": view_num or 2,
+                            "host_cpus": os.cpu_count()}
+        out["data_bound_factor"] = batch_s / out["unprofiled_wall_s"]
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -348,12 +425,16 @@ def main() -> int:
     ap.add_argument("--train", action="store_true", help="profile one train step (bf16)")
     ap.add_argument("--nvs", action="store_true", help="profile novel-view synthesis requests or, with --train, "
                     "its train step (bf16)")
+    ap.add_argument("--megadepth", action="store_true", help="with --train: the training CLI's prompt-tuning "
+                    "step on MegaDepth-format data, 1-reference or with --multiview V")
     ap.add_argument("--json", help="also write the result to this file")
     args = ap.parse_args()
     if args.unfused and not args.int8 or args.multiview and args.int8 or args.train and args.int8:
         ap.error("--unfused goes with --int8, --multiview and --train with neither")
     if args.nvs and (args.int8 or args.multiview):
         ap.error("--nvs goes alone or with --train")
+    if args.megadepth and (not args.train or args.nvs):
+        ap.error("--megadepth goes with --train (and --multiview V)")
     if not torch.cuda.is_available():
         raise SystemExit("profile_request: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -380,9 +461,11 @@ def main() -> int:
         return 0
     if args.train:
         result = {"card": tools.card_line(), "torch": torch.__version__, "cuda": torch.version.cuda,
-                  "bundle": f"train_multiview_v{args.multiview}" if args.multiview else "train_1ref_b8"}
+                  "bundle": (f"train_multiview_v{args.multiview}" if args.multiview else "train_1ref_b8")
+                  + ("_cli_megadepth" if args.megadepth else "")}
         print(result["card"])
-        result["train_step_profiled"] = profile_training(args.multiview)
+        result["train_step_profiled"] = (profile_megadepth_training if args.megadepth else
+                                         profile_training)(args.multiview)
         print("train_step_profiled", json.dumps(result["train_step_profiled"]))
         if args.json:
             with open(args.json, "w") as f:

@@ -6,7 +6,8 @@
   package's items bit for bit, on pair directories the test writes with
   OpenCV (JPEG with and without Exif orientation, PNG, colour and palette
   masks, sizes that shrink and that enlarge), and their training modes
-  refused;
+  on a seeded MegaDepth tree (``tools.write_megadepth_scenes``) equal to
+  JAX's too;
 - ``cli.sample`` and ``cli.test`` (1-reference, ``--save_single``,
   ``--metric_size``, ``--manual_pairs_x4``, LPIPS from a weights file, and
   ``--multiview`` with its reference strips) run with ``--device cpu`` at
@@ -24,6 +25,7 @@ import torch
 from test_cli import MODEL_YAML
 from test_cli_variants import MV_MODEL_YAML
 
+from leftrefill_torch import tools
 from leftrefill_torch.data import datasets as td, image_io as io
 
 
@@ -132,8 +134,8 @@ def test_list_files_and_training_modes(tmp_path):
     """The list-file forms: the cross-view pair of lists (the second list
     first, then the first up to ``test_limit``: JAX's own copy raises there,
     ``os.path.isdir`` of a list, so the port's items are held to the
-    directory form's), a pair list equal to JAX's; the training modes raise,
-    naming what is missing."""
+    directory form's), a pair list equal to JAX's; the training modes'
+    first items equal to JAX's under one seed."""
     from leftrefill_tpu.data import datasets as jd
 
     pairs = write_pairs(str(tmp_path))
@@ -150,10 +152,20 @@ def test_list_files_and_training_modes(tmp_path):
         jd.InpaintingCrossViewDataset([str(tmp_path / "a.txt"), str(tmp_path / "b.txt")], **kw)
     _items_equal(td.TestInpaintingDataset(str(tmp_path / "a.txt"), 32)[1],
                  jd.TestInpaintingDataset(str(tmp_path / "a.txt"), 32)[1])
-    for cls, args in ((td.InpaintingCrossViewDataset, ("x", "y", ["m", "n"])),
-                      (td.InpaintingMultiViewDataset, ("x", "y", ["m", "n"])), (td.InpaintingDataset, ("x", None))):
-        with pytest.raises(NotImplementedError, match="FileMaskSampler"):
-            cls(*args, mode="train")
+    tree = tools.write_megadepth_scenes(str(tmp_path / "md"), scenes=1, images_per_scene=4, seed=0,
+                                        train_pairs_per_scene=6, other_pairs_per_scene=0,
+                                        images=tools.MEGADEPTH_IMAGES[1:], mask_size=64)
+    kw = dict(mode="train", img_size=32, seed=0, view_mask_rate=0.0, match_mask=True, match_mask_rate=1.0, view_num=2,
+              match_path=tree["match_path"], **DS_KW)
+    val = tree["val_image_path"]
+    (tmp_path / "images.txt").write_text("\n".join(os.path.join(val, d, "target.jpg") for d in sorted(os.listdir(val))))
+    masks = tree["train_mask_path"]
+    for name, args in (("InpaintingCrossViewDataset", (tree["image_path"], tree["train_pair"], masks)),
+                       ("InpaintingMultiViewDataset", (tree["image_path"], tree["mv_train_pair"], masks)),
+                       ("InpaintingDataset", (str(tmp_path / "images.txt"), masks))):
+        np.random.seed(0)
+        ref = getattr(jd, name)(*args, **kw)[0]
+        _items_equal(getattr(td, name)(*args, **kw)[0], ref)
 
 
 def _exp(root, yaml_text: str) -> str:

@@ -3,9 +3,10 @@ end on the CPU (``--device cpu``) at the tiny NVS bundle of
 ``tests/test_cli_variants.py`` with LoRA and the refinement branch on, over
 synthetic renders: two steps, validation and a pruned checkpoint holding the
 NVS filter's keys with the LoRA factors; ``--restore`` resumes at the saved
-step from the saved weights; and what it refuses: a missing card, more than
-one card, and the MegaDepth configs, whose training masks the port does
-not have yet."""
+step from the saved weights; what it refuses: a missing card and more than
+one card; and the shipped MegaDepth configs taken to their data as JAX's
+CLI takes them (``tests/test_torch_cli_megadepth.py`` trains on such
+data)."""
 
 import json
 import os
@@ -118,9 +119,30 @@ def test_cli_refuses_what_it_does_not_run(workdir):
 
     with pytest.raises(NotImplementedError, match="one card"):
         main(_args(workdir, "--no_restore", "--nchip", "2"))
-    with pytest.raises(NotImplementedError, match="training masks"):
-        main(["--config_file", os.path.join(REPO, "configs", "ref_inpainting_training_config.yaml"),
-              "--exp_name", "ref", "--save_path", os.path.join(workdir, "ck_ref"), "--device", "cpu"])
+    # the shipped 1-reference and multi-view configs reach their MegaDepth data (the full-width
+    # model built on meta: no values on the CPU) and stop where JAX's datasets stop on the same
+    # config: the image pickle, which is not in the repository
+    from leftrefill_tpu.config import load_yaml as jload
+    from leftrefill_tpu.data import datasets as jd
+
+    from leftrefill_torch import config as tconfig, tasks
+
+    build = tconfig.build_model_from_config
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tconfig, "build_model_from_config", lambda path, dtype=None, device=None: build(path, dtype, "meta"))
+        mp.setattr(tasks.RefInpaintTask, "init_params", lambda self, gen, sd_state_dict=None: {})
+        mp.chdir(workdir)
+        for name, cls in (("ref_inpainting", jd.InpaintingCrossViewDataset),
+                          ("multiview_ref_inpainting", jd.InpaintingMultiViewDataset)):
+            cfg_file = os.path.join(REPO, "configs", f"{name}_training_config.yaml")
+            cfg = jload(cfg_file)
+            with pytest.raises(FileNotFoundError) as ref:
+                cls(image_path=cfg["image_path"], pair_path=cfg["train_pair"], mask_path=cfg["train_mask_path"],
+                    mode="train")
+            with pytest.raises(FileNotFoundError) as got:
+                main(["--config_file", cfg_file, "--exp_name", name, "--save_path", os.path.join(workdir, "ck_md"),
+                      "--device", "cpu"])
+            assert got.value.filename == ref.value.filename == cfg["image_path"]
     if not torch.cuda.is_available():  # on the card by default: without one it raises, it does not fall back
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main([a for a in _args(workdir, "--no_restore") if a not in ("--device", "cpu")])

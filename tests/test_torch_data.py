@@ -9,9 +9,10 @@ own data path, on the CPU:
   arithmetic rounds in an order not reproduced, held within 1e-5 of the
   image's largest value (readings ~5e-6);
 - the ellipse kernel and the dilation equal to OpenCV's;
-- the polyline raster equal to PIL's on every seeded stroke (the stated
-  bound, at most 1 % of the stroke's pixels differing and all within one
-  pixel of its edge, is the limit; the reading is 0 pixels);
+- the polyline raster equal to PIL's on every seeded stroke, integer and
+  float vertices (the stated bound, at most 1 % of the stroke's pixels
+  differing and all within one pixel of its edge, is the limit; the
+  reading is 0 pixels);
 - ``nvs_object_mask``, ``NVS_OBJDataset`` items (training, evaluation with
   mask files, complete masks), ``collate``, ``DataLoader`` and
   ``BalancedRandomSampler`` equal to JAX's under the same seeds."""
@@ -177,13 +178,21 @@ def _stroke_cases():
             lo = rng.randint(-size // 8, size // 2, 2)
             hi = lo + rng.randint(4, size // 2 + size // 4, 2)
             yield np.stack([rng.randint(lo[0], hi[0], n), rng.randint(lo[1], hi[1], n)], 1), size, int(rng.randint(*widths))
+    # float vertices at the match-based mask's widths (35-70 at 256), some past the border
+    for _ in range(200):
+        n = rng.randint(10, 31)
+        yield rng.uniform(-30, 286, (n, 2)).astype(np.float32), 256, int(rng.randint(35, 70))
 
 
 def test_polyline_raster_matches_pil():
     """The stated bound per stroke (at most 1 % of PIL's stroke pixels
-    differing, each within one pixel of its edge), on 120 seeded strokes at
-    the novel-view widths and below, some reaching past the border.
-    Reading: no pixel differs."""
+    differing, each within one pixel of its edge), on 120 seeded integer
+    strokes at the novel-view widths and below and 200 float strokes at the
+    match-based widths, some reaching past the border.  Reading: no pixel
+    differs (the raster computes PIL's scanline crossings in float32 as PIL
+    does); widths below 2 are refused."""
+    with pytest.raises(ValueError, match="widths of 2"):
+        tmk.draw_polyline_mask(np.zeros((3, 2)), 32, 1)
     differing = 0
     for pts, size, width in _stroke_cases():
         ref, got = jm.draw_polyline_mask(pts, size, width), tmk.draw_polyline_mask(pts, size, width)

@@ -81,7 +81,11 @@ def test_prompt_and_pose_copies_match_jax():
 
     from leftrefill_torch.data import datasets as td
 
-    assert td.PROMPT_TEMPLATES == jd.PROMPT_TEMPLATES
+    from leftrefill_tpu.data import preprocess as jp
+
+    from leftrefill_torch.data import preprocess as tp
+
+    assert td.PROMPT_TEMPLATES == jd.PROMPT_TEMPLATES and tp.PROMPT == jp.PROMPT
     tmap = {"left_token": "<l>", "right_token": "<r>", "task_token": "<t>", "real_token": "<s>"}
     cases = [dict(repeat_sp_token=73, sp_token="<special-token>"),
              dict(repeat_sp_token=3, sp_token="<x>", deep_prompt=True, cross_attn_layers=4),
@@ -104,8 +108,10 @@ def test_prompt_and_pose_copies_match_jax():
 def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
     """A fresh interpreter imports every module of the port and
     ``chip_smoke`` (without running it), builds the tiny bundle on the CPU
-    and runs its text tower and one UNet step: no ``leftrefill_tpu`` and no
-    ``jax`` module is loaded."""
+    and runs its text tower and one UNet step, then writes a small MegaDepth
+    tree through the port's preprocessors and reads a training item of each
+    MegaDepth dataset (match masks on): no ``leftrefill_tpu`` and no ``jax``
+    module is loaded."""
     code = """
 import importlib, pkgutil, sys, warnings
 import torch
@@ -131,6 +137,18 @@ with torch.no_grad():
     ctx = model.get_learned_conditioning(torch.as_tensor(tok.tokenize(prompts), dtype=torch.long))
     out = model.apply_model(torch.zeros(2, 8, 16, 4), torch.tensor([10, 10]), Conditioning(torch.zeros(2, 8, 16, 5), ctx))
 assert out.shape == (2, 8, 16, 4) and torch.isfinite(out).all()
+import tempfile
+from leftrefill_torch import tools
+from leftrefill_torch.data.datasets import InpaintingCrossViewDataset, InpaintingMultiViewDataset
+with tempfile.TemporaryDirectory() as root:
+    p = tools.write_megadepth_scenes(root, scenes=1, images_per_scene=4, seed=0, train_pairs_per_scene=6,
+                                     other_pairs_per_scene=0, images=tools.MEGADEPTH_IMAGES[1:], mask_size=64)
+    kw = dict(mode="train", img_size=32, seed=0, view_mask_rate=0.0, match_mask=True, match_mask_rate=1.0,
+              match_path=p["match_path"])
+    item = InpaintingCrossViewDataset(p["image_path"], p["train_pair"], p["train_mask_path"], **kw)[0]
+    assert item["image"].shape == (32, 64, 3)
+    assert InpaintingMultiViewDataset(p["image_path"], p["mv_train_pair"], p["train_mask_path"], view_num=2,
+                                      **kw)[0]["image"].shape == (2, 32, 32, 3)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("leftrefill_tpu", "jax", "jaxlib", "flax"))
 assert not bad, bad
 """

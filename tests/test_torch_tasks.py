@@ -3,8 +3,8 @@ bundle built on both sides from the tiny YAMLs of ``tests/test_cli.py`` and
 ``tests/test_cli_variants.py`` through the two config systems and loaded
 with the same seeded flax tree: ``build_task``'s dispatch, the 1-reference
 ``log_images`` at each guidance branch (CFG above 1, the unconditional
-branch alone at 0, the conditional one at 1) and ``validation_metrics``,
-and the multi-view task's per-view split, on the same x_T, per-step noise
+branch alone at 0, the conditional one at 1) and ``validation_metrics`` (with LPIPS),
+and the multi-view task's per-view split and its validation scores, on the same x_T, per-step noise
 and VAE noise as JAX's.  Tolerance: the tiny canvas 1e-4 absolute, the
 metrics 1e-4 relative (see test_torch_parity_utils)."""
 
@@ -89,9 +89,29 @@ def test_ref_task_log_images_matches_jax(one_ref, guidance):
     assert np.abs(out["pred"].numpy() - np.asarray(ref["pred"])).max() < CANVAS_ABS
 
 
+def _lpips_pair(hw: int = 32):
+    """JAX's LPIPS and the port's on the same seeded weights (the lin
+    weights non-negative, as trained ones are): (JAX's function, the
+    port's module)."""
+    from leftrefill_tpu.eval.lpips import LPIPS as JL
+
+    from leftrefill_torch.convert.from_jax import lpips_from_flax
+    from leftrefill_torch.eval.lpips import LPIPS
+
+    jl = JL()
+    struct = jax.eval_shape(jl.init, jax.random.PRNGKey(0), jnp.zeros((1, hw, hw, 3)), jnp.zeros((1, hw, hw, 3)))
+    lp_params = {k: ({"kernel": np.abs(v["kernel"])} if k.startswith("lin") else v)
+                 for k, v in fill_tree(struct["params"], 7).items()}
+    lp = LPIPS().eval()
+    lp.load_state_dict(lpips_from_flax(lp_params), strict=True)
+    return (lambda a, b: jl.apply({"params": lp_params}, a, b)), lp
+
+
 def test_ref_task_validation_metrics_match_jax(one_ref):
     """PSNR and SSIM of the composited right half, as JAX's validation step
-    computes them (its sample at the same draws)."""
+    computes them (its sample at the same draws), and with an ``lpips_fn``
+    LPIPS of that composite against the origin's right half (the same
+    seeded LPIPS weights on both sides)."""
     jt, params, task = one_ref
     batch, key = _batch(task, 2, seed=3), jax.random.PRNGKey(6)
     ref = jt.validation_metrics(params, batch, cfg_scale=2.5, ddim_steps=STEPS, key=key)
@@ -99,8 +119,12 @@ def test_ref_task_validation_metrics_match_jax(one_ref):
     assert got.keys() == ref.keys() == {"val/psnr", "val/ssim"}
     for k in ref:
         assert abs(got[k] - ref[k]) <= 1e-4 * abs(ref[k]), k
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        task.validation_metrics(batch, cfg_scale=2.5, lpips_fn=lambda a, b: a)
+    jfn, lp = _lpips_pair()
+    ref = jt.validation_metrics(params, batch, cfg_scale=2.5, lpips_fn=jfn, ddim_steps=STEPS, key=key)
+    got = task.validation_metrics(batch, cfg_scale=2.5, lpips_fn=lp, ddim_steps=STEPS, **_draws(2, key))
+    assert got.keys() == ref.keys() == {"val/psnr", "val/ssim", "val/lpips"} and ref["val/lpips"] > 0
+    for k in ref:
+        assert abs(got[k] - ref[k]) <= 1e-4 * abs(ref[k]), k
 
 
 def test_multiview_task_splits_views_as_jax():
@@ -126,3 +150,32 @@ def test_multiview_task_splits_views_as_jax():
         assert tuple(out[k].shape) == np.shape(ref[k]), k
     assert np.abs(out["pred"].numpy() - np.asarray(ref["pred"])).max() < CANVAS_ABS
     assert torch.equal(out["reference"], t(images[:, 1:]))
+
+
+def test_multiview_task_validation_metrics():
+    """JAX's multi-view validation hands its per-view [B, V, ...] log to the
+    4-D metrics and raises; the port scores the views with a hole (view 0
+    of each scene): equal to JAX's metrics and LPIPS computed on those rows
+    of JAX's log at the same draws."""
+    from leftrefill_tpu.eval.metrics import composite_metrics as jmetrics
+
+    jt, params, task = _bundles(MV_MODEL_YAML)
+    rng = np.random.RandomState(9)
+    images = rng.uniform(-1, 1, (2, 2, 32, 64, 3)).astype(np.float32)
+    masks = np.zeros((2, 2, 32, 64, 1), np.float32)
+    masks[:, 0, 6:26, 36:60] = 1.0
+    toks = task.prompt_tokens([" ".join(task.bundle.special_tokens[:2]), " ".join(task.bundle.special_tokens[2:4])])
+    batch = {"image": images, "mask": masks, "masked_image": images * (masks < 0.5), "tokens": np.stack([toks, toks])}
+    key = jax.random.PRNGKey(10)
+    with pytest.raises(TypeError):
+        jt.validation_metrics(params, batch, cfg_scale=2.5, ddim_steps=STEPS, key=key)
+    jfn, lp = _lpips_pair()
+    log = jt.log_images(params, batch, ddim_steps=STEPS, unconditional_guidance_scale=2.5, key=key)
+    pred, origin, mask = (np.asarray(log[k])[:, 0] for k in ("pred", "origin_image", "mask"))
+    m = jmetrics(pred, origin, mask)
+    ref = {"val/psnr": float(np.mean(m["psnr"])), "val/ssim": float(np.mean(m["ssim"])),
+           "val/lpips": float(np.mean(jfn(m["composite"], origin[:, :, 32:])))}
+    got = task.validation_metrics(batch, cfg_scale=2.5, lpips_fn=lp, ddim_steps=STEPS, **_draws(4, key))
+    assert got.keys() == ref.keys()
+    for k in ref:
+        assert abs(got[k] - ref[k]) <= 1e-4 * abs(ref[k]), k

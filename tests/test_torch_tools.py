@@ -84,6 +84,49 @@ def test_per_train_step_counts_match_the_dispatch(monkeypatch, path):
         assert Counter(shape for n, shape in sites if n == name) == Counter(by_shape)
 
 
+@pytest.mark.parametrize("name", ["ref_inpainting", "multiview_ref_inpainting"])
+def test_per_train_step_cli_counts_match_the_dispatch(monkeypatch, name):
+    """The prompt-tuning step as the training CLI runs it at full width on
+    ``meta``: the shipped model YAML (no remat; the multi-view one at
+    view_num 4), ``compute_loss`` with the task's view options at batch 8
+    of 512x1024 canvases or one V=4 scene of 512x512 views: its kernel
+    sites are ``tools.PER_TRAIN_STEP_CLI(_MV4)``, the backward kernels' by
+    shape ``tools.TRAIN_SITES(_MV4)``, and the prompt table alone gets a
+    gradient."""
+    from leftrefill_torch.config import build_model_from_config, load_yaml
+    from leftrefill_torch.tasks import build_task
+    from leftrefill_torch.train import compute_loss, create_train_state
+
+    monkeypatch.setattr(kernels, "uses_kernel", lambda t: t.device.type in ("cuda", "meta"))
+    mv = name.startswith("multiview")
+    cfg = load_yaml(str(Path(__file__).resolve().parent.parent / "configs" / f"{name}.yaml"))
+    if mv:
+        for section in ("unet_config", "cond_stage_config"):
+            cfg["model"]["params"][section]["params"]["view_num"] = 4
+        cfg["model"]["params"]["view_num"] = cfg["model"]["params"]["data_config"]["view_num"] = 4
+    bundle = build_model_from_config(cfg, torch.bfloat16, device="meta")
+    task = build_task(bundle, "meta")
+    assert not bundle.model.unet.remat and (task.view_reduced, task.view_num) == ((True, 4) if mv else (False, 1))
+    rows, hw = (4, (512, 512)) if mv else (8, (512, 1024))
+    with torch.device("meta"):
+        batch = {"image": torch.empty(rows, *hw, 3), "mask": torch.empty(rows, *hw, 1),
+                 "masked_image": torch.empty(rows, *hw, 3), "tokens": torch.zeros(rows, 77, dtype=torch.long)}
+        draws = dict(t=torch.zeros(rows, dtype=torch.long), noise=torch.empty(rows, hw[0] // 8, hw[1] // 8, 4,
+                                                                                dtype=torch.bfloat16),
+                     vae_noise=torch.empty(rows, hw[0] // 8, hw[1] // 8, 4))
+    create_train_state(bundle.model)
+    with kernels.record_sites() as sites:
+        compute_loss(bundle.model, batch, view_reduced=task.view_reduced, view_num=task.view_num,
+                     **draws)[0].backward()
+    per_step, by_shape = (tools.PER_TRAIN_STEP_CLI_MV4, tools.TRAIN_SITES_MV4) if mv else \
+        (tools.PER_TRAIN_STEP_CLI, tools.TRAIN_SITES)
+    assert Counter(name for name, _ in sites) == Counter({k: v for k, v in per_step.items() if v})
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert Counter(shape for n, shape in sites if n == kernel) == Counter(by_shape)
+    assert [n for n, p in bundle.model.named_parameters() if p.grad is not None] == \
+        ["cond_stage_model.special_embeddings.weight"]
+
+
 def test_per_train_step_nvs_counts_match_the_dispatch(monkeypatch):
     """The novel-view-synthesis train step at full width on ``meta``, as
     the training CLI runs it (``configs/novel_view_synthesis.yaml`` with
