@@ -233,6 +233,32 @@ Phases, one line each (the kernel phases one line per kernel shape):
    at view_num 4 (one scene of four 512x512 views a step, the view-0 loss,
    K1 and K14's dq at 16384 tokens): launches
    ``tools.PER_TRAIN_STEP_CLI_MV4``, sites ``tools.TRAIN_SITES_MV4``.
+13. the remaining samplers, ``log_images``' diagnostic rows, the
+   cross-attention maps and ``multi_cond_sample`` at full width (the bf16
+   bundle of ``configs/ref_inpainting.yaml`` through ``build_task``, random
+   weights from seed 0, a 512x1024 canvas, batch 1): (13d)
+   ``RefInpaintTask.log_images`` at its defaults (DDIM-50, eta 0, g 9) with
+   the diffusion, denoise and progressive rows (50 + 1000 CFG-doubled
+   forwards: the denoise row is pred's own DDIM loop; launches
+   ``tools.PER_FORWARD_BF16`` each): each row [S, 1, 512, 1024, 3] finite
+   in [-1, 1], the denoise row's last latent bit-equal to the one "pred"
+   decoded, each row's seconds and the peak memory; (13s) PLMS-50 (51
+   forwards), DDIM-50 at eta 1 with the reference half renoised from the
+   canvas's latent, temperature 0.5 and a per-step guidance schedule, and
+   ``ddim_encode`` over 25 steps then ``ddim_decode`` from 25, each with its
+   launches and seconds; then one step each of DDPM (t 500), PLMS at order
+   1 (the Heun step) and up to order 4, encode and decode: every model call
+   of the step, on the input the kernels' run gave it, through the kernels
+   and through the plain versions, the model outputs ([uncond; cond])
+   within relative L2 3e-2 (the guided outputs printed beside them); (13a)
+   ``collect_attention_maps`` on one CFG-batch forward (cfg_dup, the K/V
+   cache): 16 maps [2, Nq, 77] whose rows sum to 1 within
+   1e-3, each map's departure from the uniform 1/77 within relative L2 3e-2
+   of the plain versions', the UNet output bit-equal
+   to the forward without the collector; (13m)
+   ``MultiViewRefInpaintTask.multi_cond_sample`` with K = 2 conditionings
+   of one V=4 scene (the same target view, other reference views), DDIM-10,
+   CFG 2.5: launches ``tools.PER_FORWARD_MV4`` each, finite, seconds.
 The line before the last is a JSON summary of the fourteen kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
@@ -1749,6 +1775,267 @@ def megadepth_training_phases(launches: dict) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phases 13d, 13s, 13a, 13m: the remaining samplers, log_images' diagnostic
+# rows, the cross-attention maps and multi_cond_sample (the SD2 bundle, 512x1024)
+SAMPLER_STEP_REL_L2 = UNET_REL_L2  # a sampler step's model outputs, kernels vs plain (phase 3's bound)
+ROW_STEPS = {"diffusion_row": 6, "denoise_row": 8, "progressive_row": 5}
+MAP_ROW_SUM_ABS = 1e-3
+
+
+def recording_apply(apply_fn, calls: list):
+    """``apply_fn`` that appends ((x, t, c), output) of each call to ``calls``."""
+    def run(x, t, c):
+        out = apply_fn(x, t, c)
+        calls.append(((x, t, c), out))
+        return out
+
+    return run
+
+
+def sampler_phases(launches: dict) -> None:
+    """Phases 13d, 13s, 13a and 13m (module docstring); each main path's
+    launches go into ``launches``."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from leftrefill_torch import kernels, tasks, tools
+    from leftrefill_torch.config import build_model_from_config
+    from leftrefill_torch.diffusion import ddim, samplers_extra
+    from leftrefill_torch.diffusion.core import Conditioning
+    from leftrefill_torch.eval.attn_vis import collect_attention_maps
+    from leftrefill_torch.models.clip import build_multiview_prompt_tokenizer
+    from leftrefill_torch.ops.layers import nearest_resize
+    from leftrefill_torch.pipeline import build_sd2_inpaint_bundle
+    from leftrefill_torch.tools import rel_l2
+
+    t_phase = time.perf_counter()
+    bundle = build_model_from_config(str(ROOT / "configs" / "ref_inpainting.yaml"), dtype=torch.bfloat16,
+                                     device="cuda")
+    task = tasks.build_task(bundle, "cuda")
+    task.init_params(torch.Generator("cuda").manual_seed(0))
+    m = task.model
+    image, mask = tools.request_canvas()
+    batch = {"image": image, "mask": mask, "masked_image": image * (mask < 0.5),
+             "tokens": task.prompt_tokens(" ".join(bundle.special_tokens))}
+
+    # ---- 13d: log_images with every diagnostic row --------------------------
+    secs, results = [], []
+
+    def timed(fn, name, keep=False):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            secs.append((name, time.perf_counter() - t0))
+            if keep:
+                results.append(out)
+            return out
+        return run
+
+    patched = {"ddim_sample": tasks.ddim_sample, "ddpm_sample": tasks.ddpm_sample}
+    tasks.ddim_sample = timed(patched["ddim_sample"], "ddim", keep=True)
+    tasks.ddpm_sample = timed(patched["ddpm_sample"], "ddpm")
+    m.encode_first_stage = timed(m.encode_first_stage, "encode")
+    m.decode_first_stage = timed(m.decode_first_stage, "decode")
+    torch.cuda.reset_peak_memory_stats()
+    tools.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        log = task.log_images(batch, plot_diffusion_rows=True, plot_denoise_rows=True, plot_progressive_rows=True)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        tasks.ddim_sample, tasks.ddpm_sample = patched["ddim_sample"], patched["ddpm_sample"]
+        del m.encode_first_stage, m.decode_first_stage
+    launches["log_images_rows_ddim50_g9"] = tools.launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    forwards = 50 + m.schedule.num_timesteps  # the denoise row is pred's own DDIM loop (g != 0)
+    check_launches(launches["log_images_rows_ddim50_g9"], tools.PER_FORWARD_BF16, forwards, "phase 13d")
+    # calls in order: the cond's encode, pred's DDIM (with its intermediates)
+    # and decode, the diffusion row's encode and decode, the denoise row's
+    # decode, the DDPM loop and its decode
+    names = [n for n, _ in secs]
+    want = ["encode", "ddim", "decode", "encode", "decode", "decode", "ddpm", "decode"]
+    if names != want:
+        raise SystemExit(f"phase 13d: calls {names}, expected {want}")
+    s = [v for _, v in secs]
+    rows_s = {"pred": s[1] + s[2], "diffusion_row": s[3] + s[4], "denoise_row (its decode)": s[5],
+              "progressive_row": s[6] + s[7]}
+    for k, n in ROW_STEPS.items():
+        row = log[k]
+        if tuple(row.shape) != (n, 1, 512, 1024, 3) or not torch.isfinite(row).all() or float(row.abs().max()) > 1:
+            raise SystemExit(f"phase 13d: {k} {tuple(row.shape)}, finite {bool(torch.isfinite(row).all())}")
+    (z_pred, inter), = results
+    if not torch.equal(inter["x_inter"][-1], z_pred):
+        raise SystemExit("phase 13d: the denoise row's last latent differs from the one pred decoded")
+    print(f"phase 13d log_images 512x1024 bf16 DDIM-50 eta0 g9 + diffusion, denoise and progressive rows: "
+          f"seconds={ {k: round(v, 3) for k, v in rows_s.items()} } (DDPM loop {s[6]:.3f}, its decode "
+          f"{s[7]:.3f}) total_seconds={total:.3f} peak_mem_gib={peak:.1f} unet_forwards={forwards} launches="
+          f"{ {k: v for k, v in launches['log_images_rows_ddim50_g9'].items() if v} }; rows finite in [-1, 1]; the "
+          f"denoise row's last x_inter bit-equal to pred's latent", flush=True)
+    del log, results, inter
+    torch.cuda.empty_cache()
+
+    # ---- 13s: PLMS, DDIM with renoise/temperature/ucg, DDIM inversion -------
+    dev, shape, g = "cuda", (1, 64, 128, 4), 2.5
+    apply_fn = lambda x, t, c: m.apply_model(x, t, c)
+    gen = torch.Generator(dev).manual_seed(21)
+    with torch.inference_mode():
+        t_ = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
+        cond = m.build_inpaint_cond(t_(batch["tokens"], torch.long), t_(mask), t_(batch["masked_image"]))
+        uc = Conditioning(cond.c_concat, m.get_learned_conditioning(t_(task.uncond_tokens(1), torch.long)))
+        z0 = m.encode_first_stage(t_(image)).to(torch.float32)
+        known = 1.0 - nearest_resize(t_(mask), shape[1:3])  # the reference half: renoised from x0
+        x_T = torch.randn(shape, generator=gen, device=dev)
+        tables0, tables1 = m.schedule.ddim_tables(50), m.schedule.ddim_tables(50, eta=1.0)
+        ucg = np.linspace(7.5, 1.5, 50)
+        for label, n_fwd, fn in (
+                ("plms50", 51, lambda: samplers_extra.plms_sample(apply_fn, m.schedule, tables0, cond, shape, uc, g,
+                                                                  x_T=x_T)),
+                ("ddim50_renoise_t0.5_ucg", 50, lambda: ddim.ddim_sample(
+                    apply_fn, m.schedule, tables1, cond, shape, uncond=uc, guidance_scale=g, x_T=x_T, generator=gen,
+                    mask=known, x0=z0, temperature=0.5, ucg_schedule=ucg)),
+                ("ddim_encode25_decode25", 50, lambda: ddim.ddim_decode(
+                    apply_fn, m.schedule, tables0, ddim.ddim_encode(apply_fn, tables0, z0, cond, 25, uc, g), cond, 25,
+                    uc, g))):
+            torch.cuda.synchronize()
+            tools.reset_launches()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            launches[f"sampler_{label}"] = tools.launches()
+            check_launches(launches[f"sampler_{label}"], tools.PER_FORWARD_BF16, n_fwd, f"phase 13s {label}")
+            if out.shape != shape or not torch.isfinite(out).all():
+                raise SystemExit(f"phase 13s {label}: output {tuple(out.shape)} or not finite")
+            extra = ""
+            if label.startswith("ddim_encode"):
+                extra = f" round trip rel_l2 to the encoded canvas {rel_l2(out, z0):.3e} (random weights)"
+            print(f"phase 13s {label} 512x1024 bf16 cfg{g}: seconds={sec:.3f} unet_forwards={n_fwd} launches="
+                  f"{ {k: v for k, v in launches[f'sampler_{label}'].items() if v} }{extra}", flush=True)
+
+        # one step of each: every model call of the step, on the input the
+        # kernels' run gave it, through the kernels and through the plain
+        # versions; the model outputs compared (a step's latent weighs the
+        # model output by as little as 0.012, which would hide a wrong one).
+        # The guided output is printed beside them: guidance at 2.5 scales
+        # up the two CFG halves' differences, past the forward's bound
+        t_mid = 500
+        noisy = m.q_sample(z0, torch.full((1,), t_mid, device=dev), torch.randn(shape, generator=gen, device=dev))
+        noise = torch.randn(shape, generator=gen, device=dev)
+        tabs = samplers_extra.ddpm_tables(m.schedule, dev)
+        mid = ddim.sub_tables(tables0, 24, 25)  # timestep 481
+        noisy_mid = m.q_sample(z0, torch.full((1,), int(mid.timesteps[0]), device=dev),
+                               torch.randn(shape, generator=gen, device=dev))
+        steps = {
+            f"ddpm t={t_mid}": lambda fn: samplers_extra.ddpm_step(fn, tabs, noisy, t_mid, cond, uc, g, False, noise),
+            "plms order 1 (Heun, t=981 and 0)": lambda fn: samplers_extra.plms_sample(
+                fn, m.schedule, ddim.sub_tables(tables0, 49, 50), cond, shape, uc, g, x_T=x_T),
+            # four entries from t=981: Heun's two calls, orders 2, 3 and 4
+            "plms to order 4 (t=981..801)": lambda fn: samplers_extra.plms_sample(
+                fn, m.schedule, ddim.sub_tables(tables0, 46, 50), cond, shape, uc, g, x_T=x_T),
+            "ddim_encode step 0": lambda fn: ddim.ddim_encode(fn, tables0, z0, cond, 1, uc, g),
+            "ddim_decode step t=481": lambda fn: ddim.ddim_decode(fn, m.schedule, mid, noisy_mid, cond, 1, uc, g),
+        }
+        guide = lambda o: (lambda u, c: u + g * (c - u))(*o.float().chunk(2))
+        errs, guided, n_calls = {}, {}, {}
+        for name, step in steps.items():
+            calls = []
+            step(recording_apply(apply_fn, calls))
+            with kernels.plain_kernels():
+                plain = [apply_fn(*args) for args, _ in calls]
+            errs[name] = max(rel_l2(out, p) for (_, out), p in zip(calls, plain))
+            guided[name] = max(rel_l2(guide(out), guide(p)) for (_, out), p in zip(calls, plain))
+            n_calls[name] = len(calls)
+            del calls, plain
+        worst = max(errs.values())
+        if not worst <= SAMPLER_STEP_REL_L2:
+            raise SystemExit(f"phase 13s: model outputs kernels vs plain {errs} > {SAMPLER_STEP_REL_L2}")
+        fmt = lambda d: {k: f"{v:.3e}" for k, v in d.items()}
+        print(f"phase 13s one step each, every model call ([uncond; cond]) on the kernels' run's input, kernels vs "
+              f"plain versions, max rel_l2: {fmt(errs)} (calls {n_calls}; limit {SAMPLER_STEP_REL_L2}); for "
+              f"information, the guided outputs (cfg{g}): {fmt(guided)}", flush=True)
+
+        # ---- 13a: the cross-attention maps of one CFG-batch forward ---------
+        x, tsteps, ctx = tools.unet_inputs(gen)
+        kv = m.unet.cross_kv(ctx)
+        fwd_out = []
+        hook = m.unet.register_forward_hook(lambda mod, i, o: fwd_out.append(o))
+        tools.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            maps = collect_attention_maps(m.unet, x, tsteps, ctx, cross_kv=kv, cfg_dup=True)
+            torch.cuda.synchronize()
+        finally:
+            hook.remove()
+        sec = time.perf_counter() - t0
+        launches["attention_maps_forward"] = tools.launches()
+        check_launches(launches["attention_maps_forward"], tools.PER_FORWARD_BF16, 1, "phase 13a")
+        plain_out = m.unet(x, tsteps, ctx, cross_kv=kv, cfg_dup=True)
+        with kernels.plain_kernels():
+            maps_p = collect_attention_maps(m.unet, x, tsteps, ctx, cross_kv=kv, cfg_dup=True)
+        sums = max(float((v.sum(-1) - 1).abs().max()) for v in maps.values())
+        # each row's departure from the uniform 1/77 (a near-uniform row of
+        # the wrong q or k would be within a few percent of the right one)
+        dev_u = lambda v: v - 1.0 / v.shape[-1]
+        map_err = max(rel_l2(dev_u(maps[k]), dev_u(maps_p[k])) for k in maps)
+        tokens = sorted({v.shape[1] for v in maps.values()})
+        if (len(maps) != 16 or maps.keys() != maps_p.keys() or sums > MAP_ROW_SUM_ABS
+                or not all(torch.isfinite(v).all() and v.shape[-1] == 77 for v in maps.values())):
+            raise SystemExit(f"phase 13a: {len(maps)} maps, rows sum to 1 within {sums:.3e}")
+        if not map_err <= UNET_REL_L2:
+            raise SystemExit(f"phase 13a: maps through the kernels rel L2 {map_err:.3e} from the plain versions'")
+        if not torch.equal(fwd_out[0], plain_out):
+            raise SystemExit("phase 13a: the UNet output differs with the collector on")
+        print(f"phase 13a collect_attention_maps [2,64,128,9] bf16 cfg_dup cross_kv: {len(maps)} maps [2, Nq, 77] "
+              f"at Nq {tokens}, rows sum to 1 within {sums:.2e}, kernels vs plain max rel_l2 of (map - 1/77)="
+              f"{map_err:.3e} (limit "
+              f"{UNET_REL_L2}), the UNet output bit-equal with the collector off; seconds={sec:.3f} launches="
+              f"{ {k: v for k, v in launches['attention_maps_forward'].items() if v} }", flush=True)
+    del bundle, task, m, cond, uc, maps, maps_p, kv
+    torch.cuda.empty_cache()
+
+    # ---- 13m: multi_cond_sample, K = 2 conditionings of one V=4 scene -------
+    model = build_sd2_inpaint_bundle("cuda", torch.bfloat16, torch.Generator("cuda").manual_seed(0), view_num=VIEWS)
+    tok, _, prompts = build_multiview_prompt_tokenizer(VIEWS)
+    mv_task = tasks.MultiViewRefInpaintTask(SimpleNamespace(model=model, tokenizer=tok, view_num=VIEWS,
+                                                            concat_target=False), "cuda")
+    with torch.inference_mode():
+        images, masks = tools.multiview_scene(VIEWS, seed=0)
+        conds, unconds = [], []
+        tokens = torch.as_tensor(tok.tokenize(prompts), dtype=torch.long, device="cuda")
+        null = torch.as_tensor(np.repeat(tok.tokenize(""), VIEWS, axis=0), dtype=torch.long, device="cuda")
+        for k in range(2):  # the same target view 0, other reference views
+            imgs = tools.multiview_scene(VIEWS, seed=k)[0]
+            imgs[:, 0] = images[:, 0]
+            im, mk = (torch.as_tensor(a[0], device="cuda") for a in (imgs, masks))
+            c = model.build_inpaint_cond(tokens, mk, im * (mk < 0.5))
+            conds.append(c)
+            unconds.append(Conditioning(c.c_concat, model.get_learned_conditioning(null)))
+        stack = lambda cs: Conditioning(torch.stack([c.c_concat for c in cs]), torch.stack([c.c_crossattn for c in cs]))
+        mv_shape = (VIEWS, 64, 64, 4)
+        torch.cuda.synchronize()
+        tools.reset_launches()
+        t0 = time.perf_counter()
+        z = mv_task.multi_cond_sample(stack(conds), stack(unconds), mv_shape, 2.5, ddim_steps=10,
+                                      generator=torch.Generator("cuda").manual_seed(31))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    launches["multi_cond_mv4_k2_ddim10"] = tools.launches()
+    check_launches(launches["multi_cond_mv4_k2_ddim10"], tools.PER_FORWARD_MV4, 10, "phase 13m")
+    if tuple(z.shape) != mv_shape or not torch.isfinite(z).all():
+        raise SystemExit(f"phase 13m: output {tuple(z.shape)} or not finite")
+    print(f"phase 13m multi_cond_sample K=2 V={VIEWS} 512x512 views bf16 DDIM-10 cfg2.5 (UNet batch "
+          f"{2 * 2 * VIEWS} rows): seconds={sec:.3f} output {tuple(z.shape)} finite launches="
+          f"{ {k: v for k, v in launches['multi_cond_mv4_k2_ddim10'].items() if v} }", flush=True)
+    del model, mv_task, conds, unconds
+    torch.cuda.empty_cache()
+    print(f"phase 13 total seconds={time.perf_counter() - t_phase:.1f}", flush=True)
+
+
 def main() -> int:
     if not (ROOT / "leftrefill_torch" / "csrc").is_dir():
         print("chip_smoke.py: the leftrefill_torch package is not beside this script", file=sys.stderr)
@@ -2104,6 +2391,9 @@ def main() -> int:
 
     # ---- phases 12, 12g, 12m: prompt tuning through the CLI on MegaDepth ----
     megadepth_training_phases(launches)
+
+    # ---- phases 13d, 13s, 13a, 13m: samplers, rows, maps, multi-cond --------
+    sampler_phases(launches)
 
     entries = []
     for name, (source, replaces) in KERNELS.items():

@@ -56,7 +56,6 @@ def structure_ddim_sample(
             out = e_uc + guidance_scale * ((cond_weight * e_c + (1 - cond_weight) * e_cs) - e_uc)
         else:
             out = apply_fn(img, t, cond_simple)
-        noise = noise_fn(i, tuple(img.shape))
-        img = _ddim_update(img, out, a_t[i], a_prev[i], s1m[i], sig[i],
-                           noise if temperature == 1.0 else noise * temperature, _step_v(v, i))
+        img, _ = _ddim_update(img, out, a_t[i], a_prev[i], s1m[i], sig[i], noise_fn(i, tuple(img.shape)),
+                              _step_v(v, i), temperature)
     return img

@@ -32,7 +32,11 @@ from leftrefill_torch.models.unet import BasicTransformerBlock, UNetModel
 class MultiViewBasicTransformerBlock(BasicTransformerBlock):
     """Self-attention over the joint view sequence; cross-attention and the
     feed-forward stay per view (JAX: multiview.py:37-144).  The int8
-    ``lnq`` arm is the base block's, around the regrouped tokens."""
+    ``lnq`` arm is the base block's, around the regrouped tokens.  JAX's
+    block calls attn2 without ``return_attn`` (multiview.py:130, :142), so a
+    multi-view UNet yields no attention maps."""
+
+    collects_attention = False
 
     def __init__(self, dim: int, n_heads: int, d_head: int, context_dim: int, dtype=torch.float32,
                  quant: bool = False, fused: bool = True, view_num: int = 4, concat_target: bool = False,

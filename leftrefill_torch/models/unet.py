@@ -33,7 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from leftrefill_torch import kernels
-from leftrefill_torch.ops.attention import multi_head_attention
+from leftrefill_torch.ops.attention import attention_probs, multi_head_attention
 from leftrefill_torch.ops.conv import conv3x3_apply
 from leftrefill_torch.ops import mlp, quant as q8
 from leftrefill_torch.ops.layers import (
@@ -206,7 +206,16 @@ class ResBlock(nn.Module):
 class CrossAttention(nn.Module):
     """``quant``: the four projections are int8; each distinct activation is
     quantized once per row (q, k and v share x's pass when self-attending,
-    the context's pass when the K/V cache is built)."""
+    the context's pass when the K/V cache is built).
+
+    ``probs_sink``: None, or a callable that each forward hands its
+    head-averaged attention probabilities [B, Nq, Nk] (``attention_probs`` of
+    the q and k it computed, on every path: the K/V cache, int8, the fused
+    prenorm's ``pre_quant``); ``eval.attn_vis.collect_attention_maps`` sets
+    it on the cross-attentions and clears it after (JAX: ``return_attn`` and
+    ``sow``)."""
+
+    probs_sink = None
 
     def __init__(self, query_dim: int, heads: int, dim_head: int, context_dim: Optional[int] = None,
                  dtype=torch.float32, quant: bool = False):
@@ -237,6 +246,8 @@ class CrossAttention(nn.Module):
             k, v = kv
         else:
             k, v = self.kv(x, (xq, sx)) if context is None else self.kv(context)
+        if self.probs_sink is not None:
+            self.probs_sink(attention_probs(q, k, self.heads))
         return self.to_out[0](multi_head_attention(q, k, v, self.heads))
 
 
@@ -321,6 +332,8 @@ class BasicTransformerBlock(nn.Module):
     consumer of norm1 and norm2 is int8, so they write no bf16 output; norm3
     writes it only where the feed-forward falls back to its two dense
     products (which read it)."""
+
+    collects_attention = True  # ``attn2`` hands its probabilities to a set ``probs_sink``
 
     def __init__(self, dim: int, n_heads: int, d_head: int, context_dim: int, dtype=torch.float32,
                  quant: bool = False, fused: bool = True):

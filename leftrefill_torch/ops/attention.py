@@ -61,6 +61,20 @@ def multi_head_attention(
     return out.transpose(1, 2).reshape(b, nq, inner).to(q.dtype)
 
 
+def attention_probs(q: torch.Tensor, k: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Head-averaged attention probabilities for visualization (JAX
+    ``attention_probs``, computed in XLA there, outside any kernel): q
+    [B, Nq, H*D], k [B, Nk, H*D] -> [B, Nq, Nk] fp32; fp32 scores scaled by
+    d**-0.5, softmax over the keys, mean over the heads."""
+    b, nq, inner = q.shape
+    nk = k.shape[1]
+    d = inner // num_heads
+    qh = q.reshape(b, nq, num_heads, d).transpose(1, 2).to(torch.float32)
+    kh = k.reshape(b, nk, num_heads, d).transpose(1, 2).to(torch.float32)
+    sim = torch.matmul(qh, kh.transpose(-1, -2)) * d**-0.5
+    return torch.softmax(sim, dim=-1).mean(dim=1)
+
+
 def causal_text_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Causal self-attention for the CLIP text tower: fp32 scores, the
     masked entries set to the fp32 minimum, fp32 softmax."""

@@ -16,12 +16,27 @@ import numpy as np
 import torch
 
 from leftrefill_torch.diffusion.core import Conditioning
-from leftrefill_torch.diffusion.ddim import NoiseFn, ddim_sample
+from leftrefill_torch.diffusion.ddim import NoiseFn, PickFn, ddim_multi_sample, ddim_sample, default_noise_fn
+from leftrefill_torch.diffusion.samplers_extra import ddpm_sample
 from leftrefill_torch.eval.metrics import composite_metrics
 from leftrefill_torch.ops.layers import nearest_resize
 from leftrefill_torch.pipeline import fill_random_, request_device
 
 DEFAULT_SEED = 42  # JAX's log_images draws from PRNGKey(42) unless given a key
+LOG_EVERY_T = 200  # the diffusion row's timestep stride (JAX: tasks.py:177)
+DENOISE_ROW_STEPS = 8  # the most DDIM steps the denoise row keeps
+
+
+def _memoized(noise_fn: NoiseFn) -> NoiseFn:
+    """``noise_fn`` drawn once per step index, then replayed."""
+    draws = {}
+
+    def fn(i, shape):
+        if i not in draws:
+            draws[i] = noise_fn(i, shape)
+        return draws[i]
+
+    return fn
 
 
 class RefInpaintTask:
@@ -81,13 +96,30 @@ class RefInpaintTask:
     def log_images(self, batch: dict, N: Optional[int] = None, ddim_steps: int = 50, ddim_eta: float = 0.0,
                    unconditional_guidance_scale: float = 9.0, generator: Optional[torch.Generator] = None,
                    x_T: Optional[torch.Tensor] = None, noise_fn: Optional[NoiseFn] = None,
-                   vae_noise: Optional[torch.Tensor] = None) -> dict:
+                   vae_noise: Optional[torch.Tensor] = None, plot_diffusion_rows: bool = False,
+                   plot_denoise_rows: bool = False, plot_progressive_rows: bool = False,
+                   diffusion_noise_fn: Optional[NoiseFn] = None, ddpm_noise_fn: Optional[NoiseFn] = None) -> dict:
         """DDIM over the inpainting canvas (JAX: tasks.py:142-164): CFG with
         the empty prompt for a guidance scale above 1, the unconditional
         branch alone at 0, the conditional one otherwise; decoded and clipped
         to [-1, 1].  Returns {"pred", "origin_image", "masked_image",
-        "mask"} for the first N rows (the diagnostic rows are not ported);
-        ``x_T``, ``noise_fn`` and ``vae_noise`` as the pipeline's."""
+        "mask"} for the first N rows; ``x_T``, ``noise_fn`` and ``vae_noise``
+        as the pipeline's.
+
+        The ``plot_*`` flags add JAX's diagnostic rows (tasks.py:169-231),
+        each decoded as one stack, clipped, [S, B, H, W, 3], on the same x_T
+        as "pred": "diffusion_row", the encoded image q-sampled at t in
+        ``range(0, T, 200) + [T - 1]`` (the noise of row i from
+        ``diffusion_noise_fn(i, shape)``; JAX ``fold_in(key, 1000 + i)``);
+        "denoise_row", the x0 predictions of "pred"'s DDIM loop at up to 8
+        evenly spaced steps (at g = 0 of a second loop on the same per-step
+        noise); "progressive_row", the x0 of the full DDPM loop at the end
+        of each fifth of it (``ddpm_noise_fn(t, shape)``; JAX
+        ``fold_in(key', t)``).  The rows
+        guide with the empty prompt only for a scale above 1, and sample the
+        conditional branch otherwise: at 0 they do not take "pred"'s
+        unconditional branch (JAX's rule, kept).  Every stream defaults to
+        ``generator`` (seed 42)."""
         dev = request_device(self.device)
         n = N or batch["image"].shape[0]
         rows = self._rows(batch, n, ("image", "mask", "masked_image", "tokens"))
@@ -96,20 +128,56 @@ class RefInpaintTask:
         cond = m.build_inpaint_cond(self._tensor(rows["tokens"], torch.long), self._tensor(rows["mask"]),
                                     self._tensor(rows["masked_image"]), vae_noise)
         b, h, w, _ = cond.c_concat.shape
+        shape = (b, h, w, m.unet.out_channels)
         g = unconditional_guidance_scale
-        uncond = None
+        uc = None
         if g > 1.0 or g == 0.0:
-            uncond = Conditioning(cond.c_concat, m.get_learned_conditioning(self._tensor(self.uncond_tokens(b),
-                                                                                         torch.long)))
-        if g == 0.0:
-            cond, uncond = uncond, None
-        z = ddim_sample(lambda x, t, c: m.apply_model(x, t, c), m.schedule,
-                        m.schedule.ddim_tables(ddim_steps, eta=ddim_eta), cond, (b, h, w, m.unet.out_channels),
-                        uncond=uncond, guidance_scale=g if uncond is not None else 1.0, x_T=x_T, generator=generator,
-                        noise_fn=noise_fn, device=dev)
-        pred = m.decode_first_stage(z).to(torch.float32).clamp(-1.0, 1.0)
-        return {"pred": pred, "origin_image": self._tensor(rows["image"]),
-                "masked_image": self._tensor(rows["masked_image"]), "mask": self._tensor(rows["mask"])}
+            uc = Conditioning(cond.c_concat, m.get_learned_conditioning(self._tensor(self.uncond_tokens(b),
+                                                                                      torch.long)))
+        tables = m.schedule.ddim_tables(ddim_steps, eta=ddim_eta)
+        apply_fn = lambda x, t, c: m.apply_model(x, t, c)
+        if x_T is None:
+            x_T = torch.randn(shape, generator=generator, device=dev)
+        noise_fn = noise_fn or default_noise_fn(generator, dev)
+        # for g != 0 the denoise row is "pred"'s own loop; at g = 0 it is a
+        # second loop (the conditional branch) on "pred"'s per-step draws
+        rerun_row = plot_denoise_rows and g == 0.0
+        keep_inter = plot_denoise_rows and not rerun_row
+        if rerun_row:
+            noise_fn = _memoized(noise_fn)
+        p_cond, p_uncond = (uc, None) if g == 0.0 else (cond, uc)
+        res = ddim_sample(apply_fn, m.schedule, tables, p_cond, shape, uncond=p_uncond,
+                          guidance_scale=g if p_uncond is not None else 1.0, x_T=x_T, noise_fn=noise_fn, device=dev,
+                          return_intermediates=keep_inter)
+        z, inter = res if keep_inter else (res, None)
+        out = {"pred": m.decode_first_stage(z).to(torch.float32).clamp(-1.0, 1.0),
+               "origin_image": self._tensor(rows["image"]), "masked_image": self._tensor(rows["masked_image"]),
+               "mask": self._tensor(rows["mask"])}
+        row_uc = uc if g > 1.0 else None
+
+        def decode_stack(zs: torch.Tensor) -> torch.Tensor:
+            dec = m.decode_first_stage(zs.reshape(-1, *zs.shape[2:])).to(torch.float32).clamp(-1.0, 1.0)
+            return dec.reshape(*zs.shape[:2], *dec.shape[1:])
+
+        if plot_diffusion_rows:
+            z0 = m.encode_first_stage(out["origin_image"], vae_noise)
+            n_t = m.schedule.num_timesteps
+            draw = diffusion_noise_fn or default_noise_fn(generator, dev)
+            zs = [m.q_sample(z0, torch.full((b,), t, dtype=torch.long, device=dev), draw(i, tuple(z0.shape)))
+                  for i, t in enumerate([*range(0, n_t, LOG_EVERY_T), n_t - 1])]
+            out["diffusion_row"] = decode_stack(torch.stack(zs))
+        if rerun_row:
+            _, inter = ddim_sample(apply_fn, m.schedule, tables, cond, shape, x_T=x_T, noise_fn=noise_fn,
+                                   device=dev, return_intermediates=True)
+        if plot_denoise_rows:
+            idx = np.linspace(0, ddim_steps - 1, min(DENOISE_ROW_STEPS, ddim_steps)).astype(int)
+            out["denoise_row"] = decode_stack(inter["pred_x0"][torch.as_tensor(idx, device=dev)])
+        if plot_progressive_rows:
+            _, x0s = ddpm_sample(apply_fn, m.schedule, cond, shape, uncond=row_uc, guidance_scale=g, x_T=x_T,
+                                 return_x0_every=max(m.schedule.num_timesteps // 5, 1), generator=generator,
+                                 noise_fn=ddpm_noise_fn, device=dev)
+            out["progressive_row"] = decode_stack(x0s)
+        return out
 
     # ---------- validation --------------------------------------------------
 
@@ -166,16 +234,38 @@ class MultiViewRefInpaintTask(RefInpaintTask):
 
     def log_images(self, batch: dict, N: Optional[int] = None, **kw) -> dict:
         """N counts scenes (each V flat rows); every entry split to
-        [B, V, ...], plus "reference" (views 1..V-1) without concat_target."""
+        [B, V, ...], plus "reference" (views 1..V-1) without concat_target.
+        The diagnostic rows split on their batch axis: [S, B, V, ...]
+        (JAX splits their leading step axis, tasks.py:344: its rows come out
+        scrambled, or it raises where V does not divide the steps)."""
         flat = self.flatten_batch(batch) if batch["image"].ndim == 5 else batch
         v = self.view_num if not self.bundle.concat_target else self.view_num - 1
         n_rows = None if N is None else min(N, flat["image"].shape[0] // v) * v
         log = super().log_images(flat, N=n_rows, **kw)
-        out = {k: val.reshape(val.shape[0] // v, v, *val.shape[1:]) for k, val in log.items()}
+        out = {k: (val.reshape(val.shape[0], val.shape[1] // v, v, *val.shape[2:]) if k.endswith("_row")
+                   else val.reshape(val.shape[0] // v, v, *val.shape[1:])) for k, val in log.items()}
         if not self.bundle.concat_target and out["origin_image"].shape[1] > 1:
             out["reference"] = out["origin_image"][:, 1:]
         return out
 
+    @torch.inference_mode()
+    def multi_cond_sample(self, conds: Conditioning, unconds: Optional[Conditioning], shape: tuple,
+                          guidance_scale: float, ddim_steps: int = 50, eta: float = 0.0,
+                          generator: Optional[torch.Generator] = None, x_T: Optional[torch.Tensor] = None,
+                          noise_fn: Optional[NoiseFn] = None, pick_fn: Optional[PickFn] = None) -> torch.Tensor:
+        """Test-time multi-reference consistent sampling (JAX:
+        tasks.py:353-372): ``conds`` / ``unconds`` stack K conditionings on a
+        leading axis, ``ddim_multi_sample`` steps the K latents as one batch
+        and shares one latent's right half after each step; returns latent 0
+        [*shape].  The draws (``x_T``, ``noise_fn``, ``pick_fn`` as the
+        sampler's) default to ``generator`` (seed 42)."""
+        dev = request_device(self.device)
+        generator = generator or torch.Generator(dev).manual_seed(DEFAULT_SEED)
+        m = self.model
+        return ddim_multi_sample(lambda x, t, c: m.apply_model(x, t, c), m.schedule,
+                                 m.schedule.ddim_tables(ddim_steps, eta=eta), conds, shape, unconds=unconds,
+                                 guidance_scale=guidance_scale, x_T=x_T, generator=generator, noise_fn=noise_fn,
+                                 pick_fn=pick_fn, device=dev)
 
     def validation_metrics(self, batch: dict, cfg_scale: float, lpips_fn=None, ddim_steps: int = 50,
                            generator: Optional[torch.Generator] = None, **sampling) -> dict:

@@ -110,8 +110,9 @@ def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
     ``chip_smoke`` (without running it), builds the tiny bundle on the CPU
     and runs its text tower and one UNet step, then writes a small MegaDepth
     tree through the port's preprocessors and reads a training item of each
-    MegaDepth dataset (match masks on): no ``leftrefill_tpu`` and no ``jax``
-    module is loaded."""
+    MegaDepth dataset (match masks on), and collects the cross-attention
+    maps of a tiny 1-reference UNet (``eval.attn_vis``) and samples it with
+    PLMS and DDPM: no ``leftrefill_tpu`` and no ``jax`` module is loaded."""
     code = """
 import importlib, pkgutil, sys, warnings
 import torch
@@ -149,6 +150,23 @@ with tempfile.TemporaryDirectory() as root:
     assert item["image"].shape == (32, 64, 3)
     assert InpaintingMultiViewDataset(p["image_path"], p["mv_train_pair"], p["train_mask_path"], view_num=2,
                                       **kw)[0]["image"].shape == (2, 32, 32, 3)
+from leftrefill_torch.diffusion.samplers_extra import ddpm_sample, plms_sample
+from leftrefill_torch.diffusion.schedules import DiffusionSchedule
+from leftrefill_torch.eval.attn_vis import collect_attention_maps
+from leftrefill_torch.models.unet import UNetModel
+unet = UNetModel(in_channels=9, model_channels=16, out_channels=4, num_res_blocks=1, attention_resolutions=(1,),
+                 channel_mult=(1, 2), num_head_channels=8, context_dim=24)
+fill_random_(unet, torch.Generator().manual_seed(1))
+cond = Conditioning(torch.zeros(1, 8, 16, 5), torch.randn(1, 77, 24, generator=torch.Generator().manual_seed(2)))
+maps = collect_attention_maps(unet, torch.zeros(1, 8, 16, 9), torch.tensor([10]), cond.c_crossattn)
+assert len(maps) == 4 and all(m.shape[-1] == 77 for m in maps.values())
+apply = lambda x, t, c: unet(torch.cat([x, c.c_concat], -1), t, c.c_crossattn)
+with torch.no_grad():
+    x = plms_sample(apply, sd2_schedule(), sd2_schedule().ddim_tables(2), cond, (1, 8, 16, 4),
+                    generator=torch.Generator().manual_seed(3))
+    x = ddpm_sample(apply, DiffusionSchedule.create(timesteps=10), cond, (1, 8, 16, 4), x_T=x, return_x0_every=5,
+                    generator=torch.Generator().manual_seed(4))[0]
+assert torch.isfinite(x).all()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("leftrefill_tpu", "jax", "jaxlib", "flax"))
 assert not bad, bad
 """

@@ -5,8 +5,11 @@ with the same seeded flax tree: ``build_task``'s dispatch, the 1-reference
 ``log_images`` at each guidance branch (CFG above 1, the unconditional
 branch alone at 0, the conditional one at 1) and ``validation_metrics`` (with LPIPS),
 and the multi-view task's per-view split and its validation scores, on the same x_T, per-step noise
-and VAE noise as JAX's.  Tolerance: the tiny canvas 1e-4 absolute, the
-metrics 1e-4 relative (see test_torch_parity_utils)."""
+and VAE noise as JAX's; the diagnostic rows of ``log_images`` (the
+diffusion and denoise rows here, the progressive row in
+``test_torch_tasks_sampling``) on JAX's row draws too, and the split of a
+6-step row at V = 4, where JAX's raises.  Tolerance: the tiny canvas 1e-4
+absolute, the metrics 1e-4 relative (see test_torch_parity_utils)."""
 
 import copy
 
@@ -49,13 +52,13 @@ def _bundles(src: str):
     return jtask(jb), jax.tree_util.tree_map(jnp.asarray, params), build_task(bundle, "cpu")
 
 
-def _draws(rows: int, key):
+def _draws(rows: int, key, steps: int = STEPS):
     """JAX's x_T, per-step noise and the VAE's fixed noise for a tiny canvas."""
     from leftrefill_tpu.models.autoencoder import DiagonalGaussian
 
     shape = (rows, 16, 32, 4)  # the tiny VAE downsamples by 2
     step_key, init_key = jax.random.split(key)  # ddim_sample's own split
-    noise = [jax.random.normal(jax.random.fold_in(jax.random.fold_in(step_key, 2), i), shape) for i in range(STEPS)]
+    noise = [jax.random.normal(jax.random.fold_in(jax.random.fold_in(step_key, 2), i), shape) for i in range(steps)]
     return dict(x_T=t(jax.random.normal(init_key, shape)), noise_fn=lambda i, s: t(noise[i]),
                 vae_noise=t(jax.random.normal(jax.random.PRNGKey(DiagonalGaussian.FIXED_SEED), shape)))
 
@@ -179,3 +182,71 @@ def test_multiview_task_validation_metrics():
     assert got.keys() == ref.keys()
     for k in ref:
         assert abs(got[k] - ref[k]) <= 1e-4 * abs(ref[k]), k
+
+
+# ---- the diagnostic rows, the multi-view split, multi_cond_sample ----------
+
+ROW_SHAPES = {"diffusion_row": 6, "denoise_row": STEPS, "progressive_row": 5}  # steps a row keeps
+
+
+def _row_draws(rows: int, key, n_t: int = 1000) -> dict:
+    """JAX's draws for the rows: the diffusion row's ``fold_in(key, 1000 +
+    i)`` and the DDPM loop's ``fold_in(key', t)`` (key' after ``split``)."""
+    shape = (rows, 16, 32, 4)
+    step_key = jax.random.split(key)[0]
+    diff = [t(jax.random.normal(jax.random.fold_in(key, 1000 + i), shape)) for i in range(len(range(0, n_t, 200)) + 1)]
+    ddpm = t(jax.vmap(lambda tt: jax.random.normal(jax.random.fold_in(step_key, tt), shape))(jnp.arange(n_t)))
+    return dict(diffusion_noise_fn=lambda i, s: diff[i], ddpm_noise_fn=lambda tt, s: ddpm[tt])
+
+
+def _check_rows(out: dict, ref: dict, rows: tuple):
+    for k in ("pred", *rows):
+        assert tuple(out[k].shape) == np.shape(ref[k]), k
+        assert np.abs(out[k].numpy() - np.asarray(ref[k])).max() < CANVAS_ABS, k
+    for k in rows:
+        assert tuple(out[k].shape) == (ROW_SHAPES[k], 2, 32, 64, 3) and float(out[k].abs().max()) <= 1.0
+
+
+@pytest.mark.parametrize("guidance", [2.5, 0.0])
+def test_ref_task_diffusion_and_denoise_rows_match_jax(one_ref, guidance):
+    """``plot_diffusion_rows`` (the encoded image q-sampled at t = 0, 200,
+    ..., 800, 999) and ``plot_denoise_rows`` (the DDIM loop's x0 at every
+    step of 4) beside "pred".  At g = 0 "pred" samples the unconditional
+    branch alone and the rows the conditional one, as JAX's."""
+    jt, params, task = one_ref
+    batch, key = _batch(task, 2, seed=11), jax.random.PRNGKey(12)
+    kw = dict(ddim_steps=STEPS, ddim_eta=1.0, unconditional_guidance_scale=guidance, plot_diffusion_rows=True,
+              plot_denoise_rows=True)
+    ref = jt.log_images(params, batch, key=key, **kw)
+    out = task.log_images(batch, **kw, **_draws(2, key), **_row_draws(2, key))
+    _check_rows(out, ref, ("diffusion_row", "denoise_row"))
+    if guidance == 0.0:  # the rows do not follow "pred"'s unconditional branch
+        assert not torch.allclose(out["denoise_row"][-1], out["pred"], atol=1e-2)
+
+
+def test_multiview_row_split_at_four_views(monkeypatch):
+    """At V = 4 JAX's split of a 6-step row raises (6 steps do not divide
+    into scenes of 4); the port's gives [6, B, 4, ...].  Both tasks' splits
+    run on the same stand-in for the 1-reference log."""
+    from types import SimpleNamespace
+
+    from leftrefill_tpu import tasks as jtasks
+
+    from leftrefill_torch import tasks as ttasks
+
+    log = {"pred": np.zeros((8, 4, 4, 3), np.float32), "origin_image": np.zeros((8, 4, 4, 3), np.float32),
+           "diffusion_row": np.arange(6 * 8, dtype=np.float32).reshape(6, 8, 1, 1, 1) * np.ones((1, 1, 4, 4, 3))}
+    bundle = SimpleNamespace(view_num=4, concat_target=False)
+    monkeypatch.setattr(jtasks.RefInpaintTask, "log_images", lambda self, params, flat, N=None, **kw: log)
+    jt = object.__new__(jtasks.MultiViewRefInpaintTask)
+    jt.bundle = bundle
+    with pytest.raises(ValueError):
+        jt.log_images(None, {"image": np.zeros((8, 4, 4, 3))})
+    monkeypatch.setattr(ttasks.RefInpaintTask, "log_images",
+                        lambda self, flat, N=None, **kw: {k: torch.from_numpy(v.copy()) for k, v in log.items()})
+    tt = object.__new__(ttasks.MultiViewRefInpaintTask)
+    tt.bundle = bundle
+    out = tt.log_images({"image": np.zeros((8, 4, 4, 3))})
+    assert tuple(out["diffusion_row"].shape) == (6, 2, 4, 4, 4, 3) and tuple(out["pred"].shape) == (2, 4, 4, 4, 3)
+    # scene b, view v of step s is flat row b * 4 + v of step s
+    assert float(out["diffusion_row"][5, 1, 2, 0, 0, 0]) == 5 * 8 + 1 * 4 + 2
