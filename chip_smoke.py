@@ -259,6 +259,30 @@ Phases, one line each (the kernel phases one line per kernel shape):
    ``MultiViewRefInpaintTask.multi_cond_sample`` with K = 2 conditionings
    of one V=4 scene (the same target view, other reference views), DDIM-10,
    CFG 2.5: launches ``tools.PER_FORWARD_MV4`` each, finite, seconds.
+14. the parallel paths (``leftrefill_torch.parallel``), each rank a process
+   on the one card over gloo (``tools.dryrun.run_ranks``, rank bodies in
+   ``tools/parallel_smoke.py``), the bf16 bundle of
+   ``configs/ref_inpainting.yaml`` at full width, random weights, seed 0:
+   (14b) a 512x1024 request with the CFG batch split over 2 ranks, bf16
+   DDIM-50 eta 1 then fused int8 DPM++(2M)-15, CFG 2.5: each rank's UNet
+   rows at two steps against the same rows run alone at batch 1 (relative
+   L2 <= 1e-3; read: equal), the ranks' canvases bit-equal, launches per
+   rank ``PER_FORWARD_BF16`` x 50 and ``PER_FORWARD_INT8`` x 15, the
+   canvas against the one-rank request and both seconds per request
+   printed; (14v) the V=4 forward (8 rows of 512x512 views) with the views
+   split over 2 view ranks, 4, and 2 data x 2 view: each rank's rows
+   against the one-rank forward's (phase 3m's limit, 3e-2), launches
+   ``PER_FORWARD_MV4_VIEW_RANK`` and K1 at ``VIEW_RANK_SITES`` (Nq != Nk)
+   a rank, K1 held and timed at those sites as in phase 2; (14t) phase 7's
+   step over 2 ranks x batch 4 against 1 rank x batch 8 on the same global
+   draws: the averaged prompt gradient within 5e-2, the ranks' tables
+   bit-equal, ``PER_TRAIN_STEP`` a rank, then the step through an NCCL
+   group of one; (14c) ``python -m torch.distributed.run --nproc_per_node 2
+   -m leftrefill_torch.cli.train --nchip 2`` (through ``parallel_smoke
+   cli``, which records each rank) on phase 12's synthetic tree, batch 4 a
+   rank, 2 steps and one validation batch at DDIM-10: the ranks' tables
+   bit-equal after each step, ``PER_TRAIN_STEP_CLI`` a step, only rank 0
+   writing checkpoints and grids; seconds a step and between steps.
 The line before the last is a JSON summary of the fourteen kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
@@ -1579,18 +1603,11 @@ MD_SCENES, MD_IMAGES, MD_TRAIN_PAIRS, MD_OTHER_PAIRS = 2, 14, 155, 12
 MD_STEPS, MD_RESUMED_STEPS = 4, 2
 
 
-def megadepth_cli_run(root: str, paths: dict, name: str, label: str) -> dict:
-    """``cli.train.main`` in process on the shipped ``configs/<name>_training_config.yaml``
-    and model YAML (the multi-view one at VIEWS views) pointed at the tree:
-    ``--no_restore --max_steps MD_STEPS``, then ``--restore`` for
-    MD_RESUMED_STEPS more.  Returns the runs' records, the loaders the CLI
-    built, the peak memory and the experiment directory."""
-    import torch
-
-    from leftrefill_torch.cli import train as cli
-    from leftrefill_torch.data import loader
-    from leftrefill_torch.train import trainer
-
+def megadepth_yamls(root: str, paths: dict, name: str, label: str, train_edits: tuple = ()) -> list[str]:
+    """Copies of the shipped ``configs/<name>_training_config.yaml`` and model
+    YAML (the multi-view one at VIEWS views) pointed at the tree (and edited
+    by ``train_edits``, (old, new) pairs), in ``root``; returns the CLI's
+    ``--config_file``/``--exp_name``/``--save_path`` arguments."""
     mv = name.startswith("multiview")
     model_yaml = (ROOT / "configs" / f"{name}.yaml").read_text()
     model_yaml = _edit(model_yaml, 'match_path: "./data/matching_results"', f"match_path: '{paths['match_path']}'",
@@ -1611,9 +1628,26 @@ def megadepth_cli_run(root: str, paths: dict, name: str, label: str) -> dict:
                      ("'./data/coco_mask/coco_mask_list.txt'", f"'{paths['train_mask_path'][1]}'"),
                      ("val_mask_path: './data/test_mask_100'", f"val_mask_path: '{paths['val_mask_path']}'")):
         train_yaml = _edit(train_yaml, old, new, label=label)
+    for old, new in train_edits:
+        train_yaml = _edit(train_yaml, old, new, label=label)
     train_yaml += "val_batches: 1\nval_ddim_steps: 10\nlog_ddim_steps: 10\n"
     Path(root, f"{name}_train.yaml").write_text(train_yaml)
+    return ["--config_file", str(Path(root, f"{name}_train.yaml")), "--exp_name", name, "--save_path",
+            str(Path(root, "ck"))]
 
+
+def megadepth_cli_run(root: str, paths: dict, name: str, label: str) -> dict:
+    """``cli.train.main`` in process on ``megadepth_yamls``' copies:
+    ``--no_restore --max_steps MD_STEPS``, then ``--restore`` for
+    MD_RESUMED_STEPS more.  Returns the runs' records, the loaders the CLI
+    built, the peak memory and the experiment directory."""
+    import torch
+
+    from leftrefill_torch.cli import train as cli
+    from leftrefill_torch.data import loader
+    from leftrefill_torch.train import trainer
+
+    args = megadepth_yamls(root, paths, name, label)
     runs, loaders = [], []
     make_train_step, data_loader = trainer.make_train_step, loader.DataLoader
 
@@ -1622,8 +1656,6 @@ def megadepth_cli_run(root: str, paths: dict, name: str, label: str) -> dict:
             super().__init__(*a, **kw)
             loaders.append(self)
 
-    args = ["--config_file", str(Path(root, f"{name}_train.yaml")), "--exp_name", name, "--save_path",
-            str(Path(root, "ck"))]
     trainer.make_train_step, loader.DataLoader = recording_steps(make_train_step, runs), Recorded
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -2036,6 +2068,230 @@ def sampler_phases(launches: dict) -> None:
     print(f"phase 13 total seconds={time.perf_counter() - t_phase:.1f}", flush=True)
 
 
+# phase 14: the parallel paths, each rank a process on the one card (gloo)
+ROW_REL_L2 = 1e-3  # 14b: a rank's UNet rows against the same rows run alone at batch 1 (read: equal)
+# 14v: phase 3m's limit (its forward's, UNET_REL_L2).  Each rank's query rows
+# meet every view's keys, but a rank's middle block has 128 (2 view ranks)
+# or 64 (4) queries, below K1's 256: the exact softmax where the one-rank
+# forward's 256 take K1, a rounding difference the random-weight UNet
+# spreads as it does phase 3's (1.6e-2 there)
+VIEW_REL_L2 = UNET_REL_L2
+CLI_DP_STEPS, CLI_DP_BATCH = 2, 4  # 14c: the shipped batch of 8 over 2 ranks
+RANK_TIMEOUT = 600
+
+
+def _rank_counts(arr) -> dict:
+    from leftrefill_torch import tools
+
+    return dict(zip(tools.LAUNCH_COUNTERS, (int(c) for c in arr)))
+
+
+def _summed(arrays) -> dict:
+    import numpy as np
+
+    return _rank_counts(np.sum(arrays, axis=0))
+
+
+def _ranks(work: str, body: str, world: int, **kwargs) -> list:
+    from leftrefill_torch.tools.dryrun import run_ranks
+
+    return run_ranks(f"leftrefill_torch.tools.parallel_smoke:{body}", world, work, kwargs, device="cuda",
+                     timeout=RANK_TIMEOUT)
+
+
+def phase_14b(work: str, launches: dict) -> None:
+    """A CFG-parallel request over 2 ranks, bf16 then fused int8."""
+    import numpy as np
+
+    from leftrefill_torch import tools
+
+    t0 = time.perf_counter()
+    res = _ranks(work, "cfg_request", 2)
+    for arm, steps, per_forward, label in (("bf16", 50, tools.PER_FORWARD_BF16, "bf16 ddim50 eta1"),
+                                           ("int8", 15, tools.PER_FORWARD_INT8, "int8 fused dpm++2m15")):
+        want = {n: c * steps for n, c in per_forward.items()}
+        for r, o in enumerate(res):
+            if _rank_counts(o[f"{arm}/launches"]) != want:
+                raise SystemExit(f"phase 14b {arm}: rank {r} launches {_rank_counts(o[f'{arm}/launches'])}, "
+                                 f"expected {want}")
+            rows = o[f"{arm}/row_rel_l2"]
+            if int(o[f"{arm}/calls"]) != steps or len(rows) != 4 or not rows.max() <= ROW_REL_L2:
+                raise SystemExit(f"phase 14b {arm}: rank {r}, {int(o[f'{arm}/calls'])} UNet calls, its rows against "
+                                 f"the rows alone rel L2 {rows} (limit {ROW_REL_L2})")
+        images = [o[f"{arm}/image"] for o in res]
+        if not (np.isfinite(images[0]).all() and np.array_equal(images[0], images[1])):
+            raise SystemExit(f"phase 14b {arm}: the ranks' canvases differ or are not finite")
+        rows = [[f"{e:.3e}" for e in o[f"{arm}/row_rel_l2"]] for o in res]
+        swapped = np.concatenate([o[f"{arm}/swapped_rel_l2"] for o in res])
+        print(f"phase 14b CFG-parallel request 512x1024 {label} cfg2.5 b1 over 2 ranks (gloo, one card): the "
+              f"ranks' UNet rows at calls 0 and {steps // 2} against the same rows alone at batch 1 rel_l2={rows} "
+              f"(limit {ROW_REL_L2}; the uncond and cond rows swapped read {swapped.min():.3f}-{swapped.max():.3f}); "
+              f"ranks' canvases bit-equal; launches per rank {({n: c for n, c in want.items() if c})} ({steps} "
+              f"forwards); for information: rel_l2 against the one-rank request "
+              f"{float(res[0][f'{arm}/vs_one_rank_rel_l2']):.3e}, seconds_per_request "
+              f"split={[round(float(o[f'{arm}/s_split']), 3) for o in res]} "
+              f"one_rank={float(res[0][f'{arm}/s_one_rank']):.3f} (the ranks share the card: no speed-up "
+              f"claimed), peak_gib={[round(float(o[f'{arm}/peak_gib']), 1) for o in res]}", flush=True)
+    launches["14b"] = _summed([o[f"{arm}/launches"] for o in res for arm in ("bf16", "int8")])
+    print(f"phase 14b seconds={time.perf_counter() - t0:.1f}", flush=True)
+
+
+def phase_14v(work: str, launches: dict) -> dict:
+    """The V=4 forward with the views split over (view 2), (view 4) and
+    (data 2, view 2) ranks; K1 at the ranks' Nq != Nk sites held and timed.
+    Returns K1's reports by layout."""
+    import torch
+
+    from leftrefill_torch import tools
+
+    t0 = time.perf_counter()
+    reports = {}
+    runs = {2: _ranks(work, "view_forward", 2, layouts=[[1, 2]]),
+            4: _ranks(work, "view_forward", 4, layouts=[[1, 4], [2, 2]])}
+    gen = torch.Generator("cuda").manual_seed(14)
+    for (n_data, n_view), path in (((1, 2), "14v2"), ((1, 4), "14v4"), ((2, 2), "14vd")):
+        key, res = f"{n_data}x{n_view}", runs[n_data * n_view]
+        want_sites = tools.VIEW_RANK_SITES[(n_data, n_view)]
+        for r, o in enumerate(res):
+            got = _rank_counts(o[f"{key}/launches"])
+            sites = collections.Counter(tuple(int(v) for v in row[:5]) for row in o[f"{key}/k1_sites"])
+            if got != tools.PER_FORWARD_MV4_VIEW_RANK or sites != collections.Counter(want_sites):
+                raise SystemExit(f"phase 14v {key}: rank {r} launches {got}, K1 sites {dict(sites)}")
+            if not float(o[f"{key}/rel_l2"]) <= VIEW_REL_L2:
+                raise SystemExit(f"phase 14v {key}: rank {r} rel L2 {float(o[f'{key}/rel_l2']):.3e} from the "
+                                 f"one-rank forward's rows (limit {VIEW_REL_L2})")
+        launches[path] = _summed([o[f"{key}/launches"] for o in res])
+        errs = [f"{float(o[f'{key}/rel_l2']):.3e}" for o in res]
+        control = min(float(o[f"{key}/reversed_rel_l2"]) for o in res)
+        ms = [round(float(o[f"{key}/ms"]), 2) for o in res]
+        print(f"phase 14v V=4 forward [8,64,64,9] bf16, views over ({n_data} data, {n_view} view) ranks, "
+              f"{int(res[0][f'{key}/rows'])} rows a rank: rel_l2 against the one-rank forward's rows={errs} "
+              f"(limit {VIEW_REL_L2}; the rank's rows reversed read {control:.3f}); launches per rank "
+              f"{({n: c for n, c in tools.PER_FORWARD_MV4_VIEW_RANK.items() if c})}, K1 sites (b, h, nq, nk, d) "
+              f"{want_sites}; forward_ms per rank={ms} (the ranks share the card)", flush=True)
+        reports[key] = {}
+        for shape, n in sorted(want_sites.items()):
+            check_site("flash_fwd", shape, gen, n, reports[key], f"14v {key}")
+    print(f"phase 14v seconds={time.perf_counter() - t0:.1f} peak_gib="
+          f"{[round(float(o['peak_gib']), 1) for o in runs[4]]}", flush=True)
+    return reports
+
+
+def phase_14t(work: str, launches: dict) -> None:
+    """Phase 7's step over 2 gloo ranks x 4 against 1 rank x 8, then through
+    an NCCL group of one."""
+    import numpy as np
+    import torch
+
+    from leftrefill_torch import tools
+
+    t0 = time.perf_counter()
+    ref = _ranks(work, "train_step", 1, reference=True)[0]
+    dp = _ranks(work, "train_step", 2, reference=False)
+    one, nccl, gloo = "one_rank", "group_nccl_1", "group_gloo_2"
+    want = dict(tools.PER_TRAIN_STEP)
+    for who, o, arm in (("one rank", ref, one), ("nccl", ref, nccl), ("rank 0", dp[0], gloo),
+                        ("rank 1", dp[1], gloo)):
+        if _rank_counts(o[f"{arm}/launches"]) != want:
+            raise SystemExit(f"phase 14t {who}: launches {_rank_counts(o[f'{arm}/launches'])}, expected {want}")
+    grad = torch.from_numpy(ref[f"{one}/grad"])
+    errs = [tools.rel_l2(torch.from_numpy(o[f"{gloo}/grad"]), grad) for o in dp]
+    nccl_err = tools.rel_l2(torch.from_numpy(ref[f"{nccl}/grad"]), grad)
+    if not (np.array_equal(dp[0][f"{gloo}/table"], dp[1][f"{gloo}/table"]) and max(errs) <= PROMPT_GRAD_REL_L2
+            and nccl_err <= PROMPT_GRAD_REL_L2 and grad.abs().max() > 0):
+        raise SystemExit(f"phase 14t: averaged gradient rel L2 {errs}, the NCCL step's {nccl_err:.3e} (limit "
+                         f"{PROMPT_GRAD_REL_L2}), or the ranks' tables differ")
+    launches["14t"] = _summed([o[f"{gloo}/launches"] for o in dp] + [ref[f"{nccl}/launches"]])
+    print(f"phase 14t prompt-tuning step (phase 7's: remat, AdamW 3e-5, wd 0.01), 2 gloo ranks x batch 4 against "
+          f"1 rank x batch 8 on the same global draws: averaged prompt gradient rel_l2={[f'{e:.3e}' for e in errs]} "
+          f"(limit {PROMPT_GRAD_REL_L2}; a gradient that is not averaged reads ~1); ranks' tables after the step "
+          f"bit-equal, {float(np.abs(dp[0][f'{gloo}/table'] - ref[f'{one}/table']).max()):.3e} from the one-rank "
+          f"table; an NCCL group of one rel_l2={nccl_err:.3e}; launches per rank "
+          f"{({n: c for n, c in want.items() if c})}; losses one_rank={float(ref[f'{one}/loss']):.5f} "
+          f"ranks={[round(float(o[f'{gloo}/loss']), 5) for o in dp]}; seconds_per_step "
+          f"one_rank={float(ref[f'{one}/s']):.3f} nccl={float(ref[f'{nccl}/s']):.3f} "
+          f"ranks={[round(float(o[f'{gloo}/s']), 3) for o in dp]}; peak_gib one_rank="
+          f"{float(ref[f'{one}/peak_gib']):.1f} ranks={[round(float(o[f'{gloo}/peak_gib']), 1) for o in dp]}; "
+          f"seconds={time.perf_counter() - t0:.1f}", flush=True)
+
+
+def phase_14c(work: str, launches: dict) -> None:
+    """``leftrefill_torch.cli.train --nchip 2`` under torchrun on the
+    synthetic MegaDepth tree (its ranks through ``parallel_smoke cli``)."""
+    import os
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from leftrefill_torch import tools
+
+    t0 = time.perf_counter()
+    root = Path(work, "megadepth")
+    paths = tools.write_megadepth_scenes(str(root), MD_SCENES, MD_IMAGES, seed=0, train_pairs_per_scene=MD_TRAIN_PAIRS,
+                                         other_pairs_per_scene=MD_OTHER_PAIRS, images=tools.MEGADEPTH_IMAGES[:1],
+                                         mask_size=512)
+    args = megadepth_yamls(str(root), paths, "ref_inpainting", "phase 14c",
+                           (("batch_size: 8", f"batch_size: {CLI_DP_BATCH}"),))
+    out = Path(work, "cli")
+    out.mkdir()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2", "-m",
+           "leftrefill_torch.tools.parallel_smoke", "cli", str(out), "--", *args, "--nchip", "2", "--no_restore",
+           "--max_steps", str(CLI_DP_STEPS)]
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True, text=True,
+                          timeout=RANK_TIMEOUT)
+    if proc.returncode != 0:
+        raise SystemExit(f"phase 14c: torchrun returned {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                         f"{proc.stderr[-5000:]}")
+    res = [np.load(out / f"rank{r}.npz") for r in range(2)]
+    want = dict(tools.PER_TRAIN_STEP_CLI)
+    for r, o in enumerate(res):
+        if int(o["rc"]) or len(o["step_s"]) != CLI_DP_STEPS or any(_rank_counts(c) != want for c in o["launches"]):
+            raise SystemExit(f"phase 14c: rank {r} rc {int(o['rc'])}, {len(o['step_s'])} steps, launches "
+                             f"{[_rank_counts(c) for c in o['launches']]}")
+    saved = torch.load(root / "ck" / "ref_inpainting" / "ckpts" / "last.pt", weights_only=True)
+    table = saved["cond_stage_model.special_embeddings.weight"].float().numpy()
+    writes = [(int(o["saves"]), int(o["grids"])) for o in res]
+    if not (np.array_equal(res[0]["tables"], res[1]["tables"]) and np.array_equal(table, res[0]["tables"][-1])
+            and writes[0][0] == 1 and writes[1] == (0, 0)):
+        raise SystemExit(f"phase 14c: the ranks' tables differ after a step, or the checkpoint is not rank 0's "
+                         f"last table, or the ranks' (checkpoints, grids) written {writes}")
+    launches["14c"] = _summed([c for o in res for c in o["launches"]])
+    backend = re.search(r"backend (\w+)", proc.stdout + proc.stderr)
+    print(f"phase 14c torchrun --nproc_per_node 2 -m leftrefill_torch.cli.train --nchip 2 (backend "
+          f"{backend.group(1) if backend else 'not printed'}) on the synthetic MegaDepth tree, batch {CLI_DP_BATCH} a "
+          f"rank ({2 * CLI_DP_BATCH} a step), {CLI_DP_STEPS} steps, one validation batch at DDIM-10: ranks' tables "
+          f"bit-equal after each step, only rank 0 wrote checkpoints and sample grids ((checkpoints, grids) by rank "
+          f"{writes}); launches per step {({n: c for n, c in want.items() if c})}; seconds_per_step="
+          f"{[[round(float(x), 3) for x in o['step_s']] for o in res]} data_seconds_between_steps="
+          f"{[round(float(o['start'][1] - o['start'][0] - o['step_s'][0]), 3) for o in res]} "
+          f"cli_seconds={[round(float(o['cli_s']), 1) for o in res]} peak_gib="
+          f"{[round(float(o['peak_gib']), 1) for o in res]} seconds={time.perf_counter() - t0:.1f}", flush=True)
+
+
+def parallel_phases(launches: dict) -> dict:
+    """Phases 14b, 14v, 14t and 14c (module docstring); each path's launches,
+    summed over its ranks, go into ``launches``.  Returns K1's reports at the
+    view ranks' Nq != Nk sites, by layout."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="parallel_")
+    try:
+        phase_14b(work, launches)
+        reports = phase_14v(work, launches)
+        phase_14t(work, launches)
+        phase_14c(work, launches)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 14 seconds={time.perf_counter() - t0:.1f}", flush=True)
+    return reports
+
+
 def main() -> int:
     if not (ROOT / "leftrefill_torch" / "csrc").is_dir():
         print("chip_smoke.py: the leftrefill_torch package is not beside this script", file=sys.stderr)
@@ -2395,6 +2651,9 @@ def main() -> int:
     # ---- phases 13d, 13s, 13a, 13m: samplers, rows, maps, multi-cond --------
     sampler_phases(launches)
 
+    # ---- phases 14b, 14v, 14t, 14c: the parallel paths, ranks on the card ---
+    view_reports = parallel_phases(launches)
+
     entries = []
     for name, (source, replaces) in KERNELS.items():
         rep = report[name]
@@ -2440,6 +2699,12 @@ def main() -> int:
                 entry["max_abs_err"] = max(entry["max_abs_err"], rep_n[name]["max_abs_err"])
         if name == "flash_fwd":
             entry["multiview_joint_attention"] = multiview
+            # one rank's share of the view-split V=4 forward: Nq != Nk (phase 14v)
+            entry["view_rank_forward"] = {key: {k: rep_v["flash_fwd"][k] for k in
+                                                ("sites", "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
+                                          for key, rep_v in view_reports.items()}
+            entry["max_abs_err"] = max(entry["max_abs_err"], *(r["flash_fwd"]["max_abs_err"]
+                                                               for r in view_reports.values()))
         entries.append(entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,8 +28,22 @@ The model YAML's target picks the training:
 The frozen weights come from ``resume_path`` (an SD checkpoint, when the
 file exists and ``--no_restore`` is not given) or are random.  The UNet
 runs without recompute (the model YAML's ``use_checkpoint`` is dropped, as
-JAX's does).  ``--nchip`` takes 0 or 1 (one card; data-parallel training
-is not ported).
+JAX's does).
+
+Data parallelism (JAX's mesh over the local devices) is one process per
+rank, started by torchrun::
+
+    python -m torch.distributed.run --nproc_per_node N -m leftrefill_torch.cli.train --nchip N ...
+
+``--nchip`` 0 is the run's world size; another value must equal it.  Each
+rank holds the model on its own device (``parallel.mesh``: NCCL where every
+rank has a card, gloo where ranks share one), the parameters broadcast from
+rank 0 after the initialisation and the restore; a step is a global batch of
+``batch_size`` x the ranks of a node (the scene-balanced sampler splits the
+pairs over the nodes), each rank taking its contiguous rows, and the
+gradients are averaged over the ranks (``train.make_train_step``).  Every
+rank validates and the metrics are averaged over the ranks; only rank 0
+writes metrics, sample grids and checkpoints.
 """
 
 from __future__ import annotations
@@ -49,7 +63,8 @@ def parse_args(argv=None):
                    help="training config yaml (default: the shipped 1-ref config)")
     p.add_argument("--exp_name", default=None, type=str, required=True)
     p.add_argument("--save_path", default="./check_points", type=str)
-    p.add_argument("--nchip", default=0, type=int, help="device count: 0 or 1 (one card)")
+    p.add_argument("--nchip", default=0, type=int,
+                   help="ranks of the run (0 = the world size torchrun gives; > 1 needs torchrun)")
     p.add_argument("--restore", action="store_true", help="resume from last ckpt")
     p.add_argument("--no_restore", action="store_true", help="skip loading the SD checkpoint")
     p.add_argument("--bf16", action="store_true", default=True, help="bf16 compute (default)")
@@ -73,16 +88,36 @@ def _model_config_path(config: dict, config_file: str) -> str:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    import torch.distributed as dist
+
+    from leftrefill_torch.parallel.mesh import init_from_env
+    from leftrefill_torch.pipeline import request_device
+
+    request_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.nchip > 1 and world == 1:
+        raise RuntimeError(f"--nchip {args.nchip}: data-parallel training runs one process per rank; start it "
+                           f"with torchrun: python -m torch.distributed.run --nproc_per_node {args.nchip} "
+                           "-m leftrefill_torch.cli.train ...")
+    if args.nchip not in (0, world):
+        raise ValueError(f"--nchip {args.nchip}, but the run has {world} ranks")
+    started = not dist.is_initialized()
+    ranks = init_from_env(args.device)
+    try:
+        return _train(args, ranks)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, ranks) -> int:
     import numpy as np
     import torch
 
     from leftrefill_torch.config import build_model_from_config, load_yaml
-    from leftrefill_torch.pipeline import request_device
+    from leftrefill_torch.parallel.mesh import replicate
 
-    dev = request_device(args.device)
-    if args.nchip not in (0, 1):
-        raise NotImplementedError(f"--nchip {args.nchip}: the port trains on one card (data-parallel training "
-                                  "is not ported)")
+    dev, group, main_rank = ranks.device, ranks.group, ranks.is_main
     exp_dir = os.path.join(args.save_path, args.exp_name)
     if args.restore:
         config = load_yaml(os.path.join(exp_dir, "training_config.yaml"))
@@ -90,9 +125,10 @@ def main(argv=None) -> int:
     else:
         config = load_yaml(args.config_file)
         model_config_path = _model_config_path(config, args.config_file)
-        os.makedirs(exp_dir, exist_ok=True)
-        shutil.copy(args.config_file, os.path.join(exp_dir, "training_config.yaml"))
-        shutil.copy(model_config_path, os.path.join(exp_dir, "model_config.yaml"))
+        if main_rank:
+            os.makedirs(exp_dir, exist_ok=True)
+            shutil.copy(args.config_file, os.path.join(exp_dir, "training_config.yaml"))
+            shutil.copy(model_config_path, os.path.join(exp_dir, "model_config.yaml"))
     from leftrefill_torch.data.datasets import (
         BalancedRandomSampler,
         InpaintingCrossViewDataset,
@@ -119,6 +155,7 @@ def main(argv=None) -> int:
         lora_predicate,
         make_train_step,
         prompt_only_predicate,
+        reduce_metrics_across_hosts,
         with_lora,
         wrap_lora_params,
     )
@@ -155,6 +192,7 @@ def main(argv=None) -> int:
         restore_over_base(model, mgr.restore("last"))
         start_step = mgr.manifest["last"]["step"]
         print(f"Restored the trained weights at step {start_step}")
+    replicate(model, group)
 
     # ------------------------------------------------------------------
     # optimizer: AdamW over the trainable groups (the prompt table; for
@@ -176,7 +214,7 @@ def main(argv=None) -> int:
         predicate = lora_predicate(predicate)
     state, tx = create_train_state(model, opt_config, predicate)
     step_fn = make_train_step(model, tx, view_reduced=task.view_reduced, view_num=task.view_num,
-                              cond_builder=task.cond_builder if is_nvs else None)
+                              cond_builder=task.cond_builder if is_nvs else None, group=group)
 
     # ------------------------------------------------------------------
     # data: the Objaverse renders, the MegaDepth pairs (one reference or
@@ -195,7 +233,8 @@ def main(argv=None) -> int:
         val_ds = ds_cls(image_path=config["val_image_path"], pair_path=None, mask_path=config["val_mask_path"],
                         mode="val", **dc)
         sampler = BalancedRandomSampler(train_ds.image_dict, train_ds.pairs,
-                                        n_sample_per_scene=config.get("n_sample_per_scene", 150))
+                                        n_sample_per_scene=config.get("n_sample_per_scene", 150),
+                                        rank=ranks.node, num_replicas=ranks.nodes)
     else:
         train_ds = InpaintingDataset(image_path=config["image_path"], mask_path=config["train_mask_path"],
                                      mode="train", **dc)
@@ -203,7 +242,7 @@ def main(argv=None) -> int:
         sampler = None
     tok = bundle.tokenizer
     train_loader = DataLoader(train_ds, config.get("batch_size", 8), sampler=sampler, tokenizer=tok,
-                              shuffle=sampler is None)
+                              shuffle=sampler is None, shard=(ranks.local_rank, ranks.local_world))
     val_loader = DataLoader(val_ds, batch_size=4, tokenizer=tok, drop_last=True)
 
     # ------------------------------------------------------------------
@@ -229,12 +268,13 @@ def main(argv=None) -> int:
             state, metrics = step_fn(state, {k: v for k, v in batch.items() if k != "txt"}, step_gen)
             dt = timer.stop(step)
             if step % 50 == 0:
-                m = {k: float(v) for k, v in metrics.items()}
+                m = reduce_metrics_across_hosts({k: float(v) for k, v in metrics.items()}, group)
                 m["lr"] = current_lr(opt_config, step)
                 m["step_time_s"] = dt
                 m.update(drift.drift(table))
-                mlog.log(step, m)
-            if ilog.should_log(step):
+                if main_rank:
+                    mlog.log(step, m)
+            if ilog.should_log(step) and main_rank:
                 with torch.no_grad():
                     log = with_lora(model, task.log_images, batch, N=2 if is_mv else min(2, batch["image"].shape[0]),
                                     ddim_steps=config.get("log_ddim_steps", 50),
@@ -259,10 +299,12 @@ def main(argv=None) -> int:
                 if val_cap is not None and i + 1 >= val_cap:
                     break
             vmean = {k: float(np.mean([v[k] for v in vals])) for k in vals[0]} if vals else {}
-            mlog.log(step, vmean)
-            print(f"Epoch {epoch}: {vmean}")
-            save_pruned(mgr, step, model, save_prompt_only=bundle.save_prompt_only, metrics=vmean,
-                        filter_fn=ckpt_filter)
+            vmean = reduce_metrics_across_hosts(vmean, group)  # before the top-k choice, as JAX
+            if main_rank:
+                mlog.log(step, vmean)
+                print(f"Epoch {epoch}: {vmean}")
+                save_pruned(mgr, step, model, save_prompt_only=bundle.save_prompt_only, metrics=vmean,
+                            filter_fn=ckpt_filter)
         if step >= max_steps:
             break
 

@@ -57,7 +57,15 @@ class DataLoader:
     """Sampler indices (or the dataset's, shuffled per epoch with
     ``RandomState(seed + epoch)``) -> ``__getitem__`` on ``num_workers``
     threads -> :func:`collate` -> a queue of ``prefetch`` batches filled by
-    a producer thread."""
+    a producer thread.
+
+    ``shard`` (rank, world) splits each batch over the ranks of a node (JAX's
+    per-host batch, sharded over the local devices): a batch is ``world *
+    batch_size`` items of the one index order every rank shares, and the
+    rank gets its contiguous ``batch_size`` of them.  Every rank reads all
+    the items: a dataset draws its crops and masks from one stream in item
+    order, so a rank that read only its own would draw other ones than the
+    single-process loader gives those items."""
 
     def __init__(
         self,
@@ -70,6 +78,7 @@ class DataLoader:
         num_workers: int = 8,
         prefetch: int = 2,
         seed: int = 0,
+        shard: tuple[int, int] = (0, 1),
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -80,6 +89,9 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.seed = seed
+        if shard[1] > 1 and not drop_last:
+            raise ValueError("a loader split over ranks drops the last, partial batch (drop_last=True)")
+        self.shard = shard
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -97,13 +109,17 @@ class DataLoader:
 
     def __len__(self) -> int:
         n = len(self.sampler) if self.sampler is not None else len(self.dataset)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        size = self.batch_size * self.shard[1]
+        return n // size if self.drop_last else -(-n // size)
 
     def __iter__(self) -> Iterator[dict]:
         indices = self._indices()
+        rank, world = self.shard
+        size = self.batch_size * world
         if self.drop_last:
-            indices = indices[: len(indices) // self.batch_size * self.batch_size]
-        batches = [indices[i: i + self.batch_size] for i in range(0, len(indices), self.batch_size)]
+            indices = indices[: len(indices) // size * size]
+        batches = [indices[i: i + size] for i in range(0, len(indices), size)]
+        mine = slice(rank * self.batch_size, (rank + 1) * self.batch_size)
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -115,7 +131,7 @@ class DataLoader:
                         if stop.is_set():
                             return
                         items = list(pool.map(self.dataset.__getitem__, batch_idx))
-                        q.put(collate(items, self.tokenizer))
+                        q.put(collate(items[mine], self.tokenizer))
                 q.put(None)
             except Exception as e:  # handed to the consumer, which raises it
                 q.put(e)

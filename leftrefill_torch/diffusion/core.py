@@ -26,6 +26,13 @@ from leftrefill_torch.ops.layers import nearest_resize
 VAE_NOISE_SEED = 42  # the reference re-seeds its RNG to 42 before every VAE sample
 
 
+def fixed_vae_noise(shape, device) -> torch.Tensor:
+    """The VAE posterior's default noise: a draw of ``shape`` from a
+    generator seeded ``VAE_NOISE_SEED``."""
+    gen = torch.Generator(device=device).manual_seed(VAE_NOISE_SEED)
+    return torch.randn(tuple(shape), generator=gen, device=device)
+
+
 @dataclasses.dataclass(frozen=True)
 class Conditioning:
     """The conditioning bundle: c_concat [B, h, w, 5] (mask and masked-image
@@ -103,9 +110,14 @@ class LeftRefillModel(nn.Module):
         moments = self.first_stage_model.encode_moments(x)
         dist = DiagonalGaussian(moments)
         if noise is None:
-            gen = torch.Generator(device=moments.device).manual_seed(VAE_NOISE_SEED)
-            noise = torch.randn(dist.mean.shape, generator=gen, device=moments.device)
+            noise = fixed_vae_noise(dist.mean.shape, moments.device)
         return self.scale_factor * dist.sample(noise.to(dist.mean.dtype))
+
+    def latent_shape(self, image_shape) -> tuple:
+        """The latent shape [B, h, w, C] of an NHWC image batch."""
+        vae = self.first_stage_model
+        ds = 2 ** (len(vae.ddconfig.ch_mult) - 1)
+        return (image_shape[0], image_shape[1] // ds, image_shape[2] // ds, vae.post_quant_conv.weight.shape[1])
 
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         return self.first_stage_model.decode(z / self.scale_factor)

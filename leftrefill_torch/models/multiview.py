@@ -18,8 +18,16 @@ feed-forward:
   scene attend jointly as they are.
 
 The parameter tree is the 1-reference UNet's, so the same checkpoint keys
-load.  JAX's ``view_mesh`` (views sharded across chips, context
-parallelism) is not ported.
+load.
+
+``view_group`` (JAX's ``view_mesh``, context parallelism): the views of
+every scene split over the ranks of a ``torch.distributed`` group, each rank
+holding ``view_num / size`` consecutive views of each scene (rows of the
+batch) through the whole UNet; only the joint self-attention gathers K and V
+from the other ranks (``parallel.context``).  The default mode only: a
+``concat_target`` or ``no_rearrange_selfattn`` sequence needs views that
+another rank holds, so those raise under a group (JAX runs them on one
+device, which holds every view).
 """
 
 from __future__ import annotations
@@ -34,16 +42,28 @@ class MultiViewBasicTransformerBlock(BasicTransformerBlock):
     feed-forward stay per view (JAX: multiview.py:37-144).  The int8
     ``lnq`` arm is the base block's, around the regrouped tokens.  JAX's
     block calls attn2 without ``return_attn`` (multiview.py:130, :142), so a
-    multi-view UNet yields no attention maps."""
+    multi-view UNet yields no attention maps.  ``view_group``: the rows hold
+    this rank's ``view_num / size`` views of each scene, and the
+    self-attention gathers the others' K and V (module docstring)."""
 
     collects_attention = False
 
     def __init__(self, dim: int, n_heads: int, d_head: int, context_dim: int, dtype=torch.float32,
                  quant: bool = False, fused: bool = True, view_num: int = 4, concat_target: bool = False,
-                 no_rearrange_selfattn: bool = False):
+                 no_rearrange_selfattn: bool = False, view_group=None):
         super().__init__(dim, n_heads, d_head, context_dim, dtype=dtype, quant=quant, fused=fused)
         self.view_num, self.concat_target = view_num, concat_target
         self.no_rearrange_selfattn = no_rearrange_selfattn
+        self.local_views = view_num
+        if view_group is not None:
+            if concat_target or no_rearrange_selfattn:
+                raise ValueError("a view group splits the default joint sequence only: concat_target and "
+                                 "no_rearrange_selfattn need the views another rank holds")
+            from leftrefill_torch.parallel.context import make_context_parallel_attn
+            from leftrefill_torch.parallel.mesh import group_size
+
+            self.attn1.attn_fn = make_context_parallel_attn(view_group, view_num)
+            self.local_views = view_num // group_size(view_group)
 
     def forward(self, x, context=None, cross_kv=None, dup_to_context: bool = False):
         if dup_to_context:
@@ -53,9 +73,9 @@ class MultiViewBasicTransformerBlock(BasicTransformerBlock):
             raise ValueError("the multi-view UNet runs without cfg_dup")
         bv, hw, c = x.shape
         if not self.concat_target:
-            b = bv // self.view_num
+            b = bv // self.local_views
             return self.cross_attention_ff(
-                self.self_attention(x.reshape(b, self.view_num * hw, c)).reshape(bv, hw, c), context, cross_kv)
+                self.self_attention(x.reshape(b, self.local_views * hw, c)).reshape(bv, hw, c), context, cross_kv)
         pairs = self.view_num - 1  # canvases per scene
         b = bv // pairs
         if self.no_rearrange_selfattn:
@@ -71,12 +91,13 @@ class MultiViewBasicTransformerBlock(BasicTransformerBlock):
 
 
 def MultiViewUnetModel(view_num: int = 4, concat_target: bool = False, no_rearrange_selfattn: bool = False,
-                       **unet_kwargs) -> UNetModel:
+                       view_group=None, **unet_kwargs) -> UNetModel:
     """The UNet with the multi-view block at every transformer (JAX:
-    multiview.py:147-169); the parameter tree is ``UNetModel``'s."""
+    multiview.py:147-169); the parameter tree is ``UNetModel``'s.
+    ``view_group``: the views split over its ranks (module docstring)."""
     return UNetModel(
         block_cls=MultiViewBasicTransformerBlock,
         block_kwargs=dict(view_num=view_num, concat_target=concat_target,
-                          no_rearrange_selfattn=no_rearrange_selfattn),
+                          no_rearrange_selfattn=no_rearrange_selfattn, view_group=view_group),
         **unet_kwargs,
     )

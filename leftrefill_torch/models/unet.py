@@ -213,9 +213,14 @@ class CrossAttention(nn.Module):
     the q and k it computed, on every path: the K/V cache, int8, the fused
     prenorm's ``pre_quant``); ``eval.attn_vis.collect_attention_maps`` sets
     it on the cross-attentions and clears it after (JAX: ``return_attn`` and
-    ``sow``)."""
+    ``sow``).
+
+    ``attn_fn``: None (``multi_head_attention``), or a function of its
+    signature that replaces the attention math; the view-sharded multi-view
+    block sets the context-parallel one (``parallel.context``)."""
 
     probs_sink = None
+    attn_fn = None
 
     def __init__(self, query_dim: int, heads: int, dim_head: int, context_dim: Optional[int] = None,
                  dtype=torch.float32, quant: bool = False):
@@ -248,7 +253,8 @@ class CrossAttention(nn.Module):
             k, v = self.kv(x, (xq, sx)) if context is None else self.kv(context)
         if self.probs_sink is not None:
             self.probs_sink(attention_probs(q, k, self.heads))
-        return self.to_out[0](multi_head_attention(q, k, v, self.heads))
+        fn = self.attn_fn if self.attn_fn is not None else multi_head_attention
+        return self.to_out[0](fn(q, k, v, self.heads))
 
 
 def _linear_fp32_bias(din: int, dout: int, dtype) -> nn.Linear:

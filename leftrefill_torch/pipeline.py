@@ -42,7 +42,12 @@ def request_device(device) -> torch.device:
 @dataclasses.dataclass
 class RefInpaintPipeline:
     """Left = reference, right = target canvas; ``sampler`` is "ddim"
-    (the reference protocol, DDIM-50 at eta 1) or "dpm++2m"."""
+    (the reference protocol, DDIM-50 at eta 1) or "dpm++2m".
+
+    ``group`` (JAX's ``mesh``): a ``torch.distributed`` group whose ranks
+    split the CFG-doubled UNet batch (``parallel.batch``); every rank of it
+    calls the pipeline with the same request and generator seed, runs the
+    rest of the request whole and returns the same canvas."""
 
     model: LeftRefillModel
     tokenizer: SimpleTokenizer
@@ -52,6 +57,7 @@ class RefInpaintPipeline:
     guidance_scale: float = 2.5
     eta: float = 1.0
     sampler: str = "ddim"
+    group: Optional[object] = None
 
     def __post_init__(self):
         if self.sampler not in ("ddim", "dpm++2m"):
@@ -89,7 +95,7 @@ class RefInpaintPipeline:
             torch.as_tensor(self.uncond_tokens(b), dtype=torch.long, device=dev),
             ddim_steps=self.ddim_steps, eta=self.eta, guidance_scale=self.guidance_scale,
             sampler=self.sampler, generator=generator, x_T=x_T, noise_fn=noise_fn,
-            vae_noise=vae_noise,
+            vae_noise=vae_noise, group=self.group,
         )
 
     def inpaint_right_half(self, image, mask, generator: Optional[torch.Generator] = None, **kw) -> np.ndarray:
@@ -115,9 +121,11 @@ def _generate(
     noise_fn: Optional[NoiseFn] = None,
     vae_noise: Optional[torch.Tensor] = None,
     cfg_dup: bool = True,
+    group=None,
 ) -> torch.Tensor:
     """``cfg_dup``: share the UNet prefix of the CFG pair at half batch (the
-    1-reference request; the multi-view UNet runs without it)."""
+    1-reference request; the multi-view UNet runs without it).  ``group``:
+    the UNet batch split over its ranks, without the shared prefix."""
     masked_image = image * (mask < 0.5)
     cond = model.build_inpaint_cond(tokens, mask, masked_image, vae_noise)
     uncond = Conditioning(cond.c_concat, model.get_learned_conditioning(uncond_tokens))
@@ -128,11 +136,15 @@ def _generate(
     use_cfg = guidance_scale != 1.0
     ctx = torch.cat([uncond.c_crossattn, cond.c_crossattn]) if use_cfg else cond.c_crossattn
     kv = model.cross_attention_kv(ctx)
+    if group is not None:
+        from leftrefill_torch.parallel.batch import batch_parallel_apply
 
-    def apply_fn(x, t, c):
-        # cond and uncond share x and c_concat: the prefix before the first
-        # cross-attention runs once at half batch
-        return model.apply_model(x, t, c, cross_kv=kv, cfg_dup=use_cfg and cfg_dup)
+        apply_fn = batch_parallel_apply(model, group, cross_kv=kv)
+    else:
+        def apply_fn(x, t, c):
+            # cond and uncond share x and c_concat: the prefix before the
+            # first cross-attention runs once at half batch
+            return model.apply_model(x, t, c, cross_kv=kv, cfg_dup=use_cfg and cfg_dup)
 
     common = dict(uncond=uncond, guidance_scale=guidance_scale, x_T=x_T, generator=generator,
                   device=image.device)

@@ -11,7 +11,14 @@ those raise ``ImportError`` and ``predict`` / ``initialize_model`` serve
 headless.  Everything runs on the card unless the caller passes
 ``device="cpu"``; without a card it raises.  The start code comes from
 ``torch.Generator(device).manual_seed(seed)``, so a seed gives other images
-than the JAX package's ``jax.random`` draws."""
+than the JAX package's ``jax.random`` draws.
+
+CFG-parallel serving (JAX's ``dp_devices``): ``main --dp N`` under
+``torchrun --nproc_per_node N`` builds the pipeline on every rank with the
+CFG-doubled UNet batch split over the ranks (``parallel.batch``); rank 0
+serves the UI, and each ``predict`` there first hands its arguments to the
+other ranks, which run the same request in ``serve_followers`` until
+``stop_followers``."""
 
 from __future__ import annotations
 
@@ -98,8 +105,15 @@ def initialize_model(
     UNet's quantized sites quantized per output channel
     (``ops.quant.quantize_params_like``) into an int8 UNet and the other
     modules' weights copied into the serving dtype.  ``quant_vae`` (the int8
-    VAE decoder) and ``dp_devices > 1`` (the CFG batch sharded over devices,
-    ``parallel/``) are not ported and raise."""
+    VAE decoder) is not ported and raises.
+
+    ``dp_devices > 1`` splits the CFG-doubled UNet batch over the ranks of
+    the initialised default process group, whose size it must be (torchrun
+    starts them; ``parallel.mesh.init_from_env`` gives each its
+    ``device``); every rank calls this, and the ranks other than 0 then run
+    ``serve_followers``."""
+    import torch.distributed as dist
+
     from leftrefill_torch.config import build_model_from_config, instantiate_from_config
     from leftrefill_torch.ops.quant import quantize_params_like
 
@@ -107,9 +121,13 @@ def initialize_model(
     if quant_vae:
         raise NotImplementedError("quant_vae: the int8 VAE decoder is not ported (ROADMAP queue 1, the VAE's "
                                   "int8 decoder)")
+    group = None
     if dp_devices and dp_devices > 1:
-        raise NotImplementedError(f"dp_devices={dp_devices}: the CFG batch sharded over devices (parallel/) is "
-                                  "not ported; the port serves on one card (ROADMAP queue 1, parallel/)")
+        if not dist.is_initialized() or dist.get_world_size() != dp_devices:
+            raise RuntimeError(f"dp_devices={dp_devices} serves from {dp_devices} ranks: start them with "
+                               f"torchrun (python -m torch.distributed.run --nproc_per_node {dp_devices} -m "
+                               f"leftrefill_torch.serving.gradio_app --dp {dp_devices} ...)")
+        group = dist.group.WORLD
     dev = request_device(device)
     dtype = compute_dtype(dev)
     bundle = load_experiment(exp_dir, sd_ckpt, INIT_SEED, dev, torch.float32 if quantized else dtype).bundle
@@ -126,7 +144,7 @@ def initialize_model(
         bundle.model.to_empty(device=dev).eval().load_state_dict(state, strict=True)
         del state
     return RefInpaintPipeline(model=bundle.model, tokenizer=bundle.tokenizer, special_tokens=bundle.special_tokens,
-                              device=dev, eta=1.0, sampler=sampler)
+                              device=dev, eta=1.0, sampler=sampler, group=group)
 
 
 def pipeline_variant(pipeline: RefInpaintPipeline, ddim_steps: int, scale: float,
@@ -183,7 +201,42 @@ def predict(
     inpainted targets, [img_size, img_size, 3] uint8 each.  The start code
     x_T is the first draw of ``torch.Generator(device).manual_seed(seed)``,
     which then draws the sampler's noise; the result is truncated to uint8
-    after clipping, as JAX's."""
+    after clipping, as JAX's.  On rank 0 of a CFG-parallel pipeline the
+    request is first handed to the ranks in ``serve_followers``."""
+    args = (reference, source, mask, ddim_steps, num_samples, scale, seed, img_size, sampler)
+    if pipeline.group is not None:
+        _broadcast_request(args)
+    return _predict(pipeline, *args)
+
+
+def _broadcast_request(args):
+    import torch.distributed as dist
+
+    box = [args]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def serve_followers(pipeline: RefInpaintPipeline) -> int:
+    """The loop of a CFG-parallel pipeline's ranks other than 0: run each
+    request rank 0's ``predict`` hands over, until ``stop_followers``.
+    Returns the number of requests served."""
+    served = 0
+    while True:
+        args = _broadcast_request(None)
+        if args is None:
+            return served
+        _predict(pipeline, *args)
+        served += 1
+
+
+def stop_followers(pipeline: RefInpaintPipeline) -> None:
+    """On rank 0: end the followers' ``serve_followers`` loops."""
+    if pipeline.group is not None:
+        _broadcast_request(None)
+
+
+def _predict(pipeline, reference, source, mask, ddim_steps, num_samples, scale, seed, img_size, sampler):
     image, full_mask = request_canvas(reference, source, mask, num_samples, img_size)
     pipeline = pipeline_variant(pipeline, ddim_steps, scale, sampler)
     dev = request_device(pipeline.device)
@@ -240,14 +293,27 @@ def main(argv=None):
     p.add_argument("--sd_ckpt", default=None)
     p.add_argument("--port", default=7860, type=int)
     p.add_argument("--quantized", action="store_true", help="W8A8 int8 UNet (JAX's fused configuration)")
-    p.add_argument("--dp", default=0, type=int, help="devices for the CFG batch (not ported: 0 or 1)")
+    p.add_argument("--dp", default=0, type=int,
+                   help="ranks for the CFG-doubled UNet batch (> 1: under torchrun --nproc_per_node N)")
     p.add_argument("--sampler", default="ddim", choices=["ddim", "dpm++2m"])
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     _gradio()  # before the model is built
+    device, rank = args.device, 0
+    if args.dp > 1:
+        from leftrefill_torch.parallel.mesh import init_from_env
+
+        ranks = init_from_env(args.device)
+        device, rank = ranks.device, ranks.rank
     pipe = initialize_model(args.model_path, args.sd_ckpt, quantized=args.quantized, dp_devices=args.dp,
-                            sampler=args.sampler, device=args.device)
-    build_ui(pipe).launch(server_port=args.port)
+                            sampler=args.sampler, device=device)
+    if rank:
+        serve_followers(pipe)
+        return
+    try:
+        build_ui(pipe).launch(server_port=args.port)
+    finally:
+        stop_followers(pipe)
 
 
 if __name__ == "__main__":

@@ -79,6 +79,23 @@ PER_FORWARD_INT8 = {**PER_FORWARD_INT8_UNFUSED, "affine_silu_quant": 44, "ln_qua
 # the V=4 multi-view bf16 forward: 8 rows of 64x64 views, no cfg_dup; five of
 # the 16 flash launches are the 16384-token joint attentions (K11's sites)
 PER_FORWARD_MV4 = {**_NONE, "flash_fwd": 16, "conv3x3": 33, "geglu": 16}
+# one rank's share of the V=4 forward with the views split over a view group
+# (chip_smoke.py phase 14v: 8 rows of 64x64 views, the CFG pair of one
+# scene): each rank holds V / n_view views of its scenes, and K1 takes its
+# V_local * HW queries against the gathered V * HW keys.  The middle
+# block's 128 (2 view ranks) or 64 (4) queries are below K1's 256: the
+# exact softmax, 15 K1 launches where the whole forward has 16.  K2 and K3
+# as the whole forward's (the fewest rows, the middle block's 128 at 2 rows
+# a rank, still take K3)
+PER_FORWARD_MV4_VIEW_RANK = {**PER_FORWARD_MV4, "flash_fwd": 15}
+# K1's (b, heads, nq, nk, d) sites of one rank's share, by (n_data, n_view):
+# the 8 rows of a view-2 or view-4 rank are the CFG pair's two scenes; a
+# (2 data, 2 view) rank holds one of them
+VIEW_RANK_SITES = {
+    (1, 2): {(2, 5, 8192, 16384, 64): 5, (2, 10, 2048, 4096, 64): 5, (2, 20, 512, 1024, 64): 5},
+    (1, 4): {(2, 5, 4096, 16384, 64): 5, (2, 10, 1024, 4096, 64): 5, (2, 20, 256, 1024, 64): 5},
+    (2, 2): {(1, 5, 8192, 16384, 64): 5, (1, 10, 2048, 4096, 64): 5, (1, 20, 512, 1024, 64): 5},
+}
 # the novel-view-synthesis bf16 forward at the 256x512 canvas (CFG batch 2 of
 # 32x64 latents, cfg_dup, the K/V cache, c_input): K1 at 2048 and 512 tokens
 # (128 and 32 are below its 256), K2 at the 32x64 and 16x32 levels, K3 at

@@ -47,8 +47,9 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from leftrefill_torch.diffusion.core import LeftRefillModel
+from leftrefill_torch.diffusion.core import LeftRefillModel, fixed_vae_noise
 from leftrefill_torch.models.lora import merge_lora
+from leftrefill_torch.parallel.mesh import all_reduce_mean, collective_device, group_rank, group_size, shard_rows
 
 Predicate = Callable[[tuple], bool]
 
@@ -248,6 +249,7 @@ def compute_loss(
     view_num: int = 1,
     cond_builder=None,
     cfg_draws: Optional[torch.Tensor] = None,
+    shard: tuple[int, int] = (0, 1),
 ):
     """One forward loss: encode the image (no graph: the VAE is frozen),
     build the conditioning (the inpainting one through the prompt text
@@ -258,26 +260,39 @@ def compute_loss(
     (:func:`wrap_lora_params`): its merged weights are used.  ``vae_noise``:
     the VAE posterior sample's noise (default: the fixed draw).
     ``view_reduced``: the multi-view loss, each scene's V consecutive rows,
-    only view 0 (the target) kept.  Returns (loss, metrics)."""
+    only view 0 (the target) kept.  ``shard`` (rank, world): the batch is
+    the rank-th of world contiguous row blocks of a global batch, and t, the
+    noise, the CFG draws and the VAE's default noise are drawn for the
+    global batch and cut to the block, so the ranks' losses are those of
+    the global batch's rows.  Returns (loss, metrics)."""
     return with_lora(model, _loss, base_model(model), batch, t, noise, generator, vae_noise, view_reduced, view_num,
-                     cond_builder, cfg_draws)
+                     cond_builder, cfg_draws, shard)
 
 
 def _loss(model: LeftRefillModel, batch, t, noise, generator, vae_noise, view_reduced, view_num, cond_builder,
-          cfg_draws):
+          cfg_draws, shard):
     dev = _device(model)
+    rank, world = shard
     image = torch.as_tensor(batch["image"], device=dev, dtype=torch.float32)
+    b = image.shape[0]
+
+    def drawn(draw, *shape):  # the global batch's draw, this block's rows
+        return shard_rows(draw((b * world, *shape)), rank, world)
+
+    if vae_noise is None and world > 1:
+        vae_noise = drawn(lambda shape: fixed_vae_noise(shape, dev), *model.latent_shape(image.shape)[1:])
     with torch.no_grad():
         z = model.encode_first_stage(image, vae_noise)
-    b = z.shape[0]
     if t is None:
-        t = torch.randint(0, model.schedule.num_timesteps, (b,), generator=generator, device=dev)
+        t = drawn(lambda shape: torch.randint(0, model.schedule.num_timesteps, shape, generator=generator,
+                                              device=dev))
     if noise is None:
-        noise = torch.randn(z.shape, generator=generator, device=dev, dtype=torch.float32).to(z.dtype)
+        noise = drawn(lambda shape: torch.randn(shape, generator=generator, device=dev, dtype=torch.float32),
+                      *z.shape[1:]).to(z.dtype)
     t, noise = torch.as_tensor(t, device=dev, dtype=torch.long), torch.as_tensor(noise, device=dev, dtype=z.dtype)
     if cond_builder is not None:
         if cfg_draws is None:
-            cfg_draws = torch.rand((b,), generator=generator, device=dev)
+            cfg_draws = drawn(lambda shape: torch.rand(shape, generator=generator, device=dev))
         cond = cond_builder(batch, cfg_draws=cfg_draws, vae_noise=vae_noise)
     else:
         mask, masked_image = (torch.as_tensor(batch[k], device=dev, dtype=torch.float32)
@@ -306,16 +321,27 @@ def view_options(model: LeftRefillModel) -> tuple[bool, int]:
 
 
 def make_train_step(model: nn.Module, tx: PromptOptimizer, view_reduced: bool = False, view_num: int = 1,
-                    cond_builder=None):
+                    cond_builder=None, group=None):
     """The train step: ``step(state, batch, generator) -> (state, metrics)``
     draws t, the noise and (with a ``cond_builder``) the CFG draws from
     ``generator`` on the model's device, runs the loss and its backward, and
-    hands the gradients to ``tx``.  ``model`` may be a LoRA pack."""
+    hands the gradients to ``tx``.  ``model`` may be a LoRA pack.
+
+    ``group`` (data parallelism, JAX's step on a mesh): the batch is this
+    rank's contiguous block of the global batch (the group's ranks in
+    order), every rank's generator is seeded alike, the draws are the
+    global batch's (``compute_loss``'s ``shard``), and the trainable
+    gradients are averaged over the group before ``tx`` applies them, so
+    every rank takes the global batch's step.  The metrics are the rank's
+    (:func:`reduce_metrics_across_hosts` averages them)."""
+    shard = (group_rank(group), group_size(group))
 
     def step(state: TrainState, batch: dict, generator: torch.Generator):
         loss, metrics = compute_loss(model, batch, generator=generator, view_reduced=view_reduced,
-                                     view_num=view_num, cond_builder=cond_builder)
+                                     view_num=view_num, cond_builder=cond_builder, shard=shard)
         loss.backward()
+        if group is not None:
+            all_reduce_mean([p.grad for p in tx.params if p.grad is not None], group)
         tx.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
@@ -323,7 +349,13 @@ def make_train_step(model: nn.Module, tx: PromptOptimizer, view_reduced: bool = 
     return step
 
 
-def reduce_metrics_across_hosts(metrics: dict) -> dict:
-    """The mean of scalar metrics over hosts: with one process (the port has
-    no multi-process training yet), the metrics as they are."""
-    return metrics
+def reduce_metrics_across_hosts(metrics: dict, group=None) -> dict:
+    """The mean of scalar metrics over the group's ranks (JAX's mean over
+    hosts, the reference's ``sync_dist``), as floats; without a group the
+    metrics as they are."""
+    if group is None or not metrics:
+        return metrics
+    keys = sorted(metrics)
+    vals = torch.tensor([float(metrics[k]) for k in keys], dtype=torch.float64, device=collective_device(group))
+    all_reduce_mean([vals], group)
+    return {k: float(v) for k, v in zip(keys, vals)}

@@ -3,8 +3,8 @@ end on the CPU (``--device cpu``) at the tiny NVS bundle of
 ``tests/test_cli_variants.py`` with LoRA and the refinement branch on, over
 synthetic renders: two steps, validation and a pruned checkpoint holding the
 NVS filter's keys with the LoRA factors; ``--restore`` resumes at the saved
-step from the saved weights; what it refuses: a missing card and more than
-one card; and the shipped MegaDepth configs taken to their data as JAX's
+step from the saved weights; what it refuses: a missing card and ``--nchip
+2`` outside torchrun's two processes; and the shipped MegaDepth configs taken to their data as JAX's
 CLI takes them (``tests/test_torch_cli_megadepth.py`` trains on such
 data)."""
 
@@ -114,10 +114,11 @@ def test_cli_trains_saves_and_resumes(workdir):
     assert second.keys() == first.keys() and any(not torch.equal(second[k], first[k]) for k in first)
 
 
-def test_cli_refuses_what_it_does_not_run(workdir):
+def test_cli_refuses_what_it_does_not_run(workdir, monkeypatch):
     from leftrefill_torch.cli.train import main
 
-    with pytest.raises(NotImplementedError, match="one card"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)  # --nchip 2 needs torchrun's two processes
+    with pytest.raises(RuntimeError, match="torchrun"):
         main(_args(workdir, "--no_restore", "--nchip", "2"))
     # the shipped 1-reference and multi-view configs reach their MegaDepth data (the full-width
     # model built on meta: no values on the CPU) and stop where JAX's datasets stop on the same

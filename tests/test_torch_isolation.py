@@ -173,6 +173,34 @@ assert not bad, bad
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=300)
 
 
+def test_lazy_public_names_resolve_to_their_modules():
+    """``leftrefill_torch``'s public names (JAX's ``leftrefill_tpu/__init__.py``
+    three): a bare import loads none of their modules, each name is the
+    object of its module, and neither brings in jax or the JAX package; the
+    parallel modules and the dry run import nothing of them either."""
+    code = """
+import sys
+import leftrefill_torch
+assert not any(m in sys.modules for m in ("leftrefill_torch.config", "leftrefill_torch.tasks",
+                                           "leftrefill_torch.pipeline"))
+from leftrefill_torch import config, pipeline, tasks
+assert leftrefill_torch.build_model_from_config is config.build_model_from_config
+assert leftrefill_torch.build_task is tasks.build_task
+assert leftrefill_torch.RefInpaintPipeline is pipeline.RefInpaintPipeline
+assert sorted(leftrefill_torch.__all__) == ["RefInpaintPipeline", "build_model_from_config", "build_task"]
+try:
+    leftrefill_torch.missing
+    raise SystemExit("an unknown name resolved")
+except AttributeError:
+    pass
+import leftrefill_torch.parallel.batch, leftrefill_torch.parallel.context, leftrefill_torch.parallel.mesh
+import leftrefill_torch.tools.dryrun
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("leftrefill_tpu", "jax", "jaxlib", "flax"))
+assert not bad, bad
+"""
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
 def test_entry_points_default_to_the_card():
     """``RefInpaintPipeline``, ``MultiViewInpaintPipeline`` and
     ``build_sd2_inpaint_bundle`` default to "cuda"; without a card a request

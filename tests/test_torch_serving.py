@@ -14,7 +14,8 @@ package's on the CPU:
   (test_torch_parity_utils' canvas bound), at most one level apart after;
 - the prompt override ``tokens=``, ``pipeline_variant``'s cache, and
   ``initialize_model`` on an experiment directory (the restore of its
-  prompt checkpoint, the int8 UNet, the two parts that are not ported);
+  prompt checkpoint, the int8 UNet, the int8 VAE decoder that is not ported
+  and ``dp_devices=2`` without a process group of two ranks);
 - the gradio UI raising without gradio."""
 
 import jax
@@ -222,7 +223,7 @@ def test_initialize_model_refuses_what_is_not_ported(tmp_path):
     exp = _exp_dir(tmp_path)
     with pytest.raises(NotImplementedError, match="int8 VAE decoder"):
         ts.initialize_model(exp, quant_vae=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(RuntimeError, match="torchrun"):  # dp_devices=2 needs a process group of two ranks
         ts.initialize_model(exp, dp_devices=2, device="cpu")
 
 

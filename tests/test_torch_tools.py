@@ -35,6 +35,52 @@ def test_per_forward_counts_match_the_dispatch(monkeypatch, path):
     assert set(kernels.NAMES) == set(tools.LAUNCH_COUNTERS) - set(tools.PROBES)
 
 
+@pytest.mark.parametrize("path", ["bf16", "int8"])
+def test_cfg_parallel_rank_forward_counts_match_the_pinned_counts(monkeypatch, path):
+    """One rank of a CFG-parallel request over 2 ranks (``parallel.batch``):
+    its row of the CFG pair alone, without ``cfg_dup``, at full width on
+    ``meta``: the launches of ``tools.PER_FORWARD_BF16`` (int8 fused:
+    ``PER_FORWARD_INT8``), the counts ``chip_smoke.py`` phase 14b holds each
+    rank to."""
+    from leftrefill_torch.models.unet import UNetModel
+
+    monkeypatch.setattr(kernels, "uses_kernel", lambda t: t.device.type in ("cuda", "meta"))
+    with torch.device("meta"):
+        unet = UNetModel(dtype=torch.bfloat16, quant=path == "int8")
+        x, ts, ctx = torch.empty(1, 64, 128, 9), torch.empty(1, dtype=torch.long), torch.empty(1, 77, 1024)
+    with torch.no_grad(), kernels.record_sites() as sites:
+        unet(x, ts, ctx, cross_kv=unet.cross_kv(ctx), cfg_dup=False)
+    expected = tools.PER_FORWARD_INT8 if path == "int8" else tools.PER_FORWARD_BF16
+    assert Counter(name for name, _ in sites) == Counter({k: v for k, v in expected.items() if v})
+
+
+@pytest.mark.parametrize("layout", sorted(tools.VIEW_RANK_SITES))
+def test_view_rank_forward_counts_match_the_pinned_counts(monkeypatch, layout):
+    """One rank's share of the full-width V=4 forward with the views split
+    over ``layout`` (n_data, n_view) on ``meta``, the other ranks' K and V
+    stood in for by copies of its own: ``tools.PER_FORWARD_MV4_VIEW_RANK``
+    launches, K1 at ``tools.VIEW_RANK_SITES[layout]`` (Nq != Nk)."""
+    import torch.distributed as dist
+
+    from leftrefill_torch.models.multiview import MultiViewUnetModel
+    from leftrefill_torch.parallel import context
+
+    n_data, n_view = layout
+    group = object()
+    monkeypatch.setattr(kernels, "uses_kernel", lambda t: t.device.type in ("cuda", "meta"))
+    monkeypatch.setattr(dist, "get_world_size", lambda g=None: n_view if g is group else 1)
+    monkeypatch.setattr(context, "all_gather_cat", lambda x, g, dim: torch.cat([x] * n_view, dim))
+    rows = 8 // n_data // n_view
+    with torch.device("meta"):
+        unet = MultiViewUnetModel(view_num=4, view_group=group, dtype=torch.bfloat16)
+        x, ts, ctx = torch.empty(rows, 64, 64, 9), torch.empty(rows, dtype=torch.long), torch.empty(rows, 77, 1024)
+    with torch.no_grad(), kernels.record_sites() as sites:
+        unet(x, ts, ctx, cross_kv=unet.cross_kv(ctx))
+    assert Counter(name for name, _ in sites) == Counter({k: v for k, v in tools.PER_FORWARD_MV4_VIEW_RANK.items()
+                                                          if v})
+    assert Counter(shape for name, shape in sites if name == "flash_fwd") == Counter(tools.VIEW_RANK_SITES[layout])
+
+
 @pytest.mark.parametrize("path", ["bf16", "multiview_v4"])
 def test_task_sampling_forward_counts_match_the_pinned_counts(monkeypatch, path):
     """The evaluation CLI samples through ``RefInpaintTask.log_images``,
