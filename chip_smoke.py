@@ -283,6 +283,39 @@ Phases, one line each (the kernel phases one line per kernel shape):
    rank, 2 steps and one validation batch at DDIM-10: the ranks' tables
    bit-equal after each step, ``PER_TRAIN_STEP_CLI`` a step, only rank 0
    writing checkpoints and grids; seconds a step and between steps.
+15. the model options that no shipped config sets, at full width, random
+   weights: (15q) the fused int8 1-reference request with the int8 VAE
+   decoder (``initialize_model(quantized=True, quant_vae=True)`` on an
+   experiment directory built as phase 11's, ``predict`` 512x1024, batch 1, DPM++(2M)-15,
+   CFG 2.5): launches ``tools.PER_FORWARD_INT8`` x 15 +
+   ``tools.PER_DECODE_VAE8``, the output outside the hole within a level of
+   the target; KI1 (within 1 bf16 ulp) and K2 (relative L2 <= 1e-2) at
+   each of the decode's sites against their plain versions, timed as in
+   phase 2; the decode of the canvas's latent through the kernels against
+   the plain versions (relative L2 <= 3e-2), beside it the same decode with
+   one KI1 site's weight scale dropped (a wrong kernel: it must read above
+   three times the limit), and the int8 decode's PSNR against the bf16
+   decoder's of the same fp32 weights; (15d) deep-prompt tuning through the
+   training CLI on phase 12's synthetic tree: the shipped YAMLs with
+   ``deep_prompt: True`` in the embedder and the data config (16 layers x
+   50 prompt tokens), batch 8, ``--max_steps 2 --no_restore``, one
+   validation batch at DDIM-10: per-layer tokens [8, 16, 77], launches
+   ``tools.PER_TRAIN_STEP_CLI`` a step and backward sites
+   ``tools.TRAIN_SITES``, only the deep table moved, every layer's rows;
+   the deep table's gradient on a batch of 2 from the CLI's loader through
+   the kernels against the plain versions (relative L2 <= 5e-2); a
+   full-width forward under a deep context of 16 distinct slices against
+   the plain versions (<= 3e-2), beside it the control, the same forward
+   with the slices reversed, which must read above three times the limit;
+   (15u) the option UNets (one CFG forward at 64x128, the K/V cache and
+   cfg_dup, launches pinned): (A) ``tools.UNET_A`` (scale-shift norms) in
+   bf16 (kernels vs plain <= 3e-2, K2 at every site) and fused int8
+   (teacher-forced as phase 3f, KI1 at every site, each of the 22 K4 sites
+   whose fold carries the scale-shift (one per ResBlock) held on its own
+   inputs: int8 values at most one step apart on at most 1e-3 of them);
+   (B) ``tools.UNET_B`` (five heads of 64, 128 and 256 channels, 1x1 conv
+   projections, no resample convs) in bf16 (<= 3e-2, K1 at D = 128 at every
+   such site within 1e-2).
 The line before the last is a JSON summary of the fourteen kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
@@ -1234,7 +1267,7 @@ def recording_steps(make_train_step, runs: list):
     before its first step), "steps"} to ``runs``, each step {"s" (its
     seconds), "start" (its clock at the start), "loss", "launches" (its
     kernel launches, the counts set to 0 just before it), "sites" (its
-    kernel sites)}."""
+    kernel sites), "tokens" (its batch's token shape)}."""
     import torch
 
     from leftrefill_torch import kernels, tools
@@ -1255,7 +1288,8 @@ def recording_steps(make_train_step, runs: list):
             loss = float(metrics["loss"])
             torch.cuda.synchronize()
             run["steps"].append({"s": time.perf_counter() - t1, "start": t1, "loss": loss,
-                                 "launches": tools.launches(), "sites": list(sites)})
+                                 "launches": tools.launches(), "sites": list(sites),
+                                 "tokens": tuple(batch["tokens"].shape)})
             return state, metrics
 
         return wrapped
@@ -1603,15 +1637,19 @@ MD_SCENES, MD_IMAGES, MD_TRAIN_PAIRS, MD_OTHER_PAIRS = 2, 14, 155, 12
 MD_STEPS, MD_RESUMED_STEPS = 4, 2
 
 
-def megadepth_yamls(root: str, paths: dict, name: str, label: str, train_edits: tuple = ()) -> list[str]:
+def megadepth_yamls(root: str, paths: dict, name: str, label: str, train_edits: tuple = (),
+                    model_edits: tuple = ()) -> list[str]:
     """Copies of the shipped ``configs/<name>_training_config.yaml`` and model
     YAML (the multi-view one at VIEWS views) pointed at the tree (and edited
-    by ``train_edits``, (old, new) pairs), in ``root``; returns the CLI's
-    ``--config_file``/``--exp_name``/``--save_path`` arguments."""
+    by ``train_edits`` and ``model_edits``, (old, new) pairs), in ``root``;
+    returns the CLI's ``--config_file``/``--exp_name``/``--save_path``
+    arguments."""
     mv = name.startswith("multiview")
     model_yaml = (ROOT / "configs" / f"{name}.yaml").read_text()
     model_yaml = _edit(model_yaml, 'match_path: "./data/matching_results"', f"match_path: '{paths['match_path']}'",
                        label=label)
+    for old, new in model_edits:
+        model_yaml = _edit(model_yaml, old, new, label=label)
     if mv:
         model_yaml = _edit(model_yaml, "view_num: 2", f"view_num: {VIEWS}", 4, label)
     Path(root, f"{name}.yaml").write_text(model_yaml)
@@ -1803,6 +1841,9 @@ def megadepth_training_phases(launches: dict) -> None:
             f"phase 12m training V={VIEWS} 512x512 views, one scene a step, view-0 loss, no remat")
         del mv
         torch.cuda.empty_cache()
+
+        # ---- phase 15d: deep-prompt tuning through the CLI on the same tree --
+        phase_15d(root, paths, launches)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2292,6 +2333,370 @@ def parallel_phases(launches: dict) -> dict:
     return reports
 
 
+# ---- phase 15: the model options that no shipped config sets ---------------
+WRONG_FACTOR = 3  # a wrong kernel's reading (15q's dropped weight scale) over the decode's limit
+DEEP_CONTROL_FACTOR = 3  # 15d's reversed slices over the deep forward's limit
+
+
+def phase_15q(launches: dict, gen) -> dict:
+    """Phase 15q (the docstring): the fused int8 request with the int8 VAE
+    decoder; returns the report of KI1's and K2's decode sites."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from leftrefill_torch import kernels, tools
+    from leftrefill_torch.data.image_io import IMREAD_COLOR, IMREAD_GRAYSCALE, imread, resize
+    from leftrefill_torch.models.autoencoder import AutoencoderKL
+    from leftrefill_torch.serving import gradio_app
+    from leftrefill_torch.tools import rel_l2
+    from leftrefill_torch.train.checkpoints import CheckpointManager
+
+    t_phase = time.perf_counter()
+    fixtures = ROOT / "tests" / "fixtures" / "jpeg"
+    label = "phase 15q"
+    root = tempfile.mkdtemp(prefix="int8_vae_")
+    try:
+        exp = Path(root, "exp")  # phase 11's experiment directory
+        exp.mkdir()
+        shutil.copy(ROOT / "configs" / "ref_inpainting.yaml", exp / "model_config.yaml")
+        table = 0.02 * torch.randn((50, 1024), generator=torch.Generator().manual_seed(5))
+        CheckpointManager(str(exp / "ckpts")).save_last(100, {"cond_stage_model.special_embeddings.weight": table})
+        reference = imread(str(fixtures / "baseline_420.jpg"), IMREAD_COLOR)
+        source = imread(str(fixtures / "progressive_420.jpg"), IMREAD_COLOR)
+        mask = imread(str(fixtures / "mask_palette.png"), IMREAD_GRAYSCALE)
+        t0 = time.perf_counter()
+        pipe = gradio_app.initialize_model(str(exp), quantized=True, quant_vae=True, sampler="dpm++2m")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        model, vae = pipe.model, pipe.model.first_stage_model
+        if not (vae.quant_decoder and vae.decoder.mid.block_1.conv1.weight.dtype == torch.int8
+                and model.unet.input_blocks[1][0].in_layers[2].weight.dtype == torch.int8):
+            raise SystemExit(f"{label}: the served UNet or decoder is not the int8 one")
+        request = dict(ddim_steps=15, num_samples=1, scale=2.5, seed=7, img_size=512)
+        gradio_app.predict(pipe, reference, source, mask, **{**request, "seed": 6})  # the first request
+        torch.cuda.synchronize()
+        tools.reset_launches()
+        t0 = time.perf_counter()
+        out = gradio_app.predict(pipe, reference, source, mask, **request)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = tools.launches()
+        want = {n: 15 * tools.PER_FORWARD_INT8[n] + tools.PER_DECODE_VAE8[n] for n in tools.LAUNCH_COUNTERS}
+        if got != want:
+            raise SystemExit(f"{label}: request launches {got}, expected {want}")
+        launches["15q_predict_int8_vae_dpm15"] = got
+        image, full_mask = gradio_app.request_canvas(reference, source, mask, 1, 512)
+        keep = full_mask[0, :, 512:, 0] == 0
+        target = resize(source, (512, 512), 3)
+        off = int(np.abs(out[0][keep].astype(int) - target[keep].astype(int)).max())
+        if out[0].shape != (512, 512, 3) or off > 1 or keep.all() or not keep.any():
+            raise SystemExit(f"{label}: output {out[0].shape}, outside the hole {off} levels from the target")
+        print(f"{label} predict 512 dpm++2m15 int8 fused UNet + int8 VAE decoder eta1 cfg2.5: "
+              f"initialize_model_seconds={init_s:.1f} request_seconds={secs:.3f} "
+              f"launches={ {k: v for k, v in got.items() if v} } (15 forwards x PER_FORWARD_INT8 + one decode "
+              f"x PER_DECODE_VAE8); outside the hole within {off} level of the target", flush=True)
+
+        # the decode of the canvas's latent: its sites, then the whole decode, kernels vs plain versions
+        report = {}
+        with torch.inference_mode():
+            z = model.encode_first_stage(torch.as_tensor(image, device="cuda"))
+            decode = lambda: model.decode_first_stage(z)  # noqa: E731
+            with kernels.record_sites() as recorded:
+                decode()
+            sites = collections.Counter(recorded)
+            per_decode = {n: sum(c for (k, _), c in sites.items() if k == n) for n in tools.LAUNCH_COUNTERS}
+            if per_decode != tools.PER_DECODE_VAE8:
+                raise SystemExit(f"{label}: decode sites {per_decode}, expected {tools.PER_DECODE_VAE8}")
+            check_kernels(sites, gen, report, "15q int8 VAE decode", ("conv3x3_int8", "conv3x3"))
+            out_k = decode()
+            with kernels.plain_kernels(("conv3x3_int8", "conv3x3")):
+                out_p = decode()
+            dec_ms = tools.cuda_ms(decode, 3)
+        err = rel_l2(out_k, out_p)
+        # a wrong kernel: KI1's weight scale dropped at one site (64x128, 512 -> 512; the block's
+        # second conv, whose output meets the residual: the first one's feeds a GroupNorm,
+        # which takes most of a scale back out)
+        conv = vae.decoder.mid.block_1.conv2
+        kept = conv.weight_scale.detach().clone()
+        with torch.no_grad():
+            conv.weight_scale.fill_(1.0)
+            wrong = rel_l2(model.decode_first_stage(z), out_p)
+            conv.weight_scale.copy_(kept)
+        if not (torch.isfinite(out_k).all() and err <= UNET_REL_L2 < WRONG_FACTOR * UNET_REL_L2 < wrong):
+            raise SystemExit(f"{label}: the int8 decode through the kernels reads rel L2 {err:.3e} from the plain "
+                             f"versions' (limit {UNET_REL_L2}), the wrong kernel's {wrong:.3e} (must read above "
+                             f"{WRONG_FACTOR * UNET_REL_L2})")
+        # the bf16 decoder of the same fp32 weights
+        fp_vae = gradio_app.load_experiment(str(exp), None, gradio_app.INIT_SEED, "cuda",
+                                            torch.float32).bundle.model.first_stage_model
+        with torch.device("meta"):
+            bf16_vae = AutoencoderKL(vae.ddconfig, vae.embed_dim, dtype=torch.bfloat16)
+        bf16_vae = bf16_vae.to_empty(device="cuda").eval()
+        bf16_vae.load_state_dict(fp_vae.state_dict(), strict=True)
+        del fp_vae
+        with torch.inference_mode():
+            ref = bf16_vae.decode(z / model.scale_factor).float().clamp(-1, 1)
+        mse = float(((out_k.float().clamp(-1, 1) - ref) ** 2).mean())
+        psnr = 10 * math.log10(4.0 / mse)  # images in [-1, 1]: a peak-to-peak of 2
+        print(f"{label} int8 VAE decode of the canvas's latent [1,64,128,4] -> [1,512,1024,3]: kernels vs plain "
+              f"versions rel_l2={err:.3e} (limit {UNET_REL_L2}); a wrong kernel (KI1's weight scale dropped at "
+              f"decoder.mid.block_1.conv2) reads rel_l2={wrong:.3e}; PSNR against the bf16 decoder of the same "
+              f"weights {psnr:.2f} dB; decode_ms={dec_ms:.2f}; sites={per_decode}", flush=True)
+        del pipe, model, vae, bf16_vae
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 15q total seconds={time.perf_counter() - t_phase:.1f}", flush=True)
+    return report
+
+
+def phase_15d(root: str, paths: dict, launches: dict) -> None:
+    """Phase 15d (the docstring): deep-prompt tuning through the CLI on phase
+    12's tree ``root``."""
+    import torch
+
+    from leftrefill_torch import kernels, tools
+    from leftrefill_torch.cli import train as cli
+    from leftrefill_torch.data import loader
+    from leftrefill_torch.data.loader import DataLoader
+    from leftrefill_torch.tools import rel_l2
+    from leftrefill_torch.train import compute_loss, trainer
+
+    label = "phase 15d"
+    t_phase = time.perf_counter()
+    work = Path(root, "deep")
+    work.mkdir()
+    args = megadepth_yamls(str(work), paths, "ref_inpainting", label, model_edits=(
+        ("deep_prompt: False", "deep_prompt: True"),
+        ('      sp_token: "<special-token>"', '      sp_token: "<special-token>"\n      deep_prompt: True')))
+    runs, loaders = [], []
+    make_train_step, data_loader = trainer.make_train_step, loader.DataLoader
+
+    class Recorded(data_loader):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            loaders.append(self)
+
+    trainer.make_train_step, loader.DataLoader = recording_steps(make_train_step, runs), Recorded
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(args + ["--no_restore", "--max_steps", "2"])
+        cli_s = time.perf_counter() - t0
+    finally:
+        trainer.make_train_step, loader.DataLoader = make_train_step, data_loader
+    if rc or len(runs) != 1:
+        raise SystemExit(f"{label}: the CLI returned {rc} after {len(runs)} runs")
+    run = runs[0]
+    steps, model = run["steps"], run["model"]
+    losses = [st["loss"] for st in steps]
+    if len(steps) != 2 or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"{label}: {len(steps)} steps, losses {losses}")
+    for i, st in enumerate(steps):
+        if st["launches"] != tools.PER_TRAIN_STEP_CLI or st["tokens"] != (8, 16, 77):
+            raise SystemExit(f"{label}: step {i} launches {st['launches']}, tokens {st['tokens']}")
+    sites = collections.Counter(steps[0]["sites"])
+    for name in BWD_NAMES:
+        got = {shape: c for (n, shape), c in sites.items() if n == name}
+        if got != tools.TRAIN_SITES:
+            raise SystemExit(f"{label}: {name} sites {got}, expected {tools.TRAIN_SITES}")
+    key = "cond_stage_model.special_embeddings.weight"
+    after = model.state_dict()
+    changed = sorted(k for k in after if not torch.equal(run["before"][k], after[k]))
+    trainable = sorted(n for n, p in model.named_parameters() if p.requires_grad)
+    moved = (after[key].float() - run["before"][key].float()).abs().amax(dim=1).reshape(16, 50).amax(dim=1)
+    if changed != [key] or trainable != [key] or tuple(after[key].shape) != (800, 1024) or not bool((moved > 0).all()):
+        raise SystemExit(f"{label}: changed {changed[:5]}, trainable {trainable[:5]}, table "
+                         f"{tuple(after[key].shape)}, moved per layer {moved.tolist()}")
+    exp = Path(str(work), "ck", "ref_inpainting")
+    val = [r for r in (json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines())
+           if "val/psnr" in r]
+    if len(val) != 1 or not math.isfinite(val[0]["val/psnr"]):
+        raise SystemExit(f"{label}: validation records {val}")
+    launches["15d_cli_train_deep_b8"] = {n: sum(st["launches"][n] for st in steps) for n in tools.LAUNCH_COUNTERS}
+    print(f"{label} deep-prompt tuning (16 layers x 50 prompt tokens, table (800, 1024)) b8 512x1024 through "
+          f"leftrefill_torch.cli.train: seconds_per_step={[round(st['s'], 3) for st in steps]} "
+          f"losses={[round(x, 5) for x in losses]} tokens={steps[0]['tokens']} launches_per_step="
+          f"{ {n: c for n, c in tools.PER_TRAIN_STEP_CLI.items() if c} } every layer's rows moved (min "
+          f"{float(moved.min()):.3e}) val_psnr={val[0]['val/psnr']:.3f} cli_seconds={cli_s:.1f}", flush=True)
+
+    # the deep table's gradient on a batch of 2 from the CLI's loader, kernels vs plain versions
+    train_loader = loaders[0]
+    small_loader = DataLoader(train_loader.dataset, 2, sampler=train_loader.sampler, tokenizer=train_loader.tokenizer)
+    small = {k: v for k, v in next(iter(small_loader)).items() if k != "txt"}
+    table = model.cond_stage_model.special_embeddings.weight
+
+    def deep_grad():  # t and the noise drawn from the same seed each time
+        table.grad = None
+        compute_loss(model, small, generator=torch.Generator(table.device).manual_seed(11))[0].backward()
+        torch.cuda.synchronize()
+        return table.grad.clone()
+
+    grad_k = deep_grad()
+    with kernels.plain_kernels():
+        grad_p = deep_grad()
+    table.grad = None
+    err = rel_l2(grad_k, grad_p)
+    if not (torch.isfinite(grad_k).all() and grad_k.abs().max() > 0 and err <= PROMPT_GRAD_REL_L2):
+        raise SystemExit(f"{label}: deep-table gradient through the kernels rel L2 {err:.3e} from the plain "
+                         f"versions' (limit {PROMPT_GRAD_REL_L2}) or zero / non-finite")
+    layers_hit = int((grad_k.abs().amax(dim=1).reshape(16, 50).amax(dim=1) > 0).sum())
+    print(f"{label} deep-table gradient on a batch of 2 from the CLI's loader (tokens "
+          f"{tuple(small['tokens'].shape)}): kernels vs plain versions rel_l2={err:.3e} (limit "
+          f"{PROMPT_GRAD_REL_L2}) grad_norm={float(grad_k.norm()):.4e} layers_with_a_gradient={layers_hit}/16",
+          flush=True)
+
+    # a full-width forward under a deep context of 16 distinct slices
+    gen = torch.Generator("cuda").manual_seed(15)
+    unet = model.unet
+    with torch.inference_mode():
+        x, tsteps, _ = tools.unet_inputs(gen)
+        ctx = torch.randn((2, 16, 77, 1024), generator=gen, device="cuda")
+        kv = unet.cross_kv(ctx)
+        _, out_p, err, kern_ms, plain_ms = check_forward(unet, x, tsteps, ctx, kv, label, kernels.NAMES)
+        rev = ctx.flip(1)
+        control = rel_l2(unet(x, tsteps, rev, cross_kv=unet.cross_kv(rev), cfg_dup=True), out_p)
+    if control <= DEEP_CONTROL_FACTOR * UNET_REL_L2:
+        raise SystemExit(f"{label}: the forward with the slices reversed reads {control:.3e}, not above "
+                         f"{DEEP_CONTROL_FACTOR * UNET_REL_L2}: the transformers do not read their own slices")
+    print(f"{label} unet forward [2,64,128,9] bf16 cfg_dup cross_kv under a deep context [2,16,77,1024]: "
+          f"kernels vs plain versions rel_l2={err:.3e} (limit {UNET_REL_L2}); the control, the slices reversed, "
+          f"reads rel_l2={control:.3e}; kernels_ms={kern_ms:.2f} plain_versions_ms={plain_ms:.2f}; phase "
+          f"seconds={time.perf_counter() - t_phase:.1f}", flush=True)
+    del model, unet, runs, loaders, train_loader, small_loader, table, grad_k, grad_p
+    torch.cuda.empty_cache()
+
+
+def option_unet(options: dict, quant: bool):
+    """The full-width UNet with ``options`` on the card in bf16 (``quant``:
+    the fused int8 one), its fp32 weights drawn from seed 0 (and quantized
+    per output channel), as ``build_sd2_inpaint_bundle`` builds its UNet."""
+    import torch
+
+    from leftrefill_torch.models.unet import UNetModel
+    from leftrefill_torch.ops.quant import quantize_params_like
+    from leftrefill_torch.pipeline import fill_random_
+
+    with torch.device("meta"):
+        fp, unet = UNetModel(dtype=torch.float32, **options), UNetModel(dtype=torch.bfloat16, quant=quant, **options)
+    fp, unet = fp.to_empty(device="cuda"), unet.to_empty(device="cuda")
+    fill_random_(fp, torch.Generator("cuda").manual_seed(0))
+    unet.load_state_dict(quantize_params_like(unet, fp.state_dict()) if quant else fp.state_dict(), strict=True)
+    return unet.eval()
+
+
+def scale_shift_k4_sites(fwd, expected: int) -> dict:
+    """Every K4 site of one fused int8 forward whose GroupNorm fold carries a
+    scale-shift, on its own inputs: the kernel against its plain version
+    (phase 2f's bound), timed as in ``check_site``.  Fails unless there are
+    ``expected`` such sites.  Returns the report."""
+    from leftrefill_torch import tools
+    from leftrefill_torch.ops import quant
+    from leftrefill_torch.tools import cuda_ms
+
+    captured = []
+    fused = quant.gn_silu_conv3x3_int8
+
+    def recording(x, gamma, beta, w, w_scale, bias, **kw):
+        if kw.get("scale_shift") is not None:
+            a, bb = quant.gn_affine_ab(*quant.gn_moments(x), gamma, beta, kw["num_groups"], kw["eps"], None,
+                                       kw["scale_shift"])
+            captured.append((x.clone(), a, bb))
+        return fused(x, gamma, beta, w, w_scale, bias, **kw)
+
+    quant.gn_silu_conv3x3_int8 = recording
+    try:
+        fwd()
+    finally:
+        quant.gn_silu_conv3x3_int8 = fused
+    if len(captured) != expected:
+        raise SystemExit(f"phase 15u unet_a_int8: {len(captured)} K4 sites fold a scale-shift, expected {expected}")
+    r = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None, "sites": 0,
+         "bound_ops_ms": 0.0}
+    for i, (x, a, bb) in enumerate(captured):
+        run, plain = (functools.partial(fn, x, a, bb) for fn in (quant.silu_quant_op, quant.silu_quant_plain))
+        reading, mae = compare("affine_silu_quant", run(), plain())
+        ms, plain_ms = cuda_ms(run, 20), cuda_ms(plain, 5)
+        bound, _ = tools.bound_ms("affine_silu_quant", tuple(x.shape))
+        print(f"phase 15u unet_a_int8 affine_silu_quant scale-shift site {i} shape={tuple(x.shape)} {reading} "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} (bytes) "
+              f"bound_share={bound / ms:.3f}")
+        r["max_abs_err"] = max(r["max_abs_err"], mae)
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["bound_ms"] += bound
+        r["sites"] += 1
+    return {"affine_silu_quant": r}
+
+
+def phase_15u(launches: dict, gen) -> dict:
+    """Phase 15u (the docstring): the option UNets at full width; returns the
+    reports of their kernel sites by UNet."""
+    import torch
+
+    from leftrefill_torch import kernels, tools
+    from leftrefill_torch.models.unet import ResBlock
+    from leftrefill_torch.tools import cuda_ms
+
+    t_phase = time.perf_counter()
+    reports = {}
+    x, tsteps, ctx = tools.unet_inputs(gen)
+    for key, options, quant, per_forward in (("unet_a_bf16", tools.UNET_A, False, tools.PER_FORWARD_UNET_A),
+                                             ("unet_a_int8", tools.UNET_A, True, tools.PER_FORWARD_UNET_A_INT8),
+                                             ("unet_b_bf16", tools.UNET_B, False, tools.PER_FORWARD_UNET_B)):
+        label = f"phase 15u {key}"
+        site_label = label[len("phase "):]  # check_site prints its own "phase "
+        unet = option_unet(options, quant)
+        report = {}
+        with torch.inference_mode():
+            kv = unet.cross_kv(ctx)
+            sites = tools.unet_sites(unet, x, tsteps, ctx, kv)
+            per_site = {n: sum(c for (k, _), c in sites.items() if k == n) for n in tools.LAUNCH_COUNTERS}
+            if per_site != per_forward:
+                raise SystemExit(f"{label}: sites per forward {per_site}, expected {per_forward}")
+            tools.reset_launches()
+            unet(x, tsteps, ctx, cross_kv=kv, cfg_dup=True)
+            torch.cuda.synchronize()
+            launches["15u_" + key] = tools.launches()
+            check_launches(launches["15u_" + key], per_forward, 1, label)
+            if not quant:
+                # K2 at every site of (A), its ResBlocks scale-shifted; K1 at every site of (B), D = 128 among them
+                check_kernels(sites, gen, report, site_label,
+                              ("conv3x3",) if key == "unet_a_bf16" else ("flash_fwd",))
+                _, _, err, kern_ms, plain_ms = check_forward(unet, x, tsteps, ctx, kv, label, kernels.NAMES)
+                print(f"{label} unet forward [2,64,128,9] {options} cfg_dup cross_kv: rel_l2={err:.3e} (limit "
+                      f"{UNET_REL_L2}) kernels_ms={kern_ms:.2f} plain_versions_ms={plain_ms:.2f} sites="
+                      f"{ {n: c for n, c in per_site.items() if c} }", flush=True)
+            else:
+                check_kernels(sites, gen, report, site_label, ("conv3x3_int8",))
+                fwd = lambda: unet(x, tsteps, ctx, cross_kv=kv, cfg_dup=True)  # noqa: E731
+                # the second stack of every ResBlock, all of them fused at full width
+                n_res = sum(isinstance(m, ResBlock) and m.use_scale_shift_norm for m in unet.modules())
+                reports["unet_a_int8_scale_shift_k4"] = scale_shift_k4_sites(fwd, n_res)
+                errs, e2e = teacher_forced(unet, fwd, PROLOGUES)
+                worst = max(errs.items(), key=lambda kv_: kv_[1][2])
+                st = [e for e in errs.values() if e[0] == "SpatialTransformer"]
+                st_l2 = (sum((e[1] * e[3]) ** 2 for e in st) / sum(e[3] ** 2 for e in st)) ** 0.5
+                exact = all(e[1] == 0 for e in errs.values())
+                if worst[1][2] > BLOCK_MAX_REL or st_l2 > TRANSFORMERS_L2 or (exact and e2e > UNET_REL_L2):
+                    raise SystemExit(f"{label}: block {worst[0]} max rel {worst[1][2]:.3e} > {BLOCK_MAX_REL}, or "
+                                     f"the transformers' rel L2 {st_l2:.3e} > {TRANSFORMERS_L2}, or end to end "
+                                     f"{e2e:.3e}")
+                print(f"{label} unet forward [2,64,128,9] {options} fused int8 cfg_dup cross_kv, K4/K7/K8 vs "
+                      f"their plain versions teacher-forced ({len(errs)} blocks): max_block_max_rel="
+                      f"{worst[1][2]:.3e} ({worst[0]}) transformers_rel_l2={st_l2:.3e} blocks_equal="
+                      f"{sum(e[1] == 0 for e in errs.values())}/{len(errs)} kernels_ms={cuda_ms(fwd, 3):.2f}; for "
+                      f"information: rel_l2_end_to_end={e2e:.3e} sites={ {n: c for n, c in per_site.items() if c} }",
+                      flush=True)
+        reports[key] = report
+        del unet, kv
+        torch.cuda.empty_cache()
+    print(f"phase 15u total seconds={time.perf_counter() - t_phase:.1f}", flush=True)
+    return reports
+
+
 def main() -> int:
     if not (ROOT / "leftrefill_torch" / "csrc").is_dir():
         print("chip_smoke.py: the leftrefill_torch package is not beside this script", file=sys.stderr)
@@ -2654,6 +3059,10 @@ def main() -> int:
     # ---- phases 14b, 14v, 14t, 14c: the parallel paths, ranks on the card ---
     view_reports = parallel_phases(launches)
 
+    # ---- phases 15q, 15u: the int8 VAE decoder, the option UNets -----------
+    # (15d ran with phase 12's tree)
+    option_reports = {"int8_vae_decode": phase_15q(launches, gen), **phase_15u(launches, gen)}
+
     entries = []
     for name, (source, replaces) in KERNELS.items():
         rep = report[name]
@@ -2697,6 +3106,11 @@ def main() -> int:
                 entry[key] = {k: rep_n[name][k] for k in ("sites", "ms", "plain_ms", "bound_ms", "library_ms",
                                                           "max_abs_err", "composition_ms") if k in rep_n[name]}
                 entry["max_abs_err"] = max(entry["max_abs_err"], rep_n[name]["max_abs_err"])
+        for key, rep_o in option_reports.items():
+            if name in rep_o:  # the sites phase 15 adds: the int8 decode's, the option UNets'
+                entry[key] = {k: rep_o[name][k] for k in ("sites", "ms", "plain_ms", "bound_ms", "library_ms",
+                                                          "max_abs_err", "composition_ms") if k in rep_o[name]}
+                entry["max_abs_err"] = max(entry["max_abs_err"], rep_o[name]["max_abs_err"])
         if name == "flash_fwd":
             entry["multiview_joint_attention"] = multiview
             # one rank's share of the view-split V=4 forward: Nq != Nk (phase 14v)

@@ -321,21 +321,27 @@ def build_unet(image_size=32, in_channels=9, out_channels=4, model_channels=320,
                context_dim=1024, use_checkpoint=True, legacy=False, dtype=None, use_sep=None,
                quant=False, **kwargs) -> UNetModel:
     """The SD2 UNet, or with ``use_sep`` given (the novel-view YAML) the
-    ``NVSUnetModel``; ``use_checkpoint`` is dropped, as JAX drops it.
-    ``quant`` (not a YAML key: the serving entry point passes it) gives
-    JAX's default W8A8 int8 UNet, its fused prologues included."""
+    ``NVSUnetModel``; ``use_checkpoint`` is dropped, as JAX drops it, and so
+    are the UNet options JAX's builder does not pass on (``conv_resample``,
+    ``use_scale_shift_norm``, ``resblock_updown``: the module takes them).
+    ``num_heads`` (with ``num_head_channels: -1``) and
+    ``use_linear_in_transformer`` are JAX's.  ``quant`` (not a YAML key: the
+    serving entry point passes it) gives JAX's default W8A8 int8 UNet, its
+    fused prologues included; no JAX entry point builds an int8 novel-view
+    UNet, and neither does the port."""
     del image_size, use_checkpoint, legacy, kwargs
-    if num_head_channels in (None, -1) or not use_spatial_transformer or not use_linear_in_transformer:
-        _unsupported("a UNet without 64-channel heads in linear spatial transformers")
+    if not use_spatial_transformer:
+        _unsupported("a UNet without spatial transformers")
     common = dict(in_channels=in_channels, model_channels=model_channels, out_channels=out_channels,
                   num_res_blocks=num_res_blocks, attention_resolutions=tuple(attention_resolutions),
-                  channel_mult=tuple(channel_mult), num_head_channels=num_head_channels,
-                  transformer_depth=transformer_depth, context_dim=context_dim, dtype=dtype or DTYPE)
+                  channel_mult=tuple(channel_mult), num_head_channels=num_head_channels, num_heads=num_heads,
+                  use_linear_in_transformer=use_linear_in_transformer, transformer_depth=transformer_depth,
+                  context_dim=context_dim, dtype=dtype or DTYPE)
     if use_sep is not None:
         from leftrefill_torch.models.nvs import NVSUnetModel
 
         if quant:
-            _unsupported("an int8 novel-view UNet")
+            _unsupported("an int8 novel-view UNet (no JAX entry point builds one)")
         return NVSUnetModel(use_sep=bool(use_sep), **common)
     return UNetModel(quant=quant, **common)
 
@@ -350,6 +356,7 @@ def build_multiview_unet(view_num=2, concat_target=False, no_rearrange_selfattn=
         in_channels=base.in_channels, model_channels=base.model_channels, out_channels=base.out_channels,
         num_res_blocks=base.num_res_blocks, attention_resolutions=tuple(kwargs.get("attention_resolutions", (4, 2, 1))),
         channel_mult=base.channel_mult, num_head_channels=kwargs.get("num_head_channels", 64),
+        num_heads=kwargs.get("num_heads", -1), use_linear_in_transformer=kwargs.get("use_linear_in_transformer", True),
         transformer_depth=kwargs.get("transformer_depth", 1), context_dim=base.context_dim, dtype=base.dtype,
         quant=kwargs.get("quant", False))
 
@@ -376,27 +383,27 @@ class CondStageBundle:
     tokenwise_init: bool = False
 
 
-def _check_embedder(layer: str, deep_prompt: bool):
-    if layer != "penultimate":
-        _unsupported(f"the prompt embedder's layer {layer!r}")
-    if deep_prompt:
-        _unsupported("the deep prompt")
-
-
 @register("ldm.modules.encoders.NVS_modules.NVSCLIPEmbedder")
 def build_nvs_clip(freeze=True, layer="penultimate", special_tokens=("<left>", "<right>"), init_text=None,
                    tokenwise_init=False, deep_prompt=False, cross_attn_layers=16, view_prompt=False, view_num=None,
                    view_token_len=1, pos_strengthen=False, cfg_rate=0.0, bpe_path=None, dtype=None, width=1024,
                    heads=16, layers=24, vocab_size=49408, **kwargs) -> CondStageBundle:
+    """The novel-view embedder.  ``view_prompt`` with ``view_num`` appends
+    ``<view_direct-j-l`` (no closing '>') for each view j and position l to
+    the prompt table, as JAX does (config.py:176-181): the init text is not
+    extended over them, and the pose token's slot moves past them."""
     from leftrefill_torch.models.nvs import NVSCLIPEmbedder
 
-    del freeze, cross_attn_layers, view_num, view_token_len, kwargs
-    _check_embedder(layer, deep_prompt)
-    if view_prompt:
-        _unsupported("the NVS embedder's view prompts")
+    del freeze, cross_attn_layers, kwargs
+    if deep_prompt:
+        # JAX's NVSCLIPEmbedder.__call__ (nvs.py:233-267) has no deep branch:
+        # it writes the pose into slot num_special_tokens + 1 of a 3-D embedding
+        _unsupported("the novel-view embedder's deep prompt (JAX's NVSCLIPEmbedder has no deep-prompt forward)")
     sp, init = expand_special_tokens(list(special_tokens), init_text)
+    if view_prompt and view_num is not None:
+        sp = sp + [f"<view_direct-{j}-{k}" for j in range(view_num) for k in range(view_token_len)]
     module = NVSCLIPEmbedder(vocab_size=vocab_size, width=width, heads=heads, layers=layers, num_special_tokens=len(sp),
-                             pos_strengthen=pos_strengthen, cfg_rate=cfg_rate, dtype=dtype or DTYPE)
+                             pos_strengthen=pos_strengthen, cfg_rate=cfg_rate, dtype=dtype or DTYPE, layer=layer)
     return CondStageBundle(module, SimpleTokenizer(bpe_path=bpe_path, special_tokens=sp), sp, init, tokenwise_init)
 
 
@@ -416,17 +423,30 @@ def build_prompt_clip(freeze=True, layer="penultimate", special_tokens=("<left>"
                       vocab_size=49408, **kwargs) -> CondStageBundle:
     """The prompt embedder; with ``view_num`` and ``view_token_len`` the
     multi-view one, whose table adds ``<view_direct-j-l`` (no closing '>',
-    the reference's quirk) for each view j and position l."""
-    del freeze, cross_attn_layers, kwargs
-    _check_embedder(layer, deep_prompt)
-    sp, init = expand_special_tokens(list(special_tokens), init_text)
-    if view_num is not None and view_token_len is not None:
+    the reference's quirk) for each view j and position l.  ``deep_prompt``
+    expands each prompt token into one per cross-attention layer
+    (``<tok-layerI>``, with its init text repeated); the embedder's
+    ``num_special_tokens`` is the table's rows over ``cross_attn_layers``,
+    JAX's integer division (config.py:284-294).  A deep prompt with view
+    tokens is refused."""
+    del freeze, kwargs
+    views_appended = view_num is not None and view_token_len is not None
+    if deep_prompt and views_appended:
+        # the view tokens are not expanded per layer, so rows // layers leaves
+        # ids past the table's end (JAX's jnp.take fills NaN for them), and the
+        # multi-view dataset writes no per-layer prompts
+        _unsupported("the multi-view embedder's deep prompt with view tokens (its view tokens fall past the "
+                     "per-layer table, and the multi-view dataset writes no per-layer prompts)")
+    sp, init = expand_special_tokens(list(special_tokens), init_text, deep_prompt, cross_attn_layers)
+    if views_appended:
         views = [f"<view_direct-{j}-{k}" for j in range(view_num) for k in range(view_token_len)]
         sp = sp + views
         if init is not None:
             init = init + [VIEW_INIT] * len(views)
     module = PromptCLIPEmbedder(vocab_size=vocab_size, width=width, heads=heads, layers=layers,
-                                num_special_tokens=len(sp), dtype=dtype or DTYPE)
+                                num_special_tokens=len(sp) // cross_attn_layers if deep_prompt else len(sp),
+                                dtype=dtype or DTYPE, layer=layer, deep_prompt=deep_prompt,
+                                cross_attn_layers=cross_attn_layers)
     return CondStageBundle(module, SimpleTokenizer(bpe_path=bpe_path, special_tokens=sp), sp, init, tokenwise_init)
 
 

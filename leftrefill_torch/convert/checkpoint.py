@@ -119,10 +119,10 @@ def zero_extend_input_conv(weight: torch.Tensor, new_in: int) -> torch.Tensor:
 def load_over_base(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor]) -> dict[str, list[str]]:
     """Load ``state_dict`` (checkpoint keys) over ``model`` non-strictly:
     entries whose key and shape match replace the model's, cast to its
-    dtype; the rest of the model keeps its values.  An int8 UNet's
-    quantized sites take the checkpoint's fp weights quantized per output
-    channel (``ops.quant.quantize_params_like``, as the int8 bundle is
-    built).  Returns {"skipped", "missing", "shape_mismatch",
+    dtype; the rest of the model keeps its values.  The quantized sites of
+    an int8 UNet or int8 VAE decoder take the checkpoint's fp weights
+    quantized per output channel (``ops.quant.quantize_params_like``, as
+    the int8 bundle is built).  Returns {"skipped", "missing", "shape_mismatch",
     "unexpected"}: keys skipped by design, model keys the checkpoint lacks
     (an int8 site's ``weight_scale`` is not one: it comes with its weight),
     "key (shape [..] != [..])" for those it has at another shape, and
@@ -148,15 +148,13 @@ def load_over_base(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor
                                                                       and k[: -len("_scale")] in scales)]
     quant = [k for k in scales if k in fitted]
     if quant:  # fp weights at int8 sites: quantized as the int8 bundle's are
-        prefix = "model.diffusion_model."
-        unet = model.model.diffusion_model
-        fp = {k[len(prefix):]: v for k, v in new.items() if k.startswith(prefix)}
+        fp = dict(new)
         for k in scales:
             if k not in fitted:  # keeps its int8 values: a stand-in the result is not taken from
-                fp[k[len(prefix):]] = own[k].to(torch.float32)
-        q = quantize_params_like(unet, fp)
+                fp[k] = own[k].to(torch.float32)
+        q = quantize_params_like(model, fp)
         for k in quant:
-            new[k], new[k + "_scale"] = q[k[len(prefix):]], q[k[len(prefix):] + "_scale"]
+            new[k], new[k + "_scale"] = q[k], q[k + "_scale"]
     with torch.no_grad():
         model.load_state_dict(new, strict=True)
     return report

@@ -11,7 +11,11 @@ The novel-view trees carry across too: the UNet's ``sep_token_<width>``
 root (``refinement_model.<index>.*`` and ``refinement_alpha``, no prefix).
 An int8 tree (``quantize_params_like``) carries across as it is: int8
 kernels stay int8 through the swaps and ``kernel_scale`` becomes
-``weight_scale`` (fp32); every other leaf becomes fp32.
+``weight_scale`` (fp32), the UNet's and the int8 VAE decoder's alike; every
+other leaf becomes fp32.  The model options' leaves need no rule of their
+own: a 1x1 conv projection's kernel [1, 1, ci, co] becomes OIHW
+[co, ci, 1, 1], a scale-shift ``emb_layers_1`` keeps its doubled width and
+a deep prompt's table its tokens x layers rows.
 """
 
 from __future__ import annotations

@@ -1,7 +1,17 @@
 """AutoencoderKL (the frozen SD2 VAE) in PyTorch, NHWC (counterpart of
 ``leftrefill_tpu/models/autoencoder.py``).  Module names follow the SD2
 checkpoint (``encoder.down.0.block.1.norm1.weight`` ...).  Every VAE conv is
-a plain convolution, as in the JAX package."""
+a plain convolution, as in the JAX package.
+
+``AutoencoderKL(quant_decoder=True)`` (JAX: autoencoder.py:44-60,
+:190-226, the serving path's ``quant_vae``): the decoder's res-block convs,
+its upsample convs and its ``nin_shortcut`` 1x1s are W8A8 int8 through the
+UNet's ``Conv3x3(quant=True)`` and ``Conv1x1(quant=True)``: KI1 where
+``ops.quant.conv3x3_int8_qualifies`` takes the shape, elsewhere the
+dequantized weight through ``conv3x3_apply`` (K2 in bf16 on the card), and
+``dense_int8`` for the 1x1s.  ``conv_in``, ``conv_out`` and the attention
+block stay fp.  Their keys are the fp decoder's plus a ``weight_scale``;
+``ops.quant.quantize_params_like`` fills them from an fp state_dict."""
 
 from __future__ import annotations
 
@@ -30,14 +40,24 @@ class Conv(nn.Module):
         return conv2d_nhwc(x.to(self.dtype), self.weight, self.bias, self.stride, self.padding)
 
 
+def _conv(cin: int, cout: int, k: int = 3, dtype=torch.float32, quant: bool = False) -> nn.Module:
+    """A stride-1 conv of the VAE: the plain one, or ``quant`` the UNet's
+    int8 3x3 or 1x1 (JAX: autoencoder.py:44-60)."""
+    if not quant:
+        return Conv(cin, cout, k=k, dtype=dtype)
+    from leftrefill_torch.models.unet import Conv1x1, Conv3x3
+
+    return Conv3x3(cin, cout, dtype=dtype, quant=True) if k == 3 else Conv1x1(cin, cout, dtype=dtype, quant=True)
+
+
 class ResnetBlock(nn.Module):
-    def __init__(self, cin: int, cout: int, dtype=torch.float32):
+    def __init__(self, cin: int, cout: int, dtype=torch.float32, quant: bool = False):
         super().__init__()
         self.norm1 = GroupNorm32(cin, eps=1e-6)
-        self.conv1 = Conv(cin, cout, dtype=dtype)
+        self.conv1 = _conv(cin, cout, dtype=dtype, quant=quant)
         self.norm2 = GroupNorm32(cout, eps=1e-6)
-        self.conv2 = Conv(cout, cout, dtype=dtype)
-        self.nin_shortcut = Conv(cin, cout, k=1, dtype=dtype) if cin != cout else None
+        self.conv2 = _conv(cout, cout, dtype=dtype, quant=quant)
+        self.nin_shortcut = _conv(cin, cout, k=1, dtype=dtype, quant=quant) if cin != cout else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv1(F.silu(self.norm1(x)))
@@ -76,9 +96,9 @@ class Downsample(nn.Module):
 
 
 class Upsample(nn.Module):
-    def __init__(self, c: int, dtype=torch.float32):
+    def __init__(self, c: int, dtype=torch.float32, quant: bool = False):
         super().__init__()
-        self.conv = Conv(c, c, dtype=dtype)
+        self.conv = _conv(c, c, dtype=dtype, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(nearest_upsample_2x(x))
@@ -149,7 +169,9 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: DDConfig = DDConfig(), dtype=torch.float32):
+    """``quant``: the int8 decoder (module docstring)."""
+
+    def __init__(self, cfg: DDConfig = DDConfig(), dtype=torch.float32, quant: bool = False):
         super().__init__()
         self.dtype = dtype
         n = len(cfg.ch_mult)
@@ -157,19 +179,19 @@ class Decoder(nn.Module):
         res = cfg.resolution // 2 ** (n - 1)
         self.conv_in = Conv(cfg.z_channels, ch, dtype=dtype)
         self.mid = nn.Module()
-        self.mid.block_1 = ResnetBlock(ch, ch, dtype=dtype)
+        self.mid.block_1 = ResnetBlock(ch, ch, dtype=dtype, quant=quant)
         self.mid.attn_1 = AttnBlock(ch, dtype=dtype)
-        self.mid.block_2 = ResnetBlock(ch, ch, dtype=dtype)
+        self.mid.block_2 = ResnetBlock(ch, ch, dtype=dtype, quant=quant)
         levels = [None] * n
         for i in reversed(range(n)):
             out = cfg.ch * cfg.ch_mult[i]
             blocks, attns = [], []
             for _ in range(cfg.num_res_blocks + 1):
-                blocks.append(ResnetBlock(ch, out, dtype=dtype))
+                blocks.append(ResnetBlock(ch, out, dtype=dtype, quant=quant))
                 ch = out
                 if res in cfg.attn_resolutions:
                     attns.append(AttnBlock(ch, dtype=dtype))
-            levels[i] = _level(blocks, attns, ("upsample", Upsample(ch, dtype)) if i else None)
+            levels[i] = _level(blocks, attns, ("upsample", Upsample(ch, dtype, quant)) if i else None)
             if i:
                 res *= 2
         self.up = nn.ModuleList(levels)
@@ -205,11 +227,14 @@ class DiagonalGaussian:
 
 
 class AutoencoderKL(nn.Module):
-    def __init__(self, ddconfig: DDConfig = DDConfig(), embed_dim: int = 4, dtype=torch.float32):
+    """``quant_decoder``: the int8 decoder (module docstring)."""
+
+    def __init__(self, ddconfig: DDConfig = DDConfig(), embed_dim: int = 4, dtype=torch.float32,
+                 quant_decoder: bool = False):
         super().__init__()
-        self.ddconfig = ddconfig
+        self.ddconfig, self.embed_dim, self.quant_decoder = ddconfig, embed_dim, quant_decoder
         self.encoder = Encoder(ddconfig, dtype=dtype)
-        self.decoder = Decoder(ddconfig, dtype=dtype)
+        self.decoder = Decoder(ddconfig, dtype=dtype, quant=quant_decoder)
         mult = 2 if ddconfig.double_z else 1
         self.quant_conv = Conv(mult * ddconfig.z_channels, mult * embed_dim, k=1, dtype=dtype)
         self.post_quant_conv = Conv(embed_dim, ddconfig.z_channels, k=1, dtype=dtype)

@@ -77,15 +77,29 @@ class CLIPTextTransformer(nn.Module):
 
 class PromptCLIPEmbedder(nn.Module):
     """Text conditioning with trainable prompt tokens: ids >= vocab_size pick
-    rows of ``special_embeddings``; the output is the penultimate layer (the
-    last resblock is skipped, SD2's setting) after ln_final."""
+    rows of ``special_embeddings``; the output is, after ln_final, the
+    penultimate layer (``layer="penultimate"``: the last resblock is
+    skipped, SD2's setting) or the last (``layer="last"``).
+
+    ``deep_prompt`` (JAX: clip.py:116-163): a table of
+    ``num_special_tokens * cross_attn_layers`` rows (each cross-attention
+    layer its own prompt tokens), and ids [B, n_layers, L] give one context
+    per layer, [B, n_layers, L, width]."""
 
     def __init__(self, vocab_size=49408, width=1024, heads=16, layers=24, context_length=77,
-                 num_special_tokens=50, dtype=torch.float32):
+                 num_special_tokens=50, dtype=torch.float32, layer: str = "penultimate", deep_prompt: bool = False,
+                 cross_attn_layers: int = 16):
         super().__init__()
+        if layer not in ("last", "penultimate"):
+            raise ValueError(f"layer must be 'last' or 'penultimate', got {layer!r}")
         self.vocab_size, self.dtype, self.num_special_tokens = vocab_size, dtype, num_special_tokens
+        self.layer, self.deep_prompt, self.cross_attn_layers = layer, deep_prompt, cross_attn_layers
         self.model = CLIPTextTransformer(width, heads, layers, context_length, vocab_size, dtype)
-        self.special_embeddings = nn.Embedding(num_special_tokens, width)
+        self.special_embeddings = nn.Embedding(num_special_tokens * (cross_attn_layers if deep_prompt else 1), width)
+
+    @property
+    def skip_last(self) -> int:
+        return 1 if self.layer == "penultimate" else 0
 
     def blend_embeddings(self, tokens: torch.Tensor) -> torch.Tensor:
         mask = (tokens >= self.vocab_size).to(torch.float32)[..., None]
@@ -94,17 +108,26 @@ class PromptCLIPEmbedder(nn.Module):
         return (regular * (1 - mask) + special * mask).to(self.dtype)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, L] int -> [B, L, width] fp32."""
-        return self.model(self.blend_embeddings(tokens), skip_last=1)
+        """tokens [B, L] int -> [B, L, width] fp32; under ``deep_prompt``
+        [B, n_layers, L] -> [B, n_layers, L, width]."""
+        if self.deep_prompt:
+            b, n, length = tokens.shape
+            z = self.model(self.blend_embeddings(tokens.reshape(b * n, length)), skip_last=self.skip_last)
+            return z.reshape(b, n, length, -1)
+        return self.model(self.blend_embeddings(tokens), skip_last=self.skip_last)
 
 
 def build_prompt_tokenizer(
     special_tokens: Sequence[str],
     init_text: Sequence[str] | None = None,
     bpe_path: str | None = None,
+    deep_prompt: bool = False,
+    cross_attn_layers: int = 16,
 ) -> tuple[SimpleTokenizer, list[str], list[str] | None]:
-    """Expand ``repeat_N_*`` token lists and build the extended tokenizer."""
-    sp, init = expand_special_tokens(special_tokens, init_text)
+    """Expand ``repeat_N_*`` token lists (and, ``deep_prompt``, each token
+    into one per cross-attention layer, ``<tok-layerI>``) and build the
+    extended tokenizer."""
+    sp, init = expand_special_tokens(special_tokens, init_text, deep_prompt, cross_attn_layers)
     return SimpleTokenizer(bpe_path=bpe_path, special_tokens=sp), sp, init
 
 

@@ -212,7 +212,7 @@ class NVSCLIPEmbedder(PromptCLIPEmbedder):
             null_emb = self.model.token_embedding.weight[null_tokens[0]].to(text_emb.dtype)
             m = (cfg_draws.to(text_emb.device) < self.cfg_rate).to(text_emb.dtype)[:, None, None]
             text_emb = (1 - m) * text_emb + m * null_emb[None]
-        z = self.model(text_emb, skip_last=1)
+        z = self.model(text_emb, skip_last=self.skip_last)
         if emb2 is not None:
             pose_z = emb2.to(z.dtype)
             if m is not None:

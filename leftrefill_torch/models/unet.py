@@ -40,6 +40,7 @@ from leftrefill_torch.ops.layers import (
     GroupNorm32,
     Linear,
     adjust_groups,
+    avg_pool_2x,
     conv2d_nhwc,
     nearest_upsample_2x,
     timestep_embedding,
@@ -130,39 +131,54 @@ class LayerNormF32(nn.Module):
 
 
 class Upsample(nn.Module):
-    def __init__(self, channels: int, dtype=torch.float32, quant: bool = False):
+    """Nearest 2x, then the 3x3 conv (``use_conv=False``: no conv, JAX's
+    ``conv_resample=False``)."""
+
+    def __init__(self, channels: int, dtype=torch.float32, quant: bool = False, use_conv: bool = True):
         super().__init__()
-        self.conv = Conv3x3(channels, channels, dtype=dtype, quant=quant)
+        self.conv = Conv3x3(channels, channels, dtype=dtype, quant=quant) if use_conv else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(nearest_upsample_2x(x))
+        x = nearest_upsample_2x(x)
+        return x if self.conv is None else self.conv(x)
 
 
 class Downsample(nn.Module):
-    def __init__(self, channels: int, dtype=torch.float32, quant: bool = False):
+    """The stride-2 3x3 conv (``use_conv=False``: the 2x2 average pool)."""
+
+    def __init__(self, channels: int, dtype=torch.float32, quant: bool = False, use_conv: bool = True):
         super().__init__()
-        self.op = Conv3x3(channels, channels, stride=2, dtype=dtype, quant=quant)
+        self.op = Conv3x3(channels, channels, stride=2, dtype=dtype, quant=quant) if use_conv else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.op(x)
+        return avg_pool_2x(x) if self.op is None else self.op(x)
 
 
 class ResBlock(nn.Module):
-    """Timestep-conditioned residual block (no scale-shift norm, no up/down:
-    the SD2-inpainting configuration).  ``quant``: the two 3x3 convs and the
-    skip 1x1 are int8; ``emb_layers`` stays fp.
+    """Timestep-conditioned residual block.  ``quant``: the two 3x3 convs and
+    the skip 1x1 are int8; ``emb_layers`` stays fp.
+
+    ``use_scale_shift_norm`` (JAX: unet.py:376-380, :413-418, :436-439):
+    ``emb_layers`` gives 2 * cout, split into (scale, shift), and the second
+    norm's output becomes norm(h) * (1 + scale) + shift, in place of the
+    emb-add before the norm.  ``up`` / ``down``: after the first norm and SiLU, h and the skip input
+    x are resampled (nearest 2x, or the 2x2 average pool) before the first
+    conv, as JAX's ResBlock does (unet.py:428-433).
 
     ``fused`` (JAX: unet.py:382-423, ``LEFTREFILL_FUSED_RES`` on): in a bf16
-    int8 block whose two convs qualify, each GN + SiLU + conv stack is
-    ``gn_silu_conv3x3_int8`` (K4, then KI1 on its int8 output), the emb-add
-    folded into the second GN.  Otherwise the unfused int8 arm runs."""
+    int8 block without ``up`` / ``down`` whose two convs qualify, each GN +
+    SiLU + conv stack is ``gn_silu_conv3x3_int8`` (K4, then KI1 on its int8
+    output), the emb-add or the scale-shift folded into the second GN's
+    affine.  Otherwise the unfused int8 arm runs."""
 
     def __init__(self, cin: int, cout: int, emb_dim: int, dtype=torch.float32, quant: bool = False,
-                 fused: bool = True):
+                 fused: bool = True, use_scale_shift_norm: bool = False, up: bool = False, down: bool = False):
         super().__init__()
         self.dtype, self.quant, self.fused = dtype, quant, fused
+        self.use_scale_shift_norm, self.up, self.down = use_scale_shift_norm, up, down
         self.in_layers = nn.ModuleList([GroupNorm32(cin), nn.SiLU(), Conv3x3(cin, cout, dtype=dtype, quant=quant)])
-        self.emb_layers = nn.ModuleList([nn.SiLU(), Linear(emb_dim, cout, dtype=dtype)])
+        self.emb_layers = nn.ModuleList(
+            [nn.SiLU(), Linear(emb_dim, 2 * cout if use_scale_shift_norm else cout, dtype=dtype)])
         self.out_layers = nn.ModuleList(
             [GroupNorm32(cout), nn.SiLU(), nn.Identity(), Conv3x3(cout, cout, dtype=dtype, quant=quant)]
         )
@@ -170,7 +186,8 @@ class ResBlock(nn.Module):
 
     def _fused_groups(self, x: torch.Tensor):
         """(g1, g2) where the fused arm applies to x, else None."""
-        if not (self.fused and self.quant and self.dtype == torch.bfloat16 and x.ndim == 4):
+        if not (self.fused and self.quant and self.dtype == torch.bfloat16 and x.ndim == 4
+                and not self.up and not self.down):
             return None
         _, hh, ww, cin = x.shape
         cout = self.out_layers[3].weight.shape[0]
@@ -190,15 +207,23 @@ class ResBlock(nn.Module):
             h = q8.gn_silu_conv3x3_int8(x.to(self.dtype), n1.weight, n1.bias, c1.weight.permute(0, 2, 3, 1),
                                         c1.weight_scale, c1.bias, num_groups=groups[0], eps=n1.eps)
             eo = self.emb_layers[1](F.silu(emb))[: h.shape[0]]
+            fold = dict(scale_shift=eo.chunk(2, dim=-1)) if self.use_scale_shift_norm else dict(emb=eo)
             h = q8.gn_silu_conv3x3_int8(h, n2.weight, n2.bias, c2.weight.permute(0, 2, 3, 1), c2.weight_scale,
-                                        c2.bias, num_groups=groups[1], eps=n2.eps, emb=eo)
+                                        c2.bias, num_groups=groups[1], eps=n2.eps, **fold)
         else:
             h = F.silu(self.in_layers[0](x))
+            if self.up:
+                h, x = nearest_upsample_2x(h), nearest_upsample_2x(x)
+            elif self.down:
+                h, x = avg_pool_2x(h), avg_pool_2x(x)
             h = self.in_layers[2](h)
             eo = self.emb_layers[1](F.silu(emb))[: h.shape[0]].to(h.dtype)
-            h = h + eo[:, None, None, :]
-            h = F.silu(self.out_layers[0](h))
-            h = self.out_layers[3](h)
+            if self.use_scale_shift_norm:
+                scale, shift = eo.chunk(2, dim=-1)
+                h = self.out_layers[0](h) * (1 + scale[:, None, None, :]) + shift[:, None, None, :]
+            else:
+                h = self.out_layers[0](h + eo[:, None, None, :])
+            h = self.out_layers[3](F.silu(h))
         skip = x if self.skip_connection is None else self.skip_connection(x)
         return skip.to(h.dtype) + h
 
@@ -387,37 +412,59 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """GroupNorm -> linear proj_in -> transformer blocks -> proj_out, residual.
-    ``quant``: every projection int8; proj_out and the residual go through
-    KI2 where JAX's rule takes K9, otherwise ``dense_int8`` and a bf16 add.
-    ``quant`` and ``fused`` (JAX: unet.py:853-877): for bf16 x where JAX's
-    rule takes it, the GroupNorm and proj_in's per-pixel quantization are
-    one K8 pass (no bf16 output: proj_in reads the int8 side).
+    """GroupNorm -> proj_in -> transformer blocks -> proj_out, residual.
+    ``use_linear`` (SD2's setting): the projections are linear maps of the
+    token rows; otherwise (JAX: unet.py:809-811, :880-898) they are 1x1
+    convolutions of the NHWC map with the checkpoint's [C, C, 1, 1] weights,
+    kept fp in an int8 UNet as in JAX.
+    ``quant``: every linear projection int8; proj_out and the residual go
+    through KI2 where JAX's rule takes K9, otherwise ``dense_int8`` and a
+    bf16 add.  ``quant``, ``fused`` and ``use_linear`` (JAX:
+    unet.py:853-877): for bf16 x where JAX's rule takes it, the GroupNorm and
+    proj_in's per-pixel quantization are one K8 pass (no bf16 output:
+    proj_in reads the int8 side).
+    ``ctx_slot`` (JAX: unet.py:792, :828-838): this transformer's index in
+    the UNet's traversal order, which ``UNetModel`` sets; a deep-prompt
+    context [B, n_layers, L, C] gives it ``context[:, ctx_slot]`` (a
+    [B, L, C] context passes through).
     ``block_cls`` / ``block_kwargs`` (JAX's fields of the same names) build
     the transformer blocks, the multi-view block among them."""
 
     def __init__(self, channels: int, n_heads: int, d_head: int, depth: int = 1,
                  context_dim: int = 1024, dtype=torch.float32, quant: bool = False, fused: bool = True,
-                 block_cls=BasicTransformerBlock, block_kwargs: Optional[dict] = None):
+                 block_cls=BasicTransformerBlock, block_kwargs: Optional[dict] = None, use_linear: bool = True):
         super().__init__()
         inner = n_heads * d_head
-        self.dtype, self.quant, self.fused = dtype, quant, fused
+        self.dtype, self.quant, self.fused, self.use_linear = dtype, quant, fused, use_linear
+        self.ctx_slot = 0  # the UNet numbers its transformers
         self.norm = GroupNorm32(channels, eps=1e-6)
-        self.proj_in = Linear(channels, inner, dtype=dtype, quant=quant)
+        self.proj_in = Linear(channels, inner, dtype=dtype, quant=quant) if use_linear else Conv1x1(
+            channels, inner, dtype=dtype)
         self.transformer_blocks = nn.ModuleList(
             [block_cls(inner, n_heads, d_head, context_dim, dtype=dtype, quant=quant, fused=fused,
                        **(block_kwargs or {}))
              for _ in range(depth)]
         )
-        self.proj_out = Linear(inner, channels, dtype=dtype, quant=quant)
+        self.proj_out = Linear(inner, channels, dtype=dtype, quant=quant) if use_linear else Conv1x1(
+            inner, channels, dtype=dtype)
+
+    def slice_context(self, context: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """This transformer's slice of a deep-prompt context."""
+        if context is not None and context.ndim == 4:
+            return context[:, self.ctx_slot]
+        return context
 
     def cross_kv(self, context: torch.Tensor) -> list:
+        context = self.slice_context(context)
         return [blk.cross_kv(context) for blk in self.transformer_blocks]
 
     def forward(self, x, context=None, cross_kv=None, dup_to_context: bool = False):
         b, h, w, c = x.shape
+        context = self.slice_context(context)
         x_in = x
-        if (self.quant and self.fused and x.dtype == torch.bfloat16
+        if not self.use_linear:
+            x = self.proj_in(self.norm(x)).reshape(b, h * w, -1)
+        elif (self.quant and self.fused and x.dtype == torch.bfloat16
                 and q8.gn_quant_qualifies(h, w, c, self.norm.num_groups)):
             _, xq, sc = q8.gn_quant_rowwise(x, self.norm.weight, self.norm.bias, num_groups=self.norm.num_groups,
                                             eps=self.norm.eps, norm_out=False)
@@ -432,6 +479,8 @@ class SpatialTransformer(nn.Module):
         b2, hw, inner = x.shape
         if b2 != x_in.shape[0]:  # the prefix ran at half batch (cfg_dup)
             x_in = torch.cat([x_in, x_in], dim=0)
+        if not self.use_linear:
+            return self.proj_out(x.reshape(b2, h, w, inner)) + x_in
         res = x_in.reshape(b2, hw, c)
         if self.quant and x.dtype == torch.bfloat16 and q8.dense_int8_res_qualifies(b2, hw, inner, c):
             kernels.note_site("dense_int8_res", (b2 * hw, inner, c))
@@ -454,7 +503,18 @@ class UNetModel(nn.Module):
     of every SpatialTransformer (``models.multiview``).  ``remat`` (JAX:
     ``nn.remat`` on ResBlock and SpatialTransformer, the training path)
     recomputes each such block in the backward instead of keeping its
-    activations; the forward's values are unchanged."""
+    activations; the forward's values are unchanged.
+
+    The options of JAX's ``UNetModel`` that no shipped config sets:
+    ``num_heads`` with ``num_head_channels=-1`` (a fixed head count, the
+    head width ch / num_heads); ``use_linear_in_transformer=False`` (1x1
+    conv projections); ``conv_resample=False`` (Upsample without its conv,
+    Downsample as the 2x2 average pool); ``use_scale_shift_norm`` (ResBlock);
+    ``resblock_updown`` is taken and ignored: JAX's ``UNetModel`` holds it
+    and builds the Down- and Upsamples whatever its value.  A context of
+    four dimensions, [B, n_layers, L, C], is a deep-prompt context: each
+    SpatialTransformer takes its own slice, in traversal order
+    (``ctx_slot``)."""
 
     def __init__(
         self,
@@ -473,8 +533,16 @@ class UNetModel(nn.Module):
         block_cls=BasicTransformerBlock,
         block_kwargs: Optional[dict] = None,
         remat: bool = False,
+        num_heads: int = -1,
+        use_linear_in_transformer: bool = True,
+        conv_resample: bool = True,
+        use_scale_shift_norm: bool = False,
+        resblock_updown: bool = False,
     ):
         super().__init__()
+        del resblock_updown  # JAX's UNetModel ignores it too
+        if num_head_channels == -1 and num_heads <= 0:
+            raise ValueError("num_head_channels=-1 needs a positive num_heads")
         self.remat = remat
         self.model_channels, self.out_channels = model_channels, out_channels
         self.num_res_blocks, self.channel_mult = num_res_blocks, tuple(channel_mult)
@@ -485,12 +553,15 @@ class UNetModel(nn.Module):
         )
 
         def st(ch):
-            return SpatialTransformer(ch, ch // num_head_channels, num_head_channels, transformer_depth,
-                                      context_dim, dtype=dtype, quant=quant, fused=fused,
-                                      block_cls=block_cls, block_kwargs=block_kwargs)
+            heads, dim_head = (num_heads, ch // num_heads) if num_head_channels == -1 else (
+                ch // num_head_channels, num_head_channels)
+            return SpatialTransformer(ch, heads, dim_head, transformer_depth, context_dim, dtype=dtype,
+                                      quant=quant, fused=fused, block_cls=block_cls, block_kwargs=block_kwargs,
+                                      use_linear=use_linear_in_transformer)
 
         def res(cin, cout):
-            return ResBlock(cin, cout, emb_dim, dtype=dtype, quant=quant, fused=fused)
+            return ResBlock(cin, cout, emb_dim, dtype=dtype, quant=quant, fused=fused,
+                            use_scale_shift_norm=use_scale_shift_norm)
 
         self.input_blocks = nn.ModuleList([nn.ModuleList([Conv3x3(in_channels, model_channels, dtype=dtype)])])
         chans, ch, ds = [model_channels], model_channels, 1
@@ -503,7 +574,8 @@ class UNetModel(nn.Module):
                 self.input_blocks.append(nn.ModuleList(layers))
                 chans.append(ch)
             if level != len(channel_mult) - 1:
-                self.input_blocks.append(nn.ModuleList([Downsample(ch, dtype=dtype, quant=quant)]))
+                self.input_blocks.append(nn.ModuleList([Downsample(ch, dtype=dtype, quant=quant,
+                                                                     use_conv=conv_resample)]))
                 chans.append(ch)
                 ds *= 2
         self.middle_block = nn.ModuleList(
@@ -518,10 +590,12 @@ class UNetModel(nn.Module):
                 if ds in attention_resolutions:
                     layers.append(st(ch))
                 if level and i == num_res_blocks:
-                    layers.append(Upsample(ch, dtype=dtype, quant=quant))
+                    layers.append(Upsample(ch, dtype=dtype, quant=quant, use_conv=conv_resample))
                     ds //= 2
                 self.output_blocks.append(nn.ModuleList(layers))
         self.out = nn.ModuleList([GroupNorm32(ch), nn.SiLU(), Conv3x3(ch, out_channels, dtype=dtype)])
+        for slot, st_ in enumerate(self.spatial_transformers()):
+            st_.ctx_slot = slot
 
     def spatial_transformers(self):
         for layers in [*self.input_blocks, self.middle_block, *self.output_blocks]:

@@ -46,13 +46,14 @@ def group_norm32(
     bias: torch.Tensor,
     num_groups: int = 32,
     eps: float = 1e-5,
+    fast_affine: bool = True,
 ) -> torch.Tensor:
     """GroupNorm over the last (channel) axis with fp32 statistics.
 
     (mean, rstd, gamma, beta) fold into a per-(batch, channel) affine A, B in
-    fp32.  In fp32 the output is x*A + B in fp32; in bf16 it is one bf16
-    multiply-add with A and B rounded to bf16 (the JAX package's default fast
-    affine)."""
+    fp32.  With ``fast_affine`` (the JAX package's default) a bf16 x takes
+    one bf16 multiply-add with A and B rounded to bf16; otherwise, and always
+    in fp32, the output is x*A + B in fp32, cast to x's dtype once."""
     dtype = x.dtype
     b, c = x.shape[0], x.shape[-1]
     g = adjust_groups(num_groups, c)
@@ -64,9 +65,9 @@ def group_norm32(
     one = (1,) * (x.ndim - 2)
     a = (rstd * gamma).reshape(b, *one, c)
     bb = (beta - mean * rstd * gamma).reshape(b, *one, c)
-    if dtype != torch.float32:
+    if fast_affine and dtype != torch.float32:
         return x * a.to(dtype) + bb.to(dtype)
-    return x * a + bb
+    return (x.to(torch.float32) * a + bb).to(dtype)
 
 
 class GroupNorm32(nn.Module):
@@ -115,6 +116,11 @@ class Linear(nn.Linear):
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest 2x upsample on NHWC (each pixel repeated twice per axis)."""
     return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 average pool on NHWC."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 
 def nearest_resize(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

@@ -130,12 +130,12 @@ def quantize_params_like(quant_model: torch.nn.Module, state: dict) -> dict:
     a ``weight_scale``, the fp ``weight`` is replaced by its per-output-channel
     int8 quantization and the scale filled in; every other entry is taken
     from ``state`` unchanged.  Load it with ``quant_model.load_state_dict``."""
-    out = {}
-    for key in quant_model.state_dict():
+    out, keys = {}, quant_model.state_dict().keys()
+    for key in keys:
         if key.endswith(".weight_scale"):
             continue
         scale_key = key[: -len("weight")] + "weight_scale"
-        if key.endswith(".weight") and scale_key in quant_model.state_dict():
+        if key.endswith(".weight") and scale_key in keys:
             out[key], out[scale_key] = quantize_weight(state[key])
         else:
             out[key] = state[key]

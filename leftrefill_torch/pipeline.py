@@ -250,7 +250,7 @@ def fill_random_(model: torch.nn.Module, generator: torch.Generator) -> None:
 
 
 def _empty_bundle(device, dtype: torch.dtype, quant: bool, fused: bool, view_num: Optional[int],
-                  remat: bool = False) -> LeftRefillModel:
+                  remat: bool = False, quant_vae: bool = False) -> LeftRefillModel:
     with torch.device("meta"):
         if view_num is None:
             unet, n_special = UNetModel(dtype=dtype, quant=quant, fused=fused, remat=remat), 50
@@ -259,7 +259,7 @@ def _empty_bundle(device, dtype: torch.dtype, quant: bool, fused: bool, view_num
             n_special = len(multiview_prompts(view_num)[0])
         model = LeftRefillModel(
             unet=unet,
-            vae=AutoencoderKL(DDConfig(), embed_dim=4, dtype=dtype),
+            vae=AutoencoderKL(DDConfig(), embed_dim=4, dtype=dtype, quant_decoder=quant_vae),
             cond_model=PromptCLIPEmbedder(dtype=dtype, num_special_tokens=n_special),
             schedule=sd2_schedule(),
         )
@@ -269,6 +269,7 @@ def _empty_bundle(device, dtype: torch.dtype, quant: bool, fused: bool, view_num
 def build_sd2_inpaint_bundle(
     device="cuda", dtype: torch.dtype = torch.bfloat16, generator: Optional[torch.Generator] = None,
     quant: bool = False, fused: bool = True, view_num: Optional[int] = None, remat: bool = False,
+    quant_vae: bool = False,
 ) -> LeftRefillModel:
     """The full-width SD2-inpainting bundle (865M UNet, f8 VAE, ViT-H text
     tower) computing in ``dtype``, every parameter drawn from ``generator``.
@@ -285,19 +286,21 @@ def build_sd2_inpaint_bundle(
     (default on, JAX's default) selects its fused int8 prologues;
     ``fused=False`` is JAX's unfused int8 configuration.
 
+    ``quant_vae=True`` (JAX's ``BENCH_QUANT_VAE``) likewise quantizes the VAE
+    decoder's int8 sites (``AutoencoderKL(quant_decoder=True)``), so that
+    the request decodes through the int8 decoder.
+
     ``remat=True`` (training, ``leftrefill_torch.train``) recomputes the
     UNet's ResBlocks and SpatialTransformers in the backward, as JAX's
     training UNet does; the forward is the same."""
-    if not quant:
+    if not (quant or quant_vae):
         model = _empty_bundle(device, dtype, False, fused, view_num, remat)
         fill_random_(model, generator)
         return model.eval()
     fp = _empty_bundle(device, torch.float32, False, fused, view_num)
     fill_random_(fp, generator)
-    model = _empty_bundle(device, dtype, True, fused, view_num, remat)
-    state = fp.state_dict()
-    unet_q = quantize_params_like(model.unet, fp.unet.state_dict())
-    state.update({"model.diffusion_model." + k: v for k, v in unet_q.items()})
+    model = _empty_bundle(device, dtype, quant, fused, view_num, remat, quant_vae)
+    state = quantize_params_like(model, fp.state_dict())
     del fp
     model.load_state_dict(state, strict=True)
     return model.eval()

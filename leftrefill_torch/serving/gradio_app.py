@@ -104,8 +104,9 @@ def initialize_model(
     prologues): the weights are drawn, loaded and restored in fp32, the
     UNet's quantized sites quantized per output channel
     (``ops.quant.quantize_params_like``) into an int8 UNet and the other
-    modules' weights copied into the serving dtype.  ``quant_vae`` (the int8
-    VAE decoder) is not ported and raises.
+    modules' weights copied into the serving dtype.  ``quant_vae`` does the
+    same for the VAE decoder's int8 sites (JAX: gradio_app.py:106-118,
+    ``AutoencoderKL(quant_decoder=True)``), with or without ``quantized``.
 
     ``dp_devices > 1`` splits the CFG-doubled UNet batch over the ranks of
     the initialised default process group, whose size it must be (torchrun
@@ -115,12 +116,10 @@ def initialize_model(
     import torch.distributed as dist
 
     from leftrefill_torch.config import build_model_from_config, instantiate_from_config
+    from leftrefill_torch.models.autoencoder import AutoencoderKL
     from leftrefill_torch.ops.quant import quantize_params_like
 
     del img_size
-    if quant_vae:
-        raise NotImplementedError("quant_vae: the int8 VAE decoder is not ported (ROADMAP queue 1, the VAE's "
-                                  "int8 decoder)")
     group = None
     if dp_devices and dp_devices > 1:
         if not dist.is_initialized() or dist.get_world_size() != dp_devices:
@@ -130,16 +129,20 @@ def initialize_model(
         group = dist.group.WORLD
     dev = request_device(device)
     dtype = compute_dtype(dev)
-    bundle = load_experiment(exp_dir, sd_ckpt, INIT_SEED, dev, torch.float32 if quantized else dtype).bundle
-    if quantized:  # the served bundle on meta, its UNet int8, then filled from the fp32 one
+    bundle = load_experiment(exp_dir, sd_ckpt, INIT_SEED, dev,
+                             torch.float32 if quantized or quant_vae else dtype).bundle
+    if quantized or quant_vae:  # the served bundle on meta, its int8 parts, then filled from the fp32 one
         fp_model = bundle.model
         bundle = build_model_from_config(os.path.join(exp_dir, "model_config.yaml"), dtype=dtype, device="meta")
         with torch.device("meta"):
-            bundle.model.model.diffusion_model = instantiate_from_config(
-                bundle.raw_config["model"]["params"]["unet_config"], dtype=dtype, quant=True)
-        state = {k: v for k, v in fp_model.state_dict().items() if not k.startswith("model.diffusion_model.")}
-        state.update({"model.diffusion_model." + k: v
-                      for k, v in quantize_params_like(bundle.model.unet, fp_model.unet.state_dict()).items()})
+            if quantized:
+                bundle.model.model.diffusion_model = instantiate_from_config(
+                    bundle.raw_config["model"]["params"]["unet_config"], dtype=dtype, quant=True)
+            if quant_vae:
+                vae = bundle.model.first_stage_model
+                bundle.model.first_stage_model = AutoencoderKL(vae.ddconfig, vae.embed_dim, dtype=dtype,
+                                                               quant_decoder=True)
+        state = quantize_params_like(bundle.model, fp_model.state_dict())
         del fp_model
         bundle.model.to_empty(device=dev).eval().load_state_dict(state, strict=True)
         del state

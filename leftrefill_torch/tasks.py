@@ -77,12 +77,22 @@ class RefInpaintTask:
     # ---------- tokens ------------------------------------------------------
 
     def prompt_tokens(self, txt) -> np.ndarray:
-        """A prompt (or a list of them) -> [B, 77] ids."""
+        """A prompt (or a list of them) -> [B, 77] ids; a list of per-layer
+        prompt lists (the datasets' deep-prompt ``txt``) -> [B, layers, 77]."""
+        from leftrefill_torch.data.loader import tokenize_txt
+
+        if isinstance(txt, (list, tuple)) and txt and not isinstance(txt[0], str):
+            return np.stack([tokenize_txt(self.tokenizer, t) for t in txt])
         return np.asarray(self.tokenizer.tokenize(list(txt) if isinstance(txt, (list, tuple)) else txt))
 
     def uncond_tokens(self, n: int) -> np.ndarray:
-        """The empty prompt, n times: [n, 77]."""
-        return np.repeat(np.asarray(self.tokenizer.tokenize("")), n, axis=0)
+        """The empty prompt, n times: [n, 77]; for a deep-prompt embedder
+        once per cross-attention layer, [n, layers, 77] (JAX: tasks.py:120-130)."""
+        t = np.asarray(self.tokenizer.tokenize(""))
+        cm = self.model.cond_stage_model
+        if getattr(cm, "deep_prompt", False):
+            return np.repeat(np.repeat(t, cm.cross_attn_layers, axis=0)[None], n, axis=0)
+        return np.repeat(t, n, axis=0)
 
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=request_device(self.device))

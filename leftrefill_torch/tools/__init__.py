@@ -107,6 +107,24 @@ PER_FORWARD_NVS = {**_NONE, "flash_fwd": 10, "conv3x3": 22, "geglu": 15}
 PER_FORWARD_NVS_SEP = {**_NONE, "flash_fwd": 1, "conv3x3": 22, "geglu": 2}
 # four poses in one request (CFG batch 8): the middle block's 256 rows take K3 too
 PER_FORWARD_NVS_B4 = {**PER_FORWARD_NVS, "geglu": 16}
+# kernel launches per decode of the int8 VAE decoder (``quant_vae``) at the
+# 512x1024 canvas (a 64x128 latent): KI1 where ``quant.conv3x3_int8_qualifies``
+# takes the shape, 10 at 64x128 (512 -> 512: the middle blocks and up level
+# 3) and 7 at 128x256 (level 3's upsample conv and level 2); K2 on the
+# dequantized weight at the 256x512 (7) and 512x1024 (7) levels; the two
+# nin_shortcut 1x1s are ``dense_int8`` (no kernel)
+PER_DECODE_VAE8 = {**_NONE, "conv3x3_int8": 17, "conv3x3": 14}
+# the UNet options no shipped config sets, at full width (chip_smoke.py phase
+# 15u): (A) scale-shift norms, which move no launch: the same sites as the
+# SD2 UNet's, the fused int8 ResBlocks folding the scale-shift into K4's affine
+UNET_A = dict(use_scale_shift_norm=True)
+PER_FORWARD_UNET_A = PER_FORWARD_BF16
+PER_FORWARD_UNET_A_INT8 = PER_FORWARD_INT8
+# (B) five heads a transformer (64, 128 and 256 wide at the three levels), 1x1
+# conv projections, the resamplers without convs: K1 at D = 64 (8192
+# tokens) and D = 128 (2048), the exact softmax at D = 256; no Upsample conv
+UNET_B = dict(num_heads=5, num_head_channels=-1, use_linear_in_transformer=False, conv_resample=False)
+PER_FORWARD_UNET_B = {**_NONE, "flash_fwd": 10, "conv3x3": 30, "geglu": 16}
 # kernel launches per prompt-tuning train step at full width, remat on (the
 # UNet's ResBlocks and SpatialTransformers run their forward again in the
 # backward): 1-reference batch 8 and the V=4 scene.  The prompt reaches the

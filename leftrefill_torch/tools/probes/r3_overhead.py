@@ -53,13 +53,6 @@ def built(make, quantized: bool, gen):
     return model.eval()
 
 
-def gn32_fp32_affine(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
-    """GroupNorm32 with the JAX package's ``fast_affine=False``: x A + B in
-    fp32 (``layers.group_norm32`` on fp32 x), rounded to x's dtype once; the
-    port's ``group_norm32`` on bf16 x is the default fast affine."""
-    return layers.group_norm32(x.float(), gamma, beta).to(x.dtype)
-
-
 def both(rows: list, cell: str, fn, calls: int = 20, **extra) -> None:
     emit(rows, cell=cell, ms=timed(fn, calls=calls), event_ms=tools.cuda_ms(fn, calls), **extra)
 
@@ -95,8 +88,9 @@ def main() -> int:
         b, h, w, c = 2, 64, 128, 320
         x = randn(gen, b, h, w, c)
         gamma, beta = 1 + 0.1 * randn(gen, c, dtype=torch.float32), 0.1 * randn(gen, c, dtype=torch.float32)
-        for label, gn in (("fast_affine", layers.group_norm32), ("fp32 affine", gn32_fp32_affine)):
-            both(rows, f"GN32+silu L0 ({label})", lambda: F.silu(gn(x, gamma, beta)), shape=[b, h, w, c])
+        for label, fast in (("fast_affine", True), ("fp32 affine", False)):
+            both(rows, f"GN32+silu L0 ({label})",
+                 lambda: F.silu(layers.group_norm32(x, gamma, beta, fast_affine=fast)), shape=[b, h, w, c])
 
         def qa():
             xq, s = quant.quantize_activation(x)

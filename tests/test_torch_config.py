@@ -148,9 +148,13 @@ def test_config_refuses_what_the_port_does_not_build():
 
     with pytest.raises(KeyError, match="Unknown target"):
         instantiate_from_config({"target": "no.such.Model"})
-    cfg = load_yaml(os.path.join(REPO, "configs", "ref_inpainting.yaml"))
+    cfg = load_yaml(os.path.join(REPO, "configs", "novel_view_synthesis.yaml"))
     cfg["model"]["params"]["cond_stage_config"]["params"]["deep_prompt"] = True
-    with pytest.raises(NotImplementedError, match="deep prompt"):
+    with pytest.raises(NotImplementedError, match="deep prompt"):  # JAX's NVS embedder has no deep forward
+        build_model_from_config(cfg, device="meta")
+    cfg = load_yaml(os.path.join(REPO, "configs", "multiview_ref_inpainting.yaml"))
+    cfg["model"]["params"]["cond_stage_config"]["params"]["deep_prompt"] = True
+    with pytest.raises(NotImplementedError, match="deep prompt with view tokens"):  # ids past the per-layer table
         build_model_from_config(cfg, device="meta")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

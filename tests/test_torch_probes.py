@@ -276,14 +276,13 @@ def test_probe_bounds():
 def test_group_norm32_fast_affine_matches_jax(fast_affine):
     """The GN32 + SiLU cells of ``tools.probes.r3_overhead`` against JAX's
     ``group_norm32(fast_affine=...)`` in bf16: the port's ``group_norm32``
-    (the fold in fp32, then one bf16 multiply-add) and the tool's
-    ``gn32_fp32_affine`` (x A + B in fp32 rounded once).  Within one bf16
+    with the same argument (the fold in fp32, then one bf16 multiply-add; or
+    x A + B in fp32 rounded once).  Within one bf16
     ulp of the output's largest value (XLA may contract the fp32 multiply-add
     that PyTorch rounds twice)."""
     from leftrefill_tpu.ops.layers import group_norm32
 
     from leftrefill_torch.ops import layers
-    from leftrefill_torch.tools.probes.r3_overhead import gn32_fp32_affine
 
     rng = np.random.RandomState(8)
     x = torch.from_numpy(rng.standard_normal((2, 4, 8, 64)).astype(np.float32) * 3 + 1).to(torch.bfloat16)
@@ -291,6 +290,6 @@ def test_group_norm32_fast_affine_matches_jax(fast_affine):
                                                              0.1 * rng.standard_normal(64)))
     ref = group_norm32(jnp.asarray(x.float().numpy(), jnp.bfloat16), jnp.asarray(s.numpy()), jnp.asarray(b.numpy()),
                        num_groups=32, fast_affine=fast_affine)
-    got = (layers.group_norm32 if fast_affine else gn32_fp32_affine)(x, s, b)
+    got = layers.group_norm32(x, s, b, fast_affine=fast_affine)
     assert got.dtype == torch.bfloat16
     assert float((got.float() - _t(ref)).abs().max()) <= float(_t(ref).abs().max()) * 2.0**-8

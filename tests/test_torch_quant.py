@@ -336,6 +336,70 @@ def test_full_width_fused_int8_dispatch_counts(monkeypatch, cfg_dup):
     assert {shape[-1] for name, shape in sites if name in ("ln_quant", "gn_quant")} == {False}
 
 
+def test_full_width_int8_vae_decode_dispatch_counts(monkeypatch):
+    """One decode of the int8 VAE decoder (``quant_vae``) at the 512x1024
+    canvas (a 64x128 latent), on ``meta``: ``tools.PER_DECODE_VAE8``, KI1 at
+    the 64x128 and 128x256 levels (where ``quant.conv3x3_int8_qualifies``
+    takes the shape), K2 on the dequantized weight at the 256x512 and
+    512x1024 levels, the two nin_shortcuts through ``dense_int8``."""
+    from leftrefill_torch import tools
+    from leftrefill_torch.models.autoencoder import AutoencoderKL, DDConfig
+
+    monkeypatch.setattr(kernels, "uses_kernel", lambda t: t.device.type in ("cuda", "meta"))
+    dense = Counter()
+
+    def counted_dense(xq, *a, _f=tq.dense_int8, **k):
+        dense[xq.dtype] += 1
+        return _f(xq, *a, **k)
+
+    monkeypatch.setattr(tq, "dense_int8", counted_dense)
+    with torch.device("meta"):
+        vae = AutoencoderKL(DDConfig(), 4, dtype=torch.bfloat16, quant_decoder=True)
+        z = torch.empty(1, 64, 128, 4)
+    with torch.no_grad(), kernels.record_sites() as sites:
+        out = vae.decode(z)
+    assert out.shape == (1, 512, 1024, 3) and dense == {torch.int8: 2}
+    assert Counter(name for name, _ in sites) == Counter({k: v for k, v in tools.PER_DECODE_VAE8.items() if v})
+    assert Counter(sites) == {("conv3x3_int8", (1, 64, 128, 512, 512)): 10,
+                              ("conv3x3_int8", (1, 128, 256, 512, 512)): 7,
+                              ("conv3x3", (1, 256, 512, 512, 512)): 1, ("conv3x3", (1, 256, 512, 512, 256)): 1,
+                              ("conv3x3", (1, 256, 512, 256, 256)): 5, ("conv3x3", (1, 512, 1024, 256, 256)): 1,
+                              ("conv3x3", (1, 512, 1024, 256, 128)): 1, ("conv3x3", (1, 512, 1024, 128, 128)): 5}
+
+
+@pytest.mark.parametrize("path", ["a_bf16", "a_int8", "b_bf16"])
+def test_full_width_option_unet_dispatch_counts(monkeypatch, path):
+    """The two option UNets of ``chip_smoke.py`` phase 15u at full width
+    (one CFG-batch-2 forward, the K/V cache and cfg_dup on), on ``meta``:
+    (A) ``tools.UNET_A`` (scale-shift norms), bf16 and fused int8, every fused K4 site folding the scale-shift; (B)
+    ``tools.UNET_B`` (five heads, conv projections, no resample convs), K1
+    at head dims 64 and 128."""
+    from leftrefill_torch import tools
+    from leftrefill_torch.models.unet import UNetModel
+
+    monkeypatch.setattr(kernels, "uses_kernel", lambda t: t.device.type in ("cuda", "meta"))
+    folds = Counter()
+
+    def counted_fold(m_c, q_c, gamma, beta, num_groups, eps, emb=None, scale_shift=None, _f=tq.gn_affine_ab):
+        folds["scale_shift" if scale_shift is not None else "emb" if emb is not None else "none"] += 1
+        return _f(m_c, q_c, gamma, beta, num_groups, eps, emb, scale_shift)
+
+    monkeypatch.setattr(tq, "gn_affine_ab", counted_fold)
+    options = tools.UNET_B if path == "b_bf16" else tools.UNET_A
+    with torch.device("meta"):
+        unet = UNetModel(dtype=torch.bfloat16, quant=path == "a_int8", **options)
+        x, ts, ctx = torch.empty(2, 64, 128, 9), torch.empty(2, dtype=torch.long), torch.empty(2, 77, 1024)
+    with torch.no_grad(), kernels.record_sites() as sites:
+        assert unet(x, ts, ctx, cross_kv=unet.cross_kv(ctx), cfg_dup=True).shape == (2, 64, 128, 4)
+    expected = {"a_bf16": tools.PER_FORWARD_UNET_A, "a_int8": tools.PER_FORWARD_UNET_A_INT8,
+                "b_bf16": tools.PER_FORWARD_UNET_B}[path]
+    assert Counter(name for name, _ in sites) == Counter({k: v for k, v in expected.items() if v})
+    if path == "a_int8":  # each fused block's second stack folds the scale-shift; the first folds nothing
+        assert folds == {"scale_shift": 22, "none": 22 + 16}  # and the 16 K8 GroupNorms
+    flash_d = Counter(shape[4] for name, shape in sites if name == "flash_fwd")
+    assert flash_d == ({64: 5, 128: 5} if path == "b_bf16" else {64: 15})
+
+
 def test_tiny_int8_bundle_serves_a_canvas():
     """The pipeline over an int8 UNet (quantized from the tiny bundle's fp
     weights): the tiny widths qualify for no int8 kernel, so this drives the

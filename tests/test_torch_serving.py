@@ -221,8 +221,11 @@ def test_initialize_model_restores_and_quantizes(tmp_path):
 
 def test_initialize_model_refuses_what_is_not_ported(tmp_path):
     exp = _exp_dir(tmp_path)
-    with pytest.raises(NotImplementedError, match="int8 VAE decoder"):
-        ts.initialize_model(exp, quant_vae=True, device="cpu")
+    nvs = tmp_path / "nvs"
+    nvs.mkdir()
+    (nvs / "model_config.yaml").write_text(MODEL_YAML.replace("dtype: null}", "dtype: null, use_sep: false}"))
+    with pytest.raises(NotImplementedError, match="int8 novel-view UNet"):  # no JAX entry point builds one
+        ts.initialize_model(str(nvs), quantized=True, device="cpu")
     with pytest.raises(RuntimeError, match="torchrun"):  # dp_devices=2 needs a process group of two ranks
         ts.initialize_model(exp, dp_devices=2, device="cpu")
 
