@@ -316,6 +316,33 @@ Phases, one line each (the kernel phases one line per kernel shape):
    (B) ``tools.UNET_B`` (five heads of 64, 128 and 256 channels, 1x1 conv
    projections, no resample convs) in bf16 (<= 3e-2, K1 at D = 128 at every
    such site within 1e-2).
+16. the real-weights runbook and the quality studies, at full width on
+   random weights: (16r) ``python -m leftrefill_torch.tools.runbook
+   --synthetic --full_width`` in-process (stand-ins at the width of
+   ``configs/ref_inpainting.yaml``, a 2.6 GB fp16 checkpoint, deleted after
+   the run): the convert stage's accounting (nothing missing but the prompt
+   table, nothing of another shape or unexpected, the 12 schedule buffers
+   and the 3 EMA keys skipped as recomputed, the two text-tower keys as
+   other), the parity stage on the loaded weights (the sampler's CFG UNet
+   call through the kernels against the plain versions in bf16, and the
+   fused int8 bundle's UNet call, teacher-forced block by block, and its
+   int8 VAE decode; each within relative L2 3e-2), the
+   evaluation CLI's PSNR, SSIM and LPIPS finite (DDIM-10), the A/B of bf16,
+   fused int8 and int8 + int8 VAE decoder on 2 pairs at DDIM-10 with finite
+   cross-PSNRs and launches per variant pinned (2 x (10 x
+   ``PER_FORWARD_BF16`` / ``_INT8`` (+ ``PER_DECODE_VAE8``))); (16q) the
+   four studies of ``tools/quality.py`` at full width, each printing its
+   JSON line with launches pinned: int8 (the eps sweep of the bf16 and
+   fused int8 UNets from fp32 at five timesteps, a DDIM-50 request in each),
+   mv (the same on the V=2 UNet, 2-view DDIM-50 scenes; then K1-K3 at every
+   site of its forward against their plain versions, timed as in phase 2),
+   solver (547 CFG forwards: DDIM-200, -50, DPM++(2M)-20, -15, -12 at eta 0,
+   DDIM-50 and -200 at eta 1, one x_T), vae8 (one 64x128 latent through the
+   fp32, bf16 and int8 decoders); the int8 study's sweep again at t = 500
+   with every kernel routed to its plain version: each kernel path's mean
+   eps deviation from fp32 at most 1.5 times the plain path's plus 1e-3,
+   and a wrong K1 (its output rows reversed) above that limit; both
+   forwards timed, kernels and plain versions.
 The line before the last is a JSON summary of the fourteen kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
@@ -890,41 +917,6 @@ def check_forward(unet, x, tsteps, ctx, kv, label: str, names, cfg_dup: bool = T
     if not (out_k.shape == (*x.shape[:3], 4) and torch.isfinite(out_k).all() and err <= UNET_REL_L2):
         raise SystemExit(f"{label} UNet forward: rel L2 {err:.3e} > {UNET_REL_L2} or bad output")
     return out_k, out_p, err, kern_fwd_ms, plain_fwd_ms
-
-
-def teacher_forced(unet, fwd, names) -> tuple[dict, float]:
-    """The forward through the kernels, then through the plain versions of
-    ``names`` with every top-level block's output replaced by the kernels'
-    run's, so each block is fed the kernels' input to it and its difference
-    is its own.  Returns ({block: (kind, rel L2, max abs / max|out|,
-    ||out||)}, end-to-end rel L2 of the two free-running forwards)."""
-    from leftrefill_torch import kernels
-    from leftrefill_torch.tools import rel_l2
-
-    blocks = {f"{part}.{i}.{j}": m for part, seq in (("input_blocks", unet.input_blocks),
-                                                      ("middle_block", [unet.middle_block]),
-                                                      ("output_blocks", unet.output_blocks))
-              for i, layers in enumerate(seq) for j, m in enumerate(layers)}
-    outs, errs = {}, {}
-    hooks = [m.register_forward_hook(lambda mod, i, o, k=k: outs.__setitem__(k, o)) for k, m in blocks.items()]
-    out_k = fwd()
-    for h in hooks:
-        h.remove()
-
-    def force(mod, inputs, o, k):
-        want = outs[k]
-        errs[k] = (type(mod).__name__, rel_l2(o, want),
-                   float((o.float() - want.float()).abs().max() / want.float().abs().max()), float(want.float().norm()))
-        return want
-
-    hooks = [m.register_forward_hook(functools.partial(force, k=k)) for k, m in blocks.items()]
-    with kernels.plain_kernels(names):
-        fwd()
-    for h in hooks:
-        h.remove()
-    with kernels.plain_kernels(names):
-        out_p = fwd()
-    return errs, rel_l2(out_k, out_p)
 
 
 def serve(model, sampler: str, steps: int, per_forward: dict, label: str) -> dict:
@@ -2675,7 +2667,7 @@ def phase_15u(launches: dict, gen) -> dict:
                 # the second stack of every ResBlock, all of them fused at full width
                 n_res = sum(isinstance(m, ResBlock) and m.use_scale_shift_norm for m in unet.modules())
                 reports["unet_a_int8_scale_shift_k4"] = scale_shift_k4_sites(fwd, n_res)
-                errs, e2e = teacher_forced(unet, fwd, PROLOGUES)
+                errs, e2e = tools.teacher_forced(unet, fwd, PROLOGUES)
                 worst = max(errs.items(), key=lambda kv_: kv_[1][2])
                 st = [e for e in errs.values() if e[0] == "SpatialTransformer"]
                 st_l2 = (sum((e[1] * e[3]) ** 2 for e in st) / sum(e[3] ** 2 for e in st)) ** 0.5
@@ -2695,6 +2687,173 @@ def phase_15u(launches: dict, gen) -> dict:
         torch.cuda.empty_cache()
     print(f"phase 15u total seconds={time.perf_counter() - t_phase:.1f}", flush=True)
     return reports
+
+
+# ---- phase 16: the real-weights runbook and the quality studies ------------
+# 16r: the runbook's synthetic A/B on the card, its first pairs at DDIM-10
+AB_PAIRS, AB_STEPS = 2, 10
+# 16q's gate: each kernel path's mean eps deviation from fp32 at t = QUALITY_T
+# within QUALITY_FACTOR times the plain path's plus QUALITY_SLACK (the kernels
+# and their plain versions round at the same points; a wrong kernel moves the
+# output by its own scale, far past the bf16 or int8 noise)
+QUALITY_T, QUALITY_FACTOR, QUALITY_SLACK = 500, 1.5, 1e-3
+
+
+def phase_16r(launches: dict) -> dict:
+    """Phase 16r (the docstring): the runbook's dry run on full-width
+    stand-ins; returns its report."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from leftrefill_torch import tools
+    from leftrefill_torch.tools import runbook
+
+    t_phase = time.perf_counter()
+    label = "phase 16r"
+    out = tempfile.mkdtemp(prefix="runbook_")
+    try:
+        rc = runbook.main(["--synthetic", "--full_width", "--out", out, "--limit", str(AB_PAIRS)])
+        with open(Path(out, "report.json")) as f:
+            report = json.load(f)
+        ckpt_gb = Path(out, "synthetic", "sd_stand_in.ckpt").stat().st_size / 1e9
+    finally:
+        shutil.rmtree(out, ignore_errors=True)  # the 2.6 GB checkpoint with it
+    torch.cuda.empty_cache()
+    if rc != 0 or list(report) != list(runbook.STAGES) or not all(r["ok"] for r in report.values()):
+        raise SystemExit(f"{label}: the runbook exited {rc}: {json.dumps(report)[:2000]}")
+    conv, par, ev, ab = (report[k] for k in ("convert", "parity", "eval", "ab"))
+    recomputed = len(runbook.SCHEDULE_BUFFERS) + len(runbook.EMA_KEYS)
+    if conv["missing"] or conv["shape_mismatch"] or conv["unexpected"] or conv["skipped_other"] != len(
+            runbook.SKIPPED_EXTRA) or conv["skipped_recomputed"] != recomputed:
+        raise SystemExit(f"{label}: convert accounting {conv}")
+    readings = {k: v["rel_l2"] for k, v in par.items() if isinstance(v, dict)}
+    if sorted(readings) != ["bf16_unet", "int8_decode", "int8_unet_blocks"] or not all(
+            par[k]["finite"] and v <= runbook.PARITY_REL_L2 for k, v in readings.items()):
+        raise SystemExit(f"{label}: parity {par}")
+    if not ({"PSNR", "SSIM", "LPIPS"} <= set(ev) and all(np.isfinite(ev[k]) for k in ("PSNR", "SSIM", "LPIPS"))):
+        raise SystemExit(f"{label}: eval metrics {ev}")
+    cross = {o: ab[f"cross_psnr_bf16_vs_{o}_db"] for o in ("int8", "int8+vae8")}
+    if ab["pairs"] != AB_PAIRS or ab["ddim_steps"] != AB_STEPS or not all(np.isfinite(v) for v in cross.values()):
+        raise SystemExit(f"{label}: A/B {ab}")
+    none = dict.fromkeys(tools.LAUNCH_COUNTERS, 0)
+    for name, per_forward, decode in (("bf16", tools.PER_FORWARD_BF16, none), ("int8", tools.PER_FORWARD_INT8, none),
+                                      ("int8+vae8", tools.PER_FORWARD_INT8, tools.PER_DECODE_VAE8)):
+        got = {n: ab["launches"][name].get(n, 0) for n in tools.LAUNCH_COUNTERS}
+        want = {n: AB_PAIRS * (AB_STEPS * per_forward[n] + decode[n]) for n in tools.LAUNCH_COUNTERS}
+        if got != want:
+            raise SystemExit(f"{label} A/B {name}: launches {got}, expected {want}")
+        launches[f"16r_ab_{name}"] = got
+    print(f"{label} runbook --synthetic --full_width (configs/ref_inpainting.yaml, a {ckpt_gb:.2f} GB fp16 stand-in "
+          f"checkpoint, deleted): stage seconds { {k: r['seconds'] for k, r in report.items()} }; convert "
+          f"{conv['loaded_keys']} keys skipped={conv['skipped']} ({conv['skipped_recomputed']} schedule buffers and EMA, "
+          f"{conv['skipped_other']} other) missing={conv['missing']} shape_mismatch="
+          f"{conv['shape_mismatch']} unexpected={conv['unexpected']}; parity kernels vs plain at t={par['t']} "
+          f"{ {k: f'{v:.3e}' for k, v in readings.items()} } (limit {runbook.PARITY_REL_L2}; the int8 UNet block by "
+          f"block, worst {par['int8_unet_blocks']['block']}, end to end {par['int8_unet_blocks']['end_to_end_rel_l2']:.3e} "
+          f"for information); eval DDIM-{ev['ddim_steps']} PSNR={ev['PSNR']} SSIM={ev['SSIM']} LPIPS={ev['LPIPS']}; "
+          f"A/B {AB_PAIRS} pairs DDIM-{AB_STEPS}: bf16 {ab['bf16']} int8 {ab['int8']} int8+vae8 {ab['int8+vae8']} "
+          f"cross_psnr_db {cross}; launches per variant {AB_PAIRS} x ({AB_STEPS} x PER_FORWARD_BF16 / _INT8 "
+          f"(+ PER_DECODE_VAE8))", flush=True)
+    print(f"phase 16r total seconds={time.perf_counter() - t_phase:.1f}", flush=True)
+    return report
+
+
+def phase_16q(launches: dict, gen) -> dict:
+    """Phase 16q (the docstring): the four quality studies at full width, the
+    int8 study's gate against the plain path and a wrong K1; returns the
+    report of K1-K3 at the V=2 forward's sites."""
+    import torch
+
+    from leftrefill_torch import kernels, tools
+    from leftrefill_torch.ops import flash_attention as fa
+    from leftrefill_torch.pipeline import fill_random_
+    from leftrefill_torch.tools import cuda_ms, quality
+
+    t_phase = time.perf_counter()
+    arch = quality.FULL
+    g = torch.Generator("cuda").manual_seed(0)
+
+    def summed(*parts):
+        return {n: sum(k * per[n] for k, per in parts) for n in tools.LAUNCH_COUNTERS}
+
+    def run(key, fn, want):
+        tools.reset_launches()
+        result = fn()
+        torch.cuda.synchronize()
+        got = tools.launches()
+        if got != want:
+            raise SystemExit(f"phase 16q {key}: launches {got}, expected {want}")
+        launches["16q_" + key] = got
+        print(f"phase 16q {key} ", end="")
+        quality.emit(result, "full", "cuda")
+        return result
+
+    # int8: the eps sweep (5 forwards an arm) and two DDIM-50 requests
+    bundles = quality.int8_bundles(arch, quality.draw_state(arch, g), "cuda")
+    x, ctx = quality.eps_inputs(arch, g)
+    n = len(quality.TIMESTEPS) + 50
+    run("int8", lambda: quality.int8_study("cuda", g, arch, bundles=bundles, draws={"x": x, "ctx": ctx}),
+        summed((n, tools.PER_FORWARD_BF16), (n, tools.PER_FORWARD_INT8)))
+    ref, arms = bundles["fp32"].unet, {"bf16": bundles["bf16"].unet, "int8": bundles["int8"].unet}
+    kern = quality.eps_sweep(ref, arms, x, ctx, (QUALITY_T,))[0]
+    with kernels.plain_kernels():
+        plain = quality.eps_sweep(ref, arms, x, ctx, (QUALITY_T,))[0]
+    tt = torch.full((x.shape[0],), QUALITY_T, dtype=torch.long, device="cuda")
+    fwd_ms = {}
+    with torch.inference_mode():
+        for arm, unet in arms.items():
+            fwd_ms[arm] = cuda_ms(lambda u=unet: u(x, tt, ctx), 3)
+            with kernels.plain_kernels():
+                fwd_ms[arm + "_plain"] = cuda_ms(lambda u=unet: u(x, tt, ctx), 1)
+    flash = fa.flash_attention
+    fa.flash_attention = lambda *a: flash(*a).flip(1)  # a wrong K1: each sequence's output rows reversed
+    try:
+        wrong = quality.eps_sweep(ref, arms, x, ctx, (QUALITY_T,))[0]
+    finally:
+        fa.flash_attention = flash
+    for arm in arms:
+        limit = QUALITY_FACTOR * plain[arm]["mean_rel"] + QUALITY_SLACK
+        if not kern[arm]["mean_rel"] <= limit < wrong[arm]["mean_rel"]:
+            raise SystemExit(f"phase 16q int8 gate {arm}: the kernels' mean eps deviation from fp32 "
+                             f"{kern[arm]['mean_rel']:.4e}, limit {limit:.4e} ({QUALITY_FACTOR} x the plain path's "
+                             f"{plain[arm]['mean_rel']:.4e} + {QUALITY_SLACK}), the wrong K1's {wrong[arm]['mean_rel']:.4e} "
+                             "(must read above the limit)")
+    print(f"phase 16q int8 gate at t={QUALITY_T}: mean eps deviation from fp32 (max) kernels / plain versions / a wrong "
+          f"K1 (rows reversed): " + "; ".join(
+              f"{arm} {kern[arm]['mean_rel']:.4e} ({kern[arm]['max_rel']:.4e}) / {plain[arm]['mean_rel']:.4e} "
+              f"({plain[arm]['max_rel']:.4e}) / {wrong[arm]['mean_rel']:.4e}" for arm in arms)
+          + f" (limit {QUALITY_FACTOR} x plain + {QUALITY_SLACK}); forward ms [2,64,128,9] kernels / plain: "
+          + "; ".join(f"{arm} {fwd_ms[arm]:.2f} / {fwd_ms[arm + '_plain']:.2f}" for arm in arms), flush=True)
+    del bundles, ref, arms
+    torch.cuda.empty_cache()
+
+    # mv: the V=2 eps sweep and two 2-view DDIM-50 scenes; then K1-K3 at the V=2 forward's sites (its
+    # 64x128 views launch what the V=4 forward of 64x64 views does, PER_FORWARD_MV4)
+    run("mv", lambda: quality.mv_study("cuda", g, arch),
+        summed((n, tools.PER_FORWARD_MV4), (n, tools.PER_FORWARD_MV2_INT8)))
+    torch.cuda.empty_cache()
+    report = {}
+    mv = quality.bundle(arch, "cuda", torch.bfloat16, view_num=2)
+    fill_random_(mv, g)
+    x2, ctx2 = quality.eps_inputs(arch, g, 2)
+    with torch.inference_mode():
+        sites = tools.unet_sites(mv.unet, x2, tt, ctx2, None, cfg_dup=False)
+        check_kernels(sites, gen, report, "16q mv2 forward", BF16_NAMES)
+    check_sites(report, {k: tools.PER_FORWARD_MV4[k] for k in BF16_NAMES}, "phase 16q mv2 forward")
+    del mv
+    torch.cuda.empty_cache()
+
+    # solver: 547 CFG-doubled forwards (seven runs from one x_T); vae8: one int8 decode
+    run("solver", lambda: quality.solver_study("cuda", g, arch),
+        summed((sum(s for _, s, _ in quality.SOLVER_RUNS.values()), tools.PER_FORWARD_BF16)))
+    torch.cuda.empty_cache()
+    run("vae8", lambda: quality.vae8_study("cuda", g, arch), summed((1, tools.PER_DECODE_VAE8)))
+    torch.cuda.empty_cache()
+    print(f"phase 16q total seconds={time.perf_counter() - t_phase:.1f}", flush=True)
+    return report
 
 
 def main() -> int:
@@ -2861,7 +3020,7 @@ def main() -> int:
 
         # ---- phase 3f: the fused forward, K4/K7/K8 vs their plain versions --
         fwd = lambda: qunet(x, tsteps, ctx, cross_kv=qkv, cfg_dup=True)
-        errs, e2e = teacher_forced(qunet, fwd, PROLOGUES)
+        errs, e2e = tools.teacher_forced(qunet, fwd, PROLOGUES)
         worst = max(errs.items(), key=lambda kv_: kv_[1][2])
         st = [e for e in errs.values() if e[0] == "SpatialTransformer"]
         st_l2 = (sum((e[1] * e[3]) ** 2 for e in st) / sum(e[3] ** 2 for e in st)) ** 0.5
@@ -3062,6 +3221,10 @@ def main() -> int:
     # ---- phases 15q, 15u: the int8 VAE decoder, the option UNets -----------
     # (15d ran with phase 12's tree)
     option_reports = {"int8_vae_decode": phase_15q(launches, gen), **phase_15u(launches, gen)}
+
+    # ---- phases 16r, 16q: the runbook and the quality studies, full width --
+    phase_16r(launches)
+    option_reports["quality_mv2_forward"] = phase_16q(launches, gen)
 
     entries = []
     for name, (source, replaces) in KERNELS.items():

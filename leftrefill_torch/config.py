@@ -15,7 +15,9 @@ rematerialization).
 use (no PyYAML): block and flow mappings and lists, quoted and plain
 strings, ints, floats in ``1.0e-4`` form, ``true`` / ``false`` (also
 capitalized), ``null`` / ``~`` and comments, resolved as PyYAML's
-``safe_load`` resolves them.  Anything else raises.
+``safe_load`` resolves them.  Anything else raises.  ``dump_yaml`` writes
+a parsed config back (block mappings, the rest inline) in a form the reader
+reads back equal.
 """
 
 from __future__ import annotations
@@ -274,6 +276,61 @@ def parse_yaml(src: str):
 def load_yaml(path: str):
     with open(path) as f:
         return parse_yaml(f.read())
+
+
+_PLAIN_KEY = re.compile(r"[A-Za-z_][A-Za-z0-9_]*")
+
+
+def _dump_scalar(v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        text = repr(v)
+        if text in ("inf", "-inf", "nan"):
+            raise YAMLError(f"the float {v} is outside the YAML this writer gives")
+        mantissa, _, exp = text.partition("e")
+        # the reader takes floats with a dot (1.0e-05): PyYAML reads 1e-05 as a string
+        return (mantissa if "." in mantissa else mantissa + ".0") + ("e" + exp if exp else "")
+    if isinstance(v, str):
+        if any(ord(c) < 0x20 or 0x7f <= ord(c) <= 0x9f for c in v):
+            raise YAMLError(f"the string {v!r} holds a control character, outside the YAML this writer gives")
+        return '"' + v.replace("\\", "\\\\").replace('"', '\\"') + '"'
+    raise YAMLError(f"a {type(v).__name__} is outside the YAML this writer gives")
+
+
+def _dump_key(k) -> str:
+    if isinstance(k, str) and _PLAIN_KEY.fullmatch(k) and k not in _BOOL and k not in _NULL \
+            and not _REFUSED.fullmatch(k):
+        return k
+    return _dump_scalar(k)
+
+
+def _dump_flow(v) -> str:
+    if isinstance(v, dict):
+        return "{" + ", ".join(f"{_dump_key(k)}: {_dump_flow(x)}" for k, x in v.items()) + "}"
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_dump_flow(x) for x in v) + "]"
+    return _dump_scalar(v)
+
+
+def dump_yaml(value, indent: int = 0) -> str:
+    """``value`` as YAML that ``parse_yaml`` reads back equal: mappings as
+    blocks, two spaces a level, every list and scalar inline (flow lists,
+    double-quoted strings, floats with a dot).  Values outside what the
+    reader gives (a float infinity, a set, an object) raise."""
+    if not isinstance(value, dict):
+        return " " * indent + _dump_flow(value) + "\n"
+    lines = []
+    for k, v in value.items():
+        if isinstance(v, dict) and v:
+            lines.append(" " * indent + f"{_dump_key(k)}:\n" + dump_yaml(v, indent + 2))
+        else:
+            lines.append(" " * indent + f"{_dump_key(k)}: {_dump_flow(v)}\n")
+    return "".join(lines)
 
 
 # ---------------------------------------------------------------------------

@@ -75,9 +75,15 @@ def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:
     return {k: v.detach().to(torch.float32) for k, v in sd.items() if hasattr(v, "detach")}
 
 
+def recomputed(key: str) -> bool:
+    """Whether ``key`` is a buffer the schedule recomputes or a weight of
+    the checkpoint's EMA copy (``model_ema.*``)."""
+    return key in _SKIP_PATTERNS or key.startswith("model_ema.")
+
+
 def skipped(key: str) -> bool:
     """Whether ``key`` is one the model does not hold by design."""
-    if key in _SKIP_PATTERNS or key.startswith("model_ema."):
+    if recomputed(key):
         return True
     if key == "refinement_alpha":
         return False

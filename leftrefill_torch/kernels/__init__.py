@@ -213,9 +213,10 @@ def plain_kernels(names=NAMES):
     """Route the dispatchers of the kernels ``names`` (default: all) to the
     kernels' plain PyTorch versions.
 
-    Only the full-model comparisons in ``chip_smoke.py`` enter this: they
-    run the same forward (or train step) through the plain versions to hold
-    the kernels' result against.  The serving and training paths never do."""
+    Only the full-model comparisons enter this (``chip_smoke.py``, the
+    runbook's parity stage, ``tools/runbook.py``): they run the same forward
+    (or train step, or decode) through the plain versions to hold the
+    kernels' result against.  The serving and training paths never do."""
     global _plain
     unknown = set(names) - set(NAMES)
     if unknown:

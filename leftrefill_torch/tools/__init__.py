@@ -24,6 +24,7 @@ share with ``chip_smoke.py``.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import random
@@ -79,6 +80,11 @@ PER_FORWARD_INT8 = {**PER_FORWARD_INT8_UNFUSED, "affine_silu_quant": 44, "ln_qua
 # the V=4 multi-view bf16 forward: 8 rows of 64x64 views, no cfg_dup; five of
 # the 16 flash launches are the 16384-token joint attentions (K11's sites)
 PER_FORWARD_MV4 = {**_NONE, "flash_fwd": 16, "conv3x3": 33, "geglu": 16}
+# the V=2 multi-view forward at 64x128 views (the quality study, tools/quality.py
+# mv; 2 or, CFG-doubled, 4 rows) launches PER_FORWARD_MV4: its joint sequences
+# of 2 x 8192 / 2048 / 512 / 128 tokens are the V=4 scene's of 64x64 views, the
+# middle block's 256 taking K1 too; the int8 arm adds the fused int8 forward's sites
+PER_FORWARD_MV2_INT8 = {**PER_FORWARD_INT8, "flash_fwd": 16}
 # one rank's share of the V=4 forward with the views split over a view group
 # (chip_smoke.py phase 14v: 8 rows of 64x64 views, the CFG pair of one
 # scene): each rank holds V / n_view views of its scenes, and K1 takes its
@@ -190,6 +196,40 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def teacher_forced(unet, fwd, names) -> tuple[dict, float]:
+    """The forward through the kernels, then through the plain versions of
+    ``names`` with every top-level block's output replaced by the kernels'
+    run's, so each block is fed the kernels' input to it and its difference
+    is its own (two int8 forwards that differ anywhere drift apart to the
+    int8 noise level, so an int8 UNet is held block by block).  Returns
+    ({block: (kind, rel L2, max abs / max|out|, ||out||)}, end-to-end rel L2
+    of the two free-running forwards)."""
+    blocks = {f"{part}.{i}.{j}": m for part, seq in (("input_blocks", unet.input_blocks),
+                                                      ("middle_block", [unet.middle_block]),
+                                                      ("output_blocks", unet.output_blocks))
+              for i, layers in enumerate(seq) for j, m in enumerate(layers)}
+    outs, errs = {}, {}
+    hooks = [m.register_forward_hook(lambda mod, i, o, k=k: outs.__setitem__(k, o)) for k, m in blocks.items()]
+    out_k = fwd()
+    for h in hooks:
+        h.remove()
+
+    def force(mod, inputs, o, k):
+        want = outs[k]
+        errs[k] = (type(mod).__name__, rel_l2(o, want),
+                   float((o.float() - want.float()).abs().max() / want.float().abs().max()), float(want.float().norm()))
+        return want
+
+    hooks = [m.register_forward_hook(functools.partial(force, k=k)) for k, m in blocks.items()]
+    with kernels.plain_kernels(names):
+        fwd()
+    for h in hooks:
+        h.remove()
+    with kernels.plain_kernels(names):
+        out_p = fwd()
+    return errs, rel_l2(out_k, out_p)
 
 
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -510,16 +550,16 @@ def unet_sites(unet, x, t, ctx, kv, cfg_dup: bool = True, **kwargs) -> Counter:
     return Counter(sites)
 
 
-def request_canvas(seed: int = 0):
-    """A stitched 512x1024 canvas (reference | target) and its right-half
-    mask, NHWC numpy."""
+def request_canvas(seed: int = 0, side: int = 512):
+    """A stitched side x 2 side canvas (reference | target) of uniform noise
+    in [-1, 1] and its right-half mask, NHWC numpy."""
     from leftrefill_torch.pipeline import stitch_canvas
 
     rng = np.random.RandomState(seed)
     return stitch_canvas(
-        rng.uniform(-1, 1, (1, 512, 512, 3)).astype(np.float32),
-        rng.uniform(-1, 1, (1, 512, 512, 3)).astype(np.float32),
-        np.ones((1, 512, 512, 1), np.float32),
+        rng.uniform(-1, 1, (1, side, side, 3)).astype(np.float32),
+        rng.uniform(-1, 1, (1, side, side, 3)).astype(np.float32),
+        np.ones((1, side, side, 1), np.float32),
     )
 
 
