@@ -9,7 +9,9 @@ Phases, one line each (the kernel phases one line per kernel shape):
    memory of each instantiation of the flash forward, the bf16 and int8
    convs, the int8 proj_out GEMM, the two flash backward kernels and the
    GEGLUs' up and down kernels, bf16 and int8, and the registers of K4's,
-   K7's and K8's);
+   K7's and K8's); the native image layer's build from
+   ``leftrefill_torch/csrc/host`` with the host C++ compiler (its time) and
+   the host CPU's model name;
 2. each bf16 kernel (K1 flash forward, K2 3x3 conv, K3 fused GEGLU) at every
    shape one full-width bf16 UNet forward gives it, against its plain
    PyTorch version (relative L2 <= 1e-2), timed with CUDA events beside its
@@ -173,6 +175,7 @@ Phases, one line each (the kernel phases one line per kernel shape):
    NVS-filtered keys with the LoRA factors; then ``--restore --max_steps 6``
    starts from those weights at step 4 and takes two steps; seconds per
    step (the median after the first), peak memory, validation PSNR/SSIM;
+   the data path of the CLI's training loader as in phase 12;
 2tn. the kernels at every site that train step recorded: K1 (o within
    relative L2 1e-2, and the lse the backward reads within 1e-3 absolute),
    K12 and K13 held as in phase 2t beside SDPA's backward, K2 and K3 held
@@ -185,9 +188,17 @@ Phases, one line each (the kernel phases one line per kernel shape):
    to its plain version (relative L2 <= 5e-2 each).
 11. the serving and evaluation entry points of 1-reference inpainting:
    (11a) the JPEG fixtures of ``tests/fixtures/jpeg`` read by
-   ``data.image_io.imread`` (no OpenCV on the card's machine) equal to OpenCV's
-   decodes stored beside them (PNGs; the 1600x1200 4:2:0 photo by its
-   SHA-256), with the seconds to decode that photo; (11b) an experiment
+   ``data.image_io.imread`` (no OpenCV on the card's machine) through the
+   native image layer and through the plain Python/numpy versions
+   (``native.plain_image_ops``): the two bit-equal (mismatching values
+   printed, any fails the phase) and each equal to OpenCV's decodes stored
+   beside them (PNGs; the 1600x1200 4:2:0 photo by its SHA-256), with each
+   path's seconds to decode each fixture; then the photo's decode through
+   the data path's other native operations, each bit-equal to its plain
+   version the same way (the area resize down at a fractional and an integer
+   ratio and up, uint8 and float32, the bilinear resize uint8 and float32,
+   the nearest resize, the ellipse dilation of a mask uint8 and float32, the
+   PNG unfilter of rows of every filter type, the PNG fixtures' reads); (11b) an experiment
    directory (``configs/ref_inpainting.yaml``, a seeded prompt checkpoint
    saved through ``CheckpointManager``) served by
    ``serving.gradio_app.initialize_model`` (random weights, no SD file):
@@ -224,7 +235,11 @@ Phases, one line each (the kernel phases one line per kernel shape):
    resumed run starts at step 4 from them; seconds per step (the median
    after the first; the loader's decode threads run beside the steps),
    the seconds between steps once the prefetched batches are used (the
-   data path's pace), peak memory, validation PSNR/SSIM;
+   data path's pace), peak memory, validation PSNR/SSIM; then the data path
+   of the CLI's training loader (its dataset, sampler, tokenizer and batch
+   size; ``tools.data_path_seconds``): seconds per item on one thread and
+   per batch through the loader at 1 and 8 worker threads, native and plain,
+   beside the CLI's own seconds per step;
 12g. a batch of 2 from that CLI's own loader (its dataset, sampler and
    tokenizer): one step's prompt-table gradient through the kernels against
    the same step with every kernel routed to its plain version (relative
@@ -232,7 +247,8 @@ Phases, one line each (the kernel phases one line per kernel shape):
 12m. the same as 12 for ``multiview_ref_inpainting_training_config.yaml``
    at view_num 4 (one scene of four 512x512 views a step, the view-0 loss,
    K1 and K14's dq at 16384 tokens): launches
-   ``tools.PER_TRAIN_STEP_CLI_MV4``, sites ``tools.TRAIN_SITES_MV4``.
+   ``tools.PER_TRAIN_STEP_CLI_MV4``, sites ``tools.TRAIN_SITES_MV4``, and
+   its data-path line.
 13. the remaining samplers, ``log_images``' diagnostic rows, the
    cross-attention maps and ``multi_cond_sample`` at full width (the bf16
    bundle of ``configs/ref_inpainting.yaml`` through ``build_task``, random
@@ -343,9 +359,9 @@ Phases, one line each (the kernel phases one line per kernel shape):
    eps deviation from fp32 at most 1.5 times the plain path's plus 1e-3,
    and a wrong K1 (its output rows reversed) above that limit; both
    forwards timed, kernels and plain versions.
-The line before the last is a JSON summary of the fourteen kernels; the last
-line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
-before them.
+Before the JSON lines, the whole smoke's seconds.  The line before the last
+is a JSON summary of the fourteen kernels; the last line is ``{"ok": true,
+"device": {...}}``.  Any failure exits non-zero before them.
 """
 
 from __future__ import annotations
@@ -1301,6 +1317,7 @@ def nvs_training_phases(gen, launches: dict) -> dict:
 
     from leftrefill_torch import kernels, tools
     from leftrefill_torch.cli import train as cli
+    from leftrefill_torch.data import loader
     from leftrefill_torch.data.datasets import NVS_OBJDataset
     from leftrefill_torch.data.loader import collate
     from leftrefill_torch.ops import flash_attention, mlp
@@ -1331,13 +1348,19 @@ def nvs_training_phases(gen, launches: dict) -> dict:
               f"masks written in {time.perf_counter() - t0:.1f} s; model YAML with do_lora, use_input_refinement "
               f"and save_prompt_only on; training YAML batch {NVS_TRAIN_BATCH}", flush=True)
 
-        runs = []
-        make_train_step = trainer.make_train_step
+        runs, loaders = [], []
+        make_train_step, data_loader = trainer.make_train_step, loader.DataLoader
         recording = recording_steps(make_train_step, runs)
         exp = Path(root, "ck", "nvs")
         base_args = ["--config_file", str(Path(root, "train.yaml")), "--exp_name", "nvs", "--save_path",
                      str(Path(root, "ck"))]
-        trainer.make_train_step = recording
+
+        class Recorded(data_loader):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                loaders.append(self)
+
+        trainer.make_train_step, loader.DataLoader = recording, Recorded
         try:
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -1349,7 +1372,7 @@ def nvs_training_phases(gen, launches: dict) -> dict:
             rc2 = cli.main(base_args + ["--restore", "--max_steps", "6"])
             second_s = time.perf_counter() - t0
         finally:
-            trainer.make_train_step = make_train_step
+            trainer.make_train_step, loader.DataLoader = make_train_step, data_loader
         if rc or rc2 or len(runs) != 2:
             raise SystemExit(f"phase 10: the CLI returned {rc} and {rc2} after {len(runs)} runs")
         first, second = runs
@@ -1401,6 +1424,7 @@ def nvs_training_phases(gen, launches: dict) -> dict:
               f"{({g: f'{len(moved[g])}/{len(members[g])}' for g in groups})} frozen_unchanged={len(after) - len(trainable)} "
               f"ckpt_keys={len(saved)} resumed_at_step=4 val={[(r['step'], round(r['val/psnr'], 3), round(r['val/ssim'], 4)) for r in val]}",
               flush=True)
+        data_path_line("phase 10", loaders[0], first["steps"], {"native": 16, "plain": 8}, {"native": 2, "plain": 2})
 
         # ---- phase 2tn: the kernels at every site of that train step -----
         report = {}
@@ -1471,9 +1495,11 @@ def nvs_training_phases(gen, launches: dict) -> dict:
 def serving_phases(launches: dict) -> None:
     """Phases 11a-11e: the JPEG fixtures, ``predict`` bf16 and int8, and the
     two CLIs in process; each path's launches go into ``launches``."""
+    import contextlib
     import hashlib
     import json
     import shutil
+    import statistics
     import tempfile
 
     import numpy as np
@@ -1481,24 +1507,72 @@ def serving_phases(launches: dict) -> None:
 
     from leftrefill_torch import tools
     from leftrefill_torch.cli import sample as sample_cli, test as test_cli
-    from leftrefill_torch.data.image_io import IMREAD_COLOR, IMREAD_GRAYSCALE, imread, read_png, resize
+    from leftrefill_torch.data import native
+    from leftrefill_torch.data.image_io import (IMREAD_COLOR, IMREAD_GRAYSCALE, INTER_AREA, INTER_LINEAR,
+                                                INTER_NEAREST, _unfilter, dilate, ellipse_kernel, imread,
+                                                read_png, resize)
     from leftrefill_torch.eval.lpips import ALEX
     from leftrefill_torch.serving import gradio_app
     from leftrefill_torch.train.checkpoints import CheckpointManager
 
     t_phase = time.perf_counter()
     fixtures = ROOT / "tests" / "fixtures" / "jpeg"
-    # ---- 11a: the JPEG fixtures against OpenCV's stored decodes -------------
+    # ---- 11a: the JPEG fixtures, native and plain, against OpenCV's decodes --
     manifest = json.loads((fixtures / "manifest.json").read_text())
     for name, entry in manifest.items():
-        t0 = time.perf_counter()
-        img = imread(str(fixtures / name), IMREAD_COLOR)
-        secs = time.perf_counter() - t0
-        if list(img.shape) != entry["shape"] or hashlib.sha256(img.tobytes()).hexdigest() != entry["sha256"]:
-            raise SystemExit(f"phase 11a {name}: the decode differs from OpenCV's (shape {img.shape})")
-        if "png" in entry and not np.array_equal(img, read_png(str(fixtures / entry["png"]))):
-            raise SystemExit(f"phase 11a {name}: the decode differs from {entry['png']}")
-        print(f"phase 11a {name} {tuple(img.shape)}: bit-equal to OpenCV's decode; decode_seconds={secs:.3f}",
+        imgs, secs = {}, {}
+        for impl in ("native", "plain"):
+            with native.plain_image_ops() if impl == "plain" else contextlib.nullcontext():
+                runs = []
+                for _ in range(3 if impl == "native" else 1):
+                    t0 = time.perf_counter()
+                    imgs[impl] = imread(str(fixtures / name), IMREAD_COLOR)
+                    runs.append(time.perf_counter() - t0)
+            secs[impl] = statistics.median(runs)
+        a, b = imgs["native"], imgs["plain"]
+        mismatches = int((a != b).sum()) if a.shape == b.shape else max(a.size, b.size)
+        if mismatches:
+            raise SystemExit(f"phase 11a {name}: the native decode differs from the plain one in {mismatches} values")
+        for impl, img in imgs.items():
+            if list(img.shape) != entry["shape"] or hashlib.sha256(img.tobytes()).hexdigest() != entry["sha256"]:
+                raise SystemExit(f"phase 11a {name}: the {impl} decode differs from OpenCV's (shape {img.shape})")
+            if "png" in entry and not np.array_equal(img, read_png(str(fixtures / entry["png"]))):
+                raise SystemExit(f"phase 11a {name}: the {impl} decode differs from {entry['png']}")
+        print(f"phase 11a {name} {tuple(a.shape)}: native and plain bit-equal (mismatches={mismatches}), both "
+              f"bit-equal to OpenCV's decode; decode_seconds native={secs['native']:.4f} (median of 3) "
+              f"plain={secs['plain']:.4f}", flush=True)
+    # the data path's other native operations on the photo's decode, each against its plain version
+    photo = imread(str(fixtures / "photo_1600x1200_420.jpg"), IMREAD_COLOR)
+    photo_f = photo.astype(np.float32) / 255
+    square = resize(photo, (512, 512), INTER_AREA)
+    mask = (square[..., 0] > 128).astype(np.uint8) * 255  # an object-like mask, as NVS dilates
+    rows = np.random.RandomState(11).randint(0, 256, (256, 1537)).astype(np.uint8)
+    rows[:, 0] %= 5  # every PNG filter type, row by row
+    pngs = sorted(fixtures.glob("*.png"))
+    for label, fn in (
+            ("resize INTER_AREA 683x512 uint8", lambda: resize(photo, (683, 512), INTER_AREA)),
+            ("resize INTER_AREA 800x600 uint8", lambda: resize(photo, (800, 600), INTER_AREA)),
+            ("resize INTER_AREA 683x512 float32", lambda: resize(photo_f, (683, 512), INTER_AREA)),
+            ("resize INTER_AREA 512->700 uint8", lambda: resize(square, (700, 700), INTER_AREA)),
+            ("resize INTER_LINEAR 683x512 uint8", lambda: resize(photo, (683, 512), INTER_LINEAR)),
+            ("resize INTER_LINEAR 683x512 float32", lambda: resize(photo_f, (683, 512), INTER_LINEAR)),
+            ("resize INTER_NEAREST 512x512 uint8", lambda: resize(photo, (512, 512), INTER_NEAREST)),
+            ("dilate ellipse 19 uint8", lambda: dilate(mask, ellipse_kernel(19))),
+            ("dilate ellipse 19 float32", lambda: dilate(mask.astype(np.float32) / 255, ellipse_kernel(19))),
+            ("png unfilter 256x1536 bpp 3", lambda: _unfilter(rows.tobytes(), 256, 1536, 3)),
+            (f"read_png of the {len(pngs)} PNG fixtures", lambda: np.stack([read_png(str(p)) for p in pngs]))):
+        outs, secs = {}, {}
+        for impl in ("native", "plain"):
+            with native.plain_image_ops() if impl == "plain" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                outs[impl] = fn()
+                secs[impl] = time.perf_counter() - t0
+        a, b = outs["native"], outs["plain"]
+        mismatches = int((a != b).sum()) if a.shape == b.shape and a.dtype == b.dtype else max(a.size, b.size)
+        if mismatches:
+            raise SystemExit(f"phase 11a {label}: native and plain differ in {mismatches} values")
+        print(f"phase 11a {label} -> {a.dtype} {tuple(a.shape)}: native and plain bit-equal "
+              f"(mismatches={mismatches}); seconds native={secs['native']:.4f} plain={secs['plain']:.4f}",
               flush=True)
 
     root = tempfile.mkdtemp(prefix="serving_")
@@ -1666,6 +1740,23 @@ def megadepth_yamls(root: str, paths: dict, name: str, label: str, train_edits: 
             str(Path(root, "ck"))]
 
 
+def data_path_line(label: str, loader, steps: list, items: dict, batches: dict) -> None:
+    """Print the data path of a CLI run's training loader
+    (``tools.data_path_seconds`` on its dataset, index order, tokenizer and
+    batch size), native and plain, beside the run's own seconds per step."""
+    import statistics
+
+    from leftrefill_torch import tools
+
+    indices = list(loader.sampler) if loader.sampler is not None else list(range(len(loader.dataset)))
+    res = tools.data_path_seconds(loader.dataset, loader.batch_size, indices, loader.tokenizer, items, batches)
+    secs = [st["s"] for st in steps]
+    print(f"{label} data path (host: {tools.host_cpu()}): "
+          + " ".join(f"{impl} {k}={v:.4f}" for impl, rec in res.items() for k, v in rec.items())
+          + f" items={items} batches={batches}; the CLI's seconds_per_step median_after_first="
+          f"{statistics.median(secs[1:]):.3f} all={[round(x, 3) for x in secs]}", flush=True)
+
+
 def megadepth_cli_run(root: str, paths: dict, name: str, label: str) -> dict:
     """``cli.train.main`` in process on ``megadepth_yamls``' copies:
     ``--no_restore --max_steps MD_STEPS``, then ``--restore`` for
@@ -1823,6 +1914,8 @@ def megadepth_training_phases(launches: dict) -> None:
         print(f"phase 12g prompt-table gradient on a batch of 2 from the CLI's loader (mask means "
               f"{[round(float(m.mean()), 3) for m in small['mask']]}): kernels vs plain versions "
               f"rel_l2={err:.3e} (limit {PROMPT_GRAD_REL_L2}) grad_norm={float(grad_k.norm()):.4e}", flush=True)
+        data_path_line("phase 12", train_loader, ref["runs"][0]["steps"][:MD_STEPS], {"native": 8, "plain": 2},
+                       {"native": 2, "plain": 1})
         del ref, model, table, grad_k, grad_p, small_loader, train_loader
         torch.cuda.empty_cache()
 
@@ -1831,6 +1924,8 @@ def megadepth_training_phases(launches: dict) -> None:
         launches["cli_train_mv4"] = check_megadepth_run(
             mv, tools.PER_TRAIN_STEP_CLI_MV4, tools.TRAIN_SITES_MV4,
             f"phase 12m training V={VIEWS} 512x512 views, one scene a step, view-0 loss, no remat")
+        data_path_line("phase 12m", mv["loaders"][0], mv["runs"][0]["steps"][:MD_STEPS], {"native": 4, "plain": 2},
+                       {"native": 4, "plain": 2})
         del mv
         torch.cuda.empty_cache()
 
@@ -2857,6 +2952,7 @@ def phase_16q(launches: dict, gen) -> dict:
 
 
 def main() -> int:
+    t_smoke = time.perf_counter()
     if not (ROOT / "leftrefill_torch" / "csrc").is_dir():
         print("chip_smoke.py: the leftrefill_torch package is not beside this script", file=sys.stderr)
         return 2
@@ -2905,6 +3001,14 @@ def main() -> int:
             else:
                 smem = smem_of(int(n or 0))
             print(f"phase 1 ptxas {line}; dynamic shared memory {smem} bytes")
+
+    from leftrefill_torch.data import native
+
+    t0 = time.perf_counter()
+    native.library()
+    print(f"phase 1 native image layer: built from leftrefill_torch/csrc/host ({len(native._sources())} sources) "
+          f"with {native.compiler()} {' '.join(native.CXX_FLAGS)} in {time.perf_counter() - t0:.1f} s -> "
+          f"{native.library_path().relative_to(ROOT)}; host {tools.host_cpu()}", flush=True)
 
     from leftrefill_torch.pipeline import build_sd2_inpaint_bundle
 
@@ -3283,6 +3387,8 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"], *(r["flash_fwd"]["max_abs_err"]
                                                                for r in view_reports.values()))
         entries.append(entry)
+    print(f"smoke total seconds={time.perf_counter() - t_smoke:.1f} (before the native image layer: 849.1 s; "
+          f"{tools.card_line()}; host {tools.host_cpu()})", flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
-"""Image files and the image operations of the data path, in numpy and the
-standard library (``zlib``): the JAX package's data path calls OpenCV and
-PIL for these, which the port does not depend on.
+"""Image files and the image operations of the data path, in the native
+image layer and, as its plain versions, numpy and the standard library
+(``zlib``): the JAX package's data path calls OpenCV and PIL for these,
+which the port does not depend on.
 
 - :func:`imread`: ``cv2.imread`` with ``IMREAD_COLOR`` (as RGB),
   ``IMREAD_GRAYSCALE`` and ``IMREAD_UNCHANGED`` for PNG and JPEG files,
@@ -13,7 +14,9 @@ PIL for these, which the port does not depend on.
   and RGBA.
 - :func:`resize`: ``cv2.resize`` with ``INTER_LINEAR``, ``INTER_AREA`` and
   ``INTER_NEAREST`` on uint8 and float32 images, bit-equal to OpenCV's
-  results (float32 bilinear within 1e-5 of the largest value): uint8
+  own code (float32 bilinear: OpenCV hands it to Intel IPP where it has
+  it, whose CPU-dispatched arithmetic lands within 1e-5 of the largest
+  value): uint8
   bilinear in OpenCV's fixed point (11-bit coefficients, the vertical
   pass's 16-bit products and their truncations), the vertical coefficients
   left unclamped at the borders as OpenCV leaves them, a 2x-by-2x bilinear
@@ -23,6 +26,11 @@ PIL for these, which the port does not depend on.
 - :func:`ellipse_kernel` / :func:`dilate`: ``getStructuringElement(MORPH_ELLIPSE, (k, k))``
   and ``cv2.dilate`` (one iteration, the anchor at the kernel's centre,
   nothing from outside the image).
+
+The pixel work (the JPEG decode, the PNG scanline filters, the resizes and
+the dilation) runs in the native image layer (``data.native``, C++ with the
+GIL released) unless ``native.plain_image_ops`` routes it to the numpy
+versions below, which compute the same bits.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import zlib
 
 import numpy as np
 
+from leftrefill_torch.data import native
 from leftrefill_torch.data.jpeg import exif_orientation, read_jpeg
 
 INTER_NEAREST, INTER_LINEAR, INTER_AREA = 0, 1, 3  # OpenCV's codes
@@ -52,6 +61,8 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     """Undo the per-scanline filters (PNG spec section 9): None, Sub, Up,
     Average and Paeth, over rows of ``stride`` bytes with ``bpp`` bytes a
     pixel (1 for bit depths below 8)."""
+    if native.active("png_unfilter"):
+        return native.png_unfilter(raw, h, stride, bpp)
     rows = np.frombuffer(raw, np.uint8)
     if rows.size != h * (stride + 1):
         raise ValueError(f"PNG data holds {rows.size} bytes, expected {h * (stride + 1)}")
@@ -366,8 +377,13 @@ def resize(img: np.ndarray, size: tuple[int, int], interpolation: int = INTER_LI
     two_d = img.ndim == 2
     x = img[..., None] if two_d else img
     h, w = x.shape[:2]
+    if min(dw, dh, w, h) <= 0:
+        raise ValueError(f"resize takes non-empty images and sizes, got {img.shape} -> {size}")
+    use_native = native.active("resize")
     if (dw, dh) == (w, h):
         out = x.copy()
+    elif interpolation == INTER_NEAREST and use_native:
+        out = native.resize_nearest(x, dw, dh)
     elif interpolation == INTER_NEAREST:
         sx = np.minimum(np.floor(np.arange(dw) * (1.0 / (dw / w))).astype(np.int64), w - 1)
         sy = np.minimum(np.floor(np.arange(dh) * (1.0 / (dh / h))).astype(np.int64), h - 1)
@@ -379,9 +395,12 @@ def resize(img: np.ndarray, size: tuple[int, int], interpolation: int = INTER_LI
         if interpolation == INTER_LINEAR and fast and ix == iy == 2 and x.dtype == np.uint8:
             interpolation = INTER_AREA
         if interpolation == INTER_AREA and scale_x >= 1 and scale_y >= 1:
-            out = _area_fast(x, ix, iy) if fast else _area(x, dw, dh)
+            if fast:
+                out = (native.area_fast if use_native else _area_fast)(x, ix, iy)
+            else:
+                out = (native.area if use_native else _area)(x, dw, dh)
         else:  # bilinear, or an area resize that enlarges: OpenCV's bilinear with area coefficients
-            out = _linear(x, dw, dh, area=interpolation == INTER_AREA)
+            out = (native.linear if use_native else _linear)(x, dw, dh, area=interpolation == INTER_AREA)
     else:
         raise ValueError(f"unsupported interpolation {interpolation}")
     return out[..., 0] if two_d else out
@@ -448,20 +467,24 @@ def dilate(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
     under the kernel placed with its centre (k // 2, k // 2) on it; pixels
     outside the image take no part.  [H, W] uint8 or float32."""
     kh, kw = kernel.shape
+    runs = np.zeros((kh, 2), np.int32)
+    for i in range(kh):
+        cols = np.nonzero(kernel[i])[0]
+        if cols.size:
+            runs[i] = cols[0], cols[-1] + 1
+            if not kernel[i, cols[0]:cols[-1] + 1].all():
+                raise ValueError("dilate takes kernels whose rows are one run each (the ellipse)")
+    if native.active("dilate"):
+        return native.dilate(img, runs, kw)
     ay, ax = kh // 2, kw // 2
     h, w = img.shape
     low = np.zeros((), img.dtype) if img.dtype == np.uint8 else np.array(-np.inf, img.dtype)
     pad = np.full((h + kh - 1, w + kw - 1), low, img.dtype)
     pad[ay:ay + h, ax:ax + w] = img
     out = np.full((h, w), low, img.dtype)
-    for i in range(kh):
-        cols = np.nonzero(kernel[i])[0]
-        if cols.size == 0:
+    for i, (j0, j1) in enumerate(runs.tolist()):
+        if j1 <= j0:
             continue
-        j0, j1 = int(cols[0]), int(cols[-1]) + 1
-        if not kernel[i, j0:j1].all():
-            raise ValueError("dilate takes kernels whose rows are one run each (the ellipse)")
-        band = pad[i:i + h]
-        runs = np.lib.stride_tricks.sliding_window_view(band, j1 - j0, axis=1)[:, j0:j0 + w]
-        np.maximum(out, runs.max(axis=-1), out=out)
+        windows = np.lib.stride_tricks.sliding_window_view(pad[i:i + h], j1 - j0, axis=1)[:, j0:j0 + w]
+        np.maximum(out, windows.max(axis=-1), out=out)
     return out

@@ -22,11 +22,18 @@ The arithmetic is libjpeg's:
   for h2 components two samples wide or less, as libjpeg does;
 - the fixed-point YCbCr -> RGB tables of ``jdcolor.c`` (16 fraction bits).
 
-The entropy decoding is Python: the Huffman codes through a table of every
-16-bit window (code, run and, where they fit, the coefficient's bits decoded
-at once); the IDCT, upsampling and colour conversion are vectorised over all
-blocks.  ``decode`` returns the components at full size before colour
-conversion; ``read_jpeg`` gives RGB or grey uint8."""
+Two implementations of the pixel path, bit for bit the same: the native one
+(``csrc/host/jpeg.cpp`` through ``data.native``, the default: the Huffman
+scans, the IDCT and the upsampling and colour conversion in C++, the GIL
+released) and the plain one here, which ``native.plain_image_ops`` selects
+per stage ("jpeg_entropy", "jpeg_idct", "jpeg_color"): the entropy decoding
+in Python, the Huffman codes through a table of every 16-bit window (code,
+run and, where they fit, the coefficient's bits decoded at once); the IDCT,
+upsampling and colour conversion vectorised over all blocks in numpy.  The
+marker parse, the tables and the Exif orientation are Python in both.
+``coefficients`` gives the components' quantized coefficients (int16, as
+libjpeg's ``JCOEF``), ``decode`` the components at their own sizes before
+upsampling; ``read_jpeg`` gives RGB or grey uint8."""
 
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ import re
 import struct
 
 import numpy as np
+
+from leftrefill_torch.data import native
 
 # zigzag position -> natural (row-major) index in the 8x8 block
 NATURAL = np.array([
@@ -181,15 +190,49 @@ class JPEGInfo:
         self.jfif = False
 
 
-def decode(data: bytes) -> tuple[list[np.ndarray], JPEGInfo]:
-    """The component planes of a JPEG file's bytes at their own (downsampled)
-    sizes, uint8, and its :class:`JPEGInfo`."""
+def _huffman_spec(body: bytes, i: int, tc: int) -> tuple[list, list, int]:
+    """(counts, symbols, offset of the next table) of the DHT table at
+    ``body[i]``; refuses what libjpeg refuses (more than 256 symbols, codes
+    that do not fit their lengths, DC symbols above 15) and a table cut
+    short."""
+    counts = list(body[i + 1:i + 17])
+    total = sum(counts)
+    symbols = list(body[i + 17:i + 17 + total])
+    if len(counts) != 16 or total > 256 or len(symbols) != total or (tc == 0 and any(v > 15 for v in symbols)):
+        raise ValueError("JPEG: a bad Huffman table")
+    _canonical(counts)
+    return counts, symbols, i + 17 + total
+
+
+def _scan_tables(specs: dict, luts: dict, scomps: list, need_dc: bool, need_ac: bool) -> list:
+    """Each scan component's (DC, AC) table the scan decodes with, as
+    (counts, symbols) from ``specs`` or, where ``luts`` holds the plain
+    version's tables, as those; None where the scan needs none."""
+    out = []
+    for _, td, ta in scomps:
+        pair = []
+        for need, key in ((need_dc, (0, td)), (need_ac, (1, ta))):
+            if not need:
+                pair.append(None)
+            elif key not in specs:
+                raise ValueError(f"JPEG: a scan refers to a missing Huffman table ({'DC' if key[0] == 0 else 'AC'} {key[1]})")
+            else:
+                pair.append(luts[key] if luts is not None else specs[key])
+        out.append(tuple(pair))
+    return out
+
+
+def coefficients(data: bytes) -> tuple[list[_Component], JPEGInfo, dict]:
+    """A JPEG file's components with their quantized coefficients
+    (``coef``: int16 [bh, bw, 64], natural order within a block), its
+    :class:`JPEGInfo` and its quantization tables."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
+    use_native = native.active("jpeg_entropy")  # one choice for the whole file
     info = JPEGInfo()
     qt: dict[int, np.ndarray] = {}
-    dc_luts: dict[int, tuple] = {}
-    ac_luts: dict[int, tuple] = {}
+    specs: dict[tuple, tuple] = {}  # (class, id) -> (counts, symbols)
+    luts: dict | None = None if use_native else {}  # the plain version's tables of the same keys
     restart = 0
     pos, n = 2, len(data)
     comps: list[_Component] = []
@@ -228,15 +271,10 @@ def decode(data: bytes) -> tuple[list[np.ndarray], JPEGInfo]:
             i = 0
             while i < len(body):
                 tc, th = body[i] >> 4, body[i] & 15
-                counts = list(body[i + 1:i + 17])
-                total = sum(counts)
-                symbols = list(body[i + 17:i + 17 + total])
-                i += 17 + total
-                raw = _raw_lut(counts, symbols)
-                if tc == 0:
-                    dc_luts[th] = (_huffman_lut(counts, symbols, False), raw)
-                else:
-                    ac_luts[th] = (_huffman_lut(counts, symbols, True), raw)
+                counts, symbols, i = _huffman_spec(body, i, tc)
+                specs[(tc, th)] = counts, symbols
+                if luts is not None:
+                    luts[(tc, th)] = (_huffman_lut(counts, symbols, tc != 0), _raw_lut(counts, symbols))
         elif marker == 0xDD:  # DRI
             (restart,) = struct.unpack(">H", body[:2])
         elif marker in (0xC0, 0xC1, 0xC2):
@@ -266,7 +304,7 @@ def decode(data: bytes) -> tuple[list[np.ndarray], JPEGInfo]:
                 comp.width = -(-w * comp.h // hmax)
                 comp.height = -(-h * comp.v // vmax)
                 comp.bw, comp.bh = mcux * comp.h, mcuy * comp.v
-                comp.coef = [0] * (comp.bw * comp.bh * 64)
+                comp.coef = np.zeros((comp.bh, comp.bw, 64), np.int16) if use_native else [0] * (comp.bw * comp.bh * 64)
             coef_bits = [[-1] * 64 for _ in comps]
             info.components = comps
         elif marker in _SOF_REFUSED:
@@ -281,6 +319,8 @@ def decode(data: bytes) -> tuple[list[np.ndarray], JPEGInfo]:
             if not comps:
                 raise ValueError("JPEG: SOS before SOF")
             ns = body[0]
+            if not 1 <= ns <= len(comps):
+                raise ValueError(f"JPEG: a scan of {ns} components")
             scomps = []
             for c in range(ns):
                 cid, tables = body[1 + 2 * c], body[2 + 2 * c]
@@ -288,20 +328,34 @@ def decode(data: bytes) -> tuple[list[np.ndarray], JPEGInfo]:
                 scomps.append((idx, tables >> 4, tables & 15))
             ss, se, a = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
             ah, al = a >> 4, a & 15
-            segments, pos = _entropy_segments(data, seg_end)
-            blocks = _scan_blocks(comps, scomps, mcux, mcuy)
-            per_mcu = 1 if ns == 1 else sum(comps[i].h * comps[i].v for i, _, _ in scomps)
-            if not info.progressive:
-                _baseline_scan(comps, scomps, blocks, segments, restart * per_mcu, dc_luts, ac_luts)
-            elif ss == 0:
-                if se != 0:
+            if info.progressive:
+                if ss == 0 and se != 0:
                     raise ValueError("JPEG: a progressive DC scan with AC coefficients")
-                _dc_scan(comps, scomps, blocks, segments, restart * per_mcu, dc_luts, ah, al)
-            else:
-                if ns != 1:
+                if ss > se or se > 63:
+                    raise ValueError(f"JPEG: a progressive scan over the band {ss}..{se}")
+                if ss and ns != 1:
                     raise ValueError("JPEG: an interleaved progressive AC scan")
-                _ac_scan(comps[scomps[0][0]], blocks, segments, restart, ac_luts[scomps[0][2]][1],
-                         ss, se, ah, al)
+            per_mcu = 1 if ns == 1 else sum(comps[i].h * comps[i].v for i, _, _ in scomps)
+            need_dc, need_ac = (True, True) if not info.progressive else (ss == 0 and ah == 0, ss > 0)
+            tables = _scan_tables(specs, luts, scomps, need_dc, need_ac)
+            if use_native:
+                stream, offsets, pos = native.jpeg_segments(data, seg_end)
+                slots = [(comps[i].h, comps[i].v, comps[i].bw, -(-comps[i].width // 8), -(-comps[i].height // 8))
+                         for i, _, _ in scomps]
+                native.jpeg_scan(stream, offsets, slots, [comps[i].coef for i, _, _ in scomps], tables, mcux, mcuy,
+                                 restart * per_mcu, info.progressive, ss, se, ah, al)
+            else:
+                segments, pos = _entropy_segments(data, seg_end)
+                blocks = _scan_blocks(comps, scomps, mcux, mcuy)
+                try:
+                    if not info.progressive:
+                        _baseline_scan(comps, scomps, blocks, segments, restart * per_mcu, tables)
+                    elif ss == 0:
+                        _dc_scan(comps, scomps, blocks, segments, restart * per_mcu, tables, ah, al)
+                    else:
+                        _ac_scan(comps[scomps[0][0]], blocks, segments, restart, tables[0][1][1], ss, se, ah, al)
+                except IndexError:  # a read past the segment's table of windows
+                    raise ValueError("JPEG: corrupt data (the scan runs past its data)") from None
             for idx, _, _ in scomps:
                 for k in range(ss, se + 1):
                     coef_bits[idx][k] = al
@@ -320,13 +374,25 @@ def decode(data: bytes) -> tuple[list[np.ndarray], JPEGInfo]:
             if any(b != 0 for b in bits[1:_SMOOTHED_COEFS]):
                 raise ValueError(f"JPEG: a progressive file whose scans leave component {ci}'s first AC "
                                  "coefficients unrefined (libjpeg smooths such blocks; not reproduced)")
+    if not use_native:  # JCOEF: libjpeg keeps 16 bits
+        for comp in comps:
+            comp.coef = np.asarray(comp.coef, np.int64).astype(np.int16).reshape(comp.bh, comp.bw, 64)
+    return comps, info, qt
+
+
+def decode(data: bytes) -> tuple[list[np.ndarray], JPEGInfo]:
+    """The component planes of a JPEG file's bytes at their own (downsampled)
+    sizes, uint8, and its :class:`JPEGInfo`."""
+    comps, info, qt = coefficients(data)
     planes = []
     for comp in comps:
         if comp.tq not in qt:
             raise ValueError(f"JPEG: quantization table {comp.tq} is missing")
-        coef = np.asarray(comp.coef, np.int64).reshape(comp.bh * comp.bw, 64)
-        pix = idct_islow(coef, qt[comp.tq])
-        plane = pix.reshape(comp.bh, comp.bw, 8, 8).transpose(0, 2, 1, 3).reshape(comp.bh * 8, comp.bw * 8)
+        if native.active("jpeg_idct"):
+            plane = native.jpeg_idct(comp.coef, qt[comp.tq])
+        else:
+            pix = idct_islow(comp.coef.reshape(comp.bh * comp.bw, 64), qt[comp.tq])
+            plane = pix.reshape(comp.bh, comp.bw, 8, 8).transpose(0, 2, 1, 3).reshape(comp.bh * 8, comp.bw * 8)
         planes.append(plane[:comp.height, :comp.width])
     return planes, info
 
@@ -367,12 +433,12 @@ def _bad_code():
     raise ValueError("JPEG: corrupt data (a bad Huffman code)")
 
 
-def _baseline_scan(comps, scomps, blocks, segments, interval, dc_luts, ac_luts) -> None:
+def _baseline_scan(comps, scomps, blocks, segments, interval, tables) -> None:
     """A sequential scan: for every block the DC difference and the AC run /
     size codes into the components' coefficient lists (zigzag -> natural)."""
     coefs = [comps[i].coef for i, _, _ in scomps]
-    dcl = [dc_luts[td][0] for _, td, _ in scomps]
-    acl = [ac_luts[ta][0] for _, _, ta in scomps]
+    dcl = [dc[0] for dc, _ in tables]
+    acl = [ac[0] for _, ac in tables]
     nat = _NAT
     for seg, blks in _intervals(blocks, segments, interval):
         w = _windows(seg)
@@ -443,11 +509,17 @@ def _extend(v: int, s: int) -> int:
     return v - (1 << s) + 1 if s and v < (1 << (s - 1)) else v
 
 
-def _dc_scan(comps, scomps, blocks, segments, interval, dc_luts, ah: int, al: int) -> None:
+def _wrap16(x: int) -> int:
+    """``x`` as libjpeg's JCOEF stores it: 16 bits, wrapped (a progressive
+    refinement reads the stored value's sign)."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+def _dc_scan(comps, scomps, blocks, segments, interval, tables, ah: int, al: int) -> None:
     """A progressive DC scan: the first (differences << Al) or a refinement
     (one bit, OR-ed in at Al)."""
     coefs = [comps[i].coef for i, _, _ in scomps]
-    luts = [dc_luts[td][1] if ah == 0 else None for _, td, _ in scomps]
+    luts = [dc[1] if ah == 0 else None for dc, _ in tables]
     for seg, blks in _intervals(blocks, segments, interval):
         br = _Bits(seg)
         pred = [0] * len(scomps)
@@ -455,9 +527,9 @@ def _dc_scan(comps, scomps, blocks, segments, interval, dc_luts, ah: int, al: in
             if ah == 0:
                 s = br.huff(luts[slot])
                 pred[slot] += _extend(br.bits(s), s)
-                coefs[slot][base] = pred[slot] << al
+                coefs[slot][base] = _wrap16(pred[slot] << al)
             elif br.bits(1):
-                coefs[slot][base] |= 1 << al
+                coefs[slot][base] = _wrap16(coefs[slot][base] | 1 << al)
 
 
 def _ac_scan(comp, blocks, segments, interval, lut, ss: int, se: int, ah: int, al: int) -> None:
@@ -467,7 +539,8 @@ def _ac_scan(comp, blocks, segments, interval, lut, ss: int, se: int, ah: int, a
     new coefficients of +-1 << Al)."""
     c = comp.coef
     nat = _NAT
-    p1, m1 = 1 << al, -1 << al
+    p1, m1 = 1 << al, -1 << al  # the masks; what a refinement stores is wrapped
+    p1w, m1w = _wrap16(p1), _wrap16(m1)
     for seg, blks in _intervals(blocks, segments, interval):
         br = _Bits(seg)
         eobrun = 0
@@ -484,7 +557,7 @@ def _ac_scan(comp, blocks, segments, interval, lut, ss: int, se: int, ah: int, a
                         k += r
                         if k > 63:
                             raise ValueError("JPEG: corrupt data (a coefficient past the block)")
-                        c[base + nat[k]] = _extend(br.bits(s), s) << al
+                        c[base + nat[k]] = _wrap16(_extend(br.bits(s), s) << al)
                     elif r == 15:
                         k += 15
                     else:
@@ -498,7 +571,7 @@ def _ac_scan(comp, blocks, segments, interval, lut, ss: int, se: int, ah: int, a
                     rs = br.huff(lut)
                     r, s = rs >> 4, rs & 15
                     if s:
-                        s = p1 if br.bits(1) else m1
+                        s = p1w if br.bits(1) else m1w
                     elif r != 15:
                         eobrun = (1 << r) + br.bits(r)
                         break
@@ -506,7 +579,7 @@ def _ac_scan(comp, blocks, segments, interval, lut, ss: int, se: int, ah: int, a
                         i = base + nat[k]
                         if c[i]:
                             if br.bits(1) and not (c[i] & p1):
-                                c[i] += p1 if c[i] >= 0 else m1
+                                c[i] = _wrap16(c[i] + (p1 if c[i] >= 0 else m1))
                         else:
                             r -= 1
                             if r < 0:
@@ -519,7 +592,7 @@ def _ac_scan(comp, blocks, segments, interval, lut, ss: int, se: int, ah: int, a
                 while k <= se:
                     i = base + nat[k]
                     if c[i] and br.bits(1) and not (c[i] & p1):
-                        c[i] += p1 if c[i] >= 0 else m1
+                        c[i] = _wrap16(c[i] + (p1 if c[i] >= 0 else m1))
                     k += 1
                 eobrun -= 1
 
@@ -697,7 +770,8 @@ def read_jpeg(data: bytes, grey: bool = False) -> tuple[np.ndarray, int]:
     if len(comps) == 1:
         return planes[0], info.orientation
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
-    full = [upsample(p, hmax // c.h, vmax // c.v, info.width, info.height) for p, c in zip(planes, comps)]
+    up, convert = (native.jpeg_upsample, native.jpeg_ycc_rgb) if native.active("jpeg_color") else (upsample, ycc_to_rgb)
+    full = [up(p, hmax // c.h, vmax // c.v, info.width, info.height) for p, c in zip(planes[:1 if grey else 3], comps)]
     if grey:
         return full[0], info.orientation
-    return ycc_to_rgb(*full), info.orientation
+    return convert(*full), info.orientation

@@ -2,10 +2,11 @@
 
 The sources are compiled at first launch with ``nvcc`` for ``sm_90a``, one
 ``nvcc`` per ``.cu`` file, all started together, then linked into
-``leftrefill_torch/_build/<hash>/libleftrefill_kernels.so`` (the hash covers
-every source, so an edit rebuilds) and loaded with ``ctypes``.  Each C entry
-point takes device pointers, ints and the CUDA stream and returns
-``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
+``leftrefill_torch/_build/<hash>/libleftrefill_kernels.so`` and loaded with
+``ctypes`` (``native_lib.Library``: the hash covers every source, so an edit
+rebuilds).  Each C entry point takes device pointers, ints and the CUDA
+stream and returns ``cudaGetLastError()``; :func:`check` turns a non-zero
+code into an error.
 
 Importing this module needs neither ``nvcc`` nor a GPU: only a launch builds.
 """
@@ -14,17 +15,16 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
-import threading
 from pathlib import Path
 
 import torch
 
+from leftrefill_torch import native_lib
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
+BUILD_ROOT = native_lib.BUILD_ROOT
 LIB_NAME = "libleftrefill_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -87,21 +87,9 @@ _SIGNATURES = {
     "lr_flash_int8_smem": [_I],
 }
 
-_lib = None
-_lock = threading.Lock()
-
 
 def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-
-
-def source_hash() -> str:
-    h = hashlib.sha256()
-    for p in _sources():
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
 
 
 def _nvcc() -> str:
@@ -114,59 +102,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built on this machine")
 
 
-def library_path() -> Path:
-    return BUILD_ROOT / source_hash() / LIB_NAME
+def _stages(nvcc: str, sources: list[Path], work: Path, target: Path) -> list:
+    """One ``nvcc`` per source, all at once, then one link."""
+    cu = [p for p in sources if p.suffix == ".cu"]
+    objs = [str(work / f"{p.stem}.o") for p in cu]
+    return [[[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(p)] for p, obj in zip(cu, objs)],
+            [[nvcc, "-shared", "-o", str(target), *objs]]]
 
 
-def build() -> Path:
-    """Compile the sources unless this source hash is already built: one
-    ``nvcc`` per source, all at once, then one link."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tag = f"{os.getpid()}.tmp"
-    nvcc = _nvcc()
-    jobs = []
-    for src in (p for p in _sources() if p.suffix == ".cu"):
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(out.parent / f"{src.stem}.{tag}.o"), str(src)]
-        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs, failed = [], []
-    for cmd, proc in jobs:
-        logs.append(" ".join(cmd) + "\n" + proc.communicate()[0])
-        if proc.returncode != 0:
-            failed.append(logs[-1])
-    objs = [cmd[cmd.index("-o") + 1] for cmd, _ in jobs]
-    if not failed:
-        tmp = out.with_suffix(f".{tag}")
-        cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        logs.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            failed.append(logs[-1])
-    (out.parent / "build.log").write_text("\n".join(logs))
-    for obj in objs:
-        Path(obj).unlink(missing_ok=True)
-    if failed:
-        raise RuntimeError(f"nvcc failed:\n{failed[0][-4000:]}")
-    os.replace(tmp, out)
-    return out
-
-
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.lr_error_string.argtypes = [ctypes.c_int]
-            lib.lr_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+# each entry point returns cudaGetLastError()
+LIBRARY = native_lib.Library(
+    LIB_NAME, _sources, _nvcc, NVCC_FLAGS, _stages,
+    {**{name: (argtypes, ctypes.c_int) for name, argtypes in _SIGNATURES.items()},
+     "lr_error_string": ([_I], ctypes.c_char_p)})
+library_path, build, library = LIBRARY.path, LIBRARY.build, LIBRARY.load
 
 
 def check(code: int, name: str) -> None:
@@ -201,14 +150,13 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None 
 
 NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "conv3x3", "geglu", "conv3x3_int8", "dense_int8_res",
          "geglu_int8", "affine_silu_quant", "ln_quant", "gn_quant")
-_plain: frozenset = frozenset()
+_ROUTER = native_lib.Router(NAMES, "kernels")
 
 
 def plain_kernels_active(name: str) -> bool:
-    return name in _plain
+    return _ROUTER.is_plain(name)
 
 
-@contextlib.contextmanager
 def plain_kernels(names=NAMES):
     """Route the dispatchers of the kernels ``names`` (default: all) to the
     kernels' plain PyTorch versions.
@@ -217,15 +165,7 @@ def plain_kernels(names=NAMES):
     runbook's parity stage, ``tools/runbook.py``): they run the same forward
     (or train step, or decode) through the plain versions to hold the
     kernels' result against.  The serving and training paths never do."""
-    global _plain
-    unknown = set(names) - set(NAMES)
-    if unknown:
-        raise ValueError(f"unknown kernels {sorted(unknown)}")
-    prev, _plain = _plain, frozenset(names)
-    try:
-        yield
-    finally:
-        _plain = prev
+    return _ROUTER.plain(names)
 
 
 _sites: list | None = None

@@ -179,6 +179,63 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def host_cpu() -> str:
+    """The host CPU as ``/proc/cpuinfo`` names it (its first processor's
+    model name or, where that reads "unknown" as under gVisor, its vendor,
+    family and model numbers) and the cores this process sees."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                fields[key.strip()] = value.strip()
+    except OSError:
+        pass
+    name = fields.get("model name", "unknown")
+    if name == "unknown":
+        name = (f"{fields.get('vendor_id', 'unknown vendor')} family {fields.get('cpu family', '?')} model "
+                f"{fields.get('model', '?')} (model name not reported)")
+    return f"{name}, {os.cpu_count()} cores"
+
+
+# the loader thread counts the data path is timed at: one, and the CLI's 8
+DATA_PATH_THREADS = (1, 8)
+
+
+def data_path_seconds(dataset, batch_size: int, indices: list, tokenizer, items: dict, batches: dict) -> dict:
+    """The host's data path, native and plain (``native.plain_image_ops``):
+    seconds per ``dataset[i]`` on one thread over ``items[impl]`` of
+    ``indices``, and per batch of ``batch_size`` through a ``DataLoader`` of
+    each of ``DATA_PATH_THREADS`` over the first ``batches[impl]`` batches of
+    ``indices`` (the loader runs to its end, so no decode of a measurement
+    overlaps the next)."""
+    import contextlib
+    import time
+
+    from leftrefill_torch.data import native
+    from leftrefill_torch.data.loader import DataLoader
+
+    out = {}
+    for impl in ("native", "plain"):
+        with native.plain_image_ops() if impl == "plain" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            for i in indices[:items[impl]]:
+                dataset[i]
+            rec = {"seconds_per_item_one_thread": (time.perf_counter() - t0) / items[impl]}
+            for n in DATA_PATH_THREADS:
+                loader = DataLoader(dataset, batch_size, sampler=indices[:batches[impl] * batch_size],
+                                    tokenizer=tokenizer, num_workers=n)
+                t0 = time.perf_counter()
+                got = list(loader)
+                if not got:
+                    raise ValueError(f"{len(indices)} indices make no batch of {batch_size}")
+                rec[f"seconds_per_batch{batch_size}_{n}_threads"] = (time.perf_counter() - t0) / len(got)
+        out[impl] = rec
+    return out
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean ms per call over ``iters`` calls, CUDA events, after warm-up."""
     for _ in range(warmup):

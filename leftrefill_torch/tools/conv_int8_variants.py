@@ -220,7 +220,8 @@ def main() -> int:
             result["rows"].append(row)
             print(json.dumps(row))
     finally:
-        kernels.CSRC, kernels._lib = _CSRC, None
+        kernels.CSRC = _CSRC
+        kernels.LIBRARY.reset()
     if opts.json:
         with open(opts.json, "w") as f:
             json.dump(result, f, indent=1)

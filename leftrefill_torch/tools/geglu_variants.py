@@ -69,7 +69,8 @@ def use_variant(name: str, edits: list) -> None:
         csrc.mkdir(parents=True)
         for fname, text in variant_source(name, edits).items():
             (csrc / fname).write_text(text)
-    kernels.CSRC, kernels._lib = csrc, None
+    kernels.CSRC = csrc
+    kernels.LIBRARY.reset()
     kernels.library()
 
 
@@ -127,7 +128,8 @@ def main() -> int:
             result["rows"].append(row)
             print(json.dumps({k: row[k] for k in ("variant", "turn", "up_ms_per_forward", "down_ms_per_forward")}))
     finally:
-        kernels.CSRC, kernels._lib = _CSRC, None
+        kernels.CSRC = _CSRC
+        kernels.LIBRARY.reset()
     if args_.json:
         with open(args_.json, "w") as f:
             json.dump(result, f, indent=1)

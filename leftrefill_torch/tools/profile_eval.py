@@ -9,9 +9,12 @@ are the fixtures of ``tests/fixtures/jpeg``: the 1600x1200 4:2:0 photo (the
 size of a MegaDepth or camera photo) and the 160x120 ones.  It prints, and
 writes to PATH as one JSON object:
 
-1. the host's JPEG reader: seconds to decode the photo (median of 3), and
-   to build one ``TestInpaintingDataset`` item at 512 from a pair of them
-   (two decodes, two area resizes, the mask), on one thread;
+1. the host's JPEG reader, through the native image layer and through the
+   plain Python/numpy versions (``native.plain_image_ops``), in the same
+   call: seconds to decode the photo (median of 3), and to build one
+   ``TestInpaintingDataset`` item at 512 from a pair of them (two decodes,
+   two area resizes, the mask), on one thread, with the host CPU's model
+   name;
 2. ``predict`` at 512 (DDIM-50, eta 1, CFG 2.5) on the photo pair and the
    palette mask: seconds per request (median of 3 after a warm-up), of
    which the host's canvas (``request_canvas``: resize, mask, stitch);
@@ -20,15 +23,15 @@ writes to PATH as one JSON object:
    and once with the 160x120 JPEGs: per batch the seconds from one
    batch's sampling to the next (median over the batches after the
    first), the sampling alone (``log_images``, synchronised) and the rest
-   (metrics, PNGs, waiting for the loader, whose 4 threads decode under
-   the GIL beside the sampling loop).  The photo run's extra seconds per
-   batch are what the Python decode costs the evaluation beyond what the
-   loader hides.
+   (metrics, PNGs, waiting for the loader, whose 4 threads decode beside
+   the sampling loop).  The photo run's extra seconds per batch are what
+   the decode costs the evaluation beyond what the loader hides.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import shutil
 import statistics
@@ -101,22 +104,27 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval measures the card: CUDA is not available")
     from leftrefill_torch import tools
+    from leftrefill_torch.data import native
     from leftrefill_torch.data.datasets import TestInpaintingDataset
     from leftrefill_torch.data.image_io import IMREAD_COLOR, IMREAD_GRAYSCALE, imread
     from leftrefill_torch.serving import gradio_app
 
-    report = {"card": tools.card_line(), "device": torch.cuda.get_device_name(0)}
-    print(report["card"], flush=True)
+    report = {"card": tools.card_line(), "device": torch.cuda.get_device_name(0), "host_cpu": tools.host_cpu()}
+    print(report["card"], "| host", report["host_cpu"], flush=True)
     photo = str(FIXTURES / "photo_1600x1200_420.jpg")
-    report["jpeg_decode_seconds_1600x1200_420"] = _median_seconds(lambda: imread(photo, IMREAD_COLOR))
     root = Path(tempfile.mkdtemp(prefix="profile_eval_"))
     try:
         photos = _write_pairs(root / "photos", args.pairs, "photo_1600x1200_420.jpg", "photo_1600x1200_420.jpg")
         small = _write_pairs(root / "small", args.pairs, "baseline_420.jpg", "progressive_420.jpg")
         ds = TestInpaintingDataset(str(photos), img_size=512)
-        report["dataset_item_seconds_photo_pair_512"] = _median_seconds(lambda: ds[0])
-        print(f"host: decode {report['jpeg_decode_seconds_1600x1200_420']:.3f} s a 1600x1200 photo, "
-              f"{report['dataset_item_seconds_photo_pair_512']:.3f} s a dataset item of two", flush=True)
+        for impl in ("native", "plain"):
+            with native.plain_image_ops() if impl == "plain" else contextlib.nullcontext():
+                report[f"jpeg_decode_seconds_1600x1200_420_{impl}"] = _median_seconds(
+                    lambda: imread(photo, IMREAD_COLOR))
+                report[f"dataset_item_seconds_photo_pair_512_{impl}"] = _median_seconds(lambda: ds[0])
+            print(f"host, {impl}: decode {report[f'jpeg_decode_seconds_1600x1200_420_{impl}']:.4f} s a 1600x1200 "
+                  f"photo, {report[f'dataset_item_seconds_photo_pair_512_{impl}']:.4f} s a dataset item of two",
+                  flush=True)
 
         exp = root / "exp"
         exp.mkdir()

@@ -44,8 +44,11 @@ training CLI (``configs/novel_view_synthesis.yaml`` with LoRA rank 16 and
 the refinement branch, random weights, AdamW 1e-4, weight decay 0.01, no
 remat): a batch of 16 256x512 canvases from seeded synthetic renders
 (``tools.write_nvs_renders``) through ``NVS_OBJDataset`` and the loader,
-profiled as above, with the peak memory, and the host's data path: seconds
-per item on one thread and per batch of 16 from the 8-thread loader.
+profiled as above, with the peak memory, and the host's data path through
+the native image layer and through the plain Python/numpy versions
+(``native.plain_image_ops``), in the same call: seconds per item on one
+thread and per batch of 16 from the loader at 1 and 8 worker threads
+(``tools.data_path_seconds``), with the host CPU's model name.
 
 ``--train --megadepth`` profiles the prompt-tuning step of the training
 CLI (the shipped ``configs/ref_inpainting.yaml``, or with ``--multiview V``
@@ -54,9 +57,9 @@ released AdamW, no remat): a batch of 8 512x1024 canvases, or one scene of
 V 512x512 views, from a seeded synthetic MegaDepth tree of 1600x1200 4:2:0
 JPEG photos (``tools.write_megadepth_scenes``: match masks, mask files)
 through the MegaDepth dataset, ``BalancedRandomSampler`` and the loader,
-profiled as above, with the peak memory, and the host's data path: seconds
-per item on one thread, per batch from the 8-thread loader, and that
-batch's seconds over the step's (``data_bound_factor``).
+profiled as above, with the peak memory, and the host's data path, native
+and plain as for ``--train --nvs``, with each path's batch seconds at 8
+threads over the step's (``data_bound_factor``).
 
 ``--nvs`` profiles novel-view synthesis serving instead
 (``build_sd2_nvs_bundle`` with the refinement branch, ``NVSTask.log_images``,
@@ -291,18 +294,14 @@ def profile_nvs_training() -> dict:
         step = make_train_step(model, tx, cond_builder=task.cond_builder)
         dc = {k: v for k, v in bundle.data_config.items() if k not in ("cfg", "mask_file_path")}
         ds = NVS_OBJDataset(paths["datapath"], paths["train_list"], mode="train", **dc)
-        t0 = time.perf_counter()
-        for i in range(16):
-            ds[i]
-        item_s = (time.perf_counter() - t0) / 16
-        loader = iter(DataLoader(ds, 16, tokenizer=bundle.tokenizer, shuffle=True))
-        t0 = time.perf_counter()
-        batches = [next(loader) for _ in range(2)]
-        batch_s = (time.perf_counter() - t0) / 2
-        del loader
-        out = profiled_step(step, state, {k: v for k, v in batches[0].items() if k != "txt"}, "--train --nvs")
-        out["host_data"] = {"seconds_per_item_one_thread": item_s, "seconds_per_batch16_loader": batch_s,
-                            "host_cpus": os.cpu_count()}
+        indices = list(range(len(ds)))
+        host_data = tools.data_path_seconds(ds, 16, indices, bundle.tokenizer, {"native": 16, "plain": 8},
+                                            {"native": 2, "plain": 2})
+        batch = list(DataLoader(ds, 16, sampler=indices[:16], tokenizer=bundle.tokenizer))[0]
+        out = profiled_step(step, state, {k: v for k, v in batch.items() if k != "txt"}, "--train --nvs")
+        out["host_data"] = dict(host_data, host_cpu=tools.host_cpu())
+        out["data_bound_factor"] = {impl: rec["seconds_per_batch16_8_threads"] / out["unprofiled_wall_s"]
+                                    for impl, rec in host_data.items()}
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -368,25 +367,18 @@ def profile_megadepth_training(view_num) -> dict:
         cls, pairs = ((InpaintingMultiViewDataset, paths["mv_train_pair"]) if view_num else
                       (InpaintingCrossViewDataset, paths["train_pair"]))
         ds = cls(paths["image_path"], pairs, paths["train_mask_path"], mode="train", seed=0, **dc)
-        t0 = time.perf_counter()
-        for i in range(4):
-            ds[i]
-        item_s = (time.perf_counter() - t0) / 4
         rows = 1 if view_num else 8
-        sampler = BalancedRandomSampler(ds.image_dict, ds.pairs, n_sample_per_scene=16)
-        loader = iter(DataLoader(ds, rows, sampler=sampler, tokenizer=bundle.tokenizer))
-        t0 = time.perf_counter()
-        batches = [next(loader) for _ in range(2)]
-        batch_s = (time.perf_counter() - t0) / 2
-        del loader
-        batch = {k: v for k, v in batches[0].items() if k != "txt"}
+        indices = list(BalancedRandomSampler(ds.image_dict, ds.pairs, n_sample_per_scene=16))
+        host_data = tools.data_path_seconds(ds, rows, indices, bundle.tokenizer, {"native": 8, "plain": 2},
+                                            {"native": 2 if rows > 1 else 8, "plain": 1 if rows > 1 else 2})
+        batch = list(DataLoader(ds, rows, sampler=indices[:rows], tokenizer=bundle.tokenizer))[0]
+        batch = {k: v for k, v in batch.items() if k != "txt"}
         if view_num:
             batch = flatten_views(batch)
         out = profiled_step(step, state, batch, "--train --megadepth")
-        out["host_data"] = {"seconds_per_item_one_thread": item_s, f"seconds_per_batch{rows}_loader": batch_s,
-                            "jpeg_decodes_per_item": view_num or 2,
-                            "host_cpus": os.cpu_count()}
-        out["data_bound_factor"] = batch_s / out["unprofiled_wall_s"]
+        out["host_data"] = dict(host_data, jpeg_decodes_per_item=view_num or 2, host_cpu=tools.host_cpu())
+        out["data_bound_factor"] = {impl: rec[f"seconds_per_batch{rows}_8_threads"] / out["unprofiled_wall_s"]
+                                    for impl, rec in host_data.items()}
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)

@@ -15,7 +15,11 @@ files the tests write with OpenCV or splice by hand, bit for bit:
   1e-5 of the image's largest value on float32 (the bound of the other
   float32 resizes, ``tests/test_torch_data.py``);
 - the committed fixtures of ``tests/fixtures/jpeg`` equal to the cv2
-  decodes stored beside them."""
+  decodes stored beside them.
+
+Each comparison runs twice (``impl``): through the native image layer (the
+default, ``data/native.py``) and through the plain Python/numpy versions
+(``native.plain_image_ops()``)."""
 
 import hashlib
 import json
@@ -27,10 +31,21 @@ import cv2
 import numpy as np
 import pytest
 
-from leftrefill_torch.data import image_io as io, jpeg
+from leftrefill_torch.data import image_io as io, jpeg, native
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures" / "jpeg"
 SAMPLING = {"444": 0x111111, "422": 0x211111, "440": 0x121111, "420": 0x221111, "411": 0x411111}
+
+
+@pytest.fixture(params=["plain", "native"])
+def impl(request):
+    """The image operations' path for the test: the plain versions, or the
+    native layer (the default)."""
+    if request.param == "plain":
+        with native.plain_image_ops():
+            yield request.param
+    else:
+        yield request.param
 
 
 def _scene(h: int, w: int, seed: int, c: int = 3) -> np.ndarray:
@@ -58,7 +73,7 @@ def _same(got: np.ndarray, ref: np.ndarray) -> None:
 
 @pytest.mark.parametrize("sampling", list(SAMPLING))
 @pytest.mark.parametrize("quality", [30, 75, 95])
-def test_baseline_matches_opencv(sampling, quality):
+def test_baseline_matches_opencv(sampling, quality, impl):
     """Baseline files at each sampling and quality, at 37x53, 64x64 and 17x9
     (sizes no multiple of the MCU, and a chroma plane two samples wide)."""
     for i, (h, w) in enumerate(((37, 53), (64, 64), (17, 9))):
@@ -71,7 +86,7 @@ def test_baseline_matches_opencv(sampling, quality):
 
 @pytest.mark.parametrize("mode", ["progressive", "restart", "optimize", "progressive_restart"])
 @pytest.mark.parametrize("sampling", ["444", "422", "440", "420"])
-def test_coding_modes_match_opencv(mode, sampling):
+def test_coding_modes_match_opencv(mode, sampling, impl):
     """Progressive files (libjpeg's default scan script), restart intervals,
     optimized Huffman tables, each at qualities 30/75/95 and 37x53 / 80x96;
     the colour read and the grey read (the Y plane libjpeg outputs for
@@ -90,7 +105,7 @@ def test_coding_modes_match_opencv(mode, sampling):
 
 
 @pytest.mark.parametrize("progressive", [False, True])
-def test_greyscale_jpeg_matches_opencv(tmp_path, progressive):
+def test_greyscale_jpeg_matches_opencv(tmp_path, progressive, impl):
     """A one-component file under the three flags (the colour read repeats
     the grey)."""
     data = _encode(_scene(37, 53, 3, c=1), [cv2.IMWRITE_JPEG_QUALITY, 75, cv2.IMWRITE_JPEG_PROGRESSIVE, int(progressive)])
@@ -113,7 +128,7 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 @pytest.mark.parametrize("orientation", range(1, 9))
-def test_exif_orientation_matches_opencv(tmp_path, orientation):
+def test_exif_orientation_matches_opencv(tmp_path, orientation, impl):
     """An APP1 Exif segment spliced after SOI (big- and little-endian TIFF),
     and a PNG eXIf chunk: the colour and grey reads turned as OpenCV turns
     them, the unchanged read as stored."""
@@ -151,7 +166,7 @@ def _segments(data: bytes) -> list:
     return out
 
 
-def test_refusals():
+def test_refusals(impl):
     """Arithmetic coding, 12-bit samples, four components and a progressive
     file cut before its AC refinements (libjpeg would smooth its blocks)
     raise; the same progressive file whole reads."""
@@ -201,7 +216,7 @@ def _check_png(path) -> None:
 
 
 @pytest.mark.parametrize("depth", [1, 2, 4, 8])
-def test_palette_and_low_bit_png_match_opencv(tmp_path, depth):
+def test_palette_and_low_bit_png_match_opencv(tmp_path, depth, impl):
     """Palette files (with and without tRNS alpha) and grey files of 1-8
     bits, 13x21 (rows that end inside a byte)."""
     rng = np.random.RandomState(depth)
@@ -220,7 +235,7 @@ def test_palette_and_low_bit_png_match_opencv(tmp_path, depth):
 
 @pytest.mark.parametrize("colour", [0, 2, 4, 6])
 @pytest.mark.parametrize("depth", [8, 16])
-def test_grey_alpha_and_16_bit_png_match_opencv(tmp_path, colour, depth):
+def test_grey_alpha_and_16_bit_png_match_opencv(tmp_path, colour, depth, impl):
     """Grey, RGB, grey + alpha and RGBA at 8 and 16 bits (16 bits: the
     unchanged read keeps uint16, the others the high byte; the grey read of
     RGB through libpng's rgb_to_gray), with grey pixels among the RGB ones."""
@@ -233,7 +248,7 @@ def test_grey_alpha_and_16_bit_png_match_opencv(tmp_path, colour, depth):
     _check_png(tmp_path / "x.png")
 
 
-def test_rgb_trns_png_matches_opencv(tmp_path):
+def test_rgb_trns_png_matches_opencv(tmp_path, impl):
     v = np.random.RandomState(0).randint(0, 256, (13, 21, 3)).astype(np.uint8)
     v[0, 0] = v[5, 7] = (1, 2, 3)
     _png(tmp_path / "t.png", 21, 13, 8, 2, [r.tobytes() for r in v], _chunk(b"tRNS", struct.pack(">3H", 1, 2, 3)))
@@ -241,7 +256,7 @@ def test_rgb_trns_png_matches_opencv(tmp_path):
 
 
 @pytest.mark.parametrize("channels", [1, 3])
-def test_area_enlarge_matches_opencv(channels):
+def test_area_enlarge_matches_opencv(channels, impl):
     """``INTER_AREA`` where OpenCV runs its bilinear with area coefficients:
     enlarging one or both axes (one axis may shrink)."""
     rng = np.random.RandomState(channels)
@@ -259,7 +274,7 @@ def test_area_enlarge_matches_opencv(channels):
 
 
 @pytest.mark.parametrize("name", json.loads((FIXTURES / "manifest.json").read_text()))
-def test_fixtures_decode_as_stored(name):
+def test_fixtures_decode_as_stored(name, impl):
     """Each committed fixture decodes to OpenCV's decode stored beside it
     (PNG, or the SHA-256 of the photo's), and OpenCV here still gives it."""
     entry = json.loads((FIXTURES / "manifest.json").read_text())[name]
