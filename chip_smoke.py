@@ -198,7 +198,11 @@ Phases, one line each (the kernel phases one line per kernel shape):
    version the same way (the area resize down at a fractional and an integer
    ratio and up, uint8 and float32, the bilinear resize uint8 and float32,
    the nearest resize, the ellipse dilation of a mask uint8 and float32, the
-   PNG unfilter of rows of every filter type, the PNG fixtures' reads); (11b) an experiment
+   PNG unfilter of rows of every filter type, the PNG fixtures' reads), and
+   the training masks' polyline raster, native against plain the same way
+   on 200 seeded NVS strokes (256x256, 20-45 vertices, widths 40-70), 200
+   float match-based strokes (256x256, widths 35-70, vertices past the
+   border) and 50 ``random_stroke_mask`` draws at 512x512; (11b) an experiment
    directory (``configs/ref_inpainting.yaml``, a seeded prompt checkpoint
    saved through ``CheckpointManager``) served by
    ``serving.gradio_app.initialize_model`` (random weights, no SD file):
@@ -1574,6 +1578,7 @@ def serving_phases(launches: dict) -> None:
         print(f"phase 11a {label} -> {a.dtype} {tuple(a.shape)}: native and plain bit-equal "
               f"(mismatches={mismatches}); seconds native={secs['native']:.4f} plain={secs['plain']:.4f}",
               flush=True)
+    raster_lines()
 
     root = tempfile.mkdtemp(prefix="serving_")
     try:
@@ -1738,6 +1743,52 @@ def megadepth_yamls(root: str, paths: dict, name: str, label: str, train_edits: 
     Path(root, f"{name}_train.yaml").write_text(train_yaml)
     return ["--config_file", str(Path(root, f"{name}_train.yaml")), "--exp_name", name, "--save_path",
             str(Path(root, "ck"))]
+
+
+def raster_lines() -> None:
+    """Phase 11a's raster lines: the training masks' polyline raster
+    (``masks.draw_polyline_mask``) through the native image layer and
+    through its plain Python version, stroke by stroke on seeded strokes,
+    each set's differing pixels and seconds; any difference fails."""
+    import contextlib
+    import random
+
+    import numpy as np
+
+    from leftrefill_torch.data import masks, native
+
+    rng = np.random.RandomState(20)
+
+    def nvs_stroke():  # 20-45 integer vertices in an object's box, widths 80-140 x 256/512
+        lo = rng.randint(0, 160, 2)
+        hi = lo + rng.randint(8, 256 - lo, 2)
+        n = rng.randint(20, 46)
+        pts = np.stack([rng.randint(lo[0], hi[0], n), rng.randint(lo[1], hi[1], n)], 1)
+        return functools.partial(masks.draw_polyline_mask, pts, 256, int(rng.randint(40, 71)))
+
+    def match_stroke():  # 15-30 float keypoints, some past the border, widths 35-70
+        pts = rng.uniform(-40, 296, (rng.randint(15, 31), 2))
+        return functools.partial(masks.draw_polyline_mask, pts, 256, int(rng.randint(35, 71)))
+
+    for label, draws in (
+            ("NVS strokes 256x256 widths 40-70", [nvs_stroke() for _ in range(200)]),
+            ("match-based float strokes 256x256 widths 35-70", [match_stroke() for _ in range(200)]),
+            ("random_stroke_mask 512x512", [lambda s=s: masks.random_stroke_mask(512, random.Random(s))
+                                            for s in range(50)])):
+        count = len(draws)
+        outs, secs = {}, {}
+        for impl in ("native", "plain"):
+            with native.plain_image_ops(("raster",)) if impl == "plain" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                outs[impl] = [draw() for draw in draws]
+                secs[impl] = time.perf_counter() - t0
+        mismatches = sum(int((a != b).sum()) for a, b in zip(outs["native"], outs["plain"]))
+        pixels = sum(int(a.sum()) for a in outs["native"])
+        if mismatches:
+            raise SystemExit(f"phase 11a raster {label}: native and plain differ in {mismatches} pixels")
+        print(f"phase 11a raster {label}: strokes={count} pixels_drawn={pixels} native and plain bit-equal "
+              f"(mismatches={mismatches}); seconds native={secs['native']:.4f} plain={secs['plain']:.4f} "
+              f"(per stroke {secs['native'] / count * 1e3:.3f} / {secs['plain'] / count * 1e3:.3f} ms)", flush=True)
 
 
 def data_path_line(label: str, loader, steps: list, items: dict, batches: dict) -> None:

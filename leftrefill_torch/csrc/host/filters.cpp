@@ -11,54 +11,66 @@
 // output is the largest, over the kernel's rows, of a horizontal running
 // maximum of the source row that row reaches; each running maximum of
 // width L is van Herk / Gil-Werman's (a prefix and a suffix maximum within
-// blocks of L, three comparisons a sample whatever L).  Bounded by the
-// kernel's rows: k comparisons an output sample.
+// blocks of L, three comparisons a sample whatever L), computed a source
+// row at a time so that its rows stay in cache.  Bounded by the kernel's
+// rows: k comparisons an output sample, each a compare and a select that
+// the compiler vectorizes.
 // unfilter: a byte a step, each depending on its left neighbour (Sub,
 // Average, Paeth), so serial along a row; bounded by that dependency.
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
-#include <map>
 #include <vector>
 
 namespace {
 
-inline uint8_t max_of(uint8_t a, uint8_t b) { return a > b ? a : b; }
-
-// np.maximum: NaN if either is NaN
-inline float max_of(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return a > b ? a : b;
+// np.maximum: NaN if either is NaN, a branch-free select
+template <typename T>
+inline T max_of(T a, T b) {
+  return ((a > b) | (a != a)) ? a : b;
 }
 
+// Source row by source row: its running maxima of each width the kernel's
+// rows need (van Herk / Gil-Werman over blocks of that width), then each
+// kernel row's share max-ed into the output row it reaches.  An output row
+// takes its kernel rows in their order, as the plain version does.
 template <typename T>
 void dilate(const T* img, int h, int w, const int32_t* runs, int kh, int kw, T low, T* out) {
   const int ay = kh / 2, ax = kw / 2, pw = w + 2 * kw;
-  // the running maxima of each width the kernel's rows need, every source row
-  std::map<int, std::vector<T>> windows;
+  std::vector<int> lens, slot(static_cast<size_t>(kh), -1);
+  for (int i = 0; i < kh; ++i) {
+    const int len = runs[2 * i + 1] - runs[2 * i];
+    if (len <= 0) continue;
+    auto it = std::find(lens.begin(), lens.end(), len);
+    slot[size_t(i)] = int(it - lens.begin());
+    if (it == lens.end()) lens.push_back(len);
+  }
   std::vector<T> pad(static_cast<size_t>(pw)), g(static_cast<size_t>(pw)), s(static_cast<size_t>(pw));
-  for (int i = 0; i < kh; ++i)
-    if (runs[2 * i + 1] > runs[2 * i]) windows[runs[2 * i + 1] - runs[2 * i]];
-  for (auto& [len, m] : windows) {
-    m.assign(size_t(h) * pw, low);
-    for (int y = 0; y < h; ++y) {
-      std::fill(pad.begin(), pad.end(), low);
-      for (int x = 0; x < w; ++x) pad[size_t(kw + x)] = img[int64_t(y) * w + x];
-      for (int x = 0; x < pw; ++x) g[size_t(x)] = (x % len == 0) ? pad[size_t(x)] : max_of(g[size_t(x - 1)], pad[size_t(x)]);
-      for (int x = pw - 1; x >= 0; --x)
-        s[size_t(x)] = (x % len == len - 1 || x == pw - 1) ? pad[size_t(x)] : max_of(s[size_t(x + 1)], pad[size_t(x)]);
-      T* row = m.data() + int64_t(y) * pw;
+  std::vector<T> win(lens.size() * size_t(pw));
+  std::fill(out, out + int64_t(h) * w, low);
+  for (int sy = 0; sy < h; ++sy) {
+    std::fill(pad.begin(), pad.end(), low);
+    std::copy(img + int64_t(sy) * w, img + int64_t(sy + 1) * w, pad.begin() + kw);
+    for (size_t li = 0; li < lens.size(); ++li) {
+      const int len = lens[li];
+      for (int b0 = 0; b0 < pw; b0 += len) {  // prefix and suffix maxima within each block of len
+        const int b1 = std::min(b0 + len, pw);
+        g[size_t(b0)] = pad[size_t(b0)];
+        for (int x = b0 + 1; x < b1; ++x) g[size_t(x)] = max_of(g[size_t(x - 1)], pad[size_t(x)]);
+        s[size_t(b1 - 1)] = pad[size_t(b1 - 1)];
+        for (int x = b1 - 2; x >= b0; --x) s[size_t(x)] = max_of(s[size_t(x + 1)], pad[size_t(x)]);
+      }
+      T* row = win.data() + li * size_t(pw);
       for (int x = 0; x + len - 1 < pw; ++x) row[x] = max_of(s[size_t(x)], g[size_t(x + len - 1)]);
     }
-  }
-  for (int y = 0; y < h; ++y) {
-    T* o = out + int64_t(y) * w;
-    for (int x = 0; x < w; ++x) o[x] = low;
+    // kernel row i reaches output row sy - i + ay, so an output row takes
+    // its kernel rows in increasing order as sy grows
     for (int i = 0; i < kh; ++i) {
-      const int j0 = runs[2 * i], j1 = runs[2 * i + 1], sy = y + i - ay;
-      if (j1 <= j0 || sy < 0 || sy >= h) continue;
-      const T* row = windows[j1 - j0].data() + int64_t(sy) * pw + (j0 - ax + kw);
+      const int y = sy - i + ay;
+      if (slot[size_t(i)] < 0 || y < 0 || y >= h) continue;
+      const T* row = win.data() + size_t(slot[size_t(i)]) * pw + (runs[2 * i] - ax + kw);
+      T* o = out + int64_t(y) * w;
       for (int x = 0; x < w; ++x) o[x] = max_of(o[x], row[x]);
     }
   }

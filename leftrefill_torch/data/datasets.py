@@ -163,11 +163,17 @@ class NVS_OBJDataset:
 
     def _load_view(self, filename: str, index: int):
         """(RGB uint8 with the transparent pixels white, the alpha > 0 mask
-        as float32)."""
+        as float32).  JAX's code takes the render through float64 (x / 255
+        * 255, truncated), which gives every uint8 value back: a uint8
+        render is read in uint8; a 16-bit one takes JAX's float64 route."""
         path = os.path.join(filename, "%03d.png" % index)
         raw = read_png(path)
         if raw.ndim != 3 or raw.shape[2] != 4:
             raise ValueError(f"{path}: an RGBA render is expected, got shape {raw.shape}")
+        if raw.dtype == np.uint8:
+            alpha = raw[:, :, 3]
+            white = (alpha == 0).view(np.uint8) * np.uint8(255)  # x | 255 = 255, x | 0 = x
+            return raw[:, :, :3] | white[:, :, None], (alpha > 0).astype(np.float32)
         im = raw / 255.0
         alpha_mask = im[:, :, -1].copy()
         alpha_mask[alpha_mask > 0] = 1

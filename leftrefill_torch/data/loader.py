@@ -24,13 +24,19 @@ def tokenize_txt(tokenizer, txt) -> np.ndarray:
 
 def collate(items: Sequence[dict], tokenizer=None) -> dict:
     """Stack the dataset's dicts into one numpy batch; "txt" becomes
-    "tokens" when a tokenizer is given."""
+    "tokens" when a tokenizer is given (each distinct prompt of the batch
+    tokenized once: a batch's prompts mostly repeat)."""
     out: dict[str, Any] = {}
     for k in items[0].keys():
         vals = [it[k] for it in items]
         if k == "txt":
             if tokenizer is not None:
-                out["tokens"] = np.stack([tokenize_txt(tokenizer, v) for v in vals])
+                keys = [v if isinstance(v, str) else tuple(v) for v in vals]
+                ids: dict = {}
+                for key, v in zip(keys, vals):
+                    if key not in ids:
+                        ids[key] = tokenize_txt(tokenizer, v)
+                out["tokens"] = np.stack([ids[key] for key in keys])
             else:
                 out["txt"] = vals
         elif isinstance(vals[0], np.ndarray) or np.isscalar(vals[0]):

@@ -9,8 +9,9 @@ confident matcher keypoints), and the novel-view-synthesis mask
 random polyline inside its bounding box).  The JAX package reads and
 resizes with OpenCV, draws the polylines with PIL's ``ImageDraw`` and
 dilates with OpenCV; the port reads and resizes with ``data.image_io``,
-rasterizes the same shapes itself (:func:`draw_polyline_mask`, PIL's pixels)
-and dilates with ``image_io.dilate``.  Random draws come from a
+rasterizes the same shapes itself (:func:`draw_polyline_mask`, PIL's pixels:
+in C++ through ``data.native``, whose plain version is the Python here) and
+dilates with ``image_io.dilate``.  Random draws come from a
 ``random.Random`` and an explicit ``np.random.RandomState`` (JAX's code
 draws the latter's values from numpy's global stream), in JAX's order."""
 
@@ -22,6 +23,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from leftrefill_torch.data import native
 from leftrefill_torch.data.image_io import IMREAD_GRAYSCALE, INTER_NEAREST, dilate, ellipse_kernel, imread, resize
 
 
@@ -142,10 +144,13 @@ def draw_polyline_mask(points: np.ndarray, size: int, width: int, canvas_size: i
     PIL, the coordinates are truncated to integers, each segment is PIL's
     quadrilateral filled by its float32 scanline rule and each ellipse
     PIL's.  Widths below 2 (PIL's one-pixel line, another algorithm) are
-    refused."""
+    refused.  The raster runs in C++ (``native.polyline_mask``) unless
+    ``native.plain_image_ops`` routes "raster" to the Python below."""
     if width < 2:
         raise ValueError(f"width {width}: the polyline raster draws widths of 2 and more")
     canvas = canvas_size or size
+    if native.active("raster"):
+        return native.polyline_mask(points, width, canvas).astype(np.float32)
     mask = np.zeros((canvas, canvas), np.uint8)
     pts = np.append(points, points[:1], axis=0).astype(np.float32)
     for p0, p1 in zip(pts[:-1], pts[1:]):

@@ -1,6 +1,6 @@
 """The native image layer: the data path's pixel work in C++
 (``leftrefill_torch/csrc/host/*.cpp``), the port's counterpart of the
-OpenCV calls of the JAX package's data path.
+OpenCV and PIL calls of the JAX package's data path.
 
 The sources are compiled at first use with the host C++ compiler (``$CXX``,
 else ``c++`` or ``g++``), in one call, into
@@ -11,7 +11,8 @@ the GIL for every call: the loader's threads decode and resize in parallel.
 A failed build raises with the compiler's output; nothing falls back to the
 Python versions.
 
-The Python/numpy versions in ``data/jpeg.py`` and ``data/image_io.py`` stay
+The Python/numpy versions in ``data/jpeg.py``, ``data/image_io.py`` and
+``data/masks.py`` (the polyline raster) stay
 as the plain versions, bit for bit the same: :func:`plain_image_ops` routes
 the named operations to them (tests and profilers), the default on every
 device is the native path.  Importing this module compiles nothing.
@@ -34,7 +35,7 @@ LIB_NAME = "libleftrefill_image.so"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
 
 # the operations :func:`plain_image_ops` can route to their plain versions
-NAMES = ("jpeg_entropy", "jpeg_idct", "jpeg_color", "resize", "dilate", "png_unfilter")
+NAMES = ("jpeg_entropy", "jpeg_idct", "jpeg_color", "resize", "dilate", "png_unfilter", "raster")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
@@ -64,6 +65,10 @@ _SIGNATURES = {
     "lr_dilate_f32": ([_P, _I, _I, _P, _I, _I, _P], None),
     # raw, h, stride, bpp, out -> -1 or the first row of an unknown filter type
     "lr_png_unfilter": ([_P, _I, _L, _I, _P], _I),
+    # pts, n, width, canvas, out -> 0, or an error code of _RASTER_ERRORS
+    "lr_polyline_mask": ([_P, _I, _I, _I, _P], _I),
+    # x0, y0, x1, y1, h, w, out -> 0, or an error code
+    "lr_ellipse": ([_L, _L, _L, _L, _I, _I, _P], _I),
 }
 
 
@@ -259,3 +264,42 @@ def dilate(img: np.ndarray, runs: np.ndarray, kw: int) -> np.ndarray:
     fn = library().lr_dilate_u8 if img.dtype == np.uint8 else library().lr_dilate_f32
     fn(_ptr(img), img.shape[0], img.shape[1], _ptr(runs), runs.shape[0], kw, _ptr(out))
     return out
+
+
+_RASTER_ERRORS = {
+    1: "a vertex lies past +-2^24: the raster takes coordinates that float32 holds as integers",
+    2: "the ellipse box is too large for the raster's int64 arithmetic",
+    3: "an ellipse box's second corner comes before its first",
+}
+
+
+def polyline_mask(points: np.ndarray, width: int, canvas: int) -> np.ndarray:
+    """``masks.draw_polyline_mask``'s raster: the closed polyline through
+    ``points`` [N, 2] (x, y; cast to float32 as the plain version does),
+    ``width`` wide, and its vertex ellipses, as 1 on a [canvas, canvas]
+    uint8 zero mask."""
+    if not 2 <= width < 2**31 or len(points) >= 2**31:
+        raise ValueError(f"polyline of width {width} through {len(points)} vertices: out of the raster's range")
+    pts = np.ascontiguousarray(np.asarray(points).reshape(-1, 2), dtype=np.float32)
+    out = np.zeros((canvas, canvas), np.uint8)
+    if len(pts):
+        code = library().lr_polyline_mask(_ptr(pts), len(pts), width, canvas, _ptr(out))
+        if code:
+            raise ValueError(f"polyline of width {width}: {_RASTER_ERRORS[code]}")
+    return out
+
+
+def ellipse(mask: np.ndarray, box) -> None:
+    """``masks._ellipse``: PIL's filled ellipse in the integer pixel box
+    (x0, y0, x1, y1), both ends included, written into the C-contiguous
+    [H, W] uint8 ``mask``.  The data path draws its ellipses inside
+    :func:`polyline_mask`; this export exists for the tests, which hold
+    every box width 1..140, square or not, against PIL."""
+    if mask.ndim != 2 or mask.dtype != np.uint8 or not mask.flags.c_contiguous:
+        raise ValueError(f"expected a C-contiguous [H, W] uint8 mask, got {mask.dtype} {mask.shape}")
+    box = tuple(int(v) for v in box)
+    if any(abs(v) >= 2**62 for v in box):
+        raise ValueError(f"ellipse {box}: {_RASTER_ERRORS[2]}")
+    code = library().lr_ellipse(*box, mask.shape[0], mask.shape[1], _ptr(mask))
+    if code:
+        raise ValueError(f"ellipse {box}: {_RASTER_ERRORS[code]}")

@@ -837,6 +837,58 @@ def write_megadepth_scenes(root: str, scenes: int = 2, images_per_scene: int = 1
             "match_path": f"{root}/matching_results"}
 
 
+
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "configs")
+
+
+def _train_data_config(name: str) -> dict:
+    """The data config of the shipped ``configs/<name>.yaml`` as a training
+    dataset takes it: without the CLI's ``cfg`` and ``mask_file_path``."""
+    from leftrefill_torch.config import load_yaml
+
+    dc = dict(load_yaml(os.path.join(CONFIGS, f"{name}.yaml"))["model"]["params"]["data_config"])
+    for key in ("cfg", "mask_file_path"):
+        dc.pop(key, None)
+    return dc
+
+
+def nvs_train_dataset(root: str):
+    """``NVS_OBJDataset`` in train mode, seeded, with the data config of
+    ``configs/novel_view_synthesis.yaml`` (``img_size`` 256, ``dilate_size``
+    10-25, ``pts_size`` 20-45, ``width_range`` 80-140), on seeded 256x256
+    RGBA renders of 32 objects of 12 views written under ``root``
+    (:func:`write_nvs_renders`)."""
+    from leftrefill_torch.data.datasets import NVS_OBJDataset
+
+    paths = write_nvs_renders(root, 32, views=12, size=256, seed=0)
+    return NVS_OBJDataset(paths["datapath"], paths["train_list"], mode="train", seed=0,
+                          **_train_data_config("novel_view_synthesis"))
+
+
+def megadepth_train_dataset(root: str, view_num: int = 0):
+    """(dataset, indices): ``InpaintingCrossViewDataset`` with the data
+    config of ``configs/ref_inpainting.yaml`` (512, match masks at rate
+    0.25) or, given ``view_num``, ``InpaintingMultiViewDataset`` with that of
+    ``configs/multiview_ref_inpainting.yaml`` at ``view_num`` views, in train
+    mode, seeded, on a tree of the 1600x1200 4:2:0 photo written under
+    ``root`` (:func:`write_megadepth_scenes`: one scene of 6 images, 24
+    training pairs); the indices are ``BalancedRandomSampler``'s, 16 a
+    scene."""
+    from leftrefill_torch.data.datasets import (BalancedRandomSampler, InpaintingCrossViewDataset,
+                                                InpaintingMultiViewDataset)
+
+    paths = write_megadepth_scenes(root, scenes=1, images_per_scene=6, seed=0, train_pairs_per_scene=24,
+                                   other_pairs_per_scene=4, images=MEGADEPTH_IMAGES[:1], mask_size=512)
+    if view_num:
+        cls, pairs = InpaintingMultiViewDataset, paths["mv_train_pair"]
+        dc = dict(_train_data_config("multiview_ref_inpainting"), view_num=view_num)
+    else:
+        cls, pairs = InpaintingCrossViewDataset, paths["train_pair"]
+        dc = _train_data_config("ref_inpainting")
+    ds = cls(paths["image_path"], pairs, paths["train_mask_path"], mode="train", seed=0,
+             **dict(dc, match_path=paths["match_path"]))
+    return ds, list(BalancedRandomSampler(ds.image_dict, ds.pairs, n_sample_per_scene=16))
+
 def prompt_tokenizer():
     """The 1-reference prompt set-up: (tokenizer, the 50 prompt tokens, their
     init text)."""

@@ -269,7 +269,6 @@ def profile_nvs_training() -> dict:
     import tempfile
 
     from leftrefill_torch.config import build_model_from_config, load_yaml
-    from leftrefill_torch.data.datasets import NVS_OBJDataset
     from leftrefill_torch.data.loader import DataLoader
     from leftrefill_torch.models.lora import default_target, init_lora
     from leftrefill_torch.tasks import build_task
@@ -279,7 +278,6 @@ def profile_nvs_training() -> dict:
 
     root = tempfile.mkdtemp(prefix="nvs_profile_")
     try:
-        paths = tools.write_nvs_renders(root, 32, views=12, size=256, seed=0)
         cfg = load_yaml(os.path.join(os.path.dirname(__file__), "..", "..", "configs", "novel_view_synthesis.yaml"))
         cfg["model"]["params"]["lora"]["do_lora"] = True
         cfg["model"]["params"]["refinement_config"]["use_input_refinement"] = True
@@ -292,8 +290,7 @@ def profile_nvs_training() -> dict:
         state, tx = create_train_state(model, OptimizerConfig(lr=1e-4, weight_decay=0.01),
                                        lora_predicate(nvs_prompt_filter))
         step = make_train_step(model, tx, cond_builder=task.cond_builder)
-        dc = {k: v for k, v in bundle.data_config.items() if k not in ("cfg", "mask_file_path")}
-        ds = NVS_OBJDataset(paths["datapath"], paths["train_list"], mode="train", **dc)
+        ds = tools.nvs_train_dataset(root)
         indices = list(range(len(ds)))
         host_data = tools.data_path_seconds(ds, 16, indices, bundle.tokenizer, {"native": 16, "plain": 8},
                                             {"native": 2, "plain": 2})
@@ -340,17 +337,13 @@ def profile_megadepth_training(view_num) -> dict:
     import tempfile
 
     from leftrefill_torch.config import build_model_from_config, load_yaml
-    from leftrefill_torch.data.datasets import (BalancedRandomSampler, InpaintingCrossViewDataset,
-                                                InpaintingMultiViewDataset)
     from leftrefill_torch.data.loader import DataLoader, flatten_views
     from leftrefill_torch.tasks import build_task
     from leftrefill_torch.train import OptimizerConfig, create_train_state, make_train_step, prompt_only_predicate
 
     root = tempfile.mkdtemp(prefix="megadepth_profile_")
     try:
-        paths = tools.write_megadepth_scenes(root, scenes=1, images_per_scene=6, seed=0, train_pairs_per_scene=24,
-                                             other_pairs_per_scene=4, images=tools.MEGADEPTH_IMAGES[:1],
-                                             mask_size=512)
+        ds, indices = tools.megadepth_train_dataset(root, view_num)
         name = "multiview_ref_inpainting" if view_num else "ref_inpainting"
         cfg = load_yaml(os.path.join(os.path.dirname(__file__), "..", "..", "configs", f"{name}.yaml"))
         if view_num:  # the multi-view YAML at view_num views
@@ -362,13 +355,7 @@ def profile_megadepth_training(view_num) -> dict:
         task.init_params(torch.Generator("cuda").manual_seed(0))
         state, tx = create_train_state(bundle.model, OptimizerConfig(), prompt_only_predicate)
         step = make_train_step(bundle.model, tx, view_reduced=task.view_reduced, view_num=task.view_num)
-        dc = dict(bundle.data_config, match_path=paths["match_path"])
-        dc.pop("cfg")
-        cls, pairs = ((InpaintingMultiViewDataset, paths["mv_train_pair"]) if view_num else
-                      (InpaintingCrossViewDataset, paths["train_pair"]))
-        ds = cls(paths["image_path"], pairs, paths["train_mask_path"], mode="train", seed=0, **dc)
         rows = 1 if view_num else 8
-        indices = list(BalancedRandomSampler(ds.image_dict, ds.pairs, n_sample_per_scene=16))
         host_data = tools.data_path_seconds(ds, rows, indices, bundle.tokenizer, {"native": 8, "plain": 2},
                                             {"native": 2 if rows > 1 else 8, "plain": 1 if rows > 1 else 2})
         batch = list(DataLoader(ds, rows, sampler=indices[:rows], tokenizer=bundle.tokenizer))[0]

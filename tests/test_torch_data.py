@@ -19,9 +19,9 @@ own data path, on the CPU:
   mask files, complete masks), ``collate``, ``DataLoader`` and
   ``BalancedRandomSampler`` equal to JAX's under the same seeds.
 
-The PNG, resize and dilation comparisons run twice (``impl``): through the
-native image layer (the default, ``data/native.py``) and through the plain
-numpy versions (``native.plain_image_ops()``)."""
+The PNG, resize, dilation and raster comparisons run twice (``impl``):
+through the native image layer (the default, ``data/native.py``) and
+through the plain numpy/Python versions (``native.plain_image_ops()``)."""
 
 import random
 import struct
@@ -223,13 +223,13 @@ def _stroke_cases():
         yield rng.uniform(-30, 286, (n, 2)).astype(np.float32), 256, int(rng.randint(35, 70))
 
 
-def test_polyline_raster_matches_pil():
+def test_polyline_raster_matches_pil(impl):
     """The stated bound per stroke (at most 1 % of PIL's stroke pixels
     differing, each within one pixel of its edge), on 120 seeded integer
     strokes at the novel-view widths and below and 200 float strokes at the
     match-based widths, some reaching past the border.  Reading: no pixel
     differs (the raster computes PIL's scanline crossings in float32 as PIL
-    does); widths below 2 are refused."""
+    does), on both paths; widths below 2 are refused."""
     with pytest.raises(ValueError, match="widths of 2"):
         tmk.draw_polyline_mask(np.zeros((3, 2)), 32, 1)
     differing = 0
@@ -244,8 +244,10 @@ def test_polyline_raster_matches_pil():
     assert differing == 0
 
 
-def test_ellipse_matches_pil():
-    """PIL's filled ellipse, boxes of every width 1..60, inside and across the border."""
+def test_ellipse_matches_pil(impl):
+    """PIL's filled ellipse, boxes of every width 1..60, inside and across
+    the border: the plain ``_ellipse`` and the native one."""
+    draw = native.ellipse if impl == "native" else tmk._ellipse
     rng = np.random.RandomState(1)
     for w in range(1, 61):
         x, y = rng.randint(-10, 74, 2)
@@ -253,7 +255,7 @@ def test_ellipse_matches_pil():
         ref = Image.new("L", (64, 64), 0)
         ImageDraw.Draw(ref).ellipse(tuple(float(v) for v in box), fill=1)
         got = np.zeros((64, 64), np.uint8)
-        tmk._ellipse(got, box)
+        draw(got, box)
         assert np.array_equal(np.asarray(ref), got), box
 
 
@@ -262,10 +264,11 @@ def test_ellipse_matches_pil():
     (256, dict(dilate_size=(10, 25), pts_size=(20, 45), mask_enlarge=(0.05, 0.2), width_range=(80, 140))),
     (64, dict(complete_mask_rate=0.5)),
 ])
-def test_nvs_object_mask_matches_jax(size, kw):
+def test_nvs_object_mask_matches_jax(size, kw, impl):
     """The same draws in the same order: JAX's from ``random.Random(s)`` and
     numpy's global stream seeded with s, the port's from ``random.Random(s)``
-    and ``RandomState(s)``; an empty object gives the whole view."""
+    and ``RandomState(s)``; an empty object gives the whole view.  Both
+    paths (the dilation and the raster native or plain)."""
     yy, xx = np.mgrid[:size, :size] / size
     for s in range(6):
         obj = (((yy - 0.5) / 0.2) ** 2 + ((xx - 0.4 - 0.03 * s) / 0.25) ** 2 <= 1).astype(np.float32)

@@ -18,7 +18,8 @@ port's from its own ``random.Random`` streams and ``RandomState(seed)``):
   ``extend_pairs_for_multiview`` equal to JAX's.
 
 Every comparison is exact (the port's polyline raster is PIL's pixel for
-pixel)."""
+pixel); the match-based masks are drawn through the native raster and
+through its plain Python version (``impl``)."""
 
 import os
 import pickle
@@ -30,7 +31,7 @@ import pytest
 from leftrefill_tpu.data import datasets as jd, masks as jm, preprocess as jp
 
 from leftrefill_torch import tools
-from leftrefill_torch.data import datasets as td, masks as tmk, preprocess as tp
+from leftrefill_torch.data import datasets as td, masks as tmk, native, preprocess as tp
 
 SMALL = tools.MEGADEPTH_IMAGES[1:]  # the 120x160 fixtures: the photo's decode is slow in Python
 
@@ -94,12 +95,23 @@ def _match(rng: np.random.RandomState, n: int, spread: float):
     return {"scores": rng.uniform(0, 1, n).astype(np.float32), "mkpts0": pts[0], "mkpts1": pts[1]}
 
 
-def test_match_based_mask_matches_jax():
+@pytest.fixture(params=["plain", "native"])
+def impl(request):
+    """The polyline raster's path for the test: the plain Python version, or
+    the native one (the default)."""
+    if request.param == "plain":
+        with native.plain_image_ops(("raster",)):
+            yield request.param
+    else:
+        yield request.param
+
+
+def test_match_based_mask_matches_jax(impl):
     """Seeded matcher outputs (dense and sparse, wide and narrow spreads,
     an empty one), with and without crop info, both target sides,
     ``constant_place`` on and off, at 256 (the mask's own size) and 512
     (the nearest resize), and the one view's mask: bit-equal, both masks and
-    None returns among them."""
+    None returns among them, on both raster paths."""
     rng = np.random.RandomState(0)
     outcomes = {"mask": 0, "none": 0}
     for c in range(60):

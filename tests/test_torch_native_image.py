@@ -135,6 +135,27 @@ def test_png_unfilter_equals_plain(bpp):
                 io._unfilter(raw.tobytes(), h, stride, bpp)
 
 
+@pytest.mark.parametrize("values", ["nan", "inf", "signed"])
+def test_float_dilate_equals_plain(values):
+    """The float32 dilation takes NaN as ``np.maximum`` does (NaN wherever
+    the kernel reaches one), and +-inf and negative values as the plain
+    version does, at odd and even kernel sizes up to the novel-view masks'
+    25."""
+    rng = np.random.RandomState(["nan", "inf", "signed"].index(values))
+    for k in (1, 2, 7, 10, 19, 25):
+        img = rng.uniform(-3, 3, (61, 77)).astype(np.float32)
+        if values == "nan":
+            img[rng.rand(61, 77) > 0.995] = np.nan
+        elif values == "inf":
+            img[rng.rand(61, 77) > 0.99] = np.inf
+            img[rng.rand(61, 77) > 0.9] = -np.inf
+        got = io.dilate(img, io.ellipse_kernel(k))
+        with native.plain_image_ops(("dilate",)):
+            want = io.dilate(img, io.ellipse_kernel(k))
+        assert got.dtype == np.float32 and np.array_equal(got, want, equal_nan=True), (values, k)
+        assert np.isnan(got).any() == (values == "nan"), (values, k)
+
+
 def _outcome(data: bytes, plain: bool):
     """(pixels or None, the error's type and text or None) of a decode."""
     with native.plain_image_ops(native.NAMES if plain else []):
