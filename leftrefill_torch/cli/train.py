@@ -129,6 +129,7 @@ def _train(args, ranks) -> int:
             os.makedirs(exp_dir, exist_ok=True)
             shutil.copy(args.config_file, os.path.join(exp_dir, "training_config.yaml"))
             shutil.copy(model_config_path, os.path.join(exp_dir, "model_config.yaml"))
+    from leftrefill_torch import trace
     from leftrefill_torch.data.datasets import (
         BalancedRandomSampler,
         InpaintingCrossViewDataset,
@@ -266,11 +267,11 @@ def _train(args, ranks) -> int:
             timer.start(step)
             step_gen = torch.Generator(dev).manual_seed((args.seed << 32) + step)  # JAX: fold_in(key, step)
             state, metrics = step_fn(state, {k: v for k, v in batch.items() if k != "txt"}, step_gen)
-            dt = timer.stop(step)
+            timer.stop(step)
             if step % 50 == 0:
-                m = reduce_metrics_across_hosts({k: float(v) for k, v in metrics.items()}, group)
+                m = reduce_metrics_across_hosts({k: float(trace.to_host(v)) for k, v in metrics.items()}, group)
                 m["lr"] = current_lr(opt_config, step)
-                m["step_time_s"] = dt
+                m["step_time_s"] = timer.mean_step_s()  # after the reads above, which wait on the card
                 m.update(drift.drift(table))
                 if main_rank:
                     mlog.log(step, m)

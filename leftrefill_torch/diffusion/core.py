@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from leftrefill_torch import trace
 from leftrefill_torch.diffusion.schedules import DiffusionSchedule, eps_from_z_and_v, start_from_z_and_v
 
 from leftrefill_torch.models.autoencoder import AutoencoderKL, DiagonalGaussian
@@ -107,11 +108,12 @@ class LeftRefillModel(nn.Module):
     def encode_first_stage(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Image in [-1, 1], NHWC -> scaled latent.  ``noise`` is the posterior
         sample's noise; by default a fixed draw (seed 42, as the reference)."""
-        moments = self.first_stage_model.encode_moments(x)
-        dist = DiagonalGaussian(moments)
-        if noise is None:
-            noise = fixed_vae_noise(dist.mean.shape, moments.device)
-        return self.scale_factor * dist.sample(noise.to(dist.mean.dtype))
+        with trace.span("vae.encode"):
+            moments = self.first_stage_model.encode_moments(x)
+            dist = DiagonalGaussian(moments)
+            if noise is None:
+                noise = fixed_vae_noise(dist.mean.shape, moments.device)
+            return self.scale_factor * dist.sample(noise.to(dist.mean.dtype))
 
     def latent_shape(self, image_shape) -> tuple:
         """The latent shape [B, h, w, C] of an NHWC image batch."""
@@ -120,12 +122,14 @@ class LeftRefillModel(nn.Module):
         return (image_shape[0], image_shape[1] // ds, image_shape[2] // ds, vae.post_quant_conv.weight.shape[1])
 
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
-        return self.first_stage_model.decode(z / self.scale_factor)
+        with trace.span("vae.decode"):
+            return self.first_stage_model.decode(z / self.scale_factor)
 
     # ---------- conditioning ----------------------------------------------
 
     def get_learned_conditioning(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.cond_stage_model(tokens)
+        with trace.span("text"):
+            return self.cond_stage_model(tokens)
 
     def build_inpaint_cond(
         self,
@@ -151,7 +155,8 @@ class LeftRefillModel(nn.Module):
         for ``concat`` conditioning, which has no context."""
         if self.conditioning_key == "concat":
             return None
-        return self.unet.cross_kv(context)
+        with trace.span("cross_kv"):
+            return self.unet.cross_kv(context)
 
     # ---------- model application -----------------------------------------
 
@@ -159,22 +164,23 @@ class LeftRefillModel(nn.Module):
         """The UNet on x_noisy under ``conditioning_key``.  ``hybrid-refine``
         with no c_input is ``hybrid`` exactly."""
         key = self.conditioning_key
-        if key == "crossattn":
-            return self.unet(x_noisy, t, cond.c_crossattn, **kwargs)
-        xc = torch.cat([x_noisy, cond.c_concat.to(x_noisy.dtype)], dim=-1)
-        if key == "concat":
-            return self.unet(xc, t, None, **kwargs)
-        if key == "hybrid-refine" and cond.c_input is not None:
-            kwargs["c_input"] = cond.c_input
-        if key in ("hybrid", "hybrid-refine"):
-            return self.unet(xc, t, cond.c_crossattn, **kwargs)
+        with trace.span("unet"):
+            if key == "crossattn":
+                return self.unet(x_noisy, t, cond.c_crossattn, **kwargs)
+            xc = torch.cat([x_noisy, cond.c_concat.to(x_noisy.dtype)], dim=-1)
+            if key == "concat":
+                return self.unet(xc, t, None, **kwargs)
+            if key == "hybrid-refine" and cond.c_input is not None:
+                kwargs["c_input"] = cond.c_input
+            if key in ("hybrid", "hybrid-refine"):
+                return self.unet(xc, t, cond.c_crossattn, **kwargs)
         raise NotImplementedError(key)
 
     # ---------- forward process / parameterizations ------------------------
 
     def _bcast(self, name: str, t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """The schedule table ``name`` at each row's t, broadcast over x."""
-        v = torch.as_tensor(getattr(self.schedule, name), device=x.device)[t.to(torch.long)]
+        v = trace.to_device(getattr(self.schedule, name), device=x.device)[t.to(torch.long)]
         return v.reshape(t.shape[0], *([1] * (x.ndim - 1)))
 
     def q_sample(self, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
@@ -232,7 +238,7 @@ class LeftRefillModel(nn.Module):
         if per_element:
             return err
         loss_simple = err.mean(dim=(1, 2, 3))
-        weights = torch.as_tensor(self.schedule.lvlb_weights, device=err.device)[t.to(torch.long)]
+        weights = trace.to_device(self.schedule.lvlb_weights, device=err.device)[t.to(torch.long)]
         loss_vlb = (weights * loss_simple).mean()
         loss = l_simple_weight * loss_simple.mean() + original_elbo_weight * loss_vlb
         return loss, {"loss_simple": loss_simple.mean(), "loss_vlb": loss_vlb, "loss": loss}

@@ -16,6 +16,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from leftrefill_torch import trace
 from leftrefill_torch.diffusion.schedules import DDIMTables, DiffusionSchedule, eps_from_z_and_v, start_from_z_and_v
 
 from leftrefill_torch.diffusion.core import Conditioning
@@ -63,7 +64,7 @@ def _step_tables(tables: DDIMTables, schedule: DiffusionSchedule, device):
     t = tables.timesteps[::-1].astype("int64")
 
     def col(a):  # a copy: a one-step table's reversed view keeps its negative stride through ascontiguousarray
-        return torch.as_tensor(np.array(a), dtype=torch.float32, device=device)
+        return trace.to_device(np.array(a), torch.float32, device)
 
     v = (col(schedule.sqrt_alphas_cumprod[t]), col(schedule.sqrt_one_minus_alphas_cumprod[t])
          ) if schedule.predicts_v() else None
@@ -119,24 +120,26 @@ def ddim_sample(
         scales = [guidance_scale] * n
     if mask is not None and x0 is None:
         raise ValueError("the renoise needs x0 beside mask")
-    img = x_T if x_T is not None else torch.randn(shape, generator=generator, device=device)
-    device = img.device
-    noise_fn = noise_fn or default_noise_fn(generator, device)
-    renoise_fn = renoise_fn or default_noise_fn(generator, device)
-    t_steps, a_t, a_prev, s1m, sig, v = _step_tables(tables, schedule, device)
-    b = shape[0]
-    inter = {"x_inter": [], "pred_x0": []}
-    for i in range(n):
-        t = torch.full((b,), int(t_steps[i]), dtype=torch.long, device=device)
-        if mask is not None:
-            img_orig = _q_sample(schedule, x0, int(t_steps[i]), renoise_fn(i, tuple(x0.shape)))
-            img = img_orig * mask + (1.0 - mask) * img
-        out = _guided_eps(apply_fn, img, t, cond, uncond_, scales[i])
-        img, pred_x0 = _ddim_update(img, out, a_t[i], a_prev[i], s1m[i], sig[i], noise_fn(i, tuple(img.shape)),
-                                    _step_v(v, i), temperature)
-        if return_intermediates:
-            inter["x_inter"].append(img)
-            inter["pred_x0"].append(pred_x0)
+    with trace.span("sample"):
+        img = x_T if x_T is not None else torch.randn(shape, generator=generator, device=device)
+        device = img.device
+        noise_fn = noise_fn or default_noise_fn(generator, device)
+        renoise_fn = renoise_fn or default_noise_fn(generator, device)
+        t_steps, a_t, a_prev, s1m, sig, v = _step_tables(tables, schedule, device)
+        b = shape[0]
+        inter = {"x_inter": [], "pred_x0": []}
+        for i in range(n):
+            with trace.span("sample.step", i=i):
+                t = torch.full((b,), int(t_steps[i]), dtype=torch.long, device=device)
+                if mask is not None:
+                    img_orig = _q_sample(schedule, x0, int(t_steps[i]), renoise_fn(i, tuple(x0.shape)))
+                    img = img_orig * mask + (1.0 - mask) * img
+                out = _guided_eps(apply_fn, img, t, cond, uncond_, scales[i])
+                img, pred_x0 = _ddim_update(img, out, a_t[i], a_prev[i], s1m[i], sig[i],
+                                            noise_fn(i, tuple(img.shape)), _step_v(v, i), temperature)
+                if return_intermediates:
+                    inter["x_inter"].append(img)
+                    inter["pred_x0"].append(pred_x0)
     if return_intermediates:
         return img, {k: torch.stack(vals) for k, vals in inter.items()}
     return img
@@ -145,7 +148,7 @@ def ddim_sample(
 def _q_sample(schedule: DiffusionSchedule, x_start: torch.Tensor, t: int, noise: torch.Tensor) -> torch.Tensor:
     """The forward process at one timestep t for every row (JAX's
     ``LeftRefillModel.q_sample`` with a uniform t)."""
-    col = lambda a: torch.as_tensor(a[t], dtype=torch.float32, device=x_start.device)
+    col = lambda a: trace.to_device(a[t], torch.float32, x_start.device)
     return col(schedule.sqrt_alphas_cumprod) * x_start + col(schedule.sqrt_one_minus_alphas_cumprod) * noise
 
 
@@ -179,38 +182,40 @@ def ddim_multi_sample(
     (), 0, K)``); by default both come from ``generator``."""
     use_cfg = unconds is not None and guidance_scale != 1.0
     k = (conds.c_concat if conds.c_concat is not None else conds.c_crossattn).shape[0]
-    if x_T is None:
-        x_T = torch.randn(shape, generator=generator, device=device).expand(k, *shape)
-    imgs = x_T
-    device = imgs.device
-    noise_fn = noise_fn or default_noise_fn(generator, device)
-    pick_fn = pick_fn or (lambda i, n: int(torch.randint(n, (), generator=generator, device=device)))
-    b, w_half = shape[0], shape[2] // 2  # NHWC latents: the right half is w // 2:
-    flat_shape = (k * b, *shape[1:])
+    with trace.span("sample"):
+        if x_T is None:
+            x_T = torch.randn(shape, generator=generator, device=device).expand(k, *shape)
+        imgs = x_T
+        device = imgs.device
+        noise_fn = noise_fn or default_noise_fn(generator, device)
+        pick_fn = pick_fn or (lambda i, n: int(trace.to_host(torch.randint(n, (), generator=generator, device=device))))
+        b, w_half = shape[0], shape[2] // 2  # NHWC latents: the right half is w // 2:
+        flat_shape = (k * b, *shape[1:])
 
-    def flatten(c: Optional[Conditioning]) -> Optional[Conditioning]:
-        if c is None:
-            return None
-        fl = lambda a: None if a is None else a.reshape(k * b, *a.shape[2:])
-        return Conditioning(fl(c.c_concat), fl(c.c_crossattn))
+        def flatten(c: Optional[Conditioning]) -> Optional[Conditioning]:
+            if c is None:
+                return None
+            fl = lambda a: None if a is None else a.reshape(k * b, *a.shape[2:])
+            return Conditioning(fl(c.c_concat), fl(c.c_crossattn))
 
-    conds_flat, unconds_flat = flatten(conds), flatten(unconds if use_cfg else None)
-    t_steps, a_t, a_prev, s1m, sig, v = _step_tables(tables, schedule, device)
-    for i in range(tables.num_steps):
-        noise = noise_fn(i, tuple(imgs.shape))
-        t = torch.full((k * b,), int(t_steps[i]), dtype=torch.long, device=device)
-        flat = imgs.reshape(flat_shape)
-        out = _guided_eps(apply_fn, flat, t, conds_flat, unconds_flat, guidance_scale)
-        flat, _ = _ddim_update(flat, out, a_t[i], a_prev[i], s1m[i], sig[i], noise.reshape(flat_shape),
-                               _step_v(v, i), temperature)
-        imgs = flat.reshape(imgs.shape)
-        right = imgs[pick_fn(i, k), :, :, w_half:]
-        imgs = torch.cat([imgs[..., :w_half, :], right.expand(k, *right.shape)], dim=3)
+        conds_flat, unconds_flat = flatten(conds), flatten(unconds if use_cfg else None)
+        t_steps, a_t, a_prev, s1m, sig, v = _step_tables(tables, schedule, device)
+        for i in range(tables.num_steps):
+            with trace.span("sample.step", i=i):
+                noise = noise_fn(i, tuple(imgs.shape))
+                t = torch.full((k * b,), int(t_steps[i]), dtype=torch.long, device=device)
+                flat = imgs.reshape(flat_shape)
+                out = _guided_eps(apply_fn, flat, t, conds_flat, unconds_flat, guidance_scale)
+                flat, _ = _ddim_update(flat, out, a_t[i], a_prev[i], s1m[i], sig[i], noise.reshape(flat_shape),
+                                       _step_v(v, i), temperature)
+                imgs = flat.reshape(imgs.shape)
+                right = imgs[pick_fn(i, k), :, :, w_half:]
+                imgs = torch.cat([imgs[..., :w_half, :], right.expand(k, *right.shape)], dim=3)
     return imgs[0]
 
 
 def _fp32(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return trace.to_device(np.asarray(a, np.float32), device=device)
 
 
 def sub_tables(tables: DDIMTables, lo: int, hi: int) -> DDIMTables:

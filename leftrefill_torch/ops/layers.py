@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from leftrefill_torch import trace
 from leftrefill_torch.ops import quant
 
 
@@ -128,8 +129,8 @@ def nearest_resize(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     index semantics (floor of the source index scaled by in/out)."""
     _, h, w, _ = x.shape
     oh, ow = out_hw
-    rows = torch.from_numpy(np.floor(np.arange(oh) * (h / oh)).astype(np.int64)).to(x.device)
-    cols = torch.from_numpy(np.floor(np.arange(ow) * (w / ow)).astype(np.int64)).to(x.device)
+    rows = trace.to_device(np.floor(np.arange(oh) * (h / oh)).astype(np.int64), device=x.device)
+    cols = trace.to_device(np.floor(np.arange(ow) * (w / ow)).astype(np.int64), device=x.device)
     return x.index_select(1, rows).index_select(2, cols)
 
 

@@ -16,6 +16,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from leftrefill_torch import trace
 from leftrefill_torch.diffusion.core import Conditioning, LeftRefillModel
 from leftrefill_torch.diffusion.ddim import NoiseFn, ddim_sample
 from leftrefill_torch.diffusion.samplers_extra import dpm_solver_pp_2m_sample
@@ -86,23 +87,26 @@ class RefInpaintPipeline:
         with 1 = hole; ``tokens`` [B, 77] replaces the prompt's (the special
         tokens) where given.  Returns the composited canvas [B, H, 2W, 3] fp32."""
         dev = request_device(self.device)
-        image = torch.as_tensor(image, dtype=torch.float32, device=dev)
-        mask = torch.as_tensor(mask, dtype=torch.float32, device=dev)
-        b = image.shape[0]
-        return _generate(
-            self.model, image, mask,
-            torch.as_tensor(self.prompt_tokens(b) if tokens is None else tokens, dtype=torch.long, device=dev),
-            torch.as_tensor(self.uncond_tokens(b), dtype=torch.long, device=dev),
-            ddim_steps=self.ddim_steps, eta=self.eta, guidance_scale=self.guidance_scale,
-            sampler=self.sampler, generator=generator, x_T=x_T, noise_fn=noise_fn,
-            vae_noise=vae_noise, group=self.group,
-        )
+        with trace.span("pipeline"):
+            with trace.span("pipeline.inputs"):
+                image = trace.to_device(image, torch.float32, dev)
+                mask = trace.to_device(mask, torch.float32, dev)
+                b = image.shape[0]
+                tokens = trace.to_device(self.prompt_tokens(b) if tokens is None else tokens, torch.long, dev)
+                uncond_tokens = trace.to_device(self.uncond_tokens(b), torch.long, dev)
+            return _generate(
+                self.model, image, mask, tokens, uncond_tokens,
+                ddim_steps=self.ddim_steps, eta=self.eta, guidance_scale=self.guidance_scale,
+                sampler=self.sampler, generator=generator, x_T=x_T, noise_fn=noise_fn,
+                vae_noise=vae_noise, group=self.group,
+            )
 
     def inpaint_right_half(self, image, mask, generator: Optional[torch.Generator] = None, **kw) -> np.ndarray:
         """The serving return contract: the right half of the composited
         canvas, [B, H, W, 3] fp32 in [-1, 1] (numpy); ``kw`` as ``__call__``'s."""
         out = self(image, mask, generator, **kw)
-        return out[:, :, out.shape[2] // 2:].cpu().numpy()
+        with trace.span("request.output"):
+            return trace.to_host(out[:, :, out.shape[2] // 2:]).numpy()
 
 
 def _generate(
@@ -203,19 +207,21 @@ class MultiViewInpaintPipeline:
         with 1 = hole.  Returns the composited views [B, V, H, W, 3] fp32;
         ``x_T``, ``noise_fn`` and ``vae_noise`` are over the B·V flat rows."""
         dev = request_device(self.device)
-        image = torch.as_tensor(images, dtype=torch.float32, device=dev)
-        mask = torch.as_tensor(masks, dtype=torch.float32, device=dev)
-        b, v = image.shape[:2]
-        if v != len(self.view_prompts):
-            raise ValueError(f"{v} views, but {len(self.view_prompts)} view prompts")
-        out = _generate(
-            self.model, image.flatten(0, 1), mask.flatten(0, 1),
-            torch.as_tensor(self.prompt_tokens(b), dtype=torch.long, device=dev),
-            torch.as_tensor(self.uncond_tokens(b), dtype=torch.long, device=dev),
-            ddim_steps=self.ddim_steps, eta=self.eta, guidance_scale=self.guidance_scale,
-            generator=generator, x_T=x_T, noise_fn=noise_fn, vae_noise=vae_noise, cfg_dup=False,
-        )
-        return out.reshape(b, v, *out.shape[1:])
+        with trace.span("pipeline"):
+            with trace.span("pipeline.inputs"):
+                image = trace.to_device(images, torch.float32, dev)
+                mask = trace.to_device(masks, torch.float32, dev)
+                b, v = image.shape[:2]
+                if v != len(self.view_prompts):
+                    raise ValueError(f"{v} views, but {len(self.view_prompts)} view prompts")
+                tokens = trace.to_device(self.prompt_tokens(b), torch.long, dev)
+                uncond_tokens = trace.to_device(self.uncond_tokens(b), torch.long, dev)
+            out = _generate(
+                self.model, image.flatten(0, 1), mask.flatten(0, 1), tokens, uncond_tokens,
+                ddim_steps=self.ddim_steps, eta=self.eta, guidance_scale=self.guidance_scale,
+                generator=generator, x_T=x_T, noise_fn=noise_fn, vae_noise=vae_noise, cfg_dup=False,
+            )
+            return out.reshape(b, v, *out.shape[1:])
 
 
 def stitch_canvas(reference: np.ndarray, source: np.ndarray, mask_right: np.ndarray):

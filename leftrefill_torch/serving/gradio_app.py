@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from leftrefill_torch import trace
 from leftrefill_torch.data.image_io import INTER_AREA, INTER_NEAREST, resize
 from leftrefill_torch.pipeline import RefInpaintPipeline, request_device, stitch_canvas
 
@@ -240,17 +241,20 @@ def stop_followers(pipeline: RefInpaintPipeline) -> None:
 
 
 def _predict(pipeline, reference, source, mask, ddim_steps, num_samples, scale, seed, img_size, sampler):
-    image, full_mask = request_canvas(reference, source, mask, num_samples, img_size)
-    pipeline = pipeline_variant(pipeline, ddim_steps, scale, sampler)
-    dev = request_device(pipeline.device)
-    model = pipeline.model
-    ds = 2 ** (len(model.first_stage_model.ddconfig.ch_mult) - 1)  # the VAE's downsampling
-    generator = torch.Generator(dev).manual_seed(seed)
-    x_T = torch.randn((num_samples, image.shape[1] // ds, image.shape[2] // ds, model.unet.out_channels),
-                      generator=generator, device=dev)
-    right = pipeline.inpaint_right_half(image, full_mask, generator, x_T=x_T)
-    right = right[:, :img_size, :img_size]  # drop the edge padding (none at 512)
-    return [np.clip((r + 1) * 127.5, 0, 255).astype(np.uint8) for r in right]
+    with trace.span("request"):
+        with trace.span("request.canvas"):
+            image, full_mask = request_canvas(reference, source, mask, num_samples, img_size)
+        pipeline = pipeline_variant(pipeline, ddim_steps, scale, sampler)
+        dev = request_device(pipeline.device)
+        model = pipeline.model
+        ds = 2 ** (len(model.first_stage_model.ddconfig.ch_mult) - 1)  # the VAE's downsampling
+        generator = torch.Generator(dev).manual_seed(seed)
+        x_T = torch.randn((num_samples, image.shape[1] // ds, image.shape[2] // ds, model.unet.out_channels),
+                          generator=generator, device=dev)
+        right = pipeline.inpaint_right_half(image, full_mask, generator, x_T=x_T)
+        with trace.span("request.output"):
+            right = right[:, :img_size, :img_size]  # drop the edge padding (none at 512)
+            return [np.clip((r + 1) * 127.5, 0, 255).astype(np.uint8) for r in right]
 
 
 def _gradio():

@@ -13,19 +13,15 @@ the fused prologues K4, K7 and K8 (``--unfused``: JAX's unfused int8
 configuration); ``--multiview V`` the V-view multi-view bundle, a scene of V
 512x512 views.  It prints, and writes to PATH as one JSON object:
 
-1. stage times: VAE encode, the text tower for [uncond; cond], the
-   cross-attention K/V, one CFG-doubled UNet forward and VAE decode (host
-   clock around synchronised calls, median of 5 after a warm-up);
-2. one request (bf16: DDIM-50; int8: DPM-Solver++(2M) 15 steps, its serving
+1. one request (bf16: DDIM-50; int8: DPM-Solver++(2M) 15 steps, its serving
    configuration; multi-view: DDIM-50) timed without the profiler, with its
    kernel launches per UNet forward, then the same request under
    ``torch.profiler`` (after a profiled warm-up request, which absorbs the
    tracer's start-up): the sum of device time (kernels, copies, memsets;
-   one stream, so they do not overlap) and their count, the device idle share 1 -
-   device/wall against both wall times, device time by group (K1-K3,
-   KI1-KI3, K4/K7/K8, cuDNN convs, cuBLAS GEMMs, everything else) and the
-   largest kernels by name;
-3. for the 1-reference bundles, DPM-Solver++(2M) requests at 15 and 50
+   one stream, so they do not overlap) and their count, device time by
+   group (K1-K3, KI1-KI3, K4/K7/K8, cuDNN convs, cuBLAS GEMMs, everything
+   else) and the largest kernels by name;
+2. for the 1-reference bundles, DPM-Solver++(2M) requests at 15 and 50
    steps: seconds per request (two each, after a warm-up), kernel launches
    per UNet call, and the left half of each canvas checked against the
    input.
@@ -37,7 +33,9 @@ warm-up steps: one step timed without the profiler with its kernel launches,
 then one under ``torch.profiler`` as for a request, the device time grouped
 into the forward kernels (K1-K3, forward and remat recompute), the backward
 kernels (dq: K12 + K14, dk/dv: K13), the library backward (cuDNN's conv
-gradients, cuBLAS GEMMs) and the plain ops, with the idle share.
+gradients, cuBLAS GEMMs) and the plain ops.  (The device's idle share, and
+the program stage the host was in at each idle gap, are the benchmark's:
+``benchmark/``.)
 
 ``--train --nvs`` profiles the novel-view-synthesis train step of the
 training CLI (``configs/novel_view_synthesis.yaml`` with LoRA rank 16 and
@@ -72,7 +70,6 @@ from __future__ import annotations
 import argparse
 import json
 import re
-import statistics
 import time
 from collections import defaultdict
 
@@ -80,7 +77,6 @@ import numpy as np
 import torch
 
 from leftrefill_torch import tools
-from leftrefill_torch.diffusion.core import Conditioning
 from leftrefill_torch.pipeline import build_sd2_inpaint_bundle
 
 # device-time groups, tried in order on each kernel's name
@@ -107,43 +103,6 @@ GROUPS = (
 TRAIN_KINDS = {"K1 flash_fwd": "forward kernels", "K2 conv3x3": "forward kernels", "K3 geglu": "forward kernels",
                "K12+K14 flash_bwd_dq": "backward kernels", "K13 flash_bwd_dkv": "backward kernels",
                "cuDNN conv": "cuDNN / cuBLAS", "cuBLAS GEMM": "cuDNN / cuBLAS"}
-
-
-def host_ms(fn, reps: int = 5) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
-def stage_times(model, pipe, image, mask, multiview: bool) -> dict:
-    img = torch.as_tensor(image, device="cuda")
-    msk = torch.as_tensor(mask, device="cuda")
-    if multiview:
-        img, msk = img.flatten(0, 1), msk.flatten(0, 1)
-    rows = img.shape[0]
-    masked = img * (msk < 0.5)
-    tokens = torch.as_tensor(np.concatenate([pipe.uncond_tokens(1), pipe.prompt_tokens(1)]),
-                             dtype=torch.long, device="cuda")
-    z = model.encode_first_stage(masked)
-    ctx = model.get_learned_conditioning(tokens)
-    kv = model.cross_attention_kv(ctx)
-    c_concat = torch.zeros((2 * rows, *z.shape[1:3], 5), device="cuda")
-    cond = Conditioning(c_concat, ctx)
-    x = torch.randn((2 * rows, *z.shape[1:]), device="cuda")
-    t = torch.full((2 * rows,), 981, dtype=torch.long, device="cuda")
-    return {
-        "vae_encode_ms": host_ms(lambda: model.encode_first_stage(masked)),
-        "text_tower_ms": host_ms(lambda: model.get_learned_conditioning(tokens)),
-        "cross_attention_kv_ms": host_ms(lambda: model.cross_attention_kv(ctx)),
-        "unet_forward_ms": host_ms(lambda: model.apply_model(x, t, cond, cross_kv=kv, cfg_dup=not multiview)),
-        "vae_decode_ms": host_ms(lambda: model.decode_first_stage(z)),
-    }
 
 
 def _device_us(evt) -> float:
@@ -193,8 +152,6 @@ def profiled(run, calls: int, launches_key: str) -> dict:
         "profiled_wall_s": wall_s,
         "device_s": device_s,
         "device_kernel_launches": sum(c for _, c in per_kernel.values()),
-        "idle_share_profiled": 1.0 - device_s / wall_s,
-        "idle_share_unprofiled": 1.0 - device_s / unprofiled_s,
         "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         "top_kernels": [{"name": n[:120], "ms": us / 1e3, "count": c} for n, (us, c) in top],
     }
@@ -463,9 +420,6 @@ def main() -> int:
     else:
         image, mask = tools.request_canvas()
         pipe = tools.serving_pipeline(model, sampler=sampler, steps=steps)
-    with torch.inference_mode():
-        result["stages"] = stage_times(model, pipe, image, mask, multiview=bool(args.multiview))
-    print("stages", json.dumps(result["stages"]))
     pipe(image, mask, torch.Generator("cuda").manual_seed(99))  # warm-up request
     torch.cuda.synchronize()
     key = f"{sampler}{steps}_profiled"

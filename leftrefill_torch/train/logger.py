@@ -2,7 +2,7 @@
 a JSONL metric stream, sample grids written as PNG files (``ImageLogger``,
 through ``data.image_io``: JAX's writes JPEG files with PIL), the prompt
 tokens' drift from their first values, and per-step wall times with a
-``torch.profiler`` trace window."""
+``torch.profiler`` trace window that carries the program's spans."""
 
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from leftrefill_torch import trace
 from leftrefill_torch.data.image_io import write_png
 
 
@@ -63,7 +64,7 @@ class MetricLogger:
         rec = {"step": int(step), "time": time.time()}
         for k, v in metrics.items():
             if isinstance(v, torch.Tensor):
-                v = v.detach().cpu().numpy()
+                v = trace.to_host(v.detach()).numpy()
             rec[k] = float(v) if np.isscalar(v) or np.ndim(v) == 0 else v
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")
@@ -84,20 +85,23 @@ class TokenDriftLogger:
 
 
 def _numpy(x):
-    return x.detach().float().cpu().numpy() if isinstance(x, torch.Tensor) else x
+    return trace.to_host(x.detach().float()).numpy() if isinstance(x, torch.Tensor) else x
 
 
 class StepTimer:
-    """Per-step wall time and its moving average (0.9 / 0.1), with a
-    ``torch.profiler`` trace of steps ``trace_steps[0]`` to ``trace_steps[1]``
-    written to ``trace_dir`` as a Chrome trace.  ``stop`` synchronises the
-    card first, so the time is the step's, not its enqueue's."""
+    """Wall time per train step, and a ``torch.profiler`` trace of steps
+    ``trace_steps[0]`` to ``trace_steps[1]`` written to ``trace_dir`` as a
+    Chrome trace with the program's spans and syncs (``leftrefill_torch.trace``)
+    as a track of their own.  It never waits on the card: ``mean_step_s``,
+    read after something that does (a metric's ``float``), is the mean wall
+    time of the steps since its last reading."""
 
     def __init__(self, trace_dir: Optional[str] = None, trace_steps: tuple[int, int] = (10, 13)):
         self.trace_dir, self.trace_steps = trace_dir, trace_steps
-        self._t0 = None
-        self.ema = None
+        self._t0 = self._last = None
+        self._busy_s, self._steps = 0.0, 0
         self._prof = None
+        self._window_ns = 0
 
     def start(self, step: int):
         if self.trace_dir and step == self.trace_steps[0]:
@@ -106,16 +110,52 @@ class StepTimer:
             activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
             self._prof = profile(activities=activities)
             self._prof.__enter__()
-        self._t0 = time.time()
+            self._window_ns = time.time_ns()
+        self._t0 = time.perf_counter()
 
-    def stop(self, step: int) -> float:
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        dt = time.time() - self._t0
-        self.ema = dt if self.ema is None else 0.9 * self.ema + 0.1 * dt
+    def stop(self, step: int) -> None:
+        self._last = time.perf_counter()
+        self._busy_s += self._last - self._t0
+        self._steps += 1
         if self._prof is not None and step >= self.trace_steps[1]:
             self._prof.__exit__(None, None, None)
             os.makedirs(self.trace_dir, exist_ok=True)
-            self._prof.export_chrome_trace(os.path.join(self.trace_dir, f"trace_steps_{self.trace_steps[0]}_{step}.json"))
+            path = os.path.join(self.trace_dir, f"trace_steps_{self.trace_steps[0]}_{step}.json")
+            self._prof.export_chrome_trace(path)
+            add_program_track(path, self._window_ns)
             self._prof = None
-        return dt
+
+    def mean_step_s(self) -> float:
+        """The steps' host time since the last reading plus the wait from
+        the last step's end until now, over the steps (nan with none)."""
+        if not self._steps:
+            return float("nan")
+        mean = (self._busy_s + time.perf_counter() - self._last) / self._steps
+        self._busy_s, self._steps = 0.0, 0
+        return mean
+
+
+PROGRAM_TRACK = "leftrefill_torch spans"
+
+
+def add_program_track(path: str, since_ns: int) -> None:
+    """Add the spans and syncs recorded since ``since_ns`` to the Chrome
+    trace at ``path``, as complete and instant events of a process of their
+    own, on the trace's clock (``baseTimeNanoseconds``)."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    us = lambda ns: (ns - base) / 1e3
+    events = doc.setdefault("traceEvents", [])
+    events.append({"ph": "M", "name": "process_name", "pid": PROGRAM_TRACK, "args": {"name": PROGRAM_TRACK}})
+    for s in trace.spans():
+        if s.start_ns >= since_ns:
+            events.append({"ph": "X", "name": s.name, "pid": PROGRAM_TRACK, "tid": s.thread, "ts": us(s.start_ns),
+                           "dur": (s.end_ns - s.start_ns) / 1e3,
+                           "args": {"unit": s.unit, "id": s.id, "parent": s.parent, **s.attrs}})
+    for y in trace.syncs():
+        if y.t_ns >= since_ns:
+            events.append({"ph": "i", "s": "t", "name": f"sync.{y.kind}", "pid": PROGRAM_TRACK, "tid": y.thread,
+                           "ts": us(y.t_ns), "args": {"unit": y.unit, "nbytes": y.nbytes}})
+    with open(path, "w") as f:
+        json.dump(doc, f)

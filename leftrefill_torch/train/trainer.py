@@ -47,6 +47,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from leftrefill_torch import trace
 from leftrefill_torch.diffusion.core import LeftRefillModel, fixed_vae_noise
 from leftrefill_torch.models.lora import merge_lora
 from leftrefill_torch.parallel.mesh import all_reduce_mean, collective_device, group_rank, group_size, shard_rows
@@ -273,7 +274,7 @@ def _loss(model: LeftRefillModel, batch, t, noise, generator, vae_noise, view_re
           cfg_draws, shard):
     dev = _device(model)
     rank, world = shard
-    image = torch.as_tensor(batch["image"], device=dev, dtype=torch.float32)
+    image = trace.to_device(batch["image"], torch.float32, dev)
     b = image.shape[0]
 
     def drawn(draw, *shape):  # the global batch's draw, this block's rows
@@ -289,15 +290,14 @@ def _loss(model: LeftRefillModel, batch, t, noise, generator, vae_noise, view_re
     if noise is None:
         noise = drawn(lambda shape: torch.randn(shape, generator=generator, device=dev, dtype=torch.float32),
                       *z.shape[1:]).to(z.dtype)
-    t, noise = torch.as_tensor(t, device=dev, dtype=torch.long), torch.as_tensor(noise, device=dev, dtype=z.dtype)
+    t, noise = trace.to_device(t, torch.long, dev), trace.to_device(noise, z.dtype, dev)
     if cond_builder is not None:
         if cfg_draws is None:
             cfg_draws = drawn(lambda shape: torch.rand(shape, generator=generator, device=dev))
         cond = cond_builder(batch, cfg_draws=cfg_draws, vae_noise=vae_noise)
     else:
-        mask, masked_image = (torch.as_tensor(batch[k], device=dev, dtype=torch.float32)
-                              for k in ("mask", "masked_image"))
-        tokens = torch.as_tensor(batch["tokens"], device=dev, dtype=torch.long)
+        mask, masked_image = (trace.to_device(batch[k], torch.float32, dev) for k in ("mask", "masked_image"))
+        tokens = trace.to_device(batch["tokens"], torch.long, dev)
         cond = model.build_inpaint_cond(tokens, mask, masked_image, vae_noise)
     if not view_reduced:
         return model.p_losses(z, cond, t, noise)
@@ -337,14 +337,18 @@ def make_train_step(model: nn.Module, tx: PromptOptimizer, view_reduced: bool = 
     shard = (group_rank(group), group_size(group))
 
     def step(state: TrainState, batch: dict, generator: torch.Generator):
-        loss, metrics = compute_loss(model, batch, generator=generator, view_reduced=view_reduced,
-                                     view_num=view_num, cond_builder=cond_builder, shard=shard)
-        loss.backward()
-        if group is not None:
-            all_reduce_mean([p.grad for p in tx.params if p.grad is not None], group)
-        tx.step()
-        state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        with trace.span("train.step"):
+            with trace.span("train.forward"):
+                loss, metrics = compute_loss(model, batch, generator=generator, view_reduced=view_reduced,
+                                             view_num=view_num, cond_builder=cond_builder, shard=shard)
+            with trace.span("train.backward"):
+                loss.backward()
+            with trace.span("train.optimizer"):
+                if group is not None:
+                    all_reduce_mean([p.grad for p in tx.params if p.grad is not None], group)
+                tx.step()
+            state.step += 1
+            return state, {k: v.detach() for k, v in metrics.items()}
 
     return step
 
@@ -356,6 +360,6 @@ def reduce_metrics_across_hosts(metrics: dict, group=None) -> dict:
     if group is None or not metrics:
         return metrics
     keys = sorted(metrics)
-    vals = torch.tensor([float(metrics[k]) for k in keys], dtype=torch.float64, device=collective_device(group))
+    vals = trace.to_device([float(metrics[k]) for k in keys], torch.float64, collective_device(group))
     all_reduce_mean([vals], group)
-    return {k: float(v) for k, v in zip(keys, vals)}
+    return {k: float(trace.to_host(v)) for k, v in zip(keys, vals)}
