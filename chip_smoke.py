@@ -45,13 +45,28 @@ Phases, one line each (the kernel phases one line per kernel shape):
    where one call computes the same function (the fp32-exp clamped
    variants), or ``x + 1`` (P5); the 512-row block refused by the kernel's
    entry (no counterpart: 1056 threads);
+2g. the GroupNorm kernel (``csrc/group_norm.cu``, no TPU counterpart: the
+   bf16 no-grad GroupNorm, with its SiLU where the model applies one) at
+   every distinct site of the benchmark's paths, recorded on ``meta``
+   (``tools.group_norm_sites``: the 1-reference UNet at the predict
+   request's CFG batch 8, its cfg_dup prefix at 4; the V=4 UNet at 16 rows;
+   the VAE's encode and decode of 4 and of 8 512x1024 canvases) against its
+   plain version: at most ``GN_ULPS`` bf16 steps of the last add's operands
+   (``tools.group_norm_ulps``), device ms (a CUDA graph of the calls)
+   beside the plain version's and the bound of one read and one write at
+   3.35 TB/s; off the path, an input whose mean is 50 times its spread, and
+   a planted fault (gamma one channel out of place) that must read above
+   the limit; two launches bit-equal, a CUDA-graph replay bit-equal, and one
+   bf16 UNet forward's launches equal to ``tools.PER_FORWARD_BF16`` (60
+   GroupNorm kernels beside 33 K2, 15 K1 and 16 K3);
 3. one full-width bf16 UNet forward (CFG batch 2, 64x128 latent, cfg_dup
    and the cross-attention K/V cache on) through the kernels against the
    same forward through the plain versions (relative L2 <= 3e-2);
 4. bf16 serving: two 512x1024 requests (DDIM-50, eta 1, CFG 2.5, batch 1,
    each with its own seed) on the full-width SD2-inpainting bundle with
    random weights; the outputs are checked and the kernel launch counts must
-   be 33 conv, 15 flash and 16 GEGLU per UNet forward;
+   be 33 conv, 15 flash and 16 GEGLU per UNet forward, and 60 GroupNorm
+   kernels per forward plus the VAE's 22 an encode and 30 a decode;
 2i. JAX's unfused int8 configuration (``fused=False``, the same fp weights
    quantized): each int8 kernel (KI1 3x3 conv, KI2 proj_out GEMM + residual,
    KI3 GEGLU) at every shape one full-width int8 forward gives it, against
@@ -364,7 +379,7 @@ Phases, one line each (the kernel phases one line per kernel shape):
    and a wrong K1 (its output rows reversed) above that limit; both
    forwards timed, kernels and plain versions.
 Before the JSON lines, the whole smoke's seconds.  The line before the last
-is a JSON summary of the fourteen kernels; the last line is ``{"ok": true,
+is a JSON summary of the fourteen kernels and the GroupNorm kernel; the last line is ``{"ok": true,
 "device": {...}}``.  Any failure exits non-zero before them.
 """
 
@@ -395,6 +410,14 @@ ULPS = {"conv3x3_int8": 1, "dense_int8_res": 1, "geglu_int8": 1}
 STEP_SHARE, SCALE_ULPS, NORM_MAX_REL = 1e-3, 8, 2.0**-8
 BF16_NAMES, INT8_NAMES = ("flash_fwd", "conv3x3", "geglu"), ("conv3x3_int8", "dense_int8_res", "geglu_int8")
 PROLOGUES = ("affine_silu_quant", "ln_quant", "gn_quant")
+# the GroupNorm kernel against its plain version (tools.group_norm_ulps): the
+# apply pass repeats the plain version's bf16 operations; its statistics sum
+# in another order, which can move the bf16 a or bb of a channel by one step,
+# and that moves an output by at most about two steps of the operands
+GN_ULPS = 2
+# group_norm launches also in the VAE (22 an encode, 30 a decode): a count
+# of whole requests or steps holds it only where it is given their VAE calls
+SHARED_WITH_VAE = ("group_norm",)
 UNET_REL_L2 = 3e-2  # 16 transformer blocks and 22 res blocks of rounding
 # the prompt table's gradient through the kernels against the plain versions:
 # the forward's rounding differences (rel L2 ~1.6e-2 at the UNet output) and
@@ -423,6 +446,8 @@ KERNELS = {
     "affine_silu_quant": ("leftrefill_torch/csrc/quant_prologue.cu", "leftrefill_tpu/ops/quant.py:603"),
     "ln_quant": ("leftrefill_torch/csrc/quant_prologue.cu", "leftrefill_tpu/ops/quant.py:682"),
     "gn_quant": ("leftrefill_torch/csrc/quant_prologue.cu", "leftrefill_tpu/ops/quant.py:758"),
+    "group_norm": ("leftrefill_torch/csrc/group_norm.cu",
+                   "none: the port's own (XLA's GroupNorm of leftrefill_tpu/ops/layers.py group_norm32 in JAX)"),
     "flash_int8": ("leftrefill_torch/csrc/flash_int8.cu", "scripts/tpu_r3_attnprobe.py:124 (P1)"),
     "flash_variant": ("leftrefill_torch/csrc/flash_fwd.cu",
                       "scripts/tpu_r3_attnprobe2.py:75 (P2), scripts/tpu_r5_headpack.py:118 (P3) and "
@@ -903,6 +928,106 @@ def check_probes(gen, launches: dict) -> dict:
     return report
 
 
+def graph_ms(fn, calls: int) -> float:
+    """Device ms a call of ``fn``: ``calls`` calls captured in one CUDA graph
+    and replayed, so no host time lies between their launches."""
+    import torch
+
+    from leftrefill_torch.tools import cuda_ms
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, 3, warmup=1) / calls
+    del graph
+    return ms
+
+
+def check_group_norm_site(shape: tuple, gen, n_sites: int, report: dict, label: str, site=None) -> float:
+    """The GroupNorm kernel at one site (``tools.site_args``, or ``site``)
+    against its plain version: at most ``GN_ULPS`` bf16 steps of the last
+    add's operands; device ms of both beside the bound.  Returns the
+    reading in those steps."""
+    import torch
+
+    from leftrefill_torch import tools
+
+    site = tools.site_args("group_norm", shape, gen) if site is None else site
+    run, plain = (functools.partial(fn, *site) for fn in tools.KERNEL_FNS["group_norm"])
+    got, ref = run(), plain()
+    ulps = tools.group_norm_ulps(got, ref, *site[:5])
+    if not (torch.isfinite(got).all() and ulps <= GN_ULPS):
+        raise SystemExit(f"phase {label} group_norm {shape}: {ulps:.2f} bf16 steps of the operands from the plain "
+                         f"version (limit {GN_ULPS}), or not finite")
+    differ, mae = float((got != ref).float().mean()), float((got.float() - ref.float()).abs().max())
+    calls = max(1, min(20, int(5e7 // math.prod(shape[:3]))))
+    ms, plain_ms = graph_ms(run, calls), graph_ms(plain, calls)
+    bound, _ = tools.bound_ms("group_norm", shape)
+    print(f"phase {label} group_norm shape={shape} sites={n_sites} operand_steps={ulps:.2f} (limit {GN_ULPS}) "
+          f"bf16_steps={tools.bf16_ulps(got, ref)} differing={differ:.2e} max_abs_err={mae:.3e} kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} (bytes) bound_share={bound / ms:.3f} "
+          f"kernel_over_plain={ms / plain_ms:.3f}")
+    r = report.setdefault("group_norm", {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                         "library_ms": None, "sites": 0, "bound_ops_ms": 0.0, "max_steps": 0.0})
+    r["max_abs_err"], r["max_steps"] = max(r["max_abs_err"], mae), max(r["max_steps"], ulps)
+    r["ms"] += n_sites * ms
+    r["plain_ms"] += n_sites * plain_ms
+    r["bound_ms"] += n_sites * bound
+    r["sites"] += n_sites
+    return ulps
+
+
+def phase_2g(unet, x, tsteps, ctx, kv, gen, report: dict) -> dict:
+    """Phase 2g (the docstring): the predict UNet's sites into ``report``
+    (its 60 sites a forward), the other paths' into the reports it returns,
+    by path."""
+    import torch
+
+    from leftrefill_torch import kernels, tools
+    from leftrefill_torch.tools import cuda_ms
+
+    t0 = time.perf_counter()
+    reports, paths = {}, tools.group_norm_sites()
+    for path, sites in paths.items():
+        rep = report if path == "predict_unet_b8" else reports.setdefault(path, {})
+        for shape, n in sorted(sites.items()):
+            check_group_norm_site(shape, gen, n, rep, f"2g {path}")
+    # off the path: a mean 50 times the spread (bf16 x then steps by 0.25)
+    shape = (8, 8192, 320, 32, True)
+    xs, gamma, beta, g, eps, silu = tools.site_args("group_norm", shape, gen)
+    check_group_norm_site(shape, gen, 0, {}, "2g mean 50x the spread (off the path)",
+                          ((50 + xs.float()).to(torch.bfloat16), gamma, beta, g, eps, silu))
+    # a planted fault: gamma one channel out of place must read above the limit
+    run, plain = tools.KERNEL_FNS["group_norm"]
+    wrong = tools.group_norm_ulps(run(xs, gamma.roll(1), beta, g, eps, silu), plain(xs, gamma, beta, g, eps, silu),
+                                  xs, gamma, beta, g, eps)
+    if not wrong > GN_ULPS:
+        raise SystemExit(f"phase 2g: gamma one channel out of place read {wrong:.2f} steps, not above {GN_ULPS}")
+    print(f"phase 2g planted fault at {shape}: gamma one channel out of place reads operand_steps={wrong:.1f} "
+          f"(limit {GN_ULPS})")
+    largest = max((s for sites in paths.values() for s in sites), key=math.prod)
+    check_bit_equal("group_norm", largest, gen, "2g")
+    check_graph_replay("group_norm", largest, gen, "2g")
+    # the launches of one forward, and the predict forward (CFG batch 8) with the plain GroupNorm
+    tools.reset_launches()
+    unet(x, tsteps, ctx, cross_kv=kv, cfg_dup=True)
+    torch.cuda.synchronize()
+    got = tools.launches()
+    if got != tools.PER_FORWARD_BF16:
+        raise SystemExit(f"phase 2g: launches of a bf16 UNet forward {got}, expected {tools.PER_FORWARD_BF16}")
+    x8, t8, c8 = tools.unet_inputs(gen, rows=8)
+    kv8 = unet.cross_kv(c8)
+    fwd = lambda: unet(x8, t8, c8, cross_kv=kv8, cfg_dup=True)  # noqa: E731
+    kern_ms = cuda_ms(fwd, 5)
+    with kernels.plain_kernels(["group_norm"]):
+        plain_ms = cuda_ms(fwd, 5)
+    print(f"phase 2g launches of a bf16 UNet forward { {k: v for k, v in got.items() if v} }; the predict forward "
+          f"[8,64,128,9] cfg_dup ms: GroupNorm kernel {kern_ms:.2f}, plain GroupNorm {plain_ms:.2f}; "
+          f"seconds={time.perf_counter() - t0:.1f}", flush=True)
+    return reports
+
+
 def check_kernels(sites: dict, gen, report: dict, label: str, names) -> None:
     """Every site of the kernels ``names`` in one forward's ``sites``
     ({(kernel, shape): launches}, from ``tools.unet_sites``)."""
@@ -967,16 +1092,27 @@ def serve(model, sampler: str, steps: int, per_forward: dict, label: str) -> dic
             raise SystemExit(f"{label}: left half of the canvas is not the input")
     if torch.equal(outs[0], outs[1]):
         raise SystemExit(f"{label}: two seeds gave the same canvas")
-    check_launches(launches, per_forward, forwards, label)
+    check_launches(launches, per_forward, forwards, label, vae=(2, 2))  # an encode and a decode a request
     print(f"{label}: seconds_per_request={[round(s, 3) for s in secs]} launches={launches} "
           f"unet_forwards={forwards}")
     return launches
 
 
-def check_launches(launches: dict, per_forward: dict, forwards: int, label: str) -> None:
+def check_launches(launches: dict, per_forward: dict, forwards: int, label: str, vae: tuple | None = None) -> None:
+    """Each kernel's launches are ``per_forward`` x ``forwards``; those the
+    VAE shares (``SHARED_WITH_VAE``) only where ``vae`` gives the path's
+    (encodes, decodes) of the bf16 VAE, and then plus theirs."""
+    from leftrefill_torch import tools
+
     for name, n in per_forward.items():
-        if launches[name] != n * forwards:
-            raise SystemExit(f"{label}: {name} {launches[name]} launches, expected {n} x {forwards}")
+        want = n * forwards
+        if name in SHARED_WITH_VAE:
+            if vae is None:
+                continue
+            want += vae[0] * tools.PER_ENCODE_VAE[name] + vae[1] * tools.PER_DECODE_VAE[name]
+        if launches[name] != want:
+            raise SystemExit(f"{label}: {name} {launches[name]} launches, expected {n} x {forwards}"
+                             f"{'' if vae is None or name not in SHARED_WITH_VAE else f' and the VAE calls {vae}'}")
 
 
 def serve_multiview(model, per_forward: dict, label: str) -> dict:
@@ -1006,7 +1142,7 @@ def serve_multiview(model, per_forward: dict, label: str) -> dict:
             raise SystemExit(f"{label}: a view changed where its mask is 0")
     if torch.equal(outs[0], outs[1]):
         raise SystemExit(f"{label}: two seeds gave the same views")
-    check_launches(launches, per_forward, 2 * pipe.ddim_steps, label)
+    check_launches(launches, per_forward, 2 * pipe.ddim_steps, label, vae=(2, 2))  # an encode and a decode a scene
     print(f"{label}: seconds_per_scene={[round(s, 3) for s in secs]} launches={launches} "
           f"unet_forwards={2 * pipe.ddim_steps}")
     return launches
@@ -1040,7 +1176,7 @@ def train_steps(step, state, batch, steps: int, per_step: dict, sites: dict, lab
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     launches = tools.launches()
-    check_launches(launches, per_step, steps, label)
+    check_launches(launches, per_step, steps, label, vae=(2 * steps, 0))  # the image's and the masked image's encodes
     if not all(math.isfinite(v) for v in losses):
         raise SystemExit(f"{label}: non-finite loss {losses}")
     return state, losses, secs, launches
@@ -2265,6 +2401,11 @@ def _rank_counts(arr) -> dict:
     return dict(zip(tools.LAUNCH_COUNTERS, (int(c) for c in arr)))
 
 
+def _unet_counts(arr) -> dict:
+    """A rank's launch counts but those the VAE shares (``SHARED_WITH_VAE``)."""
+    return {n: c for n, c in _rank_counts(arr).items() if n not in SHARED_WITH_VAE}
+
+
 def _summed(arrays) -> dict:
     import numpy as np
 
@@ -2288,9 +2429,9 @@ def phase_14b(work: str, launches: dict) -> None:
     res = _ranks(work, "cfg_request", 2)
     for arm, steps, per_forward, label in (("bf16", 50, tools.PER_FORWARD_BF16, "bf16 ddim50 eta1"),
                                            ("int8", 15, tools.PER_FORWARD_INT8, "int8 fused dpm++2m15")):
-        want = {n: c * steps for n, c in per_forward.items()}
+        want = {n: c * steps for n, c in per_forward.items() if n not in SHARED_WITH_VAE}
         for r, o in enumerate(res):
-            if _rank_counts(o[f"{arm}/launches"]) != want:
+            if _unet_counts(o[f"{arm}/launches"]) != want:
                 raise SystemExit(f"phase 14b {arm}: rank {r} launches {_rank_counts(o[f'{arm}/launches'])}, "
                                  f"expected {want}")
             rows = o[f"{arm}/row_rel_l2"]
@@ -2368,10 +2509,10 @@ def phase_14t(work: str, launches: dict) -> None:
     ref = _ranks(work, "train_step", 1, reference=True)[0]
     dp = _ranks(work, "train_step", 2, reference=False)
     one, nccl, gloo = "one_rank", "group_nccl_1", "group_gloo_2"
-    want = dict(tools.PER_TRAIN_STEP)
+    want = {n: c for n, c in tools.PER_TRAIN_STEP.items() if n not in SHARED_WITH_VAE}
     for who, o, arm in (("one rank", ref, one), ("nccl", ref, nccl), ("rank 0", dp[0], gloo),
                         ("rank 1", dp[1], gloo)):
-        if _rank_counts(o[f"{arm}/launches"]) != want:
+        if _unet_counts(o[f"{arm}/launches"]) != want:
             raise SystemExit(f"phase 14t {who}: launches {_rank_counts(o[f'{arm}/launches'])}, expected {want}")
     grad = torch.from_numpy(ref[f"{one}/grad"])
     errs = [tools.rel_l2(torch.from_numpy(o[f"{gloo}/grad"]), grad) for o in dp]
@@ -2522,7 +2663,8 @@ def phase_15q(launches: dict, gen) -> dict:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         got = tools.launches()
-        want = {n: 15 * tools.PER_FORWARD_INT8[n] + tools.PER_DECODE_VAE8[n] for n in tools.LAUNCH_COUNTERS}
+        want = {n: 15 * tools.PER_FORWARD_INT8[n] + tools.PER_ENCODE_VAE[n] + tools.PER_DECODE_VAE8[n]
+                for n in tools.LAUNCH_COUNTERS}  # the bf16 encoder's GroupNorms and the int8 decoder's
         if got != want:
             raise SystemExit(f"{label}: request launches {got}, expected {want}")
         launches["15q_predict_int8_vae_dpm15"] = got
@@ -2534,8 +2676,9 @@ def phase_15q(launches: dict, gen) -> dict:
             raise SystemExit(f"{label}: output {out[0].shape}, outside the hole {off} levels from the target")
         print(f"{label} predict 512 dpm++2m15 int8 fused UNet + int8 VAE decoder eta1 cfg2.5: "
               f"initialize_model_seconds={init_s:.1f} request_seconds={secs:.3f} "
-              f"launches={ {k: v for k, v in got.items() if v} } (15 forwards x PER_FORWARD_INT8 + one decode "
-              f"x PER_DECODE_VAE8); outside the hole within {off} level of the target", flush=True)
+              f"launches={ {k: v for k, v in got.items() if v} } (15 forwards x PER_FORWARD_INT8 + one encode x "
+              f"PER_ENCODE_VAE + one decode x PER_DECODE_VAE8); outside the hole within {off} level of the target",
+              flush=True)
 
         # the decode of the canvas's latent: its sites, then the whole decode, kernels vs plain versions
         report = {}
@@ -2887,11 +3030,11 @@ def phase_16r(launches: dict) -> dict:
     none = dict.fromkeys(tools.LAUNCH_COUNTERS, 0)
     for name, per_forward, decode in (("bf16", tools.PER_FORWARD_BF16, none), ("int8", tools.PER_FORWARD_INT8, none),
                                       ("int8+vae8", tools.PER_FORWARD_INT8, tools.PER_DECODE_VAE8)):
-        got = {n: ab["launches"][name].get(n, 0) for n in tools.LAUNCH_COUNTERS}
-        want = {n: AB_PAIRS * (AB_STEPS * per_forward[n] + decode[n]) for n in tools.LAUNCH_COUNTERS}
+        got = {n: ab["launches"][name].get(n, 0) for n in tools.LAUNCH_COUNTERS if n not in SHARED_WITH_VAE}
+        want = {n: AB_PAIRS * (AB_STEPS * per_forward[n] + decode[n]) for n in got}
         if got != want:
             raise SystemExit(f"{label} A/B {name}: launches {got}, expected {want}")
-        launches[f"16r_ab_{name}"] = got
+        launches[f"16r_ab_{name}"] = {n: ab["launches"][name].get(n, 0) for n in tools.LAUNCH_COUNTERS}
     print(f"{label} runbook --synthetic --full_width (configs/ref_inpainting.yaml, a {ckpt_gb:.2f} GB fp16 stand-in "
           f"checkpoint, deleted): stage seconds { {k: r['seconds'] for k, r in report.items()} }; convert "
           f"{conv['loaded_keys']} keys skipped={conv['skipped']} ({conv['skipped_recomputed']} schedule buffers and EMA, "
@@ -2922,17 +3065,17 @@ def phase_16q(launches: dict, gen) -> dict:
     arch = quality.FULL
     g = torch.Generator("cuda").manual_seed(0)
 
-    def summed(*parts):
-        return {n: sum(k * per[n] for k, per in parts) for n in tools.LAUNCH_COUNTERS}
+    def summed(*parts):  # the kernels the studies' VAE calls do not launch
+        return {n: sum(k * per[n] for k, per in parts) for n in tools.LAUNCH_COUNTERS if n not in SHARED_WITH_VAE}
 
     def run(key, fn, want):
         tools.reset_launches()
         result = fn()
         torch.cuda.synchronize()
-        got = tools.launches()
+        launches["16q_" + key] = tools.launches()
+        got = {n: c for n, c in launches["16q_" + key].items() if n not in SHARED_WITH_VAE}
         if got != want:
             raise SystemExit(f"phase 16q {key}: launches {got}, expected {want}")
-        launches["16q_" + key] = got
         print(f"phase 16q {key} ", end="")
         quality.emit(result, "full", "cuda")
         return result
@@ -3087,6 +3230,9 @@ def main() -> int:
 
         # ---- phase 2p: the timing probes (tools only) -----------------------
         report.update(check_probes(gen, launches))
+
+        # ---- phase 2g: the GroupNorm kernel at the benchmark's sites --------
+        gn_reports = phase_2g(unet, x, tsteps, ctx, kv, gen, report)
 
         # ---- phase 3: the full-width UNet forward, kernels vs plain --------
         out_bf16, _, err, kern_ms, plain_ms = check_forward(unet, x, tsteps, ctx, kv, "bf16", kernels.NAMES)
@@ -3424,6 +3570,12 @@ def main() -> int:
                 entry[key] = {k: rep_n[name][k] for k in ("sites", "ms", "plain_ms", "bound_ms", "library_ms",
                                                           "max_abs_err", "composition_ms") if k in rep_n[name]}
                 entry["max_abs_err"] = max(entry["max_abs_err"], rep_n[name]["max_abs_err"])
+        if name == "group_norm":  # the V=4 UNet's and the VAE's sites, phase 2g
+            for key, rep_g in gn_reports.items():
+                entry[key] = {k: rep_g[name][k] for k in ("sites", "ms", "plain_ms", "bound_ms", "max_abs_err",
+                                                          "max_steps")}
+                entry["max_abs_err"] = max(entry["max_abs_err"], rep_g[name]["max_abs_err"])
+            entry["max_steps"] = rep["max_steps"]
         for key, rep_o in option_reports.items():
             if name in rep_o:  # the sites phase 15 adds: the int8 decode's, the option UNets'
                 entry[key] = {k: rep_o[name][k] for k in ("sites", "ms", "plain_ms", "bound_ms", "library_ms",

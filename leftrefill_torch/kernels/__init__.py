@@ -73,6 +73,8 @@ _SIGNATURES = {
     "lr_ln_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     # x, a, bb, xn, xq, scale, batch, hw, c, stream
     "lr_gn_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, gamma, beta, y, part, ticket, ab, batch, hw, c, groups, eps, silu, max_splits, stream
+    "lr_group_norm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     # the timing probes (ops/probes.py):
     # q, k, v, o, lse, batch, heads, nq, nk, d, scale, exp, clamp, lse_store, rows, stream
     "lr_flash_fwd_variant": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
@@ -146,10 +148,10 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None 
 # ---------------------------------------------------------------------------
 # routing of the dispatchers (flash attention and its backward, the bf16 and
 # int8 3x3 convs, the int8 proj_out GEMM, the bf16 and int8 GEGLUs, the fused
-# int8 prologues)
+# int8 prologues, the bf16 GroupNorm)
 
 NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "conv3x3", "geglu", "conv3x3_int8", "dense_int8_res",
-         "geglu_int8", "affine_silu_quant", "ln_quant", "gn_quant")
+         "geglu_int8", "affine_silu_quant", "ln_quant", "gn_quant", "group_norm")
 _ROUTER = native_lib.Router(NAMES, "kernels")
 
 

@@ -60,8 +60,8 @@ class ResnetBlock(nn.Module):
         self.nin_shortcut = _conv(cin, cout, k=1, dtype=dtype, quant=quant) if cin != cout else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x, silu=True))
+        h = self.conv2(self.norm2(h, silu=True))
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
@@ -165,7 +165,7 @@ class Encoder(nn.Module):
             if hasattr(level, "downsample"):
                 h = level.downsample(h)
         h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(self.norm_out(h, silu=True))
 
 
 class Decoder(nn.Module):
@@ -208,7 +208,7 @@ class Decoder(nn.Module):
                     h = level.attn[i](h)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(self.norm_out(h, silu=True))
 
 
 class DiagonalGaussian:

@@ -106,7 +106,7 @@ class NVSUnetModel(UNetModel):
             h = self._sep_seq(layers, torch.cat([h, skip], dim=-1), emb, context, kv_iter, state)
         if state["dup"]:  # no transformer consumed the context
             h = torch.cat([h, h], dim=0)
-        h = F.silu(self.out[0](h.to(x.dtype)))
+        h = self.out[0](h.to(x.dtype), silu=True)
         return self.out[2](h).to(x.dtype)
 
 

@@ -211,7 +211,7 @@ class ResBlock(nn.Module):
             h = q8.gn_silu_conv3x3_int8(h, n2.weight, n2.bias, c2.weight.permute(0, 2, 3, 1), c2.weight_scale,
                                         c2.bias, num_groups=groups[1], eps=n2.eps, **fold)
         else:
-            h = F.silu(self.in_layers[0](x))
+            h = self.in_layers[0](x, silu=True)
             if self.up:
                 h, x = nearest_upsample_2x(h), nearest_upsample_2x(x)
             elif self.down:
@@ -220,10 +220,10 @@ class ResBlock(nn.Module):
             eo = self.emb_layers[1](F.silu(emb))[: h.shape[0]].to(h.dtype)
             if self.use_scale_shift_norm:
                 scale, shift = eo.chunk(2, dim=-1)
-                h = self.out_layers[0](h) * (1 + scale[:, None, None, :]) + shift[:, None, None, :]
+                h = F.silu(self.out_layers[0](h) * (1 + scale[:, None, None, :]) + shift[:, None, None, :])
             else:
-                h = self.out_layers[0](h + eo[:, None, None, :])
-            h = self.out_layers[3](F.silu(h))
+                h = self.out_layers[0](h + eo[:, None, None, :], silu=True)
+            h = self.out_layers[3](h)
         skip = x if self.skip_connection is None else self.skip_connection(x)
         return skip.to(h.dtype) + h
 
@@ -656,5 +656,5 @@ class UNetModel(nn.Module):
             h = self._apply_seq(layers, torch.cat([h, skip], dim=-1), emb, context, kv_iter, state)
         if state["dup"]:  # no transformer consumed the context
             h = torch.cat([h, h], dim=0)
-        h = F.silu(self.out[0](h.to(x.dtype)))
+        h = self.out[0](h.to(x.dtype), silu=True)
         return self.out[2](h).to(x.dtype)

@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from leftrefill_torch import kernels
-from leftrefill_torch.ops import conv, flash_attention, mlp, probes, quant
+from leftrefill_torch.ops import conv, flash_attention, layers, mlp, probes, quant
 
 # kernel name -> (wrapper, plain version), both taking the arguments of site_args
 KERNEL_FNS = {
@@ -52,6 +52,7 @@ KERNEL_FNS = {
     "affine_silu_quant": (quant.silu_quant_op, quant.silu_quant_plain),
     "ln_quant": (quant.ln_quant_op, quant.ln_quant_plain),
     "gn_quant": (quant.gn_quant_op, quant.gn_quant_plain),
+    "group_norm": (layers.group_norm_op, layers.group_norm_plain),
     # the timing probes, off the main path (tools/probes)
     "flash_int8": (probes.flash_int8, probes.flash_int8_plain),
     "flash_variant": (lambda q, k, v, scale, exp, clamp, lse, rows:
@@ -65,21 +66,26 @@ LAUNCH_COUNTERS = {"flash_fwd": flash_attention.flash_forward, "flash_bwd_dq": f
                    "geglu": mlp.geglu_fused, "conv3x3_int8": quant.conv3x3_int8_op,
                    "dense_int8_res": quant.dense_int8_res_op, "geglu_int8": mlp.geglu_int8_fused,
                    "affine_silu_quant": quant.silu_quant_op, "ln_quant": quant.ln_quant_op,
-                   "gn_quant": quant.gn_quant_op, "flash_int8": probes.flash_int8,
-                   "flash_variant": probes.flash_variant, "noop": probes.noop}
+                   "gn_quant": quant.gn_quant_op, "group_norm": layers.group_norm_op,
+                   "flash_int8": probes.flash_int8, "flash_variant": probes.flash_variant, "noop": probes.noop}
 # the timing probes' kernels: launched by tools/probes and chip_smoke.py
 # phase 2p, routed by no dispatcher (not in kernels.NAMES)
 PROBES = ("flash_int8", "flash_variant", "noop")
 # kernel launches per CFG-doubled UNet forward at full width (the K/V cache
 # on; cfg_dup on in 1-reference requests): the JAX package's Pallas counts on
-# a TPU (tests/test_torch_tools.py holds them to the port's dispatch on meta)
+# a TPU (tests/test_torch_tools.py holds them to the port's dispatch on meta).
+# group_norm, the port's own kernel (XLA's GroupNorm in JAX): the 44 ResBlock
+# and 16 SpatialTransformer norms of a bf16 UNet (none in the fused int8 one:
+# K4 and K8 take them); the output norm runs in the fp32 latent's dtype, plain
 _NONE = dict.fromkeys(LAUNCH_COUNTERS, 0)
-PER_FORWARD_BF16 = {**_NONE, "flash_fwd": 15, "conv3x3": 33, "geglu": 16}
-PER_FORWARD_INT8_UNFUSED = {**_NONE, "flash_fwd": 15, "conv3x3_int8": 47, "dense_int8_res": 11, "geglu_int8": 16}
-PER_FORWARD_INT8 = {**PER_FORWARD_INT8_UNFUSED, "affine_silu_quant": 44, "ln_quant": 48, "gn_quant": 16}
+PER_FORWARD_BF16 = {**_NONE, "flash_fwd": 15, "conv3x3": 33, "geglu": 16, "group_norm": 60}
+PER_FORWARD_INT8_UNFUSED = {**_NONE, "flash_fwd": 15, "conv3x3_int8": 47, "dense_int8_res": 11, "geglu_int8": 16,
+                            "group_norm": 60}
+PER_FORWARD_INT8 = {**PER_FORWARD_INT8_UNFUSED, "affine_silu_quant": 44, "ln_quant": 48, "gn_quant": 16,
+                    "group_norm": 0}
 # the V=4 multi-view bf16 forward: 8 rows of 64x64 views, no cfg_dup; five of
 # the 16 flash launches are the 16384-token joint attentions (K11's sites)
-PER_FORWARD_MV4 = {**_NONE, "flash_fwd": 16, "conv3x3": 33, "geglu": 16}
+PER_FORWARD_MV4 = {**_NONE, "flash_fwd": 16, "conv3x3": 33, "geglu": 16, "group_norm": 60}
 # the V=2 multi-view forward at 64x128 views (the quality study, tools/quality.py
 # mv; 2 or, CFG-doubled, 4 rows) launches PER_FORWARD_MV4: its joint sequences
 # of 2 x 8192 / 2048 / 512 / 128 tokens are the V=4 scene's of 64x64 views, the
@@ -109,8 +115,8 @@ VIEW_RANK_SITES = {
 # the separator columns (use_sep) only the two output blocks that end in an
 # Upsample keep multiples of 128 for K1 and K3; K2 takes the 65- and
 # 33-wide levels
-PER_FORWARD_NVS = {**_NONE, "flash_fwd": 10, "conv3x3": 22, "geglu": 15}
-PER_FORWARD_NVS_SEP = {**_NONE, "flash_fwd": 1, "conv3x3": 22, "geglu": 2}
+PER_FORWARD_NVS = {**_NONE, "flash_fwd": 10, "conv3x3": 22, "geglu": 15, "group_norm": 60}
+PER_FORWARD_NVS_SEP = {**_NONE, "flash_fwd": 1, "conv3x3": 22, "geglu": 2, "group_norm": 60}
 # four poses in one request (CFG batch 8): the middle block's 256 rows take K3 too
 PER_FORWARD_NVS_B4 = {**PER_FORWARD_NVS, "geglu": 16}
 # kernel launches per decode of the int8 VAE decoder (``quant_vae``) at the
@@ -119,7 +125,13 @@ PER_FORWARD_NVS_B4 = {**PER_FORWARD_NVS, "geglu": 16}
 # 3) and 7 at 128x256 (level 3's upsample conv and level 2); K2 on the
 # dequantized weight at the 256x512 (7) and 512x1024 (7) levels; the two
 # nin_shortcut 1x1s are ``dense_int8`` (no kernel)
-PER_DECODE_VAE8 = {**_NONE, "conv3x3_int8": 17, "conv3x3": 14}
+PER_DECODE_VAE8 = {**_NONE, "conv3x3_int8": 17, "conv3x3": 14, "group_norm": 30}
+# the bf16 VAE's GroupNorms a call, at any size: 22 an encode (16 in the
+# ResnetBlocks of its four levels, 4 in the middle ones, the attention's and
+# norm_out), 30 a decode (4 + 1 in the middle, 24 in its levels' 12 blocks,
+# norm_out); bf16 decodes (PER_DECODE_VAE8's int8 one too) take no other kernel
+PER_ENCODE_VAE = {**_NONE, "group_norm": 22}
+PER_DECODE_VAE = {**_NONE, "group_norm": 30}
 # the UNet options no shipped config sets, at full width (chip_smoke.py phase
 # 15u): (A) scale-shift norms, which move no launch: the same sites as the
 # SD2 UNet's, the fused int8 ResBlocks folding the scale-shift into K4's affine
@@ -130,7 +142,7 @@ PER_FORWARD_UNET_A_INT8 = PER_FORWARD_INT8
 # conv projections, the resamplers without convs: K1 at D = 64 (8192
 # tokens) and D = 128 (2048), the exact softmax at D = 256; no Upsample conv
 UNET_B = dict(num_heads=5, num_head_channels=-1, use_linear_in_transformer=False, conv_resample=False)
-PER_FORWARD_UNET_B = {**_NONE, "flash_fwd": 10, "conv3x3": 30, "geglu": 16}
+PER_FORWARD_UNET_B = {**_NONE, "flash_fwd": 10, "conv3x3": 30, "geglu": 16, "group_norm": 60}
 # kernel launches per prompt-tuning train step at full width, remat on (the
 # UNet's ResBlocks and SpatialTransformers run their forward again in the
 # backward): 1-reference batch 8 and the V=4 scene.  The prompt reaches the
@@ -139,15 +151,21 @@ PER_FORWARD_UNET_B = {**_NONE, "flash_fwd": 10, "conv3x3": 30, "geglu": 16}
 # before it are neither differentiated nor run again (flash: 15 forward + 15
 # again, 14 backward; conv: 33 + the 28 in ResBlocks after the first
 # cross-attention, the Upsample convs are not rematerialized; GEGLU: 16 + 16).
-# The multi-view UNet adds its mid-block joint attention (256 tokens)
-PER_TRAIN_STEP = {**_NONE, "flash_fwd": 30, "flash_bwd_dq": 14, "flash_bwd_dkv": 14, "conv3x3": 61, "geglu": 32}
+# The multi-view UNet adds its mid-block joint attention (256 tokens).
+# GroupNorm kernels: the three norms before the first cross-attention (the
+# ResBlock's two and the transformer's, which runs again in the recompute);
+# the later ones record for autograd and run their plain version.  The VAE's
+# two encodes (the image's and the masked image's) are not in these counts
+PER_TRAIN_STEP = {**_NONE, "flash_fwd": 30, "flash_bwd_dq": 14, "flash_bwd_dkv": 14, "conv3x3": 61, "geglu": 32,
+                  "group_norm": 4}
 PER_TRAIN_STEP_MV4 = {**PER_TRAIN_STEP, "flash_fwd": 32, "flash_bwd_dq": 15, "flash_bwd_dkv": 15}
 # the same steps as the training CLI runs them: without remat (JAX drops the
 # model YAML's use_checkpoint), so each forward site launches once and the
 # backward sites are those above (flash: 15 forward, 14 backward; conv 33;
-# GEGLU 16; V=4: 16 forward, 15 backward)
-PER_TRAIN_STEP_CLI = {**PER_TRAIN_STEP, "flash_fwd": 15, "conv3x3": 33, "geglu": 16}
-PER_TRAIN_STEP_CLI_MV4 = {**PER_TRAIN_STEP_MV4, "flash_fwd": 16, "conv3x3": 33, "geglu": 16}
+# GEGLU 16; V=4: 16 forward, 15 backward), the VAE's two encodes included
+# (GroupNorm: 3 + 2 x 22)
+PER_TRAIN_STEP_CLI = {**PER_TRAIN_STEP, "flash_fwd": 15, "conv3x3": 33, "geglu": 16, "group_norm": 47}
+PER_TRAIN_STEP_CLI_MV4 = {**PER_TRAIN_STEP_MV4, "flash_fwd": 16, "conv3x3": 33, "geglu": 16, "group_norm": 47}
 # kernel launches per novel-view-synthesis train step at full width, batch 16
 # of 256x512 canvases (32x64 latents), no remat (JAX drops use_checkpoint),
 # LoRA on the attention projections and the GEGLU input, the refinement
@@ -155,9 +173,11 @@ PER_TRAIN_STEP_CLI_MV4 = {**PER_TRAIN_STEP_MV4, "flash_fwd": 16, "conv3x3": 33, 
 # backward (flash: 10 forward, 10 backward at the 2048- and 512-token levels;
 # the 128- and 32-token levels and the 77-key cross-attentions take the exact
 # softmax), K2 at the 32x64 and 16x32 levels (its backward is the plain
-# convolution's), K3 at every transformer (its VJP is plain math)
+# convolution's), K3 at every transformer (its VJP is plain math); GroupNorm:
+# the VAE's two encodes only (the refinement branch's gradient reaches the
+# UNet's input, so each UNet norm records for autograd)
 PER_TRAIN_STEP_NVS = {**_NONE, "flash_fwd": 10, "flash_bwd_dq": 10, "flash_bwd_dkv": 10, "conv3x3": 22,
-                      "geglu": 16}
+                      "geglu": 16, "group_norm": 44}
 # each backward kernel's sites per train step, (b, heads, nq, nk, d) -> launches:
 # batch 8 of 64x128 latents; one V=4 scene of 64x64 views (joint sequences of
 # 4 x 4096 / 1024 / 256 / 64 tokens, the mid block's 256 among them)
@@ -298,6 +318,24 @@ def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ia - ib).abs().max())
 
 
+def group_norm_ulps(got: torch.Tensor, ref: torch.Tensor, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    num_groups: int, eps: float) -> float:
+    """The largest distance of a bf16 GroupNorm output (+ SiLU) from its
+    plain version's, in bf16 steps at the magnitude of the plain version's
+    last add: max(|bf16(x a)|, |bb|, |y|, |ref|) an element, (a, bb) the
+    plain fold in bf16, y = bf16(x a) + bb in bf16.  The kernel's statistics
+    sum in another order than PyTorch's, which can move a or bb by one bf16
+    step; where x a and bb nearly cancel, that moves the output by one step
+    of the operands, many of its own, and this measure reads it as one."""
+    a, bb = (t.to(torch.bfloat16) for t in layers.group_norm_affine(x, scale, bias, num_groups, eps))
+    xa = x * a
+    mag = (xa + bb).float().abs()
+    for t in (xa, bb, ref):
+        mag = torch.maximum(mag, t.float().abs())
+    step = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)  # a bf16 step at mag: 2^(e - 8)
+    return float(((got.float() - ref.float()).abs() / step).max())
+
+
 def site_args(name: str, shape: tuple, generator: torch.Generator) -> tuple:
     """Seeded arguments on the card for one kernel site, ``shape`` as
     ``kernels.record_sites`` reports it."""
@@ -347,6 +385,11 @@ def site_args(name: str, shape: tuple, generator: torch.Generator) -> tuple:
         w2q, s2 = quant.quantize_weight(randn(dout, inner, scale=inner**-0.5, dtype=f32))
         return (xq, sx, w1q, s1, randn(2 * inner, scale=0.1, dtype=f32), w2q, s2,
                 randn(dout, scale=0.1, dtype=f32), chunk)
+    if name == "group_norm":  # per-channel offsets up to 4 standard deviations, as activations carry
+        b, hw, c, g, silu = shape
+        x = (torch.randn((b, hw, c), generator=generator, device=dev)
+             + 4 * torch.randn((b, 1, c), generator=generator, device=dev)).to(bf)
+        return x, 1 + randn(c, scale=0.3, dtype=f32), randn(c, scale=0.5, dtype=f32), g, 1e-6, silu
     # the fused prologues: a GroupNorm-like fold (a, bb) per (batch, channel)
     if name == "ln_quant":
         r, c, norm_out = shape
@@ -488,6 +531,9 @@ def site_cost(name: str, shape: tuple) -> tuple[float, float]:
     if name == "ln_quant":
         r, c, norm_out = shape
         return (3 + 2 * norm_out) * r * c + 4 * r + 8 * c, 0
+    if name == "group_norm":  # x read once and y written once, bf16; gamma and beta fp32
+        b, hw, c = shape[:3]
+        return 4 * b * hw * c + 8 * c, 0
     b, h, w, c = shape[:4]
     n = b * h * w * c
     if name == "gn_quant":
@@ -605,6 +651,40 @@ def unet_sites(unet, x, t, ctx, kv, cfg_dup: bool = True, **kwargs) -> Counter:
         unet(x, t, ctx, cross_kv=kv, cfg_dup=cfg_dup, **kwargs)
     torch.cuda.synchronize()
     return Counter(sites)
+
+
+def group_norm_sites() -> dict:
+    """The GroupNorm kernel's sites on the benchmark's paths, recorded on
+    ``meta`` with the dispatch a CUDA tensor gets: {path: Counter({(B, HW,
+    C, G, SiLU): launches})} for the 1-reference UNet forward at the predict
+    request's CFG batch 8 (cfg_dup: its prefix at 4), the V=4 UNet forward
+    of two scenes (16 rows of 64x64), and the bf16 VAE's encode and decode
+    of 4 and of 8 512x1024 canvases."""
+    from leftrefill_torch.models.autoencoder import AutoencoderKL, DDConfig
+    from leftrefill_torch.models.multiview import MultiViewUnetModel
+    from leftrefill_torch.models.unet import UNetModel
+
+    def recorded(fn) -> Counter:
+        with torch.no_grad(), kernels.record_sites() as sites:
+            fn()
+        return Counter(shape for name, shape in sites if name == "group_norm")
+
+    uses, kernels.uses_kernel = kernels.uses_kernel, lambda t: t.device.type in ("cuda", "meta")
+    try:
+        with torch.device("meta"):
+            unet, mv = UNetModel(dtype=torch.bfloat16), MultiViewUnetModel(view_num=4, dtype=torch.bfloat16)
+            vae = AutoencoderKL(DDConfig(), 4, dtype=torch.bfloat16)
+            out = {}
+            for label, model, rows, hw, dup in (("predict_unet_b8", unet, 8, (64, 128), True),
+                                                ("scene_unet_b16", mv, 16, (64, 64), False)):
+                x, t, ctx = torch.empty(rows, *hw, 9), torch.zeros(rows, dtype=torch.long), torch.empty(rows, 77, 1024)
+                out[label] = recorded(lambda: model(x, t, ctx, cross_kv=model.cross_kv(ctx), cfg_dup=dup))
+            for b in (4, 8):
+                out[f"vae_encode_b{b}"] = recorded(lambda: vae.encode_moments(torch.empty(b, 512, 1024, 3)))
+                out[f"vae_decode_b{b}"] = recorded(lambda: vae.decode(torch.empty(b, 64, 128, 4)))
+    finally:
+        kernels.uses_kernel = uses
+    return out
 
 
 def request_canvas(seed: int = 0, side: int = 512):

@@ -22,7 +22,6 @@ the seed.  Device ms (all the kernels a call launches) and CUDA-event ms
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from leftrefill_torch import tools
 from leftrefill_torch.ops import layers, probes, quant
@@ -90,7 +89,7 @@ def main() -> int:
         gamma, beta = 1 + 0.1 * randn(gen, c, dtype=torch.float32), 0.1 * randn(gen, c, dtype=torch.float32)
         for label, fast in (("fast_affine", True), ("fp32 affine", False)):
             both(rows, f"GN32+silu L0 ({label})",
-                 lambda: F.silu(layers.group_norm32(x, gamma, beta, fast_affine=fast)), shape=[b, h, w, c])
+                 lambda: layers.group_norm32(x, gamma, beta, fast_affine=fast, silu=True), shape=[b, h, w, c])
 
         def qa():
             xq, s = quant.quantize_activation(x)

@@ -92,6 +92,7 @@ GROUPS = (
     ("K4 affine_silu_quant", r"affine_silu_quant_kernel"),
     ("K7 ln_quant", r"ln_quant_kernel"),
     ("K8 gn_quant", r"gn_quant_kernel"),
+    ("GN group_norm", r"gn_(stats|apply)_kernel"),
     ("P1 flash_int8 (probe)", r"flash_int8_kernel"),  # the timing probes: on no request's path
     ("P5 noop (probe)", r"noop_kernel"),
     ("cuDNN conv", r"fprop|dgrad|wgrad|conv|cudnn"),
@@ -101,6 +102,7 @@ GROUPS = (
 
 # a train step's device-time groups by kind
 TRAIN_KINDS = {"K1 flash_fwd": "forward kernels", "K2 conv3x3": "forward kernels", "K3 geglu": "forward kernels",
+               "GN group_norm": "forward kernels",
                "K12+K14 flash_bwd_dq": "backward kernels", "K13 flash_bwd_dkv": "backward kernels",
                "cuDNN conv": "cuDNN / cuBLAS", "cuBLAS GEMM": "cuDNN / cuBLAS"}
 

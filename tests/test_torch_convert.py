@@ -120,16 +120,19 @@ def test_full_width_key_inventory_matches_flax(root):
 @pytest.mark.parametrize(
     "dtype,cfg_dup,expected",
     [
-        (torch.bfloat16, True, {"conv3x3": 33, "flash_fwd": 15, "geglu": 16}),
-        (torch.bfloat16, False, {"conv3x3": 33, "flash_fwd": 15, "geglu": 16}),
-        # conv and GEGLU kernels are bf16-only, as in JAX, and so is K1
+        (torch.bfloat16, True, {"conv3x3": 33, "flash_fwd": 15, "geglu": 16, "group_norm": 60}),
+        (torch.bfloat16, False, {"conv3x3": 33, "flash_fwd": 15, "geglu": 16, "group_norm": 60}),
+        # conv and GEGLU kernels are bf16-only, as in JAX, and so are K1 and
+        # the GroupNorm kernel
         (torch.float32, True, {}),
     ],
 )
 def test_full_width_dispatch_counts(monkeypatch, dtype, cfg_dup, expected):
     """One full-width CFG-batch-2 forward (64x128 latent, context 77x1024,
     cross-attention K/V cache on) reaches the kernels at 33 conv, 15 flash
-    and 16 GEGLU sites in bf16: the JAX package's Pallas counts."""
+    and 16 GEGLU sites in bf16 (the JAX package's Pallas counts), and the
+    GroupNorm kernel at the 44 ResBlock and 16 SpatialTransformer norms (the
+    output norm runs on the fp32 latent's dtype, on its plain version)."""
     from leftrefill_torch.models.unet import UNetModel
 
     monkeypatch.setattr(kernels, "uses_kernel", lambda t: t.device.type in ("cuda", "meta"))

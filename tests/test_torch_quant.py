@@ -269,7 +269,8 @@ def test_full_width_int8_dispatch_counts(monkeypatch, cfg_dup):
     """One full-width CFG-batch-2 int8 forward of the unfused arm
     (``fused=False``; 64x128 latent, cross-attention K/V cache) reaches 47 int8 convs, 11 int8 proj_out GEMMs, 16 int8
     GEGLUs, 15 flash attentions and neither bf16 kernel: JAX's Pallas counts
-    in its unfused int8 configuration (K5 + K6, K9, K10, K1).  The K/V cache
+    in its unfused int8 configuration (K5 + K6, K9, K10, K1); its 60 bf16
+    GroupNorms (ResBlocks and transformers) take the GroupNorm kernel.  The K/V cache
     and the forward together make JAX's 163 ``dense_int8`` calls, each on an
     int8 activation: 32 context K/V projections, then 131 (each
     transformer's proj_in, q, k, v, second q and two output projections,
@@ -294,7 +295,7 @@ def test_full_width_int8_dispatch_counts(monkeypatch, cfg_dup):
     assert out.shape == (2, 64, 128, 4)
     assert dense == {torch.int8: 163}
     assert Counter(name for name, _ in sites) == {"conv3x3_int8": 47, "dense_int8_res": 11,
-                                                 "geglu_int8": 16, "flash_fwd": 15}
+                                                 "geglu_int8": 16, "flash_fwd": 15, "group_norm": 60}
     convs = Counter(shape for name, shape in sites if name == "conv3x3_int8")
     assert sum(n for s, n in convs.items() if s[1:3] == (8, 16)) == 14  # K6's sites in JAX
     assert sum(n for s, n in convs.items() if s[0] == 1) == (2 if cfg_dup else 0)  # the shared prefix
@@ -364,7 +365,15 @@ def test_full_width_int8_vae_decode_dispatch_counts(monkeypatch):
                               ("conv3x3_int8", (1, 128, 256, 512, 512)): 7,
                               ("conv3x3", (1, 256, 512, 512, 512)): 1, ("conv3x3", (1, 256, 512, 512, 256)): 1,
                               ("conv3x3", (1, 256, 512, 256, 256)): 5, ("conv3x3", (1, 512, 1024, 256, 256)): 1,
-                              ("conv3x3", (1, 512, 1024, 256, 128)): 1, ("conv3x3", (1, 512, 1024, 128, 128)): 5}
+                              ("conv3x3", (1, 512, 1024, 256, 128)): 1, ("conv3x3", (1, 512, 1024, 128, 128)): 5,
+                              # the bf16 GroupNorms: (batch, pixels, channels, groups, SiLU)
+                              ("group_norm", (1, 8192, 512, 32, False)): 1,
+                              ("group_norm", (1, 8192, 512, 32, True)): 10,
+                              ("group_norm", (1, 32768, 512, 32, True)): 6,
+                              ("group_norm", (1, 131072, 512, 32, True)): 1,
+                              ("group_norm", (1, 131072, 256, 32, True)): 5,
+                              ("group_norm", (1, 524288, 256, 32, True)): 1,
+                              ("group_norm", (1, 524288, 128, 32, True)): 6}
 
 
 @pytest.mark.parametrize("path", ["a_bf16", "a_int8", "b_bf16"])
